@@ -3,16 +3,27 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
-kernel against its plain PyTorch version at the serving path's shapes
-(and times both), checks the whole engine on the card against the same
-engine on the CPU at a small size, then serves qwen2.5-32b at full width
-(cut to 8 layers, random weights from a seed) through the paged engine:
-short prompts, a 300-token prompt on the span path, a published prefix
-with an exact and a partial hit, and a crash-and-recover mid-run.  Every
-phase that fails raises.  The last lines are the card, a JSON ``kernels``
-line and ``{"ok": true, "device": {...}}``.  Needs CUDA and this repo's
-``src/``; exits non-zero without either.
+Builds the port's four CUDA kernels from ``src/repro_torch/csrc``, holds
+each kernel against its plain PyTorch version at its path's shapes (and
+times both), then drives the port's paths:
+
+1. the kernels against their plain versions (serving shapes, the
+   reference's sweep shapes, qwen2.5-32b's prefill and mamba2-370m's scan);
+2. the serving engine on the card against the same engine on the CPU;
+3. qwen2.5-32b served at full width (cut to 8 layers, random weights from
+   a seed) through the paged engine: short prompts, a 300-token prompt on
+   the span path, a published prefix with an exact and a partial hit, and
+   a crash-and-recover mid-run;
+4. the full-sequence forward (logits, collected K/V, loss) of both
+   architectures' smoke configurations on the card against the CPU;
+5. qwen2.5-32b prefill at full width (the serve run's 8 layers and
+   weights): ``forward(collect_kv=True)`` and ``loss_fn`` on 8192 tokens;
+6. mamba2-370m scoring, all 48 layers: ``forward`` and ``loss_fn`` on
+   8 x 4096 tokens.
+
+Every phase that fails raises.  The last lines are the card, a JSON
+``kernels`` line and ``{"ok": true, "device": {...}}``.  Needs CUDA and
+this repo's ``src/``; exits non-zero without either.
 """
 
 from __future__ import annotations
@@ -27,11 +38,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 SEED = 0
-LAYERS = 8                 # depth cut of qwen2.5-32b (64 layers) for one card
 LANES, MAX_SEQ, PAGES_PER_SB = 8, 1024, 2
 LONG_PROMPT = 300          # > pages_per_sb pages of 128: the span path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, same source
+FP32_FLOPS = 67e12         # fp32 outside the tensor cores, same source
 
 
 def fail(msg: str) -> int:
@@ -216,6 +227,156 @@ def check_kernels(torch, cfg, dev) -> list[dict]:
     return [kv_row, pa_row]
 
 
+# the reference's sweeps (tests/test_kernels.py); the main paths' shapes
+# come from the forward runs (repro_torch.launch.profile_forward.RUNS)
+FLASH_SWEEP = [  # B, H, K, S, dh, causal, window, dtype
+    (1, 4, 2, 256, 64, True, 0, "float32"),
+    (2, 4, 1, 256, 128, True, 0, "bfloat16"),
+    (1, 8, 8, 128, 64, False, 0, "float32"),
+    (1, 4, 2, 512, 64, True, 128, "float32"),
+    (1, 16, 16, 128, 80, False, 0, "bfloat16"),
+]
+SSD_SWEEP = [(2, 2, 256, 64, 32), (1, 4, 128, 32, 64), (2, 1, 512, 64, 128)]
+
+
+def flash_bound(B, H, K, S, dh, causal, window, es) -> tuple[float, str]:
+    """Least time for the attention: 4 dh flops per visible (query, key)
+    pair (Q.K and P.V) at the dtype's peak, against q, k, v read once and
+    the output written once."""
+    import numpy as np
+    qpos = np.arange(S)
+    hi = qpos + 1 if causal else np.full(S, S)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(S, int)
+    pairs = int((hi - lo).sum())
+    flops = 4 * B * H * dh * pairs
+    nbytes = es * (2 * B * H * S * dh + 2 * B * K * S * dh)
+    peak = BF16_FLOPS if es == 2 else FP32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def ssd_bound(Bz, H, S, P, N, chunk=64) -> tuple[float, str]:
+    """Least time for the chunked scan at the kernel's chunk, in fp32 FMAs:
+    per (batch, chunk) the lower triangle of C B^T, once, as B and C are
+    shared by the heads; per head and chunk that triangle's product with
+    xdt, C h^T and the state update.  Against xdt, loga, B, C read once
+    and y written once (fp32)."""
+    nc = -(-S // chunk)
+    tri = chunk * (chunk + 1) // 2
+    flops = 2 * Bz * nc * tri * N + \
+        2 * Bz * H * nc * (tri * P + 2 * chunk * N * P)
+    nbytes = 4 * (2 * Bz * H * S * P + Bz * H * S + 2 * Bz * S * N)
+    t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_forward_kernels(torch, dev, flash_main, ssd_main) -> list[dict]:
+    """flash_attention and ssd_scan against their plain versions on the
+    reference's sweep shapes and the main paths' shapes (``flash_main``,
+    ``ssd_main``); times at the main paths' shapes."""
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.ssd_scan import kernel as ssk
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+
+    def randn(*shape, dt=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
+
+    sweep, row = [], None
+    for B, H, K, S, dh, causal, win, dtn in FLASH_SWEEP + [flash_main]:
+        dt = getattr(torch, dtn)
+        q, k, v = randn(B, H, S, dh, dt=dt), randn(B, K, S, dh, dt=dt), \
+            randn(B, K, S, dh, dt=dt)
+        want = fak.flash_attention_plain(q, k, v, causal=causal, window=win)
+        got = fak.flash_attention(q, k, v, causal=causal, window=win)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = 3e-2 if dt == torch.bfloat16 else 2e-5
+        # bf16 is also held row by row: at S = 8192 the late rows' outputs
+        # are far smaller than the flat 3e-2
+        row_err = fak.row_scaled_error(got, want)
+        if not err < tol or (dt == torch.bfloat16
+                             and not row_err < fak.BF16_ROW_TOL):
+            case = (B, H, K, S, dh, causal, win, dtn)
+            raise AssertionError(
+                f"flash_attention {case} differs from its plain version by "
+                f"{err} (tolerance {tol}), {row_err} of a row's rms "
+                f"(tolerance {fak.BF16_ROW_TOL} in bf16)")
+        if dt == torch.bfloat16:
+            tol = {"abs": tol, "row_scaled": fak.BF16_ROW_TOL}
+        bound, by = flash_bound(B, H, K, S, dh, causal, win,
+                                q.element_size())
+        shape = {"q": [B, H, S, dh], "kv": [B, K, S, dh], "causal": causal,
+                 "window": win, "dtype": dtn}
+
+        def run():
+            return fak.flash_attention(q, k, v, causal=causal, window=win)
+        main = (B, H, K, S, dh, causal, win, dtn) == flash_main
+        ms = graph_ms(torch, run, iters=20 if main else 50)
+        if not main:
+            sweep.append({"shape": shape, "max_abs_err": err,
+                          "row_scaled_err": row_err, "tolerance": tol,
+                          "ms": ms, "bound_ms": bound})
+            continue
+        row = {
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:95",
+            "max_abs_err": err, "row_scaled_err": row_err,
+            "tolerance": tol, "ms": ms,
+            "eager_ms": event_ms(torch, run, iters=20),
+            "plain_ms": event_ms(torch, lambda: fak.flash_attention_plain(
+                q, k, v, causal=causal, window=win), iters=3, warmup=1),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": event_ms(torch, lambda: sdpa(
+                q, k, v, is_causal=True, enable_gqa=True), iters=20),
+            "library_call": "F.scaled_dot_product_attention(is_causal=True, "
+                            "enable_gqa=True) on the same q, k, v",
+            "shape": shape, "sweep": sweep,
+        }
+    rows = [row]
+
+    sweep = []
+    for Bz, H, S, P, N in SSD_SWEEP + [ssd_main]:
+        xdt = randn(Bz, H, S, P, scale=0.1)
+        loga = -randn(Bz, H, S, scale=0.1).abs()
+        Bm, Cm = randn(Bz, S, N, scale=0.3), randn(Bz, S, N, scale=0.3)
+        want = ssk.ssd_scan_plain(xdt, loga, Bm, Cm)
+        got = ssk.ssd_scan(xdt, loga, Bm, Cm)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / (float(want.abs().max()) + 1e-9)
+        if not rel < 1e-4:
+            raise AssertionError(f"ssd_scan {(Bz, H, S, P, N)} differs from "
+                                 f"its plain version by {rel} (relative; "
+                                 f"tolerance 1e-4)")
+        bound, by = ssd_bound(Bz, H, S, P, N)
+        shape = {"xdt": [Bz, H, S, P], "BC": [Bz, S, N], "dtype": "float32"}
+
+        def run():
+            return ssk.ssd_scan(xdt, loga, Bm, Cm)
+        main = (Bz, H, S, P, N) == ssd_main
+        ms = graph_ms(torch, run, iters=10 if main else 50)
+        if not main:
+            sweep.append({"shape": shape, "max_abs_err": err,
+                          "rel_err": rel, "ms": ms, "bound_ms": bound})
+            continue
+        rows.append({
+            "name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:82",
+            "max_abs_err": err, "rel_err": rel,
+            "tolerance": "1e-4 relative", "ms": ms,
+            "eager_ms": event_ms(torch, run, iters=10),
+            "plain_ms": event_ms(torch, lambda: ssk.ssd_scan_plain(
+                xdt, loga, Bm, Cm), iters=3, warmup=1),
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "library_call": "none (no single PyTorch call computes the scan)",
+            "shape": shape, "sweep": sweep,
+        })
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 2: the engine on the card against the engine on the CPU
 # ---------------------------------------------------------------------------
@@ -259,15 +420,9 @@ def check_engine_vs_cpu(torch, dev) -> dict:
                               dtype=torch.float32, page_size=8)
     cpu_params = init_params(cfg, torch.Generator().manual_seed(SEED),
                              device="cpu")
-
-    def to(tree, d):
-        if isinstance(tree, dict):
-            return {k: to(v, d) for k, v in tree.items()}
-        return tree.to(d)
-
     runs = {}
     for d in ("cpu", dev):
-        eng = ServingEngine(cfg, to(cpu_params, d), lanes=4, max_seq=64,
+        eng = ServingEngine(cfg, _to(cpu_params, d), lanes=4, max_seq=64,
                             pages_per_sb=2, device=d)
         runs[str(d)] = engine_script(eng, cfg.vocab_size)
     cpu, gpu = runs["cpu"], runs[str(dev)]
@@ -283,17 +438,13 @@ def check_engine_vs_cpu(torch, dev) -> dict:
 # ---------------------------------------------------------------------------
 # phase 3: the main path at full width
 # ---------------------------------------------------------------------------
-def serve_full_width(torch, cfg, dev) -> dict:
+def serve_full_width(torch, cfg, params, dev) -> dict:
     import numpy as np
     from repro_torch.kernels.kv_update import kernel as kvk
     from repro_torch.kernels.paged_attention import kernel as pak
-    from repro_torch.models.params import init_params
     from repro_torch.serving.engine import ServingEngine
 
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    params = init_params(cfg, gen, device=dev)
-    torch.cuda.synchronize()
     weight_bytes = sum(t.numel() * t.element_size() for t in
                        _leaves(params))
     engine = ServingEngine(cfg, params, lanes=LANES, max_seq=MAX_SEQ,
@@ -382,6 +533,127 @@ def serve_full_width(torch, cfg, dev) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the full-sequence forward on the card against the CPU
+# ---------------------------------------------------------------------------
+def _to(tree, d):
+    if isinstance(tree, dict):
+        return {k: _to(v, d) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(v, d) for v in tree)
+    return tree.to(d)
+
+
+def check_forward_vs_cpu(torch, dev) -> dict:
+    """Both architectures' smoke configurations in fp32, the same weights
+    on both devices: logits, collected K/V and the loss within 1e-3."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+
+    out = {}
+    for arch in ("qwen2.5-32b", "mamba2-370m"):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+        params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                             device="cpu")
+        toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                             generator=torch.Generator().manual_seed(SEED + 6))
+        batch = {"tokens": toks, "labels": toks}
+        res = {}
+        for d in ("cpu", dev):
+            p, b = _to(params, d), _to(batch, d)
+            logits, _, kv = T.forward(cfg, p, b, collect_kv=True)
+            loss, _ = T.loss_fn(cfg, p, b)
+            res[str(d)] = _to((logits, kv["units"], loss), "cpu")
+        (lc, kc, sc), (lg, kg, sg) = res["cpu"], res[str(dev)]
+        errs = {"logits": float((lc - lg).abs().max()),
+                "loss": abs(float(sc) - float(sg))}
+        for name, (k, v) in kc.items():
+            errs[f"{name}.k"] = float((k - kg[name][0]).abs().max())
+            errs[f"{name}.v"] = float((v - kg[name][1]).abs().max())
+        bad = {k: e for k, e in errs.items() if not e < 1e-3}
+        if bad or kc.keys() != kg.keys():
+            raise AssertionError(f"{arch}: the forward on the card differs "
+                                 f"from the CPU: {bad}")
+        out[arch] = errs
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 5 and 6: the full-sequence forward at full width
+# ---------------------------------------------------------------------------
+def _ce_from_logits(torch, logits, tokens) -> float:
+    """Mean next-token CE straight from full logits (a check of
+    ``loss_fn``'s chunked CE)."""
+    lg = logits[:, :-1]
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, tokens[:, 1:, None].long())[..., 0]
+    return float((lse - gold).mean())
+
+
+def run_forward(torch, cfg, params, dev, run, kernel, collect_kv) -> dict:
+    """One warm-up forward, then the counted run: ``forward`` (with
+    ``collect_kv`` when asked) and ``loss_fn`` on the run's random batch,
+    each timed between device synchronizations."""
+    from repro_torch.launch.profile_forward import run_batch
+    from repro_torch.models import transformer as T
+    B, S = run.batch, run.seq
+    batch = run_batch(cfg, run, dev)
+    toks = batch["tokens"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    T.forward(cfg, params, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # counts start at 0 here: everything below is the path
+    kernel.launches = 0
+    t = time.perf_counter()
+    out = T.forward(cfg, params, batch, collect_kv=collect_kv)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t
+    t = time.perf_counter()
+    loss, parts = T.loss_fn(cfg, params, batch)
+    torch.cuda.synchronize()
+    loss_s = time.perf_counter() - t
+    launches = kernel.launches
+
+    logits = out[0]
+    if logits.shape != (B, S, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name}: logits {tuple(logits.shape)} "
+                             f"are not finite [B, S, V]")
+    if launches != 2 * cfg.num_layers:
+        raise AssertionError(f"{cfg.name}: {launches} kernel launches in "
+                             f"forward + loss_fn, not 2 x {cfg.num_layers}")
+    res = {"model": cfg.name, "layers": cfg.num_layers, "batch": B,
+           "seq": S, "dtype": str(cfg.dtype)}
+    if collect_kv:
+        for name, (k, v) in out[2]["units"].items():
+            want = (cfg.full_units, B, S, cfg.num_kv_heads, cfg.head_dim)
+            finite = bool(torch.isfinite(k).all() & torch.isfinite(v).all())
+            if k.shape != want or v.shape != want or not finite:
+                raise AssertionError(f"{cfg.name}: collected K/V {name} "
+                                     f"{tuple(k.shape)} != {want} or not "
+                                     f"finite")
+            res[f"kv_{name}"] = list(want)
+    ce_full = _ce_from_logits(torch, logits, toks)
+    ce = float(parts["ce"])
+    if not abs(ce - ce_full) < 1e-3 * max(1.0, ce_full):
+        raise AssertionError(f"{cfg.name}: loss_fn's CE {ce} != the CE of "
+                             f"the forward's logits {ce_full}")
+    del out, logits
+    res.update({
+        "first_forward_s": first_s,
+        "ms_per_forward": 1e3 * fwd_s, "tokens_per_s": B * S / fwd_s,
+        "ms_loss_fn": 1e3 * loss_s, "loss": float(loss), "ce_check": ce_full,
+        "launches": launches, "launches_per_forward": launches // 2,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+    })
+    return res
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -398,8 +670,12 @@ def main() -> int:
     if not (src / "repro_torch" / "csrc").is_dir():
         return fail(f"{src}/repro_torch not found: run from a checkout")
     sys.path.insert(0, str(src))
-    from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.ssd_scan import kernel as ssk
+    from repro_torch.launch.profile_forward import RUNS, run_config
+    from repro_torch.layers.ssd import n_heads
+    from repro_torch.models.params import init_params
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -410,8 +686,15 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({build.build_info['library']})", flush=True)
 
-    cfg = dataclasses.replace(get_config("qwen2.5-32b"), num_layers=LAYERS)
-    kernels = check_kernels(torch, cfg, dev)
+    # the serve run and the prefill share the prefill run's depth cut
+    qrun, mrun = RUNS["qwen2.5-32b"], RUNS["mamba2-370m"]
+    cfg, mcfg = run_config("qwen2.5-32b"), run_config("mamba2-370m")
+    flash_main = (qrun.batch, cfg.num_heads, cfg.num_kv_heads, qrun.seq,
+                  cfg.head_dim, True, 0, "bfloat16")
+    ssd_main = (mrun.batch, n_heads(mcfg), mrun.seq, mcfg.ssm_head_dim,
+                mcfg.ssm_state)
+    kernels = check_kernels(torch, cfg, dev) + check_forward_kernels(
+        torch, dev, flash_main, ssd_main)
     for row in kernels:
         print(f"kernel {row['name']}: max_abs_err {row['max_abs_err']} "
               f"ms {row['ms']:.5f} eager {row['eager_ms']:.5f} "
@@ -422,7 +705,13 @@ def main() -> int:
     print(f"engine on the card == engine on the CPU (fp32 smoke): {ref}",
           flush=True)
 
-    serve = serve_full_width(torch, cfg, dev)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev)
+    torch.cuda.synchronize()
+    print(f"init {cfg.name} ({cfg.num_layers} layers): "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    serve = serve_full_width(torch, cfg, params, dev)
     print(f"serve: {cfg.name} at full width, cut to {cfg.num_layers} "
           f"layers; {serve['steps']} steps, "
           f"{serve['ms_per_step_median']:.3f} ms/step (median), "
@@ -433,9 +722,40 @@ def main() -> int:
     print("serve detail: " + json.dumps(
         {k: v for k, v in serve.items() if k != "recovery"}, default=str),
         flush=True)
+    torch.cuda.empty_cache()
 
-    line = [dict(row, launches=serve["launches"][row["name"]])
-            for row in kernels]
+    fwd_ref = check_forward_vs_cpu(torch, dev)
+    print(f"forward on the card == forward on the CPU (fp32 smoke, 1e-3): "
+          f"{fwd_ref}", flush=True)
+
+    prefill = run_forward(torch, cfg, params, dev, qrun, fak,
+                          collect_kv=True)
+    print(f"prefill: {cfg.name} at full width, cut to {cfg.num_layers} "
+          f"layers, {qrun.batch} x {qrun.seq} tokens: "
+          f"{prefill['ms_per_forward']:.3f} ms/forward, "
+          f"{prefill['tokens_per_s']:.1f} tokens/s, flash_attention "
+          f"launches {prefill['launches_per_forward']} per forward on "
+          f"{card}", flush=True)
+    print("prefill detail: " + json.dumps(prefill), flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+    mparams = init_params(mcfg, torch.Generator(device=dev).manual_seed(SEED),
+                          device=dev)
+    score = run_forward(torch, mcfg, mparams, dev, mrun, ssk,
+                        collect_kv=False)
+    score["weight_gb"] = sum(t.numel() * t.element_size()
+                             for t in _leaves(mparams)) / 1e9
+    print(f"score: {mcfg.name}, all {mcfg.num_layers} layers, "
+          f"{mrun.batch} x {mrun.seq} tokens: {score['ms_per_forward']:.3f} "
+          f"ms/forward, {score['tokens_per_s']:.1f} tokens/s, ssd_scan "
+          f"launches {score['launches_per_forward']} per forward on {card}",
+          flush=True)
+    print("score detail: " + json.dumps(score), flush=True)
+
+    launches = dict(serve["launches"], flash_attention=prefill["launches"],
+                    ssd_scan=score["launches"])
+    line = [dict(row, launches=launches[row["name"]]) for row in kernels]
     print(card)
     print(json.dumps({"kernels": line}, default=str))
     print(json.dumps({"ok": True, "device": {

@@ -2,14 +2,15 @@
 
 ``get_config(arch)`` returns the published configuration;
 ``get_smoke_config(arch)`` a reduced same-family configuration for CPU
-tests.  The port's first slice serves qwen2.5-32b only.
+tests.  The port serves qwen2.5-32b and runs the full-sequence forward of
+qwen2.5-32b and mamba2-370m.
 """
 
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ("qwen2_5_32b",)
+ARCHS = ("qwen2_5_32b", "mamba2_370m")
 
 
 def canon(arch: str) -> str:

@@ -99,6 +99,11 @@ def library() -> ctypes.CDLL:
         lib.paged_attention_launch.argtypes = [
             p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]
         lib.paged_attention_launch.restype = i
+        lib.flash_attention_launch.argtypes = [
+            p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+        lib.flash_attention_launch.restype = i
+        lib.ssd_scan_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.ssd_scan_launch.restype = i
         _lib = lib
     return _lib
 

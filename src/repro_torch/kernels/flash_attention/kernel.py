@@ -1,0 +1,125 @@
+"""Full-sequence attention forward (GQA, causal or not, sliding window).
+
+``flash_attention`` launches the CUDA kernel ``csrc/flash_attention.cu``
+(the port of the Pallas TPU kernel
+``kernels/flash_attention/kernel.py::flash_attention`` of the reference)
+on CUDA tensors and runs ``flash_attention_plain`` on CPU tensors.
+
+q: [B, H, S, dh]; k/v: [B, K, S, dh] with H % K == 0 (query head h reads
+KV head h // (H // K)).  Scores and softmax in fp32 with q scaled in fp32;
+key t is visible to query s iff t <= s (causal) and t > s - window (with
+a window); the output is acc / max(l, 1e-20) in q's dtype.  Any S is
+taken: the kernel masks a partial last tile.  The kernel takes head_dim a
+multiple of 16 up to 128 (64, 80 and 128 in the reference's sweeps) and
+raises for others.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import build
+
+NEG_INF = -1e30
+MAX_HEAD_DIM = 128
+
+launches = 0          # kernel launches since the caller last zeroed this
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          block_q: int = 1024):
+    """Plain PyTorch version of the kernel: dense fp32 scores and softmax
+    for ``block_q`` query rows at a time (bounds the score buffer)."""
+    B, H, S, dh = q.shape
+    K = k.shape[1]
+    g = H // K
+    kf = k.float()[:, :, None]                       # [B, K, 1, S, dh]
+    vf = v.float()[:, :, None]
+    kpos = torch.arange(S, device=q.device)
+    out = torch.empty_like(q)
+    for s0 in range(0, S, block_q):
+        s1 = min(S, s0 + block_q)
+        qg = q[:, :, s0:s1].reshape(B, K, g, s1 - s0, dh).float() \
+            * (dh ** -0.5)
+        s = torch.matmul(qg, kf.transpose(-1, -2))  # [B, K, g, bq, S]
+        qpos = kpos[s0:s1, None]
+        mask = torch.ones((s1 - s0, S), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos[None] <= qpos
+        if window:
+            mask &= kpos[None] > qpos - window
+        s = torch.where(mask, s, NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        e = torch.where(mask, torch.exp(s - m), 0.0)
+        l = e.sum(dim=-1, keepdim=True)
+        o = torch.matmul(e, vf) / torch.clamp(l, min=1e-20)
+        out[:, :, s0:s1] = o.reshape(B, H, s1 - s0, dh).to(q.dtype)
+    return out
+
+
+# A bf16 output is held to the plain version row by row: the largest
+# difference in a query row over that row's rms.  Rows shrink as they see
+# more keys (about sqrt(e / i) at row i for unit-normal inputs), so a flat
+# limit that fits the first rows says nothing of the late ones.  2^-4 is
+# one bf16 ulp (2^-7 relative) at an element 8 times the row's rms.
+BF16_ROW_TOL = 2.0 ** -4
+
+
+def row_scaled_error(got, want) -> float:
+    """Max over query rows of max |got - want| / rms(want), both taken
+    along head_dim."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    rms = want.float().square().mean(-1).sqrt()
+    return float((diff / rms.clamp(min=1e-30)).max())
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("q must be [B, H, S, dh] and k/v [B, K, S, dh]")
+    B, H, S, dh = q.shape
+    if k.shape[0] != B or k.shape[2:] != (S, dh) or H % k.shape[1]:
+        raise ValueError(f"q {tuple(q.shape)} does not fit k/v "
+                         f"{tuple(k.shape)}")
+    for t in (k, v):
+        if t.device != q.device:
+            raise ValueError("q, k and v must be on one device")
+        if t.dtype != q.dtype:
+            raise TypeError("q, k and v must have one dtype")
+    if any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention is forward-only: it has no "
+                           "backward kernel")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: [B, H, S, dh]; k/v: [B, K, S, dh].  Returns [B, H, S, dh] in
+    q's dtype."""
+    global launches
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    B, H, S, dh = q.shape
+    if dh % 16 or dh > MAX_HEAD_DIM:
+        raise ValueError(f"the kernel takes a head_dim that is a multiple "
+                         f"of 16 up to {MAX_HEAD_DIM}, not {dh}")
+    for t in (q, k, v):
+        if not t.is_contiguous():
+            raise ValueError("flash_attention needs contiguous tensors")
+        if t.data_ptr() % 16:
+            raise ValueError("flash_attention reads 16-byte rows: tensors "
+                             "must be 16-byte aligned")
+    out = torch.empty_like(q)
+    err = build.library().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+        k.shape[1], S, dh, int(causal), int(window), float(dh ** -0.5),
+        _DTYPE_CODE[q.dtype], build.stream_ptr(q.device))
+    build.check(err, "flash_attention")
+    launches += 1
+    return out

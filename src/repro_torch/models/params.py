@@ -1,13 +1,16 @@
-"""Seeded parameter init for the dense attention + MLP stack, and the
-numpy bridge that takes parameters built elsewhere.
+"""Seeded parameter init, and the numpy bridge that takes parameters
+built elsewhere.
 
 ``init_params`` builds the same tree as the reference's
-``models.transformer.init_params`` for a dense ``("attn", "mlp")``
-pattern — ``units/l0/{norm1, attn/{wq,wk,wv,wo[,bq,bk,bv]}, norm2,
-ffn/{wi,wg,wo}}`` stacked over units, plus ``final_norm``, ``embed`` and
-``unembed`` — with the same shapes, dtypes and scale rule (normal ×
-fan_in^-0.5, embed/unembed d^-0.5, norms ones in fp32, biases zeros).
-The numbers come from a ``torch.Generator`` and differ from JAX's.
+``models.transformer.init_params`` for any pattern of ``attn`` /
+``local_attn`` / ``mamba2`` mixers with ``mlp`` / ``none`` feed-forward:
+``units/l{i}/{norm1, attn|ssd, norm2, ffn}`` stacked over the pattern's
+full units, ``tail/t{i}`` for the remainder, ``final_norm``, ``embed``
+and ``unembed`` (absent when the embeddings are tied) -- with the same
+shapes, dtypes and scale rule (normal x fan_in^-0.5, embed/unembed
+d^-0.5, conv taps width^-0.5, norms ones in fp32, biases zeros, the SSD
+``A_log``/``D``/``dt_bias``/``norm_w`` in fp32).  The numbers come from a
+``torch.Generator`` and differ from JAX's.
 """
 
 from __future__ import annotations
@@ -38,50 +41,94 @@ def param(gen: torch.Generator, shape, dtype, device, scale=None,
     return out
 
 
+def _norm(cfg: ModelConfig, lead: tuple, dev) -> dict:
+    d = cfg.d_model
+    p = {"w": torch.ones(lead + (d,), dtype=torch.float32, device=dev)}
+    if cfg.norm != "rmsnorm":
+        p["b"] = torch.zeros(lead + (d,), dtype=torch.float32, device=dev)
+    return p
+
+
+def _init_layer(cfg: ModelConfig, spec, gen, lead: tuple, dev) -> dict:
+    """One layer's parameters, each leaf with the leading dims ``lead``
+    (the stacked units) excluded from its fan-in."""
+    mixer, ffn = spec
+    dt = cfg.dtype
+
+    def w(*shape, scale=None):
+        return param(gen, lead + shape, dt, dev, scale=scale,
+                     lead=len(lead))
+
+    def const(n, value, dtype):
+        return torch.full(lead + (n,), value, dtype=dtype, device=dev)
+
+    p = {"norm1": _norm(cfg, lead, dev)}
+    if mixer in ("attn", "local_attn"):
+        d, h, k, dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                       cfg.head_dim)
+        a = {"wq": w(d, h * dh), "wk": w(d, k * dh), "wv": w(d, k * dh),
+             "wo": w(h * dh, d)}
+        if cfg.qkv_bias:
+            for name, n in (("bq", h * dh), ("bk", k * dh), ("bv", k * dh)):
+                a[name] = const(n, 0, dt)
+        p["attn"] = a
+    elif mixer == "mamba2":
+        D, N, W = cfg.d_model, cfg.ssm_state, cfg.conv_width
+        Di = cfg.expand * D
+        H = Di // cfg.ssm_head_dim
+        f32 = torch.float32
+        p["ssd"] = {
+            "in_z": w(D, Di), "in_x": w(D, Di), "in_bc": w(D, 2 * N),
+            "in_dt": w(D, H),
+            "conv_x_w": w(W, Di, scale=W ** -0.5),
+            "conv_x_b": const(Di, 0, dt),
+            "conv_bc_w": w(W, 2 * N, scale=W ** -0.5),
+            "conv_bc_b": const(2 * N, 0, dt),
+            "A_log": const(H, 0, f32), "D": const(H, 1, f32),
+            "dt_bias": const(H, 0, f32), "norm_w": const(Di, 1, f32),
+            "out_proj": w(Di, D),
+        }
+    else:
+        raise NotImplementedError(
+            f"{cfg.name}: the {mixer!r} mixer is not ported yet "
+            f"(ROADMAP A2/A3)")
+    if ffn == "mlp":
+        d, f = cfg.d_model, cfg.d_ff
+        p["norm2"] = _norm(cfg, lead, dev)
+        p["ffn"] = {"wi": w(d, f), "wg": w(d, f), "wo": w(f, d)}
+        if cfg.mlp != "swiglu":
+            del p["ffn"]["wg"]
+    elif ffn != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: the {ffn!r} feed-forward is not ported yet "
+            f"(ROADMAP A2/A3)")
+    return p
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device=None, seed: int = 0) -> dict:
     """Seeded random weights on ``device`` (``cuda`` unless told
     otherwise).  ``generator`` must live on that device; without one, a
     fresh generator seeded with ``seed`` is made there."""
     dev = resolve_device(device)
-    if cfg.pattern != (("attn", "mlp"),) or cfg.tie_embeddings \
-            or cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"{cfg.name}: the port builds dense untied attn+mlp stacks only")
     if generator is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
-    U, d, h, k, dh, f = (cfg.full_units, cfg.d_model, cfg.num_heads,
-                         cfg.num_kv_heads, cfg.head_dim, cfg.d_ff)
-    dt = cfg.dtype
-
-    def w(*shape):
-        return param(generator, (U,) + shape, dt, dev, lead=1)
-
-    attn = {"wq": w(d, h * dh), "wk": w(d, k * dh), "wv": w(d, k * dh),
-            "wo": w(h * dh, d)}
-    if cfg.qkv_bias:
-        for name, n in (("bq", h * dh), ("bk", k * dh), ("bv", k * dh)):
-            attn[name] = torch.zeros((U, n), dtype=dt, device=dev)
-    ffn = {"wi": w(d, f), "wg": w(d, f), "wo": w(f, d)}
-    if cfg.mlp != "swiglu":
-        del ffn["wg"]
-    unit = {"norm1": {"w": torch.ones((U, d), dtype=torch.float32,
-                                      device=dev)},
-            "attn": attn,
-            "norm2": {"w": torch.ones((U, d), dtype=torch.float32,
-                                      device=dev)},
-            "ffn": ffn}
+    U, d = cfg.full_units, cfg.d_model
+    units = {f"l{i}": _init_layer(cfg, spec, generator, (U,), dev)
+             for i, spec in enumerate(cfg.pattern)}
+    params = {"units": units}
+    if cfg.tail_specs:
+        params["tail"] = {f"t{i}": _init_layer(cfg, spec, generator, (), dev)
+                          for i, spec in enumerate(cfg.tail_specs)}
+    params["final_norm"] = _norm(cfg, (), dev)
     emb_scale = 1.0 / (d ** 0.5)
-    return {
-        "units": {"l0": unit},
-        "final_norm": {"w": torch.ones((d,), dtype=torch.float32,
-                                       device=dev)},
-        "embed": param(generator, (cfg.vocab_size, d), dt, dev,
-                       scale=emb_scale),
-        "unembed": param(generator, (cfg.vocab_size, d), dt, dev,
-                         scale=emb_scale),
-    }
+    params["embed"] = param(generator, (cfg.vocab_size, d), cfg.dtype, dev,
+                            scale=emb_scale)
+    if not cfg.tie_embeddings:
+        params["unembed"] = param(generator, (cfg.vocab_size, d), cfg.dtype,
+                                  dev, scale=emb_scale)
+    return params
 
 
 def _leaf_from_numpy(a: np.ndarray) -> torch.Tensor:

@@ -1,0 +1,159 @@
+"""Full-sequence forward of the model stack: logits, hidden states and the
+next-token loss (prefill and scoring; forward only).
+
+Port of the reference's ``models/transformer.py`` forward half.  Layers
+are grouped into pattern units whose parameters are stacked; the
+reference's ``lax.scan`` over units is a Python loop that indexes the
+stacked unit parameters (rematerialization means nothing without a
+backward).  Everything runs under ``torch.inference_mode()``; the kernel
+wrappers refuse inputs that require grad, so a backward has to be added
+on purpose.  Attention runs the ``flash_attention`` kernel and Mamba-2
+the ``ssd_scan`` kernel on a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..layers import attention, ssd
+from ..layers.common import apply_norm, embed, unembed
+from ..layers.mlp import apply_mlp
+from .config import ModelConfig
+
+
+def _apply_layer(cfg: ModelConfig, spec, p, x, positions):
+    """One (mixer, ffn) layer.  Returns (x, kv) -- kv is the layer's
+    (k, v) [B, S, K, dh] for attention mixers, else None.  (The mixers
+    and feed-forwards ported so far add no auxiliary loss.)"""
+    mixer, ffn = spec
+    kv = None
+    h = apply_norm(cfg.norm, p["norm1"], x)
+    if mixer == "attn":
+        h, kv = attention.attention_fwd(cfg, p["attn"], h, positions,
+                                        causal=cfg.causal, window=0)
+    elif mixer == "local_attn":
+        h, kv = attention.attention_fwd(cfg, p["attn"], h, positions,
+                                        causal=cfg.causal, window=cfg.window)
+    elif mixer == "mamba2":
+        h = ssd.mamba2_forward(cfg, p["ssd"], h)
+    else:
+        raise NotImplementedError(
+            f"the {mixer!r} mixer is not ported yet (ROADMAP A2/A3)")
+    x = x + h
+    if ffn == "mlp":
+        x = x + apply_mlp(cfg, p["ffn"], apply_norm(cfg.norm, p["norm2"], x))
+    elif ffn != "none":
+        raise NotImplementedError(
+            f"the {ffn!r} feed-forward is not ported yet (ROADMAP A2/A3)")
+    return x, kv
+
+
+def _unit(params: dict, u: int) -> dict:
+    """Unit ``u``'s slice of the stacked unit parameters."""
+    if isinstance(params, dict):
+        return {k: _unit(v, u) for k, v in params.items()}
+    return params[u]
+
+
+def _stack(cfg: ModelConfig, params, batch, collect_kv: bool):
+    """Embed, every layer, final norm.  Returns (x, aux, kv)."""
+    if cfg.frontend is not None and "embeds" in batch:
+        raise NotImplementedError(
+            "the audio and vision front ends (batch['embeds']) are not "
+            "ported yet (ROADMAP A3)")
+    x = embed(batch["tokens"], params["embed"])
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S)
+    kv_units = {f"l{i}": [] for i, (mx, _) in enumerate(cfg.pattern)
+                if mx in ("attn", "local_attn")}
+    for u in range(cfg.full_units):
+        unit_p = _unit(params["units"], u)
+        for i, spec in enumerate(cfg.pattern):
+            x, kv = _apply_layer(cfg, spec, unit_p[f"l{i}"], x, positions)
+            if collect_kv and kv is not None:
+                kv_units[f"l{i}"].append(kv)
+    kv_tail = {}
+    for i, spec in enumerate(cfg.tail_specs):
+        x, kv = _apply_layer(cfg, spec, params["tail"][f"t{i}"], x,
+                             positions)
+        if collect_kv and kv is not None:
+            kv_tail[f"t{i}"] = kv
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    kv = None
+    if collect_kv:
+        units = {name: (torch.stack([k for k, _ in kvs]),
+                        torch.stack([v for _, v in kvs]))
+                 for name, kvs in kv_units.items() if kvs}
+        kv = {"units": units, "tail": kv_tail}
+    return x, aux, kv
+
+
+def _table(cfg: ModelConfig, params):
+    return params["embed"] if cfg.tie_embeddings else params["unembed"]
+
+
+@torch.inference_mode()
+def forward(cfg: ModelConfig, params, batch, *, collect_kv: bool = False):
+    """Full-sequence forward.
+
+    batch: {"tokens": int [B, S]}.  Returns (logits fp32 [B, S, V], aux)
+    and, with ``collect_kv``, a third item {"units": {"l{i}": (k, v)},
+    "tail": {"t{i}": (k, v)}}: each attention layer's k/v [B, S, K, dh],
+    stacked over units ([U, B, S, K, dh]) -- what prefill writes into the
+    paged arena.
+    """
+    x, aux, kv = _stack(cfg, params, batch, collect_kv)
+    logits = unembed(x, _table(cfg, params))
+    if collect_kv:
+        return logits, aux, kv
+    return logits, aux
+
+
+@torch.inference_mode()
+def hidden_states(cfg: ModelConfig, params, batch):
+    """Final-norm hidden states [B, S, D] (the pre-unembed activations),
+    and aux."""
+    x, aux, _ = _stack(cfg, params, batch, collect_kv=False)
+    return x, aux
+
+
+@torch.inference_mode()
+def chunked_ce(cfg: ModelConfig, x, table, labels, *, chunk: int = 256):
+    """Mean cross-entropy over the vocabulary, ``chunk`` positions at a
+    time, so no [B, S, V] fp32 logits are ever built.  Labels < 0 are
+    ignored."""
+    B, S, D = x.shape
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk -= 1
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, S, chunk):
+        logits = unembed(x[:, s0:s0 + chunk], table)      # [B, c, V] fp32
+        ls = labels[:, s0:s0 + chunk].long()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, ls.clamp(min=0)[..., None])[..., 0]
+        mask = ls >= 0
+        tot = tot + torch.where(mask, lse - gold, 0.0).sum()
+        cnt = cnt + mask.sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+@torch.inference_mode()
+def loss_fn(cfg: ModelConfig, params, batch, *, aux_weight: float = 0.01,
+            loss_chunk: int = 256):
+    """Next-token (causal) or frame-classification CE loss.  Returns
+    (loss, {"ce": ce, "aux": aux})."""
+    x, aux = hidden_states(cfg, params, batch)
+    labels = batch["labels"]
+    if cfg.causal:
+        # position t predicts label t + 1.  The last position, which has
+        # no next label, is masked (-1) rather than sliced off: the same
+        # mean, but the chunk search sees S and not S - 1 (8191 is prime,
+        # and would give chunks of one position)
+        labels = F.pad(labels[:, 1:], (0, 1), value=-1)
+    ce = chunked_ce(cfg, x, _table(cfg, params), labels, chunk=loss_chunk)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}

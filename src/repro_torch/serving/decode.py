@@ -2,7 +2,7 @@
 
 Port of the reference's ``serving/decode.py`` (``make_dstate`` and
 ``_decode_local``) without the mesh: embed → per layer
-``attn_decode_tp`` + ``mlp_decode_tp`` → final norm → logits → greedy
+``attn_decode_tp`` + ``apply_mlp`` → final norm → logits → greedy
 sample.  The decode state is a dict of tensors on one device:
 
   {"pos": i32[B], "block_table": i32[B, P], "kv_pos": i32[B, P, page],
@@ -19,6 +19,7 @@ import torch
 
 from ..device import resolve_device
 from ..layers.common import apply_norm
+from ..layers.mlp import apply_mlp
 from ..models.config import ModelConfig
 from . import tp_layers as tpl
 
@@ -70,7 +71,7 @@ def _apply_layer(cfg: ModelConfig, spec, p, x, pos, block_table, state):
                                state["v"], block_table, window=win)
     if ffn != "none":
         h = apply_norm(cfg.norm, p["norm2"], x)
-        x = x + tpl.mlp_decode_tp(cfg, p["ffn"], h)
+        x = x + apply_mlp(cfg, p["ffn"], h)
     return x
 
 

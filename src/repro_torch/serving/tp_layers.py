@@ -11,7 +11,6 @@ XLA outside any Pallas kernel.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..kernels.kv_update.kernel import kv_update
 from ..kernels.paged_attention.kernel import paged_attention
@@ -87,15 +86,3 @@ def attn_decode_tp(cfg, p: dict, x: torch.Tensor, pos: torch.Tensor,
     out = paged_attention(q.contiguous(), arena_k, arena_v, block_table,
                           (pos + 1).to(torch.int32), window=window)
     return torch.matmul(out.reshape(B, h * dh).to(x.dtype), p["wo"])
-
-
-def mlp_decode_tp(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
-    h = torch.matmul(x, p["wi"])
-    if cfg.mlp == "swiglu":
-        gg = torch.matmul(x, p["wg"])
-        h = F.silu(gg.float()).to(x.dtype) * h
-    elif cfg.mlp == "squared_relu":
-        h = torch.square(torch.relu(h))
-    else:
-        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return torch.matmul(h, p["wo"])

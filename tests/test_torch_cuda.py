@@ -7,8 +7,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.flash_attention import kernel as fak  # noqa: E402
 from repro_torch.kernels.kv_update import kernel as kvk  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as pak  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel as ssk  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -103,3 +105,106 @@ def test_decode_tokens_match_cpu(dev):
             outs[d] = (tok.cpu(), lg.cpu())
         assert torch.equal(outs["cpu"][0], outs["cuda"][0])
         assert float((outs["cpu"][1] - outs["cuda"][1]).abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("B,H,K,S,dh,causal,win,dt", [
+    (1, 4, 2, 256, 64, True, 0, torch.float32),
+    (2, 4, 1, 256, 128, True, 0, torch.bfloat16),
+    (1, 8, 8, 128, 64, False, 0, torch.float32),
+    (1, 4, 2, 512, 64, True, 128, torch.float32),
+    (1, 16, 16, 128, 80, False, 0, torch.bfloat16),
+    (1, 4, 2, 192, 64, True, 0, torch.bfloat16),      # partial tiles
+    (2, 4, 2, 200, 80, True, 48, torch.bfloat16),
+    (1, 4, 2, 200, 80, True, 48, torch.float32),
+    (1, 40, 8, 1024, 128, True, 0, torch.bfloat16),   # qwen2.5-32b heads
+])
+def test_flash_attention_kernel_vs_plain(dev, B, H, K, S, dh, causal, win,
+                                         dt):
+    g = torch.Generator(device="cpu").manual_seed(2)
+    q = torch.randn((B, H, S, dh), generator=g).to(dt).to(dev)
+    k = torch.randn((B, K, S, dh), generator=g).to(dt).to(dev)
+    v = torch.randn((B, K, S, dh), generator=g).to(dt).to(dev)
+    want = fak.flash_attention_plain(q, k, v, causal=causal, window=win)
+    n = fak.launches
+    got = fak.flash_attention(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert fak.launches == n + 1
+    assert got.dtype == dt
+    tol = 3e-2 if dt == torch.bfloat16 else 2e-5
+    assert float((got.float() - want.float()).abs().max()) < tol
+    if dt == torch.bfloat16:      # late rows are far smaller than 3e-2
+        assert fak.row_scaled_error(got, want) < fak.BF16_ROW_TOL
+
+
+@pytest.mark.parametrize("Bz,H,S,P,N,dt", [
+    (2, 2, 256, 64, 32, torch.float32),
+    (1, 4, 128, 32, 64, torch.float32),
+    (2, 1, 512, 64, 128, torch.float32),
+    (1, 3, 192, 64, 128, torch.float32),     # partial last chunk
+    (2, 8, 40, 16, 16, torch.float32),       # mamba2-370m smoke widths
+    (1, 2, 256, 64, 128, torch.bfloat16),
+])
+def test_ssd_scan_kernel_vs_plain(dev, Bz, H, S, P, N, dt):
+    g = torch.Generator(device="cpu").manual_seed(3)
+    xdt = (torch.randn((Bz, H, S, P), generator=g) * 0.1).to(dt).to(dev)
+    loga = (-torch.randn((Bz, H, S), generator=g).abs() * 0.1).to(dt).to(dev)
+    B = (torch.randn((Bz, S, N), generator=g) * 0.3).to(dt).to(dev)
+    C = (torch.randn((Bz, S, N), generator=g) * 0.3).to(dt).to(dev)
+    want = ssk.ssd_scan_plain(xdt, loga, B, C)
+    n = ssk.launches
+    got = ssk.ssd_scan(xdt, loga, B, C)
+    torch.cuda.synchronize()
+    assert ssk.launches == n + 1
+    assert got.dtype == torch.float32
+    rel = float((got - want).abs().max()) / (float(want.abs().max()) + 1e-9)
+    assert rel < 1e-4
+
+
+def test_kernels_refuse_inputs_that_require_grad(dev):
+    q = torch.randn((1, 2, 64, 64), device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fak.flash_attention(q, q.detach(), q.detach())
+    x = torch.randn((1, 1, 64, 16), device=dev, requires_grad=True)
+    bc = torch.randn((1, 64, 16), device=dev)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ssk.ssd_scan(x, x.detach()[..., 0], bc, bc)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "mamba2-370m"])
+def test_forward_matches_cpu(dev, arch):
+    """fp32 smoke model: logits, collected K/V and the loss of the forward
+    on the card (kernels) equal the forward on the CPU within 1e-3."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+    def to(tree, d):
+        if isinstance(tree, dict):
+            return {k: to(v, d) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(to(v, d) for v in tree)
+        return tree.to(d)
+
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(4))
+    batch = {"tokens": toks, "labels": toks}
+    n_fa, n_ss = fak.launches, ssk.launches
+    outs = {}
+    for d in ("cpu", "cuda"):
+        p, b = to(cpu, d), to(batch, d)
+        logits, _, kv = T.forward(cfg, p, b, collect_kv=True)
+        loss, _ = T.loss_fn(cfg, p, b)
+        outs[d] = to((logits, kv, loss), "cpu")
+    (lc, kc, sc), (lg, kg, sg) = outs["cpu"], outs["cuda"]
+    assert float((lc - lg).abs().max()) < 1e-3
+    assert abs(float(sc) - float(sg)) < 1e-3
+    for name, (k, v) in kc["units"].items():
+        assert float((k - kg["units"][name][0]).abs().max()) < 1e-3
+        assert float((v - kg["units"][name][1]).abs().max()) < 1e-3
+    if arch == "qwen2.5-32b":
+        assert fak.launches - n_fa == 2 * cfg.num_layers
+    else:
+        assert ssk.launches - n_ss == 2 * cfg.num_layers

@@ -1,0 +1,247 @@
+"""The port's full-sequence forward (``models/transformer.py``) against the
+reference's ``T.forward`` / ``T.loss_fn`` on the smoke configurations of
+qwen2.5-32b (attention + SwiGLU MLP) and mamba2-370m (Mamba-2, tied
+embeddings): the same numpy weights (reference params carried across with
+``from_numpy_tree``) and the same numpy tokens into both."""
+
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_smoke_config as j_smoke  # noqa: E402
+from repro.models import transformer as JT  # noqa: E402
+from repro_torch.configs import get_smoke_config as t_smoke  # noqa: E402
+from repro_torch.layers import attention as tatt  # noqa: E402
+from repro_torch.layers import mlp as tmlp  # noqa: E402
+from repro_torch.models import params as tparams  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
+
+ARCHS = ["qwen2.5-32b", "mamba2-370m"]
+_DT = {"fp32": (jnp.float32, torch.float32),
+       "bf16": (jnp.bfloat16, torch.bfloat16)}
+# fp32: the reference's own chunked-vs-naive bound (test_models.py);
+# bf16: the port's bf16 bound (ROADMAP C4: bf16 rounds at other places)
+_TOL = {"fp32": 1e-4, "bf16": 3e-2}
+
+
+def _cfgs(arch, dt, **kw):
+    jdt, tdt = _DT[dt]
+    return (dataclasses.replace(j_smoke(arch), dtype=jdt, **kw),
+            dataclasses.replace(t_smoke(arch), dtype=tdt, **kw))
+
+
+def _params(jcfg, seed=0):
+    jp = jax.tree.map(np.asarray, JT.init_params(jcfg,
+                                                 jax.random.PRNGKey(seed)))
+    return jp, tparams.from_numpy_tree(jp)
+
+
+def _tokens(cfg, B=2, S=32, seed=1):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+
+
+def _np(x):
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _err(t: torch.Tensor, j) -> float:
+    return float(np.abs(t.float().numpy() - _np(j)).max())
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaves(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def _eager_reference(jcfg, jp, jb):
+    """``T.forward`` / ``T.hidden_states`` / ``T.loss_fn`` of the
+    reference, layer by layer outside ``lax.scan``.  In bf16 XLA fuses the
+    scanned layer's elementwise chains and keeps fp32 between them
+    (``xla_allow_excess_precision``), so the scanned stack differs from
+    the same layer functions run one by one by a bf16 ulp (0.03125 at
+    |h| ~ 4, above the 3e-2 bound).  The port rounds after every op, as
+    the eager reference does; in bf16 it is held to this form."""
+    from repro.layers.common import apply_norm, embed, unembed
+    x = embed(jb["tokens"], jp["embed"])
+    B, S = x.shape[:2]
+    pos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32)[None], (B, S))
+    kvs = {}
+    for u in range(jcfg.full_units):
+        unit = jax.tree.map(lambda a: a[u], jp["units"])
+        for i, spec in enumerate(jcfg.pattern):
+            x, _, kv = JT._apply_layer(jcfg, spec, unit[f"l{i}"], x, pos)
+            if kv is not None:
+                kvs.setdefault(f"l{i}", []).append(kv)
+    x = apply_norm(jcfg.norm, jp["final_norm"], x)
+    table = jp["embed"] if jcfg.tie_embeddings else jp["unembed"]
+    kv = {name: tuple(jnp.stack(t) for t in zip(*v))
+          for name, v in kvs.items()}
+    ce = JT.chunked_ce(jcfg, x[:, :-1], table, jb["labels"][:, 1:])
+    return unembed(x, table), kv, x, ce
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_logits_kv_and_loss_match_reference(arch, dt):
+    jcfg, tcfg = _cfgs(arch, dt)
+    jp, tp = _params(jcfg)
+    toks = _tokens(jcfg)
+    labels = np.roll(toks, -1, axis=1)
+    labels[0, 5] = -1                              # an ignored label
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    tb = {"tokens": torch.as_tensor(toks), "labels": torch.as_tensor(labels)}
+
+    if dt == "fp32":
+        jl, _, jkv = JT.forward(jcfg, jp, jb, collect_kv=True)
+        jkv = jkv["units"]
+        jx, _ = JT.hidden_states(jcfg, jp, jb)
+        jloss = JT.loss_fn(jcfg, jp, jb)[1]["ce"]
+    else:
+        jl, jkv, jx, jloss = _eager_reference(jcfg, jp, jb)
+    tl, aux, tkv = TT.forward(tcfg, tp, tb, collect_kv=True)
+    assert tl.dtype == torch.float32 and tl.shape == jl.shape
+    assert _err(tl, jl) < _TOL[dt]
+    assert float(aux) == 0.0
+    assert tkv["units"].keys() == jkv.keys()
+    assert tkv["tail"] == {}
+    for name, (jk, jv) in jkv.items():
+        tk, tv = tkv["units"][name]
+        assert tk.shape == jk.shape and tv.shape == jv.shape
+        assert _err(tk, jk) < _TOL[dt] and _err(tv, jv) < _TOL[dt]
+    if arch == "mamba2-370m":
+        assert tkv["units"] == {}                  # no attention layers
+
+    tx, _ = TT.hidden_states(tcfg, tp, tb)
+    assert _err(tx, jx) < _TOL[dt]
+    tloss, tparts = TT.loss_fn(tcfg, tp, tb)
+    assert abs(float(tloss) - float(jloss)) < _TOL[dt]
+    assert abs(float(tparts["ce"]) - float(jloss)) < _TOL[dt]
+
+
+@pytest.mark.parametrize("chunk", [256, 7, 1])
+def test_chunked_ce_matches_reference(chunk):
+    """The chunk search and the label mask: every chunk length gives the
+    reference's mean CE (labels < 0 ignored)."""
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 21, 16)).astype(np.float32)
+    table = rng.standard_normal((40, 16)).astype(np.float32) * 0.3
+    labels = rng.integers(-1, 40, size=(2, 21)).astype(np.int32)
+    want = JT.chunked_ce(None, jnp.asarray(x), jnp.asarray(table),
+                         jnp.asarray(labels), chunk=chunk)
+    got = TT.chunked_ce(None, torch.as_tensor(x), torch.as_tensor(table),
+                        torch.as_tensor(labels), chunk=chunk)
+    assert abs(float(got) - float(want)) < 1e-5
+
+
+@pytest.mark.parametrize("impl", ["naive", "chunked", "pallas"])
+def test_attention_impls_agree(impl):
+    """The three ``attn_impl`` paths of the port give the reference's
+    logits (fp32; on the CPU 'pallas' is the kernel's plain version)."""
+    jcfg, tcfg = _cfgs("qwen2.5-32b", "fp32", attn_impl=impl)
+    jp, tp = _params(jcfg, seed=3)
+    toks = _tokens(jcfg, S=48, seed=4)
+    jl, _ = JT.forward(jcfg, jp, {"tokens": jnp.asarray(toks)})
+    tl, _ = TT.forward(tcfg, tp, {"tokens": torch.as_tensor(toks)})
+    assert _err(tl, jl) < 1e-4
+    base = dataclasses.replace(tcfg, attn_impl="naive")
+    tn, _ = TT.forward(base, tp, {"tokens": torch.as_tensor(toks)})
+    assert float((tl - tn).abs().max()) < 1e-4
+
+
+def test_local_attention_window_matches_reference():
+    """A ``local_attn`` layer (sliding window) in a two-layer pattern."""
+    kw = dict(pattern=(("attn", "mlp"), ("local_attn", "mlp")), window=8,
+              num_layers=3)
+    jcfg, tcfg = _cfgs("qwen2.5-32b", "fp32", **kw)
+    jp, tp = _params(jcfg, seed=5)
+    assert "tail" in tp
+    toks = _tokens(jcfg, S=32, seed=6)
+    jl, _, jkv = JT.forward(jcfg, jp, {"tokens": jnp.asarray(toks)},
+                            collect_kv=True)
+    for impl in ("naive", "chunked", "pallas"):
+        cfg = dataclasses.replace(tcfg, attn_impl=impl)
+        tl, _, tkv = TT.forward(cfg, tp, {"tokens": torch.as_tensor(toks)},
+                                collect_kv=True)
+        assert _err(tl, jl) < 1e-4, impl
+        assert tkv["tail"].keys() == jkv["tail"].keys() == {"t0"}
+
+
+@pytest.mark.parametrize("mlp", ["gelu", "squared_relu"])
+def test_mlp_variants_match_reference(mlp):
+    from repro.layers import mlp as jmlp
+    jcfg, tcfg = _cfgs("qwen2.5-32b", "fp32", mlp=mlp)
+    rng = np.random.default_rng(7)
+    d, f = jcfg.d_model, jcfg.d_ff
+    p = {"wi": rng.standard_normal((d, f)).astype(np.float32) * d ** -0.5,
+         "wo": rng.standard_normal((f, d)).astype(np.float32) * f ** -0.5}
+    x = rng.standard_normal((2, 5, d)).astype(np.float32)
+    want = jmlp.apply_mlp(jcfg, jax.tree.map(jnp.asarray, p), jnp.asarray(x))
+    got = tmlp.apply_mlp(tcfg, {k: torch.as_tensor(v) for k, v in p.items()},
+                         torch.as_tensor(x))
+    assert _err(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_init_params_mamba2_same_tree_shapes_dtypes(dt):
+    jcfg, tcfg = _cfgs("mamba2-370m", dt)
+    jl = _leaves(jax.eval_shape(lambda: JT.init_params(
+        jcfg, jax.random.PRNGKey(0))))
+    tp = tparams.init_params(tcfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    tl = _leaves(tp)
+    assert jl.keys() == tl.keys()
+    assert "/unembed" not in tl                    # tied embeddings
+    for k, a in jl.items():
+        assert tuple(a.shape) == tuple(tl[k].shape), k
+        assert str(tl[k].dtype).split(".")[-1] == np.dtype(a.dtype).name, k
+    ssd = tp["units"]["l0"]["ssd"]
+    assert bool((ssd["D"] == 1).all()) and bool((ssd["A_log"] == 0).all())
+    assert bool((ssd["norm_w"] == 1).all())
+    assert bool((ssd["conv_x_b"] == 0).all())
+    W = tcfg.conv_width
+    assert abs(float(ssd["conv_x_w"].float().std()) - W ** -0.5) \
+        < 0.2 * W ** -0.5
+
+
+def test_from_numpy_tree_mamba2_bit_exact():
+    jcfg, _ = _cfgs("mamba2-370m", "bf16")
+    jp, tp = _params(jcfg, seed=8)
+    jl, tl = _leaves(jp), _leaves(tp)
+    assert jl.keys() == tl.keys()
+    for k, a in jl.items():
+        if a.dtype.name == "bfloat16":
+            a, t = a.view(np.uint16), tl[k].view(torch.uint16)
+        else:
+            t = tl[k]
+        np.testing.assert_array_equal(t.numpy(), a, err_msg=k)
+
+
+def test_unported_paths_raise():
+    _, tcfg = _cfgs("qwen2.5-32b", "fp32")
+    tp = tparams.init_params(tcfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    audio = dataclasses.replace(tcfg, frontend="audio")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TT.forward(audio, tp, {"embeds": torch.zeros((1, 4, tcfg.d_model))})
+    for pattern in ((("attn", "moe"),), (("rglru", "mlp"),)):
+        cfg = dataclasses.replace(tcfg, pattern=pattern)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tparams.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+    # attention over any S on the pallas path (no block-multiple contract)
+    cfg = dataclasses.replace(tcfg, attn_impl="pallas")
+    toks = torch.as_tensor(_tokens(tcfg, S=13))
+    logits, _ = TT.forward(cfg, tp, {"tokens": toks})
+    assert logits.shape == (2, 13, tcfg.vocab_size)
+    assert tatt.NEG_INF == -1e30
