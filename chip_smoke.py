@@ -8,7 +8,9 @@ each kernel against its plain PyTorch version at its path's shapes (and
 times both), then drives the port's paths:
 
 1. the kernels against their plain versions (serving shapes, the
-   reference's sweep shapes, qwen2.5-32b's prefill and mamba2-370m's scan);
+   reference's sweep shapes, the edges of the kernels' tiles, qwen2.5-32b's
+   prefill and mamba2-370m's scan; the flash rows name the variant that
+   ran);
 2. the serving engine on the card against the same engine on the CPU;
 3. qwen2.5-32b served at full width (cut to 8 layers, random weights from
    a seed) through the paged engine: short prompts, a 300-token prompt on
@@ -227,16 +229,30 @@ def check_kernels(torch, cfg, dev) -> list[dict]:
     return [kv_row, pa_row]
 
 
-# the reference's sweeps (tests/test_kernels.py); the main paths' shapes
-# come from the forward runs (repro_torch.launch.profile_forward.RUNS)
+# the reference's sweeps (tests/test_kernels.py) and the edges of the
+# kernels' tiles; the main paths' shapes come from the forward runs
+# (repro_torch.launch.profile_forward.RUNS)
 FLASH_SWEEP = [  # B, H, K, S, dh, causal, window, dtype
     (1, 4, 2, 256, 64, True, 0, "float32"),
     (2, 4, 1, 256, 128, True, 0, "bfloat16"),
     (1, 8, 8, 128, 64, False, 0, "float32"),
     (1, 4, 2, 512, 64, True, 128, "float32"),
-    (1, 16, 16, 128, 80, False, 0, "bfloat16"),
+    (1, 16, 16, 128, 80, False, 0, "bfloat16"),       # mma.sync variant
+    (1, 4, 2, 1000, 64, True, 0, "bfloat16"),         # partial 128-row tiles
+    (1, 4, 2, 200, 128, True, 0, "bfloat16"),
+    (1, 4, 2, 1000, 128, False, 0, "bfloat16"),
+    (1, 4, 2, 512, 128, True, 48, "bfloat16"),        # window edge tiles
+    (2, 40, 8, 1000, 128, True, 0, "bfloat16"),       # a tile at a head's end
 ]
-SSD_SWEEP = [(2, 2, 256, 64, 32), (1, 4, 128, 32, 64), (2, 1, 512, 64, 128)]
+SSD_SWEEP = [  # Bz, H, S, P, N, dtype, log-decay per step (None: random)
+    (2, 2, 256, 64, 32, "float32", None),
+    (1, 4, 128, 32, 64, "float32", None),
+    (2, 1, 512, 64, 128, "float32", None),
+    (2, 4, 64, 64, 128, "float32", None),             # one chunk
+    (2, 3, 200, 64, 128, "float32", None),            # partial chunk; H 3
+    (1, 2, 256, 64, 128, "bfloat16", None),
+    (1, 3, 1024, 64, 128, "float32", -5.0),           # strong decay
+]
 
 
 def flash_bound(B, H, K, S, dh, causal, window, es) -> tuple[float, str]:
@@ -309,19 +325,25 @@ def check_forward_kernels(torch, dev, flash_main, ssd_main) -> list[dict]:
         shape = {"q": [B, H, S, dh], "kv": [B, K, S, dh], "causal": causal,
                  "window": win, "dtype": dtn}
 
+        variant = fak.last_variant
+        if variant != fak.flash_variant(dt, dh):
+            raise AssertionError(f"flash_attention ran {variant}, not "
+                                 f"{fak.flash_variant(dt, dh)}")
+
         def run():
             return fak.flash_attention(q, k, v, causal=causal, window=win)
         main = (B, H, K, S, dh, causal, win, dtn) == flash_main
         ms = graph_ms(torch, run, iters=20 if main else 50)
         if not main:
-            sweep.append({"shape": shape, "max_abs_err": err,
-                          "row_scaled_err": row_err, "tolerance": tol,
-                          "ms": ms, "bound_ms": bound})
+            sweep.append({"shape": shape, "variant": variant,
+                          "max_abs_err": err, "row_scaled_err": row_err,
+                          "tolerance": tol, "ms": ms, "bound_ms": bound})
             continue
         row = {
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:95",
+            "variant": variant,
             "max_abs_err": err, "row_scaled_err": row_err,
             "tolerance": tol, "ms": ms,
             "eager_ms": event_ms(torch, run, iters=20),
@@ -337,25 +359,29 @@ def check_forward_kernels(torch, dev, flash_main, ssd_main) -> list[dict]:
     rows = [row]
 
     sweep = []
-    for Bz, H, S, P, N in SSD_SWEEP + [ssd_main]:
-        xdt = randn(Bz, H, S, P, scale=0.1)
-        loga = -randn(Bz, H, S, scale=0.1).abs()
-        Bm, Cm = randn(Bz, S, N, scale=0.3), randn(Bz, S, N, scale=0.3)
+    for Bz, H, S, P, N, dtn, decay in SSD_SWEEP + [ssd_main]:
+        dt = getattr(torch, dtn)
+        xdt = randn(Bz, H, S, P, scale=0.1, dt=dt)
+        loga = -randn(Bz, H, S, scale=0.1, dt=dt).abs() if decay is None \
+            else torch.full((Bz, H, S), decay, dtype=dt, device=dev)
+        Bm = randn(Bz, S, N, scale=0.3, dt=dt)
+        Cm = randn(Bz, S, N, scale=0.3, dt=dt)
         want = ssk.ssd_scan_plain(xdt, loga, Bm, Cm)
         got = ssk.ssd_scan(xdt, loga, Bm, Cm)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         rel = err / (float(want.abs().max()) + 1e-9)
         if not rel < 1e-4:
-            raise AssertionError(f"ssd_scan {(Bz, H, S, P, N)} differs from "
-                                 f"its plain version by {rel} (relative; "
-                                 f"tolerance 1e-4)")
+            raise AssertionError(f"ssd_scan {(Bz, H, S, P, N, dtn, decay)} "
+                                 f"differs from its plain version by {rel} "
+                                 f"(relative; tolerance 1e-4)")
         bound, by = ssd_bound(Bz, H, S, P, N)
-        shape = {"xdt": [Bz, H, S, P], "BC": [Bz, S, N], "dtype": "float32"}
+        shape = {"xdt": [Bz, H, S, P], "BC": [Bz, S, N], "dtype": dtn,
+                 "log_decay": decay}
 
         def run():
             return ssk.ssd_scan(xdt, loga, Bm, Cm)
-        main = (Bz, H, S, P, N) == ssd_main
+        main = (Bz, H, S, P, N, dtn, decay) == ssd_main
         ms = graph_ms(torch, run, iters=10 if main else 50)
         if not main:
             sweep.append({"shape": shape, "max_abs_err": err,
@@ -692,7 +718,7 @@ def main() -> int:
     flash_main = (qrun.batch, cfg.num_heads, cfg.num_kv_heads, qrun.seq,
                   cfg.head_dim, True, 0, "bfloat16")
     ssd_main = (mrun.batch, n_heads(mcfg), mrun.seq, mcfg.ssm_head_dim,
-                mcfg.ssm_state)
+                mcfg.ssm_state, "float32", None)
     kernels = check_kernels(torch, cfg, dev) + check_forward_kernels(
         torch, dev, flash_main, ssd_main)
     for row in kernels:

@@ -2,7 +2,7 @@
 // grouped-query heads), blockwise online softmax.
 //
 // Replaces the Pallas TPU kernel `flash_attention` (src/repro/kernels/
-// flash_attention/kernel.py, body `_flash_kernel`).  On the TPU the key
+// flash_attention/kernel.py:95, body `_flash_kernel`).  On the TPU the key
 // axis is the innermost, sequential grid dimension and the softmax state
 // (m, l, acc) is carried in VMEM scratch from one grid step to the next.
 // On Hopper blocks run in parallel and in no order, so one block owns one
@@ -13,26 +13,45 @@
 // Bound: operations.  At prefill lengths every K/V tile is reused by every
 // query tile, so the work is 4 * S_q * S_k * dh flops per head (halved by
 // causality) against 2 * (q + k + v + o) bytes -- far above the card's
-// flop/byte ridge.  Design for that (simple first): bf16 inputs take the
-// tensor cores through `mma.sync.m16n8k16` (bf16 x bf16 -> fp32), four warps
-// of 16 query rows each per block, K and V tiles of 64 keys staged in shared
-// memory by `cp.async` in two stages (the next tile loads while this one is
-// used) and shared by the four warps; `ldmatrix` reads the K and the
-// transposed V fragments.  The score fragments are turned into the A
-// operand of P.V in registers (no trip through shared memory).  Only tiles
-// that cross the diagonal, the window's edge or the sequence's end are
-// masked.  No TMA and no wgmma yet.  fp32 inputs take a plain FMA path (a
-// warp per query row, a lane per key for Q.K and per head-dim column for
-// P.V) that keeps full fp32 throughout.
+// flop/byte ridge: at qwen2.5-32b's prefill (40/8 heads, S 8192, dh 128)
+// 687 GFLOP, 0.695 ms at the 989 TFLOP/s bf16 peak, against 0.06 ms of
+// bytes.  Three variants, chosen by the wrapper by dtype and head_dim
+// (`kernel.py::flash_variant`; the `variant` argument below):
+//
+// 2 (bf16, dh 64 or 128) -- the main path; Hopper's tensor cores are
+//   reached only through `wgmma`.  A block owns 128 query rows and has
+//   three warpgroups: a producer, whose one thread keeps TMA loads of
+//   128-key K and V tiles in flight (K and V each in a two-slot ring with
+//   full and empty `mbarrier`s), and two consumer warpgroups of 64 rows
+//   each, which run S = Q K^T as `wgmma.m64n128k16` with both operands in
+//   shared memory, the online softmax on the fp32 accumulator in
+//   registers, and O += P V as `wgmma.m64n{dh}k16` with P converted to
+//   bf16 in registers (the A operand) and V read MN-major from shared
+//   memory as it is stored.  A consumer starts S_i and P_{i-1} V_{i-1}
+//   together, so the softmax of one tile overlaps the P.V of the one
+//   before; the weights take one FMA (score * scale - max, in log2 units)
+//   and one `ex2.approx` each.  `setmaxnreg` moves registers from the
+//   producer (24) to the consumers (240).  Tiles are loaded by 3-D tensor
+//   maps over [heads, S, dh] in boxes of 64 columns (128 bytes, the
+//   128-byte swizzle the wgmma descriptors walk); a 3-D box clamps at S,
+//   so a partial last tile reads zeros and never the next head's rows.
+//   The grid is ordered longest query tiles first.
+// 1 (bf16, other head dims: 16..112 except 64) -- the Ampere-style kernel:
+//   `mma.sync.m16n8k16`, 64-row query tiles over four warps, K/V tiles of
+//   64 keys in two `cp.async` stages, `ldmatrix` fragments.
+// 0 (fp32) -- a plain FMA path (a warp per query row, a lane per key for
+//   Q.K and per head-dim column for P.V) that keeps full fp32 throughout.
 //
 // Numerics (as the Pallas kernel): scores in fp32; the scale dh^-0.5 is
 // applied in fp32 to the fp32 dot (the reference scales q in fp32 before
 // the dot, so q * scale is never rounded to bf16); masked scores get
-// weight 0; the output is acc / max(l, 1e-20) in q's dtype.  The bf16 path
-// rounds the softmax weights to bf16 for the P.V product (fp32 sums).
-// Tiles that lie wholly above the diagonal (causal) or wholly left of the
-// window are skipped; a partial last query or key tile is masked, so any
-// S is taken.  KV head of query head h is h / (H / K).
+// weight 0; the output is acc / max(l, 1e-20) in q's dtype.  The bf16
+// variants round the softmax weights to bf16 for the P.V product (fp32
+// sums).  Tiles that lie wholly above the diagonal (causal) or wholly left
+// of the window are skipped; only tiles that cross the diagonal, the
+// window's edge or the sequence's end are masked, so any S is taken.  KV
+// head of query head h is h / (H / K).
+#include <cuda.h>            // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -42,18 +61,542 @@ namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
 
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // ---------------------------------------------------------------------------
-// bf16: tensor-core path
+// bf16, dh 64 / 128: wgmma + TMA, warp-specialised
+// ---------------------------------------------------------------------------
+namespace wg {
+
+constexpr int kBQ = 128;           // query rows a block, 64 a consumer group
+constexpr int kBK = 128;           // keys a tile
+constexpr int kThreads = 384;      // producer group + two consumer groups
+constexpr int kStages = 2;         // slots of the K ring and of the V ring
+constexpr int kBox = 128 * 128;    // bytes of a [128 rows][64 bf16] box
+constexpr int kAtom = 1024;        // 8 rows of 128 bytes: the swizzle atom
+
+template <int DH>
+struct Smem {
+  static constexpr int kBoxes = DH / 64;             // 64-column boxes a row
+  static constexpr int kTile = kBoxes * kBox;        // Q, K or V tile bytes
+  static constexpr int kBar = kTile + 2 * kStages * kTile;
+  // barriers: full and empty for K and V, kStages each, and Q's; then the
+  // alignment slack
+  static constexpr int kBytes = kBar + 8 * (4 * kStages + 1) + kAtom;
+  static_assert(kBytes <= 232448, "over the 227 KB a block can use");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// returns once the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity) : "memory");
+}
+// one box of a 3-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (all in 16-byte units)
+__device__ __forceinline__ uint64_t sdesc(uint32_t addr, uint32_t lbo,
+                                          uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// returns once at most N committed groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of wgmma accumulators
+// across the asynchronous product's fence and wait
+template <int N>
+__device__ __forceinline__ void pin(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d[0:64] = A * B (+ d if scale_d), m64n128k16: A and B in shared memory,
+// both K-major, 128-byte swizzle (descriptors da, db)
+__device__ __forceinline__ void wgmma_ss_m64n128(float* d, uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[0:64] += A * B, m64n128k16: A from registers (bf16 pairs, the
+// mma.sync A-fragment layout per warp), B in shared memory MN-major (the
+// transpose flag), 128-byte swizzle
+__device__ __forceinline__ void wgmma_rs_m64n128(float* d, const uint32_t* a,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[0:32] += A * B, m64n64k16: A from registers (bf16 pairs, the
+// mma.sync A-fragment layout per warp), B in shared memory MN-major (the
+// transpose flag), 128-byte swizzle
+__device__ __forceinline__ void wgmma_rs_m64n64(float* d, const uint32_t* a,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int DH>
+__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
+                                         uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float* o, const uint32_t* a,
+                                             uint64_t db) {
+  wgmma_rs_m64n64(o, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float* o, const uint32_t* a,
+                                              uint64_t db) {
+  wgmma_rs_m64n128(o, a, db);
+}
+
+// Thread layout of a m64nN accumulator in a consumer group: warp wq of the
+// group holds rows 16 wq + lane / 4 (+ 8); element 4 j + e sits in column
+// 8 j + 2 (lane % 4) + (e & 1), on the second row when e >= 2.
+
+// whether key tile t0 needs a mask for query rows qlo..qhi: only where it
+// reaches past the diagonal, the window's left edge or the sequence's end
+__device__ __forceinline__ bool is_edge(int t0, int qlo, int qhi, int S,
+                                        int causal, int window) {
+  return (causal && t0 + kBK - 1 > qlo) || (window && t0 <= qhi - window) ||
+         t0 + kBK > S;
+}
+
+// 2^x on the special-function unit (ftz; 2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Online softmax over one tile of raw scores (fp32, in place: the scores
+// become the unnormalised weights).  m is the running max in scaled log2
+// units (score * scale * log2 e); each weight is 2^(s * sl - m), one fused
+// multiply-add and one ex2.  corr is the factor the accumulator and l take
+// for the new running max.
+__device__ __forceinline__ void softmax_tile(float* sc, float* m, float* l,
+                                             float* corr, const int* qpos,
+                                             int t0, int t, int S, int causal,
+                                             int window, bool edge, float sl) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float v = sc[4 * j + e];
+      if (edge) {
+        const int qp = qpos[e / 2];
+        const int kp = t0 + 8 * j + 2 * t + (e & 1);
+        bool ok = kp < S;
+        if (causal) ok = ok && kp <= qp;
+        if (window) ok = ok && kp > qp - window;
+        if (!ok) v = -INFINITY;
+        sc[4 * j + e] = v;
+      }
+      mx[e / 2] = fmaxf(mx[e / 2], v);
+    }
+  float neg_m[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * sl);
+    // a row with no valid key yet keeps m = -inf and adds nothing
+    corr[r] = m_new == -INFINITY ? 1.f : fast_exp2(m[r] - m_new);
+    neg_m[r] = m_new == -INFINITY ? 0.f : -m_new;
+    m[r] = m_new;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = fast_exp2(fmaf(sc[4 * j + e], sl, neg_m[e / 2]));
+      sc[4 * j + e] = p;
+      l[e / 2] += p;
+    }
+}
+
+// P as the A fragments of P.V: keys 16 s .. 16 s + 15 are accumulator
+// blocks j = 2 s and 2 s + 1
+__device__ __forceinline__ void pack_p(const float* sc, uint32_t (*pf)[4]) {
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+    pf[j / 2][(j % 2) * 2 + 0] = pack_bf16(sc[4 * j + 0], sc[4 * j + 1]);
+    pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+  }
+}
+
+// S = Q K^T for one consumer group: K-major A (Q) and B (K), 16 columns of
+// dh a step; a step inside a 128-byte row moves the start by 32 bytes
+template <int DH>
+__device__ __forceinline__ void mma_qk(float* sc, uint32_t q_g,
+                                         uint32_t k_s) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+    wgmma_ss_m64n128(sc, sdesc(q_g + off, 16, kAtom),
+                     sdesc(k_s + off, 16, kAtom), kk > 0);
+  }
+}
+
+// O += P V: V [keys][dh] is MN-major for this product; 16 keys a step are
+// two swizzle atoms (2048 bytes); the second 64 columns of dh are the next
+// box (the leading byte offset)
+template <int DH>
+__device__ __forceinline__ void mma_pv(float* o, const uint32_t (*pf)[4],
+                                         uint32_t v_s) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+    wgmma_pv<DH>(o, pf[kk], sdesc(v_s + kk * 2 * kAtom, kBox, kAtom));
+}
+
+// The consumer overlaps each tile's softmax with the previous tile's P.V
+// on the tensor cores: S_i = Q K_i^T and O += P_{i-1} V_{i-1} are started
+// together, the softmax of S_i runs once S_i is done, and O is rescaled
+// only after P_{i-1} V_{i-1} has landed.  K and V have rings of their own,
+// so a K slot is released as soon as its scores are taken.
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   __nv_bfloat16* __restrict__ out, int H, int K, int S,
+                   int causal, int window, float scale) {
+  using L = Smem<DH>;
+  constexpr int NB = L::kBoxes;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the buffers to it
+  const uint32_t base = (smem_u32(smem_raw) + kAtom - 1) & ~(kAtom - 1);
+  const uint32_t q_s = base;
+  const uint32_t k_ring = base + L::kTile;           // + kTile * slot
+  const uint32_t v_ring = k_ring + kStages * L::kTile;
+  const uint32_t full_k = base + L::kBar;            // + 8 * slot
+  const uint32_t full_v = full_k + 8 * kStages;
+  const uint32_t empty_k = full_v + 8 * kStages;
+  const uint32_t empty_v = empty_k + 8 * kStages;
+  const uint32_t qbar = empty_v + 8 * kStages;
+
+  const int bh = blockIdx.x;                         // b * H + h
+  const int b = bh / H, h = bh % H;
+  const int kvh = b * K + h / (H / K);
+  const int nq = (S + kBQ - 1) / kBQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kBQ;
+  const int k_end = causal ? min(S, q0 + kBQ) : S;
+  const int k_begin = window ? max(0, q0 - window + 1) : 0;
+  const int t_begin = (k_begin / kBK) * kBK;
+  const int n_tiles = (k_end - t_begin + kBK - 1) / kBK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, 8);                 // one per consumer warp
+      mbar_init(empty_v + 8 * s, 8);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // ---------------- producer warpgroup: one thread starts every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qbar, L::kTile);
+      for (int c = 0; c < NB; ++c)
+        tma_load(q_s + c * kBox, &tm_q, qbar, 64 * c, q0, bh);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        const uint32_t parity = (i / kStages - 1) & 1;  // last release
+        const int t0 = t_begin + i * kBK;
+        if (i >= kStages) mbar_wait(empty_k + 8 * s, parity);
+        mbar_expect_tx(full_k + 8 * s, L::kTile);
+        for (int c = 0; c < NB; ++c)
+          tma_load(k_ring + s * L::kTile + c * kBox, &tm_k, full_k + 8 * s,
+                   64 * c, t0, kvh);
+        if (i >= kStages) mbar_wait(empty_v + 8 * s, parity);
+        mbar_expect_tx(full_v + 8 * s, L::kTile);
+        for (int c = 0; c < NB; ++c)
+          tma_load(v_ring + s * L::kTile + c * kBox, &tm_v, full_v + 8 * s,
+                   64 * c, t0, kvh);
+      }
+    }
+  } else {
+    // ---------------- consumer warpgroups: 64 query rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int grp = warp / 4 - 1;                    // 0 or 1
+    const int wq = warp % 4;
+    const int t = lane % 4;
+    const int qlo = q0 + 64 * grp, qhi = qlo + 63;   // this group's rows
+    const int r0 = qlo + 16 * wq + lane / 4;
+    const int qpos[2] = {r0, r0 + 8};
+    const float sl = scale * kLog2e;
+    float m[2] = {-INFINITY, -INFINITY};             // running max, log2
+    float l[2] = {0.f, 0.f};                         // this thread's sums
+    float corr[2];
+    float o[DH / 2];
+    float sc[kBK / 2];
+    uint32_t pf[kBK / 16][4];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
+    // Q rows of this group: 64 rows = 8 swizzle atoms into each box
+    const uint32_t q_g = q_s + grp * 64 * 128;
+    mbar_wait(qbar, 0);
+
+    // tile 0: scores and weights
+    mbar_wait(full_k, 0);
+    pin<kBK / 2>(sc);
+    wgmma_fence();
+    mma_qk<DH>(sc, q_g, k_ring);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin<kBK / 2>(sc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_k);
+    softmax_tile(sc, m, l, corr, qpos, t_begin, t, S, causal, window,
+                 is_edge(t_begin, qlo, qhi, S, causal, window), sl);
+    pack_p(sc, pf);
+
+    for (int i = 1; i < n_tiles; ++i) {
+      const int s = i % kStages, sp = (i - 1) % kStages;
+      const int t0 = t_begin + i * kBK;
+      mbar_wait(full_k + 8 * s, (i / kStages) & 1);
+      pin<kBK / 2>(sc);
+      pin<DH / 2>(o);
+      wgmma_fence();
+      mma_qk<DH>(sc, q_g, k_ring + s * L::kTile);
+      wgmma_commit();
+      mbar_wait(full_v + 8 * sp, ((i - 1) / kStages) & 1);
+      mma_pv<DH>(o, pf, v_ring + sp * L::kTile);
+      wgmma_commit();
+      wgmma_wait<1>();                               // S_i is done
+      pin<kBK / 2>(sc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_k + 8 * s);
+      softmax_tile(sc, m, l, corr, qpos, t0, t, S, causal, window,
+                   is_edge(t0, qlo, qhi, S, causal, window), sl);
+      wgmma_wait<0>();                               // P_{i-1} V_{i-1} too
+      pin<DH / 2>(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_v + 8 * sp);
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        o[4 * j + 0] *= corr[0];
+        o[4 * j + 1] *= corr[0];
+        o[4 * j + 2] *= corr[1];
+        o[4 * j + 3] *= corr[1];
+      }
+      pack_p(sc, pf);
+    }
+
+    // the last tile's P.V
+    {
+      const int sp = (n_tiles - 1) % kStages;
+      mbar_wait(full_v + 8 * sp, ((n_tiles - 1) / kStages) & 1);
+      pin<DH / 2>(o);
+      wgmma_fence();
+      mma_pv<DH>(o, pf, v_ring + sp * L::kTile);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin<DH / 2>(o);
+    }
+
+    // full row sums across the quad, then the output rows
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = 1.f / fmaxf(l[r], 1e-20f);
+    }
+    __nv_bfloat16* oh = out + static_cast<size_t>(bh) * S * DH;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (qpos[r] >= S) continue;
+      __nv_bfloat16* orow = oh + static_cast<size_t>(qpos[r]) * DH + 2 * t;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * l[r],
+                                  o[4 * j + 2 * r + 1] * l[r]);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: reach it
+// through the runtime's entry-point query, so the library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 3-D map over a contiguous [heads, S, dh] bf16 tensor, boxes of 128 rows
+// by 64 columns, 128-byte swizzle; rows past S read as zeros
+bool make_map(CUtensorMap* map, EncodeTiled fn, const void* ptr, int heads,
+              int S, int dh) {
+  cuuint64_t dims[3] = {static_cast<cuuint64_t>(dh),
+                        static_cast<cuuint64_t>(S),
+                        static_cast<cuuint64_t>(heads)};
+  cuuint64_t strides[2] = {static_cast<cuuint64_t>(dh) * 2,
+                           static_cast<cuuint64_t>(S) * dh * 2};
+  cuuint32_t box[3] = {64, 128, 1};
+  cuuint32_t step[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<void*>(ptr), dims, strides, box, step,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int H, int K, int S, int causal, int window, float scale,
+           cudaStream_t stream) {
+  static_assert(kBQ == 128 && kBK == 128, "maps use 128-row boxes");
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  // maps are built on the host for every call (no device work, so a CUDA
+  // graph capture records only the launch, with the maps as parameters)
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, fn, q, B * H, S, DH) ||
+      !make_map(&mk, fn, k, B * K, S, DH) ||
+      !make_map(&mv, fn, v, B * K, S, DH))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = Smem<DH>::kBytes;
+  static bool opted_in = false;      // once, before any graph capture
+  if (!opted_in) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted_in = true;
+  }
+  dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  flash_wgmma_kernel<DH><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), H, K, S, causal, window,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
+
+// ---------------------------------------------------------------------------
+// bf16, other head dims: mma.sync
 // ---------------------------------------------------------------------------
 constexpr int kBQ = 64;            // query rows per block (16 per warp)
 constexpr int kBK = 64;            // keys per tile
 constexpr int kWarps = 4;
 constexpr int kPad = 8;            // bf16 elements of padding per smem row
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // d = a (16x16 bf16, row) * b (16x8 bf16, col) + d, fp32 accumulate
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
@@ -402,9 +945,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DH>
-int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int B, int H, int K, int S, int causal, int window,
-                float scale, cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* out,
+               int B, int H, int K, int S, int causal, int window,
+               float scale, cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) * (size_t)(kBQ + 4 * kBK) *
                       (DH + kPad);
   static bool opted_in = false;      // once, before any graph capture
@@ -441,29 +984,39 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // q [B, H, S, dh], k/v [B, K, S, dh], out [B, H, S, dh], all contiguous.
-// dtype: 0 = float32, 1 = bfloat16.  dh a multiple of 16, at most 128
-// (the wrapper checks too); H % K == 0; 16-byte aligned pointers for bf16.
+// variant (the wrapper's choice, `flash_variant`): 0 = float32 FMA (dh a
+// multiple of 16 up to 128), 1 = bfloat16 mma.sync (dh a multiple of 16 up
+// to 112, not 64), 2 = bfloat16 wgmma + TMA (dh 64 or 128).  H % K == 0;
+// 16-byte aligned pointers for bf16.  A variant that does not take dh is
+// refused, never replaced.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int H,
                                       int K, int S, int dh, int causal,
-                                      int window, float scale, int dtype,
+                                      int window, float scale, int variant,
                                       void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (K <= 0 || H % K != 0 || dh % 16 != 0 || dh > 128 || dh <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
+  if (variant == 0)
     return launch_f32(q, k, v, out, B, H, K, S, dh, causal, window, scale, s);
-  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == 2) {
+    if (dh == 64)
+      return wg::launch<64>(q, k, v, out, B, H, K, S, causal, window, scale,
+                            s);
+    if (dh == 128)
+      return wg::launch<128>(q, k, v, out, B, H, K, S, causal, window, scale,
+                             s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (variant != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (dh) {
-    case 16: return launch_bf16<16>(q, k, v, out, B, H, K, S, causal, window, scale, s);
-    case 32: return launch_bf16<32>(q, k, v, out, B, H, K, S, causal, window, scale, s);
-    case 48: return launch_bf16<48>(q, k, v, out, B, H, K, S, causal, window, scale, s);
-    case 64: return launch_bf16<64>(q, k, v, out, B, H, K, S, causal, window, scale, s);
-    case 80: return launch_bf16<80>(q, k, v, out, B, H, K, S, causal, window, scale, s);
-    case 96: return launch_bf16<96>(q, k, v, out, B, H, K, S, causal, window, scale, s);
-    case 112: return launch_bf16<112>(q, k, v, out, B, H, K, S, causal, window, scale, s);
-    case 128: return launch_bf16<128>(q, k, v, out, B, H, K, S, causal, window, scale, s);
+    case 16: return launch_mma<16>(q, k, v, out, B, H, K, S, causal, window, scale, s);
+    case 32: return launch_mma<32>(q, k, v, out, B, H, K, S, causal, window, scale, s);
+    case 48: return launch_mma<48>(q, k, v, out, B, H, K, S, causal, window, scale, s);
+    case 80: return launch_mma<80>(q, k, v, out, B, H, K, S, causal, window, scale, s);
+    case 96: return launch_mma<96>(q, k, v, out, B, H, K, S, causal, window, scale, s);
+    case 112: return launch_mma<112>(q, k, v, out, B, H, K, S, causal, window, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -102,7 +102,8 @@ def library() -> ctypes.CDLL:
         lib.flash_attention_launch.argtypes = [
             p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]
         lib.flash_attention_launch.restype = i
-        lib.ssd_scan_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.ssd_scan_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                        i, p]
         lib.ssd_scan_launch.restype = i
         _lib = lib
     return _lib

@@ -9,9 +9,11 @@ q: [B, H, S, dh]; k/v: [B, K, S, dh] with H % K == 0 (query head h reads
 KV head h // (H // K)).  Scores and softmax in fp32 with q scaled in fp32;
 key t is visible to query s iff t <= s (causal) and t > s - window (with
 a window); the output is acc / max(l, 1e-20) in q's dtype.  Any S is
-taken: the kernel masks a partial last tile.  The kernel takes head_dim a
-multiple of 16 up to 128 (64, 80 and 128 in the reference's sweeps) and
-raises for others.
+taken: the kernel masks a partial last tile.  Three kernel variants, chosen
+by dtype and head_dim only (``flash_variant``): bf16 at head_dim 64 or 128
+runs the Hopper kernel (``wgmma`` + TMA, warp-specialised), bf16 at other
+head dims (a multiple of 16 up to 112) the ``mma.sync`` kernel, fp32 an
+FMA kernel; other head dims raise.
 """
 
 from __future__ import annotations
@@ -24,8 +26,26 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 
 launches = 0          # kernel launches since the caller last zeroed this
+last_variant = None   # the variant the last launch ran
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the C entry point's ``variant`` codes
+VARIANTS = {"fma": 0, "mma_sync": 1, "wgmma": 2}
+WGMMA_HEAD_DIMS = (64, 128)
+
+
+def flash_variant(dtype, head_dim: int) -> str:
+    """The kernel variant for a dtype and head_dim: ``"wgmma"`` (bf16,
+    head_dim 64 or 128), ``"mma_sync"`` (bf16, another multiple of 16 up
+    to 112) or ``"fma"`` (fp32).  Raises for what no variant takes."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got "
+                        f"{dtype}")
+    if head_dim % 16 or not 0 < head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"the kernel takes a head_dim that is a multiple "
+                         f"of 16 up to {MAX_HEAD_DIM}, not {head_dim}")
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -95,20 +115,15 @@ def _check(q, k, v):
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: [B, H, S, dh]; k/v: [B, K, S, dh].  Returns [B, H, S, dh] in
     q's dtype."""
-    global launches
+    global launches, last_variant
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"flash_attention takes float32 or bfloat16, got "
-                        f"{q.dtype}")
     B, H, S, dh = q.shape
-    if dh % 16 or dh > MAX_HEAD_DIM:
-        raise ValueError(f"the kernel takes a head_dim that is a multiple "
-                         f"of 16 up to {MAX_HEAD_DIM}, not {dh}")
+    variant = flash_variant(q.dtype, dh)
     for t in (q, k, v):
         if not t.is_contiguous():
             raise ValueError("flash_attention needs contiguous tensors")
@@ -119,7 +134,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     err = build.library().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
         k.shape[1], S, dh, int(causal), int(window), float(dh ** -0.5),
-        _DTYPE_CODE[q.dtype], build.stream_ptr(q.device))
-    build.check(err, "flash_attention")
+        VARIANTS[variant], build.stream_ptr(q.device))
+    build.check(err, f"flash_attention ({variant})")
     launches += 1
+    last_variant = variant
     return out

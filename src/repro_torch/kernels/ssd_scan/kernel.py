@@ -11,11 +11,14 @@ fp32 whatever the input dtype:
     h_t = exp(loga_t) h_{t-1} + xdt_t^T B_t      ([P, N] state per head)
     y_t = h_t C_t
 
-computed chunk by chunk in the dual (quadratic) form.  The plain version
-uses the reference kernel's chunk, ``min(128, S)``; the CUDA kernel's is
-64 -- the same function up to rounding.  Any S is taken: a partial last
-chunk is zero-padded.  The kernel takes P <= 64 and N <= 128, each a
-multiple of 4.
+computed chunk by chunk in the dual (quadratic) form, split the way the
+CUDA kernel splits it (``ssd_phases``): chunk-local quantities for every
+chunk at once (C B^T once per batch and chunk, the intra-chunk outputs,
+each chunk's own state dH), then the state pass over the chunks in order,
+then the outputs from the incoming states.  The chunk is 64, the layer's
+``ssm_chunk`` and the kernel's (the Pallas kernel's is 128 -- the same
+function up to rounding).  Any S is taken: a partial last chunk is
+zero-padded.  The kernel takes P <= 64 and N <= 128, each a multiple of 8.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch.nn.functional as F
 
 from .. import build
 
-CHUNK = 128           # the plain version's chunk (the Pallas kernel's)
+CHUNK = 64            # the kernel's chunk (kQ in csrc/ssd_scan.cu)
 MAX_P, MAX_N = 64, 128
 
 launches = 0          # kernel launches since the caller last zeroed this
@@ -33,40 +36,54 @@ launches = 0          # kernel launches since the caller last zeroed this
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def ssd_scan_plain(xdt, loga, B, C, *, chunk: int = CHUNK):
-    """Plain PyTorch version of the kernel: the Pallas kernel's per-chunk
-    body in a loop over chunks, fp32 throughout."""
+def ssd_phases(xdt, loga, B, C, *, chunk: int = CHUNK, h0=None):
+    """The scan in the kernel's three phases, plain PyTorch, fp32.
+
+    xdt [Bz, H, S, P], loga [Bz, H, S], B/C [Bz, S, N]; ``h0`` [Bz, H, P,
+    N] or None for zeros.  Returns (y [Bz, H, S, P], h_final [Bz, H, P,
+    N]), both fp32.
+    """
     Bz, H, S, P = xdt.shape
     N = B.shape[-1]
-    Q = min(chunk, S)
-    pad = -S % Q
-    xdt, loga = xdt.float(), loga.float()
-    Bf, Cf = B.float()[:, None], C.float()[:, None]          # [Bz, 1, S, N]
-    if pad:              # zero steps: no decay, no input, no readout
-        xdt = F.pad(xdt, (0, 0, 0, pad))
-        loga = F.pad(loga, (0, pad))
-        Bf = F.pad(Bf, (0, 0, 0, pad))
-        Cf = F.pad(Cf, (0, 0, 0, pad))
-    ii = torch.arange(Q, device=xdt.device)
+    Q = chunk
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    # zero steps past S: no decay, no input, no readout
+    x = F.pad(xdt.float(), (0, 0, 0, pad)).reshape(Bz, H, nc, Q, P)
+    la = F.pad(loga.float(), (0, pad)).reshape(Bz, H, nc, Q)
+    Bf = F.pad(B.float(), (0, 0, 0, pad)).reshape(Bz, 1, nc, Q, N)
+    Cf = F.pad(C.float(), (0, 0, 0, pad)).reshape(Bz, 1, nc, Q, N)
+
+    # 1. chunk-local, every chunk at once (the kernel's chunk-parallel part)
+    cums = torch.cumsum(la, dim=-1)                          # [Bz,H,nc,Q]
+    G = torch.matmul(Cf, Bf.transpose(-1, -2))               # [Bz,1,nc,Q,Q]
+    ii = torch.arange(Q, device=x.device)
     causal = ii[:, None] >= ii[None, :]
-    h = torch.zeros((Bz, H, P, N), dtype=torch.float32, device=xdt.device)
-    ys = []
-    for c0 in range(0, S + pad, Q):
-        x = xdt[:, :, c0:c0 + Q]                              # [Bz, H, Q, P]
-        cums = torch.cumsum(loga[:, :, c0:c0 + Q], dim=-1)    # [Bz, H, Q]
-        b, c = Bf[:, :, c0:c0 + Q], Cf[:, :, c0:c0 + Q]       # [Bz, 1, Q, N]
-        G = torch.matmul(c, b.transpose(-1, -2))              # [Bz, 1, Q, Q]
-        rel = cums[..., :, None] - cums[..., None, :]
-        # exp only below the diagonal: above it rel >= 0 may overflow
-        L = torch.exp(torch.where(causal, rel, 0.0)) * causal
-        y = torch.matmul(G * L, x)
-        y = y + torch.matmul(c, h.transpose(-1, -2)) * \
-            torch.exp(cums)[..., None]
-        ys.append(y)
-        decay_out = torch.exp(cums[..., -1:] - cums)          # [Bz, H, Q]
-        h = h * torch.exp(cums[..., -1])[..., None, None] + \
-            torch.matmul((x * decay_out[..., None]).transpose(-1, -2), b)
-    return torch.cat(ys, dim=2)[:, :, :S]
+    rel = cums[..., :, None] - cums[..., None, :]
+    # exp only below the diagonal: above it rel >= 0 may overflow
+    L = torch.exp(torch.where(causal, rel, 0.0)) * causal
+    y = torch.matmul(G * L, x)                               # y_intra
+    decay_out = torch.exp(cums[..., -1:] - cums)             # [Bz,H,nc,Q]
+    dH = torch.matmul((x * decay_out[..., None]).transpose(-1, -2), Bf)
+    ecum = torch.exp(cums)
+
+    # 2. the state pass, in chunk order (the kernel's sequential part)
+    h = torch.zeros((Bz, H, P, N), dtype=torch.float32, device=x.device) \
+        if h0 is None else h0.float()
+    h_ins = []
+    for c in range(nc):
+        h_ins.append(h)
+        h = h * ecum[:, :, c, -1, None, None] + dH[:, :, c]
+    h_in = torch.stack(h_ins, dim=2)                         # [Bz,H,nc,P,N]
+
+    # 3. the outputs from the incoming states
+    y = y + torch.matmul(Cf, h_in.transpose(-1, -2)) * ecum[..., None]
+    return y.reshape(Bz, H, nc * Q, P)[:, :, :S], h
+
+
+def ssd_scan_plain(xdt, loga, B, C, *, chunk: int = CHUNK):
+    """Plain PyTorch version of the kernel (``ssd_phases``), fp32."""
+    return ssd_phases(xdt, loga, B, C, chunk=chunk)[0]
 
 
 def _check(xdt, loga, B, C):
@@ -101,17 +118,24 @@ def ssd_scan(xdt, loga, B, C):
                         "dtype")
     Bz, H, S, P = xdt.shape
     N = B.shape[-1]
-    if P % 4 or N % 4 or P > MAX_P or N > MAX_N:
+    if P % 8 or N % 8 or P > MAX_P or N > MAX_N:
         raise ValueError(f"the kernel takes P <= {MAX_P} and N <= {MAX_N}, "
-                         f"multiples of 4; got P={P}, N={N}")
+                         f"multiples of 8; got P={P}, N={N}")
     for t in (xdt, loga, B, C):
         if not t.is_contiguous():
             raise ValueError("ssd_scan needs contiguous tensors")
+    nc = -(-S // CHUNK)
     y = torch.empty((Bz, H, S, P), dtype=torch.float32, device=xdt.device)
+    # scratch: each chunk's own state and exp(cums), written by the
+    # chunk-parallel kernel and read once by the state pass
+    dH = torch.empty((Bz, H, nc, P, N), dtype=torch.float32,
+                     device=xdt.device)
+    ecum = torch.empty((Bz, H, nc, CHUNK), dtype=torch.float32,
+                       device=xdt.device)
     err = build.library().ssd_scan_launch(
         xdt.data_ptr(), loga.data_ptr(), B.data_ptr(), C.data_ptr(),
-        y.data_ptr(), Bz, H, S, P, N, _DTYPE_CODE[xdt.dtype],
-        build.stream_ptr(xdt.device))
+        y.data_ptr(), dH.data_ptr(), ecum.data_ptr(), Bz, H, S, P, N,
+        _DTYPE_CODE[xdt.dtype], build.stream_ptr(xdt.device))
     build.check(err, "ssd_scan")
     launches += 1
     return y

@@ -1,0 +1,106 @@
+"""Time two trees of this repository on one card, in turns.
+
+    PYTHONPATH=src python -m repro_torch.launch.compare_trees \
+        --parent PARENT_DIR [--out compare_out]
+
+``PARENT_DIR`` is an unpacked tree to compare with this one, for example
+``git archive HEAD | tar -x -C _chipcheck/parent`` made before the change
+is committed.  Runs ``chip_smoke.py`` of each tree from its own root, in
+the order parent, change, change, parent, so drift of the card or the host
+falls on both sides.  From each run it reads the card line, the
+``kernels`` line and the serve, prefill and score detail lines; prints the
+kernels' device ms and the runs' end-to-end numbers side by side; and
+writes the numbers to ``--out/compare_trees.json`` and each run's output
+beside it.  Fails if any run fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[3]
+
+RUN_TIMEOUT_S = 600      # a chip_smoke.py run takes about a minute
+
+DETAILS = {"serve": "ms_per_step_median", "prefill": "ms_per_forward",
+           "score": "ms_per_forward"}
+
+
+def parse(stdout: str) -> dict:
+    """The numbers a ``chip_smoke.py`` run prints."""
+    out: dict = {"kernels": {}}
+    for line in stdout.splitlines():
+        if line.startswith("card: "):
+            out["card"] = line[len("card: "):]
+        elif line.startswith('{"kernels"'):
+            for row in json.loads(line)["kernels"]:
+                out["kernels"][row["name"]] = {
+                    k: row.get(k) for k in ("ms", "eager_ms", "bound_ms",
+                                            "plain_ms", "library_ms",
+                                            "launches", "variant")}
+        else:
+            for name in DETAILS:
+                tag = f"{name} detail: "
+                if line.startswith(tag):
+                    out[name] = json.loads(line[len(tag):])
+    return out
+
+
+def run_tree(tree: Path) -> dict:
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tree,
+                          capture_output=True, text=True,
+                          timeout=RUN_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise RuntimeError(f"chip_smoke.py in {tree} failed "
+                           f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+    res = parse(proc.stdout)
+    res["tree"] = str(tree)
+    res["seconds"] = time.perf_counter() - t
+    res["stdout"] = proc.stdout
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", required=True, type=Path)
+    ap.add_argument("--out", default="compare_out", type=Path)
+    args = ap.parse_args(argv)
+    parent = args.parent.resolve()
+    if not (parent / "chip_smoke.py").exists():
+        raise SystemExit(f"{parent} holds no chip_smoke.py")
+    order = [("parent", parent), ("change", ROOT), ("change", ROOT),
+             ("parent", parent)]
+    runs = []
+    for label, tree in order:
+        res = run_tree(tree)
+        res["label"] = label
+        runs.append(res)
+        print(f"[{label}] {tree}: {res['seconds']:.1f} s on "
+              f"{res.get('card')}", flush=True)
+    names = sorted({k for r in runs for k in r["kernels"]})
+    print("kernel ms (device, CUDA-graph replay), in run order "
+          "parent, change, change, parent:")
+    for name in names:
+        cells = [r["kernels"].get(name, {}).get("ms") for r in runs]
+        print(f"  {name}: " + ", ".join("-" if c is None else f"{c:.5f}"
+                                        for c in cells))
+    for name, key in DETAILS.items():
+        cells = [r.get(name, {}).get(key) for r in runs]
+        print(f"  {name} {key}: " + ", ".join(
+            "-" if c is None else f"{c:.3f}" for c in cells))
+    args.out.mkdir(parents=True, exist_ok=True)
+    for i, r in enumerate(runs):
+        (args.out / f"compare_trees_{i}_{r['label']}.txt").write_text(
+            r.pop("stdout"))
+    (args.out / "compare_trees.json").write_text(json.dumps(runs, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

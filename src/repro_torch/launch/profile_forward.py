@@ -43,7 +43,7 @@ class ForwardRun:
 
 
 RUNS = {"qwen2.5-32b": ForwardRun(8, 1, 8192, "flash"),       # depth cut
-        "mamba2-370m": ForwardRun(48, 8, 4096, "ssd_scan")}   # whole model
+        "mamba2-370m": ForwardRun(48, 8, 4096, "ssd")}        # whole model
 
 
 def run_config(arch: str):

@@ -4,8 +4,8 @@ Port of the reference's ``layers/ssd.py`` forward half: split input
 projections (z | x | BC | dt), depthwise causal convolutions, the chunked
 SSD scan, the D skip and the gated RMS norm.  On a CUDA tensor the scan
 is the ``ssd_scan`` kernel; on a CPU tensor it is ``ssd_chunked``, the
-reference's own chunked form (also the tests' oracle).  The one-token
-decode half is not ported yet.
+reference's chunked form computed in the kernel's phases
+(``ssd_phases``).  The one-token decode half is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.ssd_scan.kernel import ssd_scan
+from ..kernels.ssd_scan.kernel import ssd_phases, ssd_scan
 
 
 def d_inner(cfg):
@@ -41,7 +41,8 @@ def _gated_norm(y, z, w, eps=1e-6):
 
 
 def ssd_chunked(cfg, xdt, loga, Bc, Cc, h0=None):
-    """Chunked SSD over pre-discretized inputs.
+    """Chunked SSD over pre-discretized inputs, in the reference layer's
+    layout: a reshape around ``ssd_phases``, the phases the kernel runs.
 
     xdt:  [B, nc, Q, H, P] (x * dt, fp32)
     loga: [B, nc, Q, H]    (dt * A, fp32 log-decay)
@@ -50,29 +51,12 @@ def ssd_chunked(cfg, xdt, loga, Bc, Cc, h0=None):
     """
     Bsz, nc, Q, H, P = xdt.shape
     N = Bc.shape[-1]
-    cums = torch.cumsum(loga, dim=2)
-    G = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
-    rel = cums[:, :, :, None, :] - cums[:, :, None, :, :]
-    ii = torch.arange(Q, device=xdt.device)
-    causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
-    # exp only below the diagonal: above it rel >= 0 may overflow
-    L = torch.exp(torch.where(causal, rel, 0.0)) * causal
-    y_intra = torch.einsum("bcijh,bcjhp->bcihp", G[..., None] * L, xdt)
-
-    decay_out = torch.exp(cums[:, :, -1:, :] - cums)
-    chunk_state = torch.einsum("bcjn,bcjh,bcjhp->bchpn", Bc, decay_out, xdt)
-    chunk_decay = torch.exp(cums[:, :, -1, :])
-
-    h = torch.zeros((Bsz, H, P, N), dtype=torch.float32,
-                    device=xdt.device) if h0 is None else h0
-    h_ins = []
-    for c in range(nc):
-        h_ins.append(h)
-        h = h * chunk_decay[:, c, :, None, None] + chunk_state[:, c]
-    h_ins = torch.stack(h_ins, dim=1)
-    y_inter = torch.einsum("bcin,bchpn,bcih->bcihp", Cc, h_ins,
-                           torch.exp(cums))
-    return y_intra + y_inter, h
+    S = nc * Q
+    y, h = ssd_phases(xdt.permute(0, 3, 1, 2, 4).reshape(Bsz, H, S, P),
+                      loga.permute(0, 3, 1, 2).reshape(Bsz, H, S),
+                      Bc.reshape(Bsz, S, N), Cc.reshape(Bsz, S, N),
+                      chunk=Q, h0=h0)
+    return y.reshape(Bsz, H, nc, Q, P).permute(0, 2, 3, 1, 4), h
 
 
 def mamba2_forward(cfg, p, x):

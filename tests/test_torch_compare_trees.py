@@ -1,0 +1,41 @@
+"""``repro_torch.launch.compare_trees`` reads what ``chip_smoke.py``
+prints; checked here on a made-up run (the tool itself runs on the
+card)."""
+
+import json
+
+import pytest
+
+pytest.importorskip("torch")
+
+from repro_torch.launch import compare_trees as ct  # noqa: E402
+
+
+def test_parse_reads_the_smoke_lines():
+    kernels = {"kernels": [
+        {"name": "flash_attention", "ms": 1.25, "eager_ms": 1.3,
+         "bound_ms": 0.695, "plain_ms": 78.0, "library_ms": 1.07,
+         "launches": 16, "variant": "wgmma", "sweep": []},
+        {"name": "ssd_scan", "ms": 1.8, "bound_ms": 0.58, "launches": 96}]}
+    out = "\n".join([
+        "card: NVIDIA H100 80GB HBM3, 700.00 W",
+        "serve detail: " + json.dumps({"ms_per_step_median": 8.7}),
+        "prefill detail: " + json.dumps({"ms_per_forward": 160.0}),
+        "score detail: " + json.dumps({"ms_per_forward": 420.0}),
+        "NVIDIA H100 80GB HBM3, 700.00 W",
+        json.dumps(kernels),
+        json.dumps({"ok": True}),
+    ])
+    res = ct.parse(out)
+    assert res["card"] == "NVIDIA H100 80GB HBM3, 700.00 W"
+    assert res["kernels"]["flash_attention"]["variant"] == "wgmma"
+    assert res["kernels"]["ssd_scan"]["eager_ms"] is None
+    assert res["kernels"]["ssd_scan"]["launches"] == 96
+    assert res["prefill"]["ms_per_forward"] == 160.0
+    assert res["score"]["ms_per_forward"] == 420.0
+    assert res["serve"]["ms_per_step_median"] == 8.7
+
+
+def test_refuses_a_parent_without_chip_smoke(tmp_path):
+    with pytest.raises(SystemExit):
+        ct.main(["--parent", str(tmp_path), "--out", str(tmp_path / "o")])

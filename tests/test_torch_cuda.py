@@ -117,6 +117,12 @@ def test_decode_tokens_match_cpu(dev):
     (2, 4, 2, 200, 80, True, 48, torch.bfloat16),
     (1, 4, 2, 200, 80, True, 48, torch.float32),
     (1, 40, 8, 1024, 128, True, 0, torch.bfloat16),   # qwen2.5-32b heads
+    # the edges of the wgmma kernel's 128-row query and key tiles
+    (1, 4, 2, 1000, 64, True, 0, torch.bfloat16),
+    (1, 4, 2, 200, 128, True, 0, torch.bfloat16),
+    (1, 4, 2, 1000, 128, False, 0, torch.bfloat16),
+    (1, 4, 2, 512, 128, True, 48, torch.bfloat16),    # window edge tiles
+    (2, 40, 8, 1000, 128, True, 0, torch.bfloat16),   # a tile at a head's end
 ])
 def test_flash_attention_kernel_vs_plain(dev, B, H, K, S, dh, causal, win,
                                          dt):
@@ -129,6 +135,7 @@ def test_flash_attention_kernel_vs_plain(dev, B, H, K, S, dh, causal, win,
     got = fak.flash_attention(q, k, v, causal=causal, window=win)
     torch.cuda.synchronize()
     assert fak.launches == n + 1
+    assert fak.last_variant == fak.flash_variant(dt, dh)
     assert got.dtype == dt
     tol = 3e-2 if dt == torch.bfloat16 else 2e-5
     assert float((got.float() - want.float()).abs().max()) < tol
@@ -156,6 +163,33 @@ def test_ssd_scan_kernel_vs_plain(dev, Bz, H, S, P, N, dt):
     torch.cuda.synchronize()
     assert ssk.launches == n + 1
     assert got.dtype == torch.float32
+    rel = float((got - want).abs().max()) / (float(want.abs().max()) + 1e-9)
+    assert rel < 1e-4
+
+
+@pytest.mark.parametrize("Bz,H,S,P,N,dt,decay", [
+    (2, 4, 64, 64, 128, torch.float32, None),     # one chunk
+    (2, 3, 200, 64, 128, torch.float32, None),    # partial chunk; H 3
+    (1, 8, 200, 64, 128, torch.bfloat16, None),   # bf16 inputs
+    (1, 3, 1024, 64, 128, torch.float32, -5.0),   # strong decay
+    (8, 32, 1024, 64, 128, torch.float32, None),  # mamba2-370m heads
+])
+def test_ssd_scan_kernel_edges(dev, Bz, H, S, P, N, dt, decay):
+    """The edges of the chunk-parallel split: its head groups of 8, its
+    chunk of 64, bf16 inputs and a decay that underflows exp(cums)."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    xdt = (torch.randn((Bz, H, S, P), generator=g) * 0.1).to(dt).to(dev)
+    loga = -torch.randn((Bz, H, S), generator=g).abs() * 0.1 \
+        if decay is None else torch.full((Bz, H, S), decay)
+    loga = loga.to(dt).to(dev)
+    B = (torch.randn((Bz, S, N), generator=g) * 0.3).to(dt).to(dev)
+    C = (torch.randn((Bz, S, N), generator=g) * 0.3).to(dt).to(dev)
+    want = ssk.ssd_scan_plain(xdt, loga, B, C)
+    n = ssk.launches
+    got = ssk.ssd_scan(xdt, loga, B, C)
+    torch.cuda.synchronize()
+    assert ssk.launches == n + 1
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
     rel = float((got - want).abs().max()) / (float(want.abs().max()) + 1e-9)
     assert rel < 1e-4
 

@@ -102,3 +102,27 @@ def test_flash_wrapper_checks():
         fak.flash_attention(q, q.double(), q.double())
     with pytest.raises(RuntimeError, match="forward-only"):
         fak.flash_attention(q.requires_grad_(), q.detach(), q.detach())
+
+
+@pytest.mark.parametrize("dt,dh,variant", [
+    (torch.bfloat16, 128, "wgmma"),     # qwen2.5-32b: the main path
+    (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 80, "mma_sync"),   # the hubert sweep
+    (torch.bfloat16, 16, "mma_sync"),
+    (torch.bfloat16, 112, "mma_sync"),
+    (torch.float32, 128, "fma"),
+    (torch.float32, 64, "fma"),
+])
+def test_flash_variant_by_dtype_and_head_dim(dt, dh, variant):
+    """The wrapper picks the kernel by dtype and head_dim alone."""
+    assert fak.flash_variant(dt, dh) == variant
+
+
+@pytest.mark.parametrize("dt,dh,err", [
+    (torch.bfloat16, 72, ValueError),
+    (torch.bfloat16, 144, ValueError),
+    (torch.float16, 64, TypeError),
+])
+def test_flash_variant_refuses(dt, dh, err):
+    with pytest.raises(err):
+        fak.flash_variant(dt, dh)

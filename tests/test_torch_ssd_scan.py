@@ -103,3 +103,55 @@ def test_ssd_wrapper_checks():
     with pytest.raises(RuntimeError, match="forward-only"):
         ssk.ssd_scan(x.requires_grad_(), torch.zeros((1, 2, 8)),
                      torch.zeros((1, 8, 4)), torch.zeros((1, 8, 4)))
+
+
+def _pallas_padded(arrs, S):
+    """The Pallas kernel (chunk 128, S a multiple of it) on the inputs
+    zero-padded to the next multiple of 128, cut back to S: zero steps
+    after S cannot change the causal outputs before it."""
+    pad = -S % 128
+    xdt, loga, B, C = arrs
+    xdt = np.pad(xdt, ((0, 0), (0, 0), (0, pad), (0, 0)))
+    loga = np.pad(loga, ((0, 0), (0, 0), (0, pad)))
+    B = np.pad(B, ((0, 0), (0, pad), (0, 0)))
+    C = np.pad(C, ((0, 0), (0, pad), (0, 0)))
+    out = j_ssd(*map(jnp.asarray, (xdt, loga, B, C)), interpret=True)
+    return np.asarray(out)[:, :, :S]
+
+
+@pytest.mark.parametrize("Bz,H,S,P,N,decay", [
+    (1, 2, 1024, 64, 128, None),     # 16 chunks of the kernel's 64
+    (2, 3, 200, 64, 128, None),      # a partial last chunk; H not 8k
+    (1, 2, 64, 32, 64, None),        # one chunk
+    (1, 2, 512, 64, 128, -5.0),      # strong decay: exp(cums) underflows
+])
+def test_ssd_phases_vs_pallas(Bz, H, S, P, N, decay):
+    """The plain version, which runs the kernel's phases (chunk-local
+    states, the state pass, the outputs) at its chunk of 64, against the
+    Pallas kernel in interpret mode at 1e-4 relative."""
+    arrs = list(_inputs(7, Bz, H, S, P, N))
+    if decay is not None:
+        arrs[1] = np.full_like(arrs[1], decay)
+    got = ssk.ssd_scan_plain(*map(torch.as_tensor, arrs))
+    assert got.shape == (Bz, H, S, P) and bool(torch.isfinite(got).all())
+    assert _rel(got, _pallas_padded(arrs, S)) < 1e-4
+
+
+def test_ssd_phases_state_matches_sequential_recurrence():
+    """``ssd_phases``' final state equals the step-by-step recurrence
+    h_t = exp(loga_t) h_{t-1} + xdt_t^T B_t, from a nonzero h0, over a
+    partial last chunk."""
+    Bz, H, S, P, N = 1, 2, 150, 8, 16
+    xdt, loga, B, C = map(torch.as_tensor, _inputs(8, Bz, H, S, P, N))
+    h0 = torch.as_tensor(np.random.default_rng(9).standard_normal(
+        (Bz, H, P, N)).astype(np.float32) * 0.1)
+    y, h = ssk.ssd_phases(xdt, loga, B, C, h0=h0)
+    ref = h0.double()
+    ys = []
+    for t in range(S):
+        ref = ref * torch.exp(loga[:, :, t].double())[..., None, None] + \
+            xdt[:, :, t, :, None].double() * B[:, None, t, None, :].double()
+        ys.append(torch.einsum("bhpn,bn->bhp", ref, C[:, t].double()))
+    want_y = torch.stack(ys, dim=2)
+    assert float((h.double() - ref).abs().max()) < 1e-5
+    assert float((y.double() - want_y).abs().max()) < 1e-5
