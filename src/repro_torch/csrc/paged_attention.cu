@@ -5,21 +5,49 @@
 // paged_attention/kernel.py, body `_paged_kernel`).  On the TPU the page
 // axis is a sequential grid dimension carrying the online-softmax state
 // in VMEM scratch.  On Hopper blocks run in parallel and in no order, so
-// one block owns one (sequence, KV head) pair and a loop over the block
-// table's pages takes the place of that grid axis; the running max, sum
-// and the g x dh accumulator stay on chip (shared memory and registers)
-// for the whole loop.
+// the work is split over the block table (flash-decoding) and merged in
+// the same launch.
 //
 // Bound: bytes.  Each valid K and V row is read once (2 * tokens * K * dh
 // elements per sequence) against ~4 * g flops per element, far below the
-// card's compute/byte ridge.  Design for that: in the Q.K pass a thread
-// per token reads its K row once in 16-byte loads and dots it with all g
-// query heads of the KV head (held in shared memory), so no K element is
-// read twice and no cross-lane reduction is needed; in the P.V pass a
-// thread per head-dim column reads V rows (neighbouring threads on
-// neighbouring addresses), unrolled so several rows' loads are in flight,
-// accumulating the g heads in registers.  Pages with no valid position
-// are skipped without touching memory.
+// card's compute/byte ridge.  What the design does about it:
+// - Split.  The grid is (B, K, splits); a block owns one (lane, KV head)
+//   and a contiguous range of tiles_per_split tiles of kTile positions.
+//   The host picks the split from (B, K, P, page) alone, never from
+//   lengths or the table, so there is no device-to-host sync and the call
+//   can be captured in a CUDA graph.  Every block of a lane derives from
+//   lengths[b] which splits hold a valid position; the others exit at once,
+//   reading no K or V and taking no part in the merge.
+// - Gather.  A tile's K and V rows (dh elements of one KV head each, at
+//   block_table[b, pos / page] and pos % page) are copied into shared
+//   memory 16 bytes at a time with cp.async, after a thread per row has
+//   read the row's page id (for the split's first two tiles, in flight
+//   with lengths[b]); two tiles are in flight while one is computed
+//   (double-buffered).  Rows that are not valid are zero-filled without a
+//   read.  K and V rows are swizzled in shared memory, not padded, so
+//   three blocks fit an SM at head_dim 128.
+// - Tensor cores (bf16).  The g query heads of the KV head are the M rows
+//   of mma.sync.m16n8k16 (padded to 16, up to four m-tiles: g <= 64); Q
+//   stays in registers as A fragments when it fits (else ldmatrix from
+//   shared memory each tile).  Four warps split a tile's 64 keys for
+//   Q.K^T and the head dim for P.V; the online softmax runs on the score
+//   fragments with the scale folded into one FMA and ex2.approx, and P is
+//   rounded to bf16 for P.V.  fp32 keeps FMA on the CUDA cores with the
+//   same split and merge.
+// - Merge.  A lane with one non-empty split writes its output directly.
+//   Otherwise each of its non-empty splits writes (m, l, acc) in fp32 to
+//   scratch and takes a ticket on a per-(b, kh) counter (a barrier, then
+//   one thread's release fence and atomic); the last block merges the
+//   partials in split order (so the result does not depend on arrival
+//   order), writes the output and resets the counter to 0.  A split whose
+//   pages are all unused (id < 0) has (m = -1e30, l = 0) and weight 0.
+//
+// Where the time goes (NVIDIA H100 80GB HBM3, 700 W; launch/bench_paged.py
+// and chip_smoke.py): at the serve shape (8 lanes, <= 363 positions) a
+// chain of dependent round trips, not bytes: lengths, the tile, the
+// ticket and the merge's reads (~10 us against a 2.5 us bound, the same
+// with the L2 cache warm); at 32768 positions the gather (~1.2x the bytes
+// bound at 8 lanes).
 //
 // Semantics (as the Pallas kernel): position p*page + t of table column p
 // is valid iff it is < lengths[b], its page id is >= 0 and, with a
@@ -28,17 +56,120 @@
 // valid position).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kMaxG = 8;           // query heads per KV head held in registers
-constexpr int kThreads = 128;
-constexpr float kNegInf = -1e30f;
+constexpr int kThreads = 128;      // four warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 64;          // positions per tile (bf16)
+constexpr int kTile32 = 16;        // positions per sub-tile (fp32)
+static_assert(kThreads == 2 * kTile, "a thread per row of two tiles");
+constexpr int kMaxG = 64;          // query heads per KV head
+constexpr int kMaxSplits = 64;
+constexpr int kChunk = 8;          // partials one block merges at most
+constexpr int kMaxChunks = kMaxSplits / kChunk;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kEmptyM = -1e30f;
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
-    __nv_bfloat16 x) { return __bfloat162float(x); }
+// ---------------------------------------------------------------------------
+// shared pieces
+// ---------------------------------------------------------------------------
+// 16-byte global -> shared copy that bypasses registers; src_bytes 0
+// fills the 16 bytes with zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// release / acquire at gpu scope: the barrier before it orders the block's
+// writes, this orders them before the ticket (or the ticket before reads)
+__device__ __forceinline__ void fence_acq_rel_gpu() {
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// What split s of a lane does.  The lane's valid positions lie in
+// [lo_v, hi_v) (before the page ids are read); the splits that meet that
+// range, s_lo .. s_lo + n - 1, are the lane's non-empty splits, which
+// every block of the lane computes alike from lengths[b].  Split s reads
+// [first, last), inside its range that starts at lo.  The other splits
+// read nothing and take no part in the merge.
+struct Work {
+  int lo, first, last, s_lo, n;
+};
+__device__ __forceinline__ Work split_work(int s, int tiles_per_split,
+                                           int P, int page, int length,
+                                           int window) {
+  const int span = tiles_per_split * kTile;
+  const int lo_v = window ? max(0, length - window) : 0;
+  const int hi_v = min(length, P * page);
+  Work w;
+  w.s_lo = hi_v > lo_v ? lo_v / span : 0;
+  w.n = hi_v > lo_v ? (hi_v - 1) / span - w.s_lo + 1 : 0;
+  w.lo = s * span;
+  w.first = max(w.lo, lo_v);
+  w.last = min(w.lo + span, hi_v);
+  return w;
+}
+
+// The arena row of position pos of the lane (pid * page + pos % page),
+// or -1 where the position is not valid: outside [first, last) or on a
+// page id < 0.  pid is block_table[b, pos / page], read by the caller.
+__device__ __forceinline__ int arena_row(int pid, int pos, int first,
+                                         int last, int page) {
+  return pos >= first && pos < last && pid >= 0 ? pid * page + pos % page
+                                                : -1;
+}
+
+// Rows [t0, t0 + ROWS) of the lane's K and V (one KV head) into shared
+// memory (row stride ld elements), asynchronously, from the arena rows
+// row[r] (-1: zero-filled, nothing read); chunks past dh are zero-filled.
+// With SWZ, chunk c of row r lands at chunk c ^ (r % 8): the eight rows
+// an ldmatrix reads then fall on distinct banks without padding.
+template <typename T, int ROWS, bool SWZ = false>
+__device__ __forceinline__ void copy_tile(
+    T* ks, T* vs, const int* row, const T* __restrict__ ak,
+    const T* __restrict__ av, size_t row_stride, int dh_chunks,
+    int ld_chunks, int ld) {
+  constexpr int E = 16 / sizeof(T);               // elements per chunk
+  for (int i = threadIdx.x; i < ROWS * ld_chunks; i += blockDim.x) {
+    const int r = i / ld_chunks, c = i % ld_chunks;
+    const int idx = row[r];
+    const bool copy = idx >= 0 && c < dh_chunks;
+    const size_t off = copy ? (size_t)idx * row_stride + c * E : 0;
+    const int at = r * ld + (SWZ ? c ^ (r & 7) : c) * E;
+    cp_async16(ks + at, ak + off, copy ? 16 : 0);
+    cp_async16(vs + at, av + off, copy ? 16 : 0);
+  }
+}
+
+// A tile in full: a thread per row reads its page id (all in flight
+// together) into row[], then, after a barrier, every thread issues its
+// copies.  Every thread of the block calls it.
+template <typename T, int ROWS, bool SWZ = false>
+__device__ __forceinline__ void gather_tile(
+    T* ks, T* vs, int* row, const T* __restrict__ ak,
+    const T* __restrict__ av, const int* __restrict__ bt_row, int t0,
+    int first, int last, int page, size_t row_stride, int dh_chunks,
+    int ld_chunks, int ld) {
+  for (int r = threadIdx.x; r < ROWS; r += blockDim.x) {
+    const int pos = t0 + r;
+    const bool in = pos >= first && pos < last;
+    row[r] = arena_row(in ? __ldg(bt_row + pos / page) : -1, pos, first,
+                       last, page);
+  }
+  __syncthreads();
+  copy_tile<T, ROWS, SWZ>(ks, vs, row, ak, av, row_stride, dh_chunks,
+                          ld_chunks, ld);
+}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
@@ -47,199 +178,770 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float x) { return __float2bfloat16(x); }
 
-// eight consecutive elements as floats; the caller keeps p 16-byte aligned
-__device__ __forceinline__ void load8(const float* p, float* out) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float2 f = __bfloat1622float2(h[k]);
-    out[2 * k] = f.x;
-    out[2 * k + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ ak,
-                       const T* __restrict__ av,
-                       const int* __restrict__ block_table,
-                       const int* __restrict__ lengths, T* __restrict__ out,
-                       int H, int K, int dh, int page, int P, int window,
-                       float scale) {
-  const int b = blockIdx.x;
-  const int kh = blockIdx.y;
-  const int g = H / K;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32, nwarps = blockDim.x / 32;
-
-  extern __shared__ float smem[];
-  float* qs = smem;                  // [g][dh]   scaled query
-  float* s = qs + g * dh;            // [g][page] scores, then weights
-  float* m = s + g * page;           // [g] running max
-  float* l = m + g;                  // [g] running sum
-  float* corr = l + g;               // [g] rescale of this page
-
-  const size_t q_off = ((size_t)b * H + (size_t)kh * g) * dh;
-  for (int i = tid; i < g * dh; i += blockDim.x)
-    qs[i] = to_f(q[q_off + i]) * scale;
-  for (int j = tid; j < g; j += blockDim.x) {
-    m[j] = kNegInf;
-    l[j] = 0.f;
-  }
-  // thread d owns head-dim column d (dh <= kThreads): its g accumulators
-  // live in registers for the whole page loop
-  const int d = tid;
-  float acc[kMaxG];
-#pragma unroll
-  for (int j = 0; j < kMaxG; ++j) acc[j] = 0.f;
+// After a block has written what the others must see: make it visible,
+// take a ticket on `counter`, and return whether this block is the last
+// of `n` (the last one also resets the counter to 0 for the next call).
+// A barrier, then one thread's release fence and atomic.
+__device__ __forceinline__ bool ticket(int* counter, int n) {
+  __shared__ int last_flag;
   __syncthreads();
+  if (threadIdx.x == 0) {
+    fence_acq_rel_gpu();
+    last_flag = atomicAdd(counter, 1) == n - 1;
+    if (last_flag) {
+      fence_acq_rel_gpu();               // the others' writes after it
+      *counter = 0;
+    }
+  }
+  __syncthreads();
+  return last_flag;
+}
 
+// Merge n partials (acc [n][g][dh] and (m, l) [n][g][2], m in log2 units)
+// in their order.  With out_ml null, into out normalised: acc / max(l,
+// 1e-20) in T.  Otherwise into one partial of the same form (out in
+// fp32, (m, l) into out_ml; m = -1e30 where l = 0).  w is shared scratch
+// of 2 * n * g floats; n <= kChunk, so every load is issued in one round,
+// in flight together.
+template <typename T>
+__device__ void merge_rows(const float* part_acc, const float* part_ml,
+                           int n, int g, int dh, float* w, T* out,
+                           float* out_ml) {
+  const int n_el = g * dh / 4;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  // two elements (float4) a thread per pass; the first pass's loads are
+  // in flight with the (m, l) loads
+  float4 a[2][kChunk];
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k)
+      if (k < n && tid + e * nt < n_el)
+        a[e][k] = __ldcg(reinterpret_cast<const float4*>(
+            part_acc + (size_t)k * g * dh) + tid + e * nt);
+  float* wl = w + n * g;
+  for (int i = tid; i < n * g; i += nt) {
+    const float2 ml = __ldcg(reinterpret_cast<const float2*>(part_ml) + i);
+    w[i] = ml.x;
+    wl[i] = ml.y;
+  }
+  __syncthreads();
+  // eight lanes per row: the common max M, the sum L and each partial's
+  // weight (0 where l = 0); every lane takes each round's shuffles
+  for (int j0 = 0; j0 < g; j0 += nt / 8) {
+    const int j = j0 + tid / 8, q = tid % 8;
+    const bool live = j < g;
+    float M = -INFINITY;
+    if (live)
+      for (int k = q; k < n; k += 8)
+        if (wl[k * g + j] > 0.f) M = fmaxf(M, w[k * g + j]);
+    for (int o = 4; o > 0; o >>= 1)
+      M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, o));
+    float L = 0.f;
+    if (live)
+      for (int k = q; k < n; k += 8) {
+        const float l = wl[k * g + j];
+        const float e = l > 0.f ? exp2f(w[k * g + j] - M) : 0.f;
+        w[k * g + j] = e;
+        L += e * l;
+      }
+    for (int o = 4; o > 0; o >>= 1)
+      L += __shfl_xor_sync(0xffffffffu, L, o);
+    if (live && out_ml == nullptr) {
+      const float inv = 1.f / fmaxf(L, 1e-20f);
+      for (int k = q; k < n; k += 8) w[k * g + j] *= inv;
+    }
+    if (live && out_ml != nullptr && q == 0) {
+      out_ml[2 * j] = L > 0.f ? M : kEmptyM;
+      out_ml[2 * j + 1] = L;
+    }
+  }
+  __syncthreads();
+  for (int i0 = tid; i0 < n_el; i0 += 2 * nt) {
+    if (i0 != tid) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int k = 0; k < kChunk; ++k)
+          if (k < n && i0 + e * nt < n_el)
+            a[e][k] = __ldcg(reinterpret_cast<const float4*>(
+                part_acc + (size_t)k * g * dh) + i0 + e * nt);
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = i0 + e * nt;
+      if (i >= n_el) continue;
+      const int j = (i * 4) / dh;
+      float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k)
+        if (k < n) {
+          const float ws = w[k * g + j];
+          o.x += a[e][k].x * ws; o.y += a[e][k].y * ws;
+          o.z += a[e][k].z * ws; o.w += a[e][k].w * ws;
+        }
+      T* dst = out + (size_t)i * 4;
+      dst[0] = from_f<T>(o.x); dst[1] = from_f<T>(o.y);
+      dst[2] = from_f<T>(o.z); dst[3] = from_f<T>(o.w);
+    }
+  }
+}
+
+// After split s of a lane has written its partial at index s of pacc /
+// pml (slots [0, splits) of the (b, kh) pair; slots splits .. splits +
+// kMaxChunks - 1 hold chunk results): merge the lane's n non-empty
+// splits (s_lo ..) into out, in split order, as a fixed tree.  Up to
+// kChunk splits: the last of them merges them all.  More: the last of
+// each chunk of kChunk consecutive splits merges its chunk into a chunk
+// partial, and the last chunk to finish merges the chunk partials.  No
+// block reads more than kChunk partials, and the result does not depend
+// on which block arrives last.  cnt holds 1 + kMaxChunks counters.
+template <typename T>
+__device__ void finish_split(float* pacc, float* pml, int* cnt, T* out,
+                             int g, int dh, int splits, int s, int s_lo,
+                             int n, float* w) {
+  if (n <= kChunk) {
+    if (ticket(cnt, n))
+      merge_rows<T>(pacc + (size_t)s_lo * g * dh, pml + (size_t)s_lo * g * 2,
+                    n, g, dh, w, out, nullptr);
+    return;
+  }
+  const int c = (s - s_lo) / kChunk;
+  const int n_chunks = (n + kChunk - 1) / kChunk;
+  const int first = s_lo + c * kChunk;
+  if (!ticket(cnt + 1 + c, min(kChunk, n - c * kChunk))) return;
+  float* cacc = pacc + (size_t)(splits + c) * g * dh;
+  float* cml = pml + (size_t)(splits + c) * g * 2;
+  merge_rows<float>(pacc + (size_t)first * g * dh,
+                    pml + (size_t)first * g * 2,
+                    min(kChunk, n - c * kChunk), g, dh, w, cacc, cml);
+  if (ticket(cnt, n_chunks))
+    merge_rows<T>(pacc + (size_t)splits * g * dh, pml + (size_t)splits * g * 2,
+                  n_chunks, g, dh, w, out, nullptr);
+}
+
+// ---------------------------------------------------------------------------
+// bf16: mma.sync over the grouped query heads
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d = a (16x16 bf16, row) * b (16x8 bf16, col) + d, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 b16 matrices from shared memory; lane l gives the row address
+// of matrix l / 8, row l % 8
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// Shared memory of the bf16 kernel, in bytes: Q [MT*16][DHP+8], two
+// stages of K and V tiles [kTile][DHP] (swizzled, not padded, so that
+// three blocks fit an SM at DHP 128), P [MT*16][kTile+8] (bf16), the
+// cross-warp row maxima / sums and the tiles' row indices.
+template <int DHP, int MT>
+constexpr size_t bf16_smem() {
+  return sizeof(bf16) * ((size_t)MT * 16 * (DHP + 8) +
+                         4 * (size_t)kTile * DHP +
+                         (size_t)MT * 16 * (kTile + 8)) +
+         sizeof(float) * kWarps * MT * 16 + sizeof(int) * 2 * kTile;
+}
+
+// DHP: the head dim padded to 64, 128, 192 or 256 (columns past dh are
+// zero); MT: m-tiles of 16 query heads (g <= 16 * MT).
+template <int DHP, int MT>
+__global__ void __launch_bounds__(kThreads)
+paged_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ak,
+                  const bf16* __restrict__ av,
+                  const int* __restrict__ block_table,
+                  const int* __restrict__ lengths, bf16* __restrict__ out,
+                  float* __restrict__ part_acc, float* __restrict__ part_ml,
+                  int* __restrict__ counters, int H, int K, int dh, int page,
+                  int P, int window, float sl, int tiles_per_split) {
+  constexpr int LDQ = DHP + 8;       // padded smem rows: no bank conflicts
+  constexpr int LD = DHP;            // K / V rows, 16-byte chunks swizzled
+  constexpr int LDP = kTile + 8;
+  constexpr int KS = DHP / 16;       // k-steps of Q.K
+  constexpr int NW = DHP / 32;       // P.V n-tiles of 8 columns per warp
+  constexpr bool kQReg = MT * DHP <= 384;   // Q fragments in registers
+  constexpr int TILE = kTile * LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* kv = qs + MT * 16 * LDQ;     // [2 stages][K tile, V tile]
+  bf16* ps = kv + 4 * TILE;
+  float* red = reinterpret_cast<float*>(ps + MT * 16 * LDP);
+  int* rows = reinterpret_cast<int*>(red + kWarps * MT * 16);
+
+  const int b = blockIdx.x, kh = blockIdx.y, s = blockIdx.z;
+  const int splits = gridDim.z;
+  const int g = H / K;
+  const int bk = b * K + kh;
+  const int tid = threadIdx.x;
+  const int* bt_row = block_table + (size_t)b * P;
+  // thread t reads the page id of position t of the split's first two
+  // tiles, in flight with lengths[b] (kThreads == 2 * kTile)
+  const int pos0 = s * tiles_per_split * kTile + tid;
+  const int pid0 = pos0 < P * page ? __ldg(bt_row + pos0 / page) : -1;
   const int length = lengths[b];
-  const size_t row = (size_t)K * dh;           // elements per token row
-  for (int p = 0; p < P; ++p) {
-    const int pid = block_table[b * P + p];
-    const int lo = p * page;
-    int first = lo;
-    if (window) first = max(first, length - window);
-    const int last = min(lo + page, length);   // exclusive
-    if (pid < 0 || first >= last) continue;    // uniform across the block
-    const T* kpage = ak + (size_t)pid * page * row + (size_t)kh * dh;
-    const T* vpage = av + (size_t)pid * page * row + (size_t)kh * dh;
+  // Q rows of this KV head (zero past g and dh) into registers, in flight
+  // with lengths[b]
+  constexpr int QCH = MT * 16 * (DHP / 8);       // 16-byte chunks of Q
+  constexpr int QPT = (QCH + kThreads - 1) / kThreads;
+  const bf16* q_bk = q + ((size_t)b * H + (size_t)kh * g) * dh;
+  uint4 qv[QPT];
+#pragma unroll
+  for (int u = 0; u < QPT; ++u) {
+    const int i = tid + u * kThreads;
+    const int j = i / (DHP / 8), c = i % (DHP / 8);
+    qv[u] = make_uint4(0u, 0u, 0u, 0u);
+    if (i < QCH && j < g && c * 8 < dh)
+      qv[u] = *reinterpret_cast<const uint4*>(q_bk + (size_t)j * dh + c * 8);
+  }
+  const Work wk = split_work(s, tiles_per_split, P, page, length, window);
+  bf16* out_bk = out + ((size_t)b * H + (size_t)kh * g) * dh;
+  if (wk.n == 0) {                   // no valid position: zeros, once
+    if (s == 0)
+      for (int i = tid; i < g * dh; i += kThreads)
+        out_bk[i] = from_f<bf16>(0.f);
+    return;
+  }
+  if (s < wk.s_lo || s >= wk.s_lo + wk.n) return;   // an empty split
 
-    // scores: a thread per token; it reads its K row once, 8 elements
-    // (16 B of bf16) per load, against the block's g query heads
-    for (int t = tid; t < page; t += blockDim.x) {
-      const int pos = lo + t;
-      const bool valid = pos >= first && pos < last;
-      float dot[kMaxG];
+  const bf16* ak_h = ak + (size_t)kh * dh;
+  const bf16* av_h = av + (size_t)kh * dh;
+  const size_t row_stride = (size_t)K * dh;
+  // the first two tiles in flight; tile i + 2 is issued into tile i's
+  // stage once tile i is consumed
+  int t0 = wk.lo + ((wk.first - wk.lo) / kTile) * kTile;
+  if (t0 == wk.lo) {                 // the page ids are in hand
+    rows[tid] = arena_row(pid0, pos0, wk.first, wk.last, page);
+    __syncthreads();
+  }
+  for (int st = 0; st < 2 && t0 + st * kTile < wk.last; ++st) {
+    bf16* kst = kv + st * 2 * TILE;
+    if (t0 == wk.lo)
+      copy_tile<bf16, kTile, true>(kst, kst + TILE, rows + st * kTile, ak_h,
+                                   av_h, row_stride, dh / 8, DHP / 8, LD);
+    else
+      gather_tile<bf16, kTile, true>(kst, kst + TILE, rows + st * kTile,
+                                     ak_h, av_h, bt_row, t0 + st * kTile,
+                                     wk.first, wk.last, page, row_stride,
+                                     dh / 8, DHP / 8, LD);
+    cp_async_commit();
+  }
+  // Q into shared memory while the tiles land
 #pragma unroll
-      for (int j = 0; j < kMaxG; ++j) dot[j] = 0.f;
-      if (valid) {
-        const T* krow = kpage + (size_t)t * row;
-        for (int i = 0; i < dh; i += 8) {
-          float kv[8];
-          load8(krow + i, kv);
+  for (int u = 0; u < QPT; ++u) {
+    const int i = tid + u * kThreads;
+    if (i < QCH)
+      *reinterpret_cast<uint4*>(qs + (i / (DHP / 8)) * LDQ +
+                                (i % (DHP / 8)) * 8) = qv[u];
+  }
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int grp = lane / 4, tig = lane % 4;    // mma fragment coordinates
+  const int mat = lane / 8, mrow = lane % 8;   // ldmatrix row addresses
+  float m[MT][2], lsum[MT][2], acc[MT][NW][4];
 #pragma unroll
-          for (int j = 0; j < kMaxG; ++j)
-            if (j < g) {
+  for (int mt = 0; mt < MT; ++mt) {
+    m[mt][0] = m[mt][1] = -INFINITY;
+    lsum[mt][0] = lsum[mt][1] = 0.f;
 #pragma unroll
-              for (int e = 0; e < 8; ++e) dot[j] += qs[j * dh + i + e] * kv[e];
-            }
+    for (int n = 0; n < NW; ++n)
+      acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
+  }
+  uint32_t qf[kQReg ? MT : 1][kQReg ? KS : 1][4];
+
+  bool first_tile = true;
+  for (int stage = 0; t0 < wk.last; t0 += kTile, stage ^= 1) {
+    if (t0 + kTile < wk.last)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();                           // (1) tile `stage` landed
+    if (kQReg && first_tile) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int k = 0; k < KS; ++k)
+          ldsm_x4(qf[mt][k], qs + (mt * 16 + lane % 16) * LDQ + k * 16 +
+                                 (lane / 16) * 8);
+    }
+    first_tile = false;
+    const bf16* ks = kv + stage * 2 * TILE;
+    const bf16* vs = ks + TILE;
+    const int* rowc = rows + stage * kTile;
+
+    // S = Q K^T: this warp's 16 keys (two n-tiles) for every m-tile
+    float sc[MT][2][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[mt][0][e] = sc[mt][1][e] = 0.f;
+    // K and V fragments: the rows an ldmatrix reads have row % 8 == mrow
+    const bf16* kp = ks + (warp * 16 + (mat / 2) * 8 + mrow) * LD;
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      uint32_t bfr[4];
+      ldsm_x4(bfr, kp + ((2 * k + mat % 2) ^ mrow) * 8);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t a[4];
+        if constexpr (kQReg) {
+          a[0] = qf[mt][k][0]; a[1] = qf[mt][k][1];
+          a[2] = qf[mt][k][2]; a[3] = qf[mt][k][3];
+        } else {
+          ldsm_x4(a, qs + (mt * 16 + lane % 16) * LDQ + k * 16 +
+                         (lane / 16) * 8);
+        }
+        mma_bf16(sc[mt][0], a, bfr[0], bfr[1]);
+        mma_bf16(sc[mt][1], a, bfr[2], bfr[3]);
+      }
+    }
+
+    // mask, then the tile's row maxima across the four warps
+    float mx[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      mx[mt][0] = mx[mt][1] = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kk = warp * 16 + nt * 8 + tig * 2 + (e & 1);
+          const float v = rowc[kk] >= 0 ? sc[mt][nt][e] : -INFINITY;
+          sc[mt][nt][e] = v;
+          mx[mt][e >> 1] = fmaxf(mx[mt][e >> 1], v);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v = mx[mt][h];
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+        if (tig == 0) red[warp * MT * 16 + mt * 16 + grp + 8 * h] = v;
+      }
+    }
+    __syncthreads();                           // (2) maxima in red
+
+    // online softmax in log2 units: p = 2^(s * sl - m), one FMA and ex2
+    float corr[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = mt * 16 + grp + 8 * h;
+        float t = red[row];
+#pragma unroll
+        for (int w = 1; w < kWarps; ++w) t = fmaxf(t, red[w * MT * 16 + row]);
+        const float m_new = fmaxf(m[mt][h], t * sl);
+        corr[mt][h] = m_new == -INFINITY ? 1.f : fast_exp2(m[mt][h] - m_new);
+        m[mt][h] = m_new;
+        lsum[mt][h] *= corr[mt][h];
+      }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float v = sc[mt][nt][e];
+          p[e] = v == -INFINITY ? 0.f
+                                : fast_exp2(fmaf(v, sl, -m[mt][e >> 1]));
+          lsum[mt][e >> 1] += p[e];
+        }
+        const int col = warp * 16 + nt * 8 + tig * 2;
+        *reinterpret_cast<uint32_t*>(ps + (mt * 16 + grp) * LDP + col) =
+            pack_bf16(p[0], p[1]);
+        *reinterpret_cast<uint32_t*>(ps + (mt * 16 + grp + 8) * LDP + col) =
+            pack_bf16(p[2], p[3]);
+      }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < NW; ++n) {
+        acc[mt][n][0] *= corr[mt][0];
+        acc[mt][n][1] *= corr[mt][0];
+        acc[mt][n][2] *= corr[mt][1];
+        acc[mt][n][3] *= corr[mt][1];
+      }
+    __syncthreads();                           // (3) P in shared memory
+
+    // O += P V: this warp's DHP / 4 columns over the tile's 64 keys
+#pragma unroll
+    for (int k = 0; k < kTile / 16; ++k) {
+      uint32_t pa[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_x4(pa[mt], ps + (mt * 16 + lane % 16) * LDP + k * 16 +
+                            (lane / 16) * 8);
+      const bf16* vp = vs + (k * 16 + (mat % 2) * 8 + mrow) * LD;
+      const int c0 = warp * NW + mat / 2;      // this lane's logical chunk
+#pragma unroll
+      for (int n = 0; n < NW; n += 2) {
+        uint32_t bfr[4];
+        ldsm_x4_trans(bfr, vp + ((c0 + n) ^ mrow) * 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(acc[mt][n], pa[mt], bfr[0], bfr[1]);
+          mma_bf16(acc[mt][n + 1], pa[mt], bfr[2], bfr[3]);
         }
       }
-#pragma unroll
-      for (int j = 0; j < kMaxG; ++j)
-        if (j < g) s[j * page + t] = valid ? dot[j] : kNegInf;
     }
-    __syncthreads();
-
-    // online softmax update: a warp per query head
-    for (int j = warp; j < g; j += nwarps) {
-      float mx = kNegInf;
-      for (int t = lane; t < page; t += 32) mx = fmaxf(mx, s[j * page + t]);
-      mx = warp_max(mx);
-      const float m_new = fmaxf(m[j], mx);
-      float sum = 0.f;
-      for (int t = lane; t < page; t += 32) {
-        const float e = expf(s[j * page + t] - m_new);
-        s[j * page + t] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float c = expf(m[j] - m_new);
-        corr[j] = c;
-        l[j] = l[j] * c + sum;
-        m[j] = m_new;
-      }
+    __syncthreads();                           // (4) stage and P consumed
+    if (t0 + 2 * kTile < wk.last) {
+      gather_tile<bf16, kTile, true>(kv + stage * 2 * TILE,
+                                     kv + stage * 2 * TILE + TILE,
+                                     rows + stage * kTile, ak_h, av_h, bt_row,
+                                     t0 + 2 * kTile, wk.first, wk.last, page,
+                                     row_stride, dh / 8, DHP / 8, LD);
+      cp_async_commit();
     }
-    __syncthreads();
-
-    // P.V: a thread per head-dim column, g accumulators in registers;
-    // only the valid rows [first, last) are read (masked weights are 0)
-    if (d < dh) {
-#pragma unroll
-      for (int j = 0; j < kMaxG; ++j) acc[j] *= j < g ? corr[j] : 0.f;
-#pragma unroll 8
-      for (int t = first - lo; t < last - lo; ++t) {
-        const float v = to_f(vpage[(size_t)t * row + d]);
-#pragma unroll
-        for (int j = 0; j < kMaxG; ++j)
-          if (j < g) acc[j] += s[j * page + t] * v;
-      }
-    }
-    __syncthreads();
   }
 
-  if (d < dh) {
+  // row sums: across the quad, then across the four warps
+  __syncthreads();
 #pragma unroll
-    for (int j = 0; j < kMaxG; ++j)
-      if (j < g)
-        out[q_off + (size_t)j * dh + d] =
-            from_f<T>(acc[j] / fmaxf(l[j], 1e-20f));
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = lsum[mt][h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (tig == 0) red[warp * MT * 16 + mt * 16 + grp + 8 * h] = v;
+    }
+  __syncthreads();
+  float L[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = mt * 16 + grp + 8 * h;
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) t += red[w * MT * 16 + row];
+      L[mt][h] = t;
+    }
+
+  if (wk.n == 1) {                     // the only split: the output itself
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = mt * 16 + grp + 8 * h;
+        if (row >= g) continue;
+        const float inv = 1.f / fmaxf(L[mt][h], 1e-20f);
+#pragma unroll
+        for (int n = 0; n < NW; ++n) {
+          const int col = warp * (DHP / 4) + n * 8 + tig * 2;
+          if (col < dh)
+            *reinterpret_cast<__nv_bfloat162*>(out_bk + (size_t)row * dh +
+                                               col) =
+                __floats2bfloat162_rn(acc[mt][n][2 * h] * inv,
+                                      acc[mt][n][2 * h + 1] * inv);
+        }
+      }
+    return;
   }
+  float* pacc = part_acc + (size_t)bk * (splits + kMaxChunks) * g * dh;
+  float* pml = part_ml + (size_t)bk * (splits + kMaxChunks) * g * 2;
+  float* my_acc = pacc + (size_t)s * g * dh;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = mt * 16 + grp + 8 * h;
+      if (row >= g) continue;
+#pragma unroll
+      for (int n = 0; n < NW; ++n) {
+        const int col = warp * (DHP / 4) + n * 8 + tig * 2;
+        if (col < dh)
+          *reinterpret_cast<float2*>(my_acc + (size_t)row * dh + col) =
+              make_float2(acc[mt][n][2 * h], acc[mt][n][2 * h + 1]);
+      }
+      if (warp == 0 && tig == 0) {
+        pml[((size_t)s * g + row) * 2] = L[mt][h] > 0.f ? m[mt][h] : kEmptyM;
+        pml[((size_t)s * g + row) * 2 + 1] = L[mt][h];
+      }
+    }
+  finish_split(pacc, pml, counters + bk * (1 + kMaxChunks), out_bk, g, dh,
+               splits, s, wk.s_lo, wk.n, reinterpret_cast<float*>(kv));
 }
 
-template <typename T>
-int launch(const void* q, const void* ak, const void* av, const int* bt,
-           const int* lengths, void* out, int B, int H, int K, int dh,
-           int page, int P, int window, float scale, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// fp32: FMA on the CUDA cores, the same split and merge
+// ---------------------------------------------------------------------------
+// Shared memory of the fp32 kernel, in floats: two stages of K and V
+// sub-tiles [kTile32][dh + 4], Q [g][dh] (scaled), acc [g][dh], scores
+// [g][kTile32], m / l / rescale [g] and the row indices; the merge's
+// scratch (2 * kChunk * g) reuses it from the start once the partial is
+// written.
+__host__ __device__ inline size_t f32_smem_floats(int g, int dh,
+                                                  int splits) {
+  const size_t main = 4 * (size_t)kTile32 * (dh + 4) + 2 * (size_t)g * dh +
+                      (size_t)g * kTile32 + 3 * (size_t)g + 2 * kTile32;
+  const size_t merge = 2 * (size_t)kChunk * g;
+  return main > merge ? main : merge;
+}
+
+__global__ void __launch_bounds__(kThreads)
+paged_f32_kernel(const float* __restrict__ q, const float* __restrict__ ak,
+                 const float* __restrict__ av,
+                 const int* __restrict__ block_table,
+                 const int* __restrict__ lengths, float* __restrict__ out,
+                 float* __restrict__ part_acc, float* __restrict__ part_ml,
+                 int* __restrict__ counters, int H, int K, int dh, int page,
+                 int P, int window, float sl, int tiles_per_split) {
+  extern __shared__ __align__(16) float smem32[];
+  const int b = blockIdx.x, kh = blockIdx.y, s = blockIdx.z;
+  const int splits = gridDim.z;
   const int g = H / K;
-  const size_t smem = sizeof(float) * ((size_t)g * dh + (size_t)g * page +
-                                       3 * (size_t)g);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
+  const int bk = b * K + kh;
+  const int ld = dh + 4;                     // 16-byte aligned rows
+  float* kv = smem32;                        // [2 stages][K, V sub-tile]
+  float* qs = kv + 4 * kTile32 * ld;
+  float* accs = qs + g * dh;
+  float* ss = accs + g * dh;
+  float* mrow = ss + g * kTile32;
+  float* lrow = mrow + g;
+  float* crow = lrow + g;
+  int* rows = reinterpret_cast<int*>(crow + g);
+  float* wmerge = smem32;                    // once the partial is written
+
+  const Work wk = split_work(s, tiles_per_split, P, page, lengths[b],
+                             window);
+  float* out_bk = out + ((size_t)b * H + (size_t)kh * g) * dh;
+  const int tid = threadIdx.x;
+  if (wk.n == 0) {                           // no valid position: zeros
+    if (s == 0)
+      for (int i = tid; i < g * dh; i += kThreads) out_bk[i] = 0.f;
+    return;
   }
-  dim3 grid(B, K);
-  paged_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(ak),
-      static_cast<const T*>(av), bt, lengths, static_cast<T*>(out), H, K, dh,
-      page, P, window, scale);
+  if (s < wk.s_lo || s >= wk.s_lo + wk.n) return;   // an empty split
+
+  const float* q_bk = q + ((size_t)b * H + (size_t)kh * g) * dh;
+  for (int i = tid; i < g * dh; i += kThreads) {
+    qs[i] = q_bk[i] * sl;                    // scores come out in log2 units
+    accs[i] = 0.f;
+  }
+  for (int j = tid; j < g; j += kThreads) {
+    mrow[j] = -INFINITY;
+    lrow[j] = 0.f;
+  }
+  const int* bt_row = block_table + (size_t)b * P;
+  const float* ak_h = ak + (size_t)kh * dh;
+  const float* av_h = av + (size_t)kh * dh;
+  const size_t row_stride = (size_t)K * dh;
+  const int sub = kTile32 * ld;
+  int t0 = wk.lo + ((wk.first - wk.lo) / kTile32) * kTile32;
+  gather_tile<float, kTile32>(kv, kv + sub, rows, ak_h, av_h, bt_row, t0,
+                              wk.first, wk.last, page, row_stride, dh / 4,
+                              dh / 4, ld);
+  cp_async_commit();
+
+  for (int stage = 0; t0 < wk.last; t0 += kTile32, stage ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();                         // sub-tile `stage` landed
+    if (t0 + kTile32 < wk.last) {
+      float* nxt = kv + (stage ^ 1) * 2 * sub;
+      gather_tile<float, kTile32>(nxt, nxt + sub, rows + (stage ^ 1) * kTile32,
+                                  ak_h, av_h, bt_row, t0 + kTile32, wk.first,
+                                  wk.last, page, row_stride, dh / 4, dh / 4,
+                                  ld);
+      cp_async_commit();
+    }
+    const float* ks = kv + stage * 2 * sub;
+    const float* vs = ks + sub;
+    const int* rowc = rows + stage * kTile32;
+    for (int i = tid; i < g * kTile32; i += kThreads) {
+      const int j = i / kTile32, t = i % kTile32;
+      float dot = -INFINITY;
+      if (rowc[t] >= 0) {
+        const float4* qa = reinterpret_cast<const float4*>(qs + j * dh);
+        const float4* ka = reinterpret_cast<const float4*>(ks + t * ld);
+        dot = 0.f;
+        for (int d = 0; d < dh / 4; ++d) {
+          const float4 x = qa[d], y = ka[d];
+          dot = fmaf(x.x, y.x, dot);
+          dot = fmaf(x.y, y.y, dot);
+          dot = fmaf(x.z, y.z, dot);
+          dot = fmaf(x.w, y.w, dot);
+        }
+      }
+      ss[i] = dot;
+    }
+    __syncthreads();
+    for (int j = tid; j < g; j += kThreads) {
+      float mx = -INFINITY;
+      for (int t = 0; t < kTile32; ++t) mx = fmaxf(mx, ss[j * kTile32 + t]);
+      const float m_new = fmaxf(mrow[j], mx);
+      const float c = m_new == -INFINITY ? 1.f : exp2f(mrow[j] - m_new);
+      float sum = 0.f;
+      for (int t = 0; t < kTile32; ++t) {
+        const float v = ss[j * kTile32 + t];
+        const float p = v == -INFINITY ? 0.f : exp2f(v - m_new);
+        ss[j * kTile32 + t] = p;
+        sum += p;
+      }
+      lrow[j] = lrow[j] * c + sum;
+      mrow[j] = m_new;
+      crow[j] = c;
+    }
+    __syncthreads();
+    for (int i = tid; i < g * dh; i += kThreads) {
+      const int j = i / dh, d = i % dh;
+      float a = accs[i] * crow[j];
+      for (int t = 0; t < kTile32; ++t)
+        a = fmaf(ss[j * kTile32 + t], vs[t * ld + d], a);
+      accs[i] = a;
+    }
+  }
+  __syncthreads();
+  if (wk.n == 1) {                           // the only split
+    for (int i = tid; i < g * dh; i += kThreads)
+      out_bk[i] = accs[i] / fmaxf(lrow[i / dh], 1e-20f);
+    return;
+  }
+  float* pacc = part_acc + (size_t)bk * (splits + kMaxChunks) * g * dh;
+  float* pml = part_ml + (size_t)bk * (splits + kMaxChunks) * g * 2;
+  float* my_acc = pacc + (size_t)s * g * dh;
+  for (int i = tid; i < g * dh; i += kThreads) my_acc[i] = accs[i];
+  for (int j = tid; j < g; j += kThreads) {
+    pml[((size_t)s * g + j) * 2] = lrow[j] > 0.f ? mrow[j] : kEmptyM;
+    pml[((size_t)s * g + j) * 2 + 1] = lrow[j];
+  }
+  finish_split(pacc, pml, counters + bk * (1 + kMaxChunks), out_bk, g, dh,
+               splits, s, wk.s_lo, wk.n, wmerge);
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+struct Args {
+  const void *q, *ak, *av;
+  const int *bt, *lengths;
+  void* out;
+  float *part_acc, *part_ml;
+  int* counters;
+  int H, K, dh, page, P, window, tiles_per_split;
+  float sl;
+};
+
+// Raise a kernel's dynamic shared memory limit to `bytes` (once per
+// kernel and size; calls run eagerly before any graph capture).
+template <typename F>
+int opt_in(F kernel, size_t bytes, size_t* done) {
+  if (bytes <= *done) return 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess)                  // as much shared memory as L1 gives
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *done = bytes;
+  return 0;
+}
+
+template <int DHP, int MT>
+int launch_bf16(const Args& a, dim3 grid, cudaStream_t stream) {
+  constexpr size_t smem = bf16_smem<DHP, MT>();
+  static size_t done = 0;
+  if (int e = opt_in(paged_bf16_kernel<DHP, MT>, smem, &done)) return e;
+  paged_bf16_kernel<DHP, MT><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.ak),
+      static_cast<const bf16*>(a.av), a.bt, a.lengths,
+      static_cast<bf16*>(a.out), a.part_acc, a.part_ml, a.counters, a.H, a.K,
+      a.dh, a.page, a.P, a.window, a.sl, a.tiles_per_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DHP>
+int launch_bf16_mt(const Args& a, int g, dim3 grid, cudaStream_t stream) {
+  switch ((g + 15) / 16) {
+    case 1: return launch_bf16<DHP, 1>(a, grid, stream);
+    case 2: return launch_bf16<DHP, 2>(a, grid, stream);
+    case 3: return launch_bf16<DHP, 3>(a, grid, stream);
+    case 4: return launch_bf16<DHP, 4>(a, grid, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch_f32(const Args& a, int g, dim3 grid, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * f32_smem_floats(g, a.dh, grid.z);
+  static size_t done = 0;
+  if (int e = opt_in(paged_f32_kernel, smem, &done)) return e;
+  paged_f32_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.ak),
+      static_cast<const float*>(a.av), a.bt, a.lengths,
+      static_cast<float*>(a.out), a.part_acc, a.part_ml, a.counters, a.H,
+      a.K, a.dh, a.page, a.P, a.window, a.sl, a.tiles_per_split);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Requires H % K == 0, H / K <= 8,
-// dh <= 128, dh % 8 == 0 and 16-byte aligned arenas (the wrapper checks
-// too).
-extern "C" int paged_attention_launch(const void* q, const void* ak,
-                                      const void* av, const int* block_table,
-                                      const int* lengths, void* out, int B,
-                                      int H, int K, int dh, int page, int P,
-                                      int window, float scale, int dtype,
-                                      void* stream) {
+// q [B, H, dh]; arenas [pages, page, K, dh]; block_table int32 [B, P];
+// lengths int32 [B]; out [B, H, dh]; all contiguous and 16-byte aligned.
+// dtype: 0 = float32 (dh a multiple of 8), 1 = bfloat16 (dh a multiple of
+// 16); dh <= 256, H % K == 0, H / K <= 64.  The grid is (B, K, splits);
+// split s covers positions [s, s + 1) * tiles_per_split * 64, and the
+// splits must cover the table (splits * tiles_per_split * 64 >= P * page).
+// With splits > 1: part_acc holds B * K * (splits + 8) * (H / K) * dh
+// floats, part_ml B * K * (splits + 8) * (H / K) * 2, and counters
+// B * K * 9 int32 zeros, which the kernel leaves at zero.  Shapes it does
+// not take are refused.
+extern "C" int paged_attention_launch(
+    const void* q, const void* ak, const void* av, const int* block_table,
+    const int* lengths, void* out, void* part_acc, void* part_ml,
+    void* counters, int B, int H, int K, int dh, int page, int P, int window,
+    float scale, int splits, int tiles_per_split, int dtype, void* stream) {
   if (B <= 0) return 0;
-  if (K <= 0 || H % K != 0 || H / K > kMaxG || dh > kThreads || dh % 8)
+  if (K <= 0 || H % K != 0 || H / K > kMaxG || dh <= 0 || dh > 256 ||
+      dh % 8 || page <= 0 || P <= 0 || splits < 1 || splits > kMaxSplits ||
+      tiles_per_split < 1 ||
+      (long long)splits * tiles_per_split * kTile < (long long)P * page ||
+      (splits > 1 && (!part_acc || !part_ml || !counters)))
     return static_cast<int>(cudaErrorInvalidValue);
+  Args a{q, ak, av, block_table, lengths, out,
+         static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+         static_cast<int*>(counters), H, K, dh, page, P, window,
+         tiles_per_split, scale * kLog2e};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, ak, av, block_table, lengths, out, B, H, K, dh,
-                         page, P, window, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, ak, av, block_table, lengths, out, B, H,
-                                 K, dh, page, P, window, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int g = H / K;
+  dim3 grid(B, K, splits);
+  if (dtype == 0) return launch_f32(a, g, grid, s);
+  if (dtype != 1 || dh % 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (dh <= 64) return launch_bf16_mt<64>(a, g, grid, s);
+  if (dh <= 128) return launch_bf16_mt<128>(a, g, grid, s);
+  if (dh <= 192) return launch_bf16_mt<192>(a, g, grid, s);
+  return launch_bf16_mt<256>(a, g, grid, s);
 }

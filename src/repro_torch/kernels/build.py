@@ -97,7 +97,8 @@ def library() -> ctypes.CDLL:
         lib.kv_update_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
         lib.kv_update_launch.restype = i
         lib.paged_attention_launch.argtypes = [
-            p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+            p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float,
+            i, i, i, p]
         lib.paged_attention_launch.restype = i
         lib.flash_attention_launch.argtypes = [
             p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]

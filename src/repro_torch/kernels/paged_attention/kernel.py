@@ -10,6 +10,12 @@ Position ``p * page + t`` of block-table column ``p`` is valid iff it is
 ``> lengths[b] - 1 - window``; pages fill contiguously (engine contract).
 Softmax in fp32; the output is ``acc / max(l, 1e-20)`` in q's dtype, so a
 sequence with no valid position gets zeros.
+
+The kernel splits each (lane, KV head) over the block table: ``splits``
+ranges of whole ``TILE``-position tiles, chosen by ``split_count`` from
+(B, K, P, page) alone, so no call reads the device to decide.  The splits'
+partials are merged in split order inside the same launch;
+``paged_attention_split_plain`` is that decomposition in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -19,12 +25,23 @@ import torch
 from .. import build
 
 NEG_INF = -1e30
-MAX_GROUP = 8          # query heads per KV head the kernel holds in registers
-MAX_HEAD_DIM = 128     # one thread per head-dim column
+TILE = 64              # positions per tile of the kernel
+MAX_GROUP = 64         # query heads per KV head: four 16-row mma tiles
+MAX_HEAD_DIM = 256
+MAX_SPLITS = 64
+MERGE_CHUNK = 8        # the kernel merges at most this many partials a block
+# the split: at least MIN_BLOCKS blocks (two per SM of an H100's 132); a
+# split at most an eighth of the table (so a lane far shorter than the
+# table still spreads over blocks) but at least MIN_TILES_PER_SPLIT tiles
+# (both in flight at once), and at most MAX_TILES_PER_SPLIT tiles
+MIN_BLOCKS = 2 * 132
+MIN_TILES_PER_SPLIT = 2
+MAX_TILES_PER_SPLIT = 16
 
 launches = 0           # kernel launches since the caller last zeroed this
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_counters: dict = {}   # device index -> int32 zeros, one per (b, kh)
 
 
 def paged_attention_plain(q, arena_k, arena_v, block_table, lengths, *,
@@ -40,16 +57,87 @@ def paged_attention_plain(q, arena_k, arena_v, block_table, lengths, *,
     v = arena_v[bt].reshape(B, P * page, K, dh).float()
     qg = q.reshape(B, K, g, dh).float() * (dh ** -0.5)
     s = torch.einsum("bkgd,btkd->bkgt", qg, k)
-    pos = torch.arange(P * page, device=q.device)[None]
-    valid = (pos < lengths[:, None]) & \
-        torch.repeat_interleave(block_table >= 0, page, dim=1)
-    if window:
-        valid = valid & (pos > (lengths[:, None] - 1 - window))
+    valid = _valid(block_table, lengths, page, window)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     m = s.max(dim=-1, keepdim=True).values
     e = torch.where(valid[:, None, None, :], torch.exp(s - m), 0.0)
     l = e.sum(dim=-1, keepdim=True)
     o = torch.einsum("bkgt,btkd->bkgd", e, v) / torch.clamp(l, min=1e-20)
+    return o.reshape(B, H, dh).to(q.dtype)
+
+
+def _valid(block_table, lengths, page: int, window: int):
+    """[B, P * page] bool: the positions the kernel attends over."""
+    P = block_table.shape[1]
+    pos = torch.arange(P * page, device=block_table.device)[None]
+    valid = (pos < lengths[:, None]) & \
+        torch.repeat_interleave(block_table >= 0, page, dim=1)
+    if window:
+        valid = valid & (pos > (lengths[:, None] - 1 - window))
+    return valid
+
+
+def split_count(B: int, K: int, P: int, page: int) -> tuple[int, int]:
+    """(splits, tiles_per_split) for a call, by the rule above; at most
+    MAX_SPLITS splits.  A function of the shapes alone: lengths and the
+    table are never read, so the call needs no device-to-host sync."""
+    tiles = -(-(P * page) // TILE)
+    want = -(-MIN_BLOCKS // max(B * K, 1))
+    cap = min(MAX_TILES_PER_SPLIT, max(MIN_TILES_PER_SPLIT, tiles // 8))
+    per = max(min(-(-tiles // want), cap), -(-tiles // MAX_SPLITS))
+    return -(-tiles // per), per
+
+
+def paged_attention_split_plain(q, arena_k, arena_v, block_table, lengths,
+                                *, window: int = 0, splits: int | None = None,
+                                tile: int = TILE):
+    """The kernel's decomposition in plain PyTorch: per split (a range of
+    whole ``tile``-position tiles) the partial max m, sum l and unnormalised
+    acc; an empty split gives (m = -1e30, l = 0); the partials merge in
+    split order.  ``splits=None`` takes ``split_count``'s; another value is
+    rounded as the kernel's host side rounds it (whole tiles a split).  P
+    is rounded to q's dtype for P.V, as the kernel's bf16 path does.  (The
+    kernel merges more than MERGE_CHUNK partials as a tree, chunk by chunk
+    in the same order: equal up to fp32 rounding.)"""
+    B, H, dh = q.shape
+    _, page, K, _ = arena_k.shape
+    P = block_table.shape[1]
+    g = H // K
+    tiles = -(-(P * page) // tile)
+    if splits is None:
+        splits, per = split_count(B, K, P, page)
+        if tile != TILE:
+            raise ValueError("split_count's split is in tiles of TILE")
+    else:
+        per = -(-tiles // max(1, min(splits, tiles)))
+        splits = -(-tiles // per)
+    bt = torch.clamp(block_table, min=0).long()
+    k = arena_k[bt].reshape(B, P * page, K, dh).float()
+    v = arena_v[bt].reshape(B, P * page, K, dh).float()
+    qg = q.reshape(B, K, g, dh).float() * (dh ** -0.5)
+    s_all = torch.einsum("bkgd,btkd->bkgt", qg, k)
+    valid = _valid(block_table, lengths, page, window)[:, None, None, :]
+    parts = []
+    for sp in range(splits):
+        lo, hi = sp * per * tile, min((sp + 1) * per * tile, P * page)
+        ok = valid[..., lo:hi]
+        s = torch.where(ok, s_all[..., lo:hi], NEG_INF)
+        m = s.max(dim=-1).values                              # [B, K, g]
+        e = torch.where(ok, torch.exp(s - m[..., None]), 0.0)
+        l = e.sum(dim=-1)
+        acc = torch.einsum("bkgt,btkd->bkgd", e.to(q.dtype).float(),
+                           v[:, lo:hi])
+        parts.append((torch.where(l > 0, m, NEG_INF), l, acc))
+    M = torch.stack([torch.where(l > 0, m, -torch.inf)
+                     for m, l, _ in parts]).max(dim=0).values
+    M = torch.where(torch.isfinite(M), M, 0.0)
+    num = torch.zeros((B, K, g, dh), dtype=torch.float32, device=q.device)
+    den = torch.zeros((B, K, g), dtype=torch.float32, device=q.device)
+    for m, l, acc in parts:                                   # split order
+        w = torch.where(l > 0, torch.exp(m - M), 0.0)
+        num = num + w[..., None] * acc
+        den = den + w * l
+    o = num / torch.clamp(den, min=1e-20)[..., None]
     return o.reshape(B, H, dh).to(q.dtype)
 
 
@@ -71,6 +159,36 @@ def _check(q, arena_k, arena_v, block_table, lengths):
             raise ValueError("all tensors must be on one device")
 
 
+def check_kernel_shape(dtype, H: int, K: int, dh: int) -> None:
+    """Raise for what the kernel does not take: more than MAX_GROUP query
+    heads per KV head, or a head_dim above MAX_HEAD_DIM or not a multiple
+    of 16 (bf16) / 8 (fp32)."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"paged_attention takes float32 or bfloat16, got "
+                        f"{dtype}")
+    step = 16 if dtype == torch.bfloat16 else 8
+    if H // K > MAX_GROUP or dh > MAX_HEAD_DIM or dh % step or dh <= 0:
+        raise ValueError(f"the kernel takes at most {MAX_GROUP} query heads "
+                         f"per KV head and a head_dim <= {MAX_HEAD_DIM} that "
+                         f"is a multiple of {step}, not {H // K} and {dh}")
+
+
+def _counter_buffer(device, n: int):
+    """The device's int32 ticket counters (one per (b, kh) and per chunk
+    of its splits), at least ``n``; the kernel leaves them at zero.  Grown
+    only outside a graph capture."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    buf = _counters.get(idx)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("paged_attention: call once with this shape "
+                               "before capturing it in a CUDA graph")
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[idx] = buf
+    return buf
+
+
 def paged_attention(q, arena_k, arena_v, block_table, lengths, *,
                     window: int = 0):
     """q: [B, H, dh]; arena_k/v: [pages, page, K, dh]; block_table: int32
@@ -84,30 +202,38 @@ def paged_attention(q, arena_k, arena_v, block_table, lengths, *,
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu, not "
                          f"{q.device}")
-    if q.dtype not in _DTYPE_CODE or arena_k.dtype != q.dtype \
-            or arena_v.dtype != q.dtype:
-        raise TypeError(f"paged_attention takes float32 or bfloat16 q and "
-                        f"arenas of the same dtype, got {q.dtype}/"
-                        f"{arena_k.dtype}")
+    if arena_k.dtype != q.dtype or arena_v.dtype != q.dtype:
+        raise TypeError(f"paged_attention takes arenas of q's dtype, got "
+                        f"{q.dtype}/{arena_k.dtype}")
     B, H, dh = q.shape
     _, page, K, _ = arena_k.shape
-    if H // K > MAX_GROUP or dh > MAX_HEAD_DIM or dh % 8:
-        raise ValueError(f"kernel holds at most {MAX_GROUP} query heads per "
-                         f"KV head and a head_dim <= {MAX_HEAD_DIM} that is "
-                         f"a multiple of 8")
-    if arena_k.data_ptr() % 16 or arena_v.data_ptr() % 16:
-        raise ValueError("kernel reads K rows in 16-byte loads: arenas must "
-                         "be 16-byte aligned")
+    P = block_table.shape[1]
+    check_kernel_shape(q.dtype, H, K, dh)
     for t in (q, arena_k, arena_v, block_table, lengths):
         if not t.is_contiguous():
             raise ValueError("paged_attention needs contiguous tensors")
+    if q.data_ptr() % 16 or arena_k.data_ptr() % 16 \
+            or arena_v.data_ptr() % 16:
+        raise ValueError("the kernel reads rows in 16-byte copies: q and the "
+                         "arenas must be 16-byte aligned")
     out = torch.empty_like(q)
-    lib = build.library()
-    err = lib.paged_attention_launch(
+    splits, per = split_count(B, K, P, page)
+    part_acc = part_ml = counters = 0
+    if splits > 1 and B:
+        g = H // K
+        # slots for each split's partial and for the chunk results
+        slots = B * K * (splits + MAX_SPLITS // MERGE_CHUNK) * g
+        part = torch.empty(slots * (dh + 2), dtype=torch.float32,
+                           device=q.device)
+        part_acc = part.data_ptr()
+        part_ml = part_acc + 4 * slots * dh
+        counters = _counter_buffer(
+            q.device, B * K * (1 + MAX_SPLITS // MERGE_CHUNK)).data_ptr()
+    err = build.library().paged_attention_launch(
         q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr(),
         block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, H, K, dh, page, block_table.shape[1], int(window),
-        float(dh ** -0.5), _DTYPE_CODE[q.dtype],
+        part_acc, part_ml, counters, B, H, K, dh, page, P, int(window),
+        float(dh ** -0.5), splits, per, _DTYPE_CODE[q.dtype],
         build.stream_ptr(q.device))
     build.check(err, "paged_attention")
     launches += 1

@@ -1,0 +1,220 @@
+"""Time the paged_attention kernel with the L2 cache cold and warm.
+
+    PYTHONPATH=src python -m repro_torch.launch.bench_paged \
+        [--parent PARENT_DIR] [--out compare_out]
+
+Times ``paged_attention`` at three bf16 shapes of qwen2.5-32b's heads (40
+query / 8 KV heads, head_dim 128, pages of 128): ``serve`` (8 lanes, up to
+363 positions each, as the serve run of ``chip_smoke.py``), ``long`` (8
+lanes x 32768 positions) and ``single`` (1 lane x 32768).  Each time is
+device time per call, from calls captured in one CUDA graph and replayed:
+``ms`` rotates over copies of the inputs that add up to more than 100 MB
+(twice the 50 MB L2), so every call finds its K/V in device memory, as a
+decode step does after a layer's weights have passed through the cache;
+``ms_l2_warm`` repeats one copy.
+
+With ``--parent``, the script runs itself once per tree, with that tree's
+``src`` first on the path, in the order parent, change, change, parent,
+and prints the times side by side (the wrapper's signature is the same in
+both trees).  Writes ``bench_paged.json`` to ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[3]
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
+COLD_BYTES = 100e6            # rotate over inputs adding up to more than this
+SEED = 0
+# name: lanes, query heads, KV heads, head_dim, page, table columns, lengths
+SHAPES = {
+    "serve": (8, 40, 8, 128, 128, 8, None),
+    "long": (8, 40, 8, 128, 128, 256, 32768),
+    "single": (1, 40, 8, 128, 128, 256, 32768),
+}
+
+
+def make_inputs(torch, dev, B, H, K, dh, page, P, lengths, dtype, seed,
+                pages=None):
+    """q, arenas, a block table of distinct pages and lengths; ``lengths``
+    an int (every lane) or a list, ``pages`` defaults to what the table
+    needs plus a dump page.  The arenas are random from ``seed``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = np.full(B, lengths) if np.isscalar(lengths) else \
+        np.asarray(lengths)
+    need = [-(-int(n) // page) for n in lens]
+    pages = pages or sum(need) + 1
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    q = randn(B, H, dh)
+    ak, av = randn(pages, page, K, dh), randn(pages, page, K, dh)
+    perm = rng.permutation(pages - 1)
+    bt = np.full((B, P), -1, np.int32)
+    cur = 0
+    for b, n in enumerate(need):
+        bt[b, :n] = perm[cur:cur + n]
+        cur += n
+    return (q, ak, av, torch.as_tensor(bt, device=dev),
+            torch.as_tensor(lens.astype(np.int32), device=dev))
+
+
+def serve_lengths(B: int = 8):
+    """Lengths up to the serve run's longest sequence (300-token prompt +
+    63 steps), one lane at that longest."""
+    import numpy as np
+    lens = np.random.default_rng(SEED + 1).integers(1, 364, B)
+    lens[0] = 363
+    return lens.tolist()
+
+
+def bytes_bound_ms(inputs, window: int = 0) -> tuple[float, int]:
+    """(ms, valid tokens): q read and the output written once, the table
+    and lengths read once, each valid K and V row read once, over the
+    card's memory rate."""
+    q, ak, _, bt, lens = inputs
+    B, H, dh = q.shape
+    K, es = ak.shape[2], q.element_size()
+    valid = (bt >= 0).repeat_interleave(ak.shape[1], dim=1)
+    pos = valid.new_ones(valid.shape).cumsum(1) - 1
+    valid &= pos < lens[:, None].long()
+    if window:
+        valid &= pos > lens[:, None].long() - 1 - window
+    tokens = int(valid.sum())
+    nbytes = (2 * B * H * dh * es + bt.numel() * 4 + B * 4
+              + 2 * tokens * K * dh * es)
+    return nbytes / HBM_BYTES_PER_S * 1e3, tokens
+
+
+def cold_copies(inputs) -> list:
+    """The inputs and clones of them, enough that their bytes pass
+    COLD_BYTES."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs)
+    n = max(1, -(-int(COLD_BYTES) // nbytes) + 1) if nbytes < COLD_BYTES \
+        else 1
+    return [inputs] + [tuple(t.clone() for t in inputs) for _ in range(n - 1)]
+
+
+def graph_ms(torch, calls, iters: int) -> float:
+    """Device ms per call: ``iters`` calls (cycling over ``calls``)
+    captured in one CUDA graph and replayed."""
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            calls[i % len(calls)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (5 * iters)
+
+
+def time_cold_warm(torch, fn, inputs, window: int = 0,
+                   iters: int = 60) -> dict:
+    """``ms`` over copies that do not fit the L2 cache, ``ms_l2_warm`` over
+    one copy, both by graph replay."""
+    copies = cold_copies(inputs)
+    cold = [lambda c=c: fn(*c, window=window) for c in copies]
+    return {"ms": graph_ms(torch, cold, iters),
+            "ms_l2_warm": graph_ms(torch, cold[:1], iters),
+            "cold_copies": len(copies)}
+
+
+def bench(torch, dev) -> dict:
+    from repro_torch.kernels.paged_attention import kernel as pak
+    res = {}
+    for name, (B, H, K, dh, page, P, lengths) in SHAPES.items():
+        lens = serve_lengths(B) if lengths is None else lengths
+        pages = 83 if name == "serve" else None   # the serve run's arena
+        inputs = make_inputs(torch, dev, B, H, K, dh, page, P, lens,
+                             torch.bfloat16, SEED + 2, pages=pages)
+        bound, tokens = bytes_bound_ms(inputs)
+        row = {"shape": {"lanes": B, "heads": [H, K], "head_dim": dh,
+                         "page": page, "table": P, "valid_tokens": tokens,
+                         "arena_pages": int(inputs[1].shape[0])},
+               "bound_ms": bound}
+        row.update(time_cold_warm(torch, pak.paged_attention, inputs,
+                                  iters=20 if name == "long" else 60))
+        if hasattr(pak, "split_count"):
+            row["splits"] = pak.split_count(B, K, P, page)[0]
+        res[name] = row
+        del inputs
+        torch.cuda.empty_cache()
+    return res
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def run_one() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_paged needs a CUDA device")
+    res = bench(torch, torch.device("cuda", 0))
+    print(json.dumps({"card": card_line(), "shapes": res}))
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path)
+    ap.add_argument("--out", default="compare_out", type=Path)
+    args = ap.parse_args(argv)
+    if args.parent is None:
+        return run_one()
+    parent = args.parent.resolve()
+    order = [("parent", parent), ("change", ROOT), ("change", ROOT),
+             ("parent", parent)]
+    runs = []
+    # each tree's src comes first on the path; this module is read from
+    # the change's tree, so a parent without it can be timed too
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "sys.path.insert(0, sys.argv[2]); "
+            "from bench_paged import run_one; run_one()")
+    here = str(Path(__file__).resolve().parent)
+    for label, tree in order:
+        proc = subprocess.run([sys.executable, "-c", code, here,
+                               str(tree / "src")], capture_output=True,
+                              text=True, timeout=900, cwd=tree)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{label} ({tree}) failed:\n"
+                               f"{proc.stderr[-4000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        res["label"] = label
+        runs.append(res)
+        print(f"[{label}] {res['card']}", flush=True)
+    print("paged_attention ms (cold L2 / warm L2), in the order parent, "
+          "change, change, parent:")
+    for name in SHAPES:
+        cells = [f"{r['shapes'][name]['ms']:.5f}/"
+                 f"{r['shapes'][name]['ms_l2_warm']:.5f}" for r in runs]
+        print(f"  {name} (bound {runs[0]['shapes'][name]['bound_ms']:.5f}): "
+              + ", ".join(cells))
+    args.out.mkdir(parents=True, exist_ok=True)
+    (args.out / "bench_paged.json").write_text(json.dumps(runs, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

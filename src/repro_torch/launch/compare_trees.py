@@ -40,9 +40,10 @@ def parse(stdout: str) -> dict:
         elif line.startswith('{"kernels"'):
             for row in json.loads(line)["kernels"]:
                 out["kernels"][row["name"]] = {
-                    k: row.get(k) for k in ("ms", "eager_ms", "bound_ms",
-                                            "plain_ms", "library_ms",
-                                            "launches", "variant")}
+                    k: row.get(k) for k in ("ms", "ms_l2_warm", "eager_ms",
+                                            "bound_ms", "plain_ms",
+                                            "library_ms", "launches",
+                                            "variant", "splits")}
         else:
             for name in DETAILS:
                 tag = f"{name} detail: "

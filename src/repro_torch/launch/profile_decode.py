@@ -92,7 +92,8 @@ def main(argv=None):
         "wall_ms_per_step": wall_ms,
         "device_ms_per_step": dev_ms,
         "device_busy_share": dev_ms / wall_ms,
-        "share_paged_attention": share(lambda k: "paged_attention" in k),
+        "share_paged_attention": share(lambda k: any(w in k for w in (
+            "paged_attention", "paged_bf16_kernel", "paged_f32_kernel"))),
         "share_kv_update": share(lambda k: "kv_update" in k),
         "share_gemm": share(lambda k: any(w in k for w in (
             "gemm", "gemv", "cutlass", "nvjet", "sm90_xmma"))),

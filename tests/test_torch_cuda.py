@@ -50,6 +50,17 @@ def test_kv_update_kernel_bit_equal(dev, dt):
     (3, 8, 2, 24, 8, 6, 128, torch.float32, 0),
     (8, 40, 8, 83, 128, 8, 128, torch.bfloat16, 0),
     (8, 40, 8, 83, 128, 8, 128, torch.bfloat16, 200),
+    # the reference's head layouts (granite-20b, recurrentgemma-9b,
+    # nemotron-4-340b, starcoder2-3b), split over the table
+    (4, 48, 1, 70, 128, 16, 128, torch.bfloat16, 0),
+    (4, 16, 1, 70, 128, 16, 256, torch.bfloat16, 0),
+    (4, 96, 8, 70, 128, 16, 192, torch.bfloat16, 0),
+    (4, 24, 2, 70, 128, 16, 128, torch.bfloat16, 0),
+    (4, 40, 8, 70, 128, 16, 128, torch.bfloat16, 256),   # window, splits
+    (4, 40, 8, 260, 8, 64, 128, torch.bfloat16, 0),      # page 8
+    (4, 40, 8, 70, 16, 64, 128, torch.float32, 0),
+    (2, 48, 1, 40, 16, 32, 256, torch.float32, 0),
+    (1, 40, 8, 260, 128, 256, 128, torch.bfloat16, 0),   # 32768 positions
 ])
 def test_paged_attention_kernel_vs_plain(dev, B, H, K, pages, page, P, dh,
                                          dt, win):
@@ -66,10 +77,79 @@ def test_paged_attention_kernel_vs_plain(dev, B, H, K, pages, page, P, dh,
         bt[b, :need] = torch.randperm(pages - 1, generator=g)[:need]
     bt, lens = bt.to(dev), lens.to(dev)
     want = pak.paged_attention_plain(q, ak, av, bt, lens, window=win)
+    n = pak.launches
     got = pak.paged_attention(q, ak, av, bt, lens, window=win)
     torch.cuda.synchronize()
+    assert pak.launches == n + 1
     tol = 3e-2 if dt == torch.bfloat16 else 1e-5
     assert float((got.float() - want.float()).abs().max()) < tol
+    if dt == torch.bfloat16:      # long rows are far smaller than 3e-2
+        assert fak.row_scaled_error(got, want) < fak.BF16_ROW_TOL
+
+
+def _paged_inputs(dev, B, H, K, dh, page, P, lengths, dt, seed):
+    from repro_torch.launch import bench_paged as bp
+    return list(bp.make_inputs(torch, dev, B, H, K, dh, page, P, lengths,
+                               dt, seed))
+
+
+@pytest.mark.parametrize("lengths", [[1, 127, 128, 129], [0, 64, 65, 5000]])
+def test_paged_attention_page_edges_and_masked_lane(dev, lengths):
+    """Lengths at a page's and a tile's edges, a lane with no position
+    (length 0) and a lane whose pages are all unused: those give exactly
+    0."""
+    inp = _paged_inputs(dev, 5, 40, 8, 128, 128, 48, lengths + [700],
+                        torch.bfloat16, 1)
+    inp[3][4] = -1
+    want = pak.paged_attention_plain(*inp)
+    got = pak.paged_attention(*inp)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) < 3e-2
+    live = [b for b, n in enumerate(lengths) if n > 0]
+    assert fak.row_scaled_error(got[live], want[live]) < fak.BF16_ROW_TOL
+    assert not bool(got[4].any())
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert not bool(got[b].any())
+
+
+def test_paged_attention_merge_is_deterministic(dev):
+    """Many splits a lane: two calls give the same bits (the merge runs in
+    split order, whichever block arrives last), the ticket counters are 0
+    after each call, and a CUDA graph replay gives the same bits again."""
+    inp = _paged_inputs(dev, 2, 40, 8, 128, 128, 128, [16000, 9000],
+                        torch.bfloat16, 2)
+    assert pak.split_count(2, 8, 128, 128)[0] > 1
+    first = pak.paged_attention(*inp)
+    second = pak.paged_attention(*inp)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert not bool(pak._counters[torch.cuda.current_device()].any())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pak.paged_attention(*inp)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, first)
+    assert not bool(pak._counters[torch.cuda.current_device()].any())
+
+
+@pytest.mark.parametrize("H,K,dh,dt", [
+    (65, 1, 128, torch.bfloat16),       # more than 64 heads per KV head
+    (16, 1, 272, torch.bfloat16),       # head_dim above 256
+    (8, 2, 200, torch.bfloat16),        # not a multiple of 16
+    (8, 2, 12, torch.float32),          # not a multiple of 8
+])
+def test_paged_attention_refuses_on_the_card(dev, H, K, dh, dt):
+    q = torch.zeros((1, H, dh), dtype=dt, device=dev)
+    ak = torch.zeros((2, 16, K, dh), dtype=dt, device=dev)
+    bt = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    lens = torch.ones((1,), dtype=torch.int32, device=dev)
+    n = pak.launches
+    with pytest.raises(ValueError):
+        pak.paged_attention(q, ak, ak, bt, lens)
+    assert pak.launches == n
 
 
 def test_decode_tokens_match_cpu(dev):
