@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Builds the port's four CUDA kernels from ``src/repro_torch/csrc``, holds
+Builds the port's five CUDA kernels from ``src/repro_torch/csrc``, holds
 each kernel against its plain PyTorch version at its path's shapes (and
 times both), then drives the port's paths:
 
 1. the kernels against their plain versions (serving shapes, the
-   reference's sweep shapes, the edges of the kernels' tiles, qwen2.5-32b's
+   decode layer's fused bias + RoPE + K/V write ``rope_kv_append`` with a
+   lane on the dump page and one past its table, the reference's sweep
+   shapes, the edges of the kernels' tiles, qwen2.5-32b's
    prefill and mamba2-370m's scan; the flash rows name the variant that
    ran; paged_attention also at every head layout of the reference's
    configs, 8 x 32768 and 1 x 32768 positions, page and split edges and
@@ -17,7 +19,9 @@ times both), then drives the port's paths:
 3. qwen2.5-32b served at full width (cut to 8 layers, random weights from
    a seed) through the paged engine: short prompts, a 300-token prompt on
    the span path, a published prefix with an exact and a partial hit, and
-   a crash-and-recover mid-run;
+   a crash-and-recover mid-run; every layer of every step launches
+   ``rope_kv_append`` and ``paged_attention`` once, the standalone
+   ``kv_update`` never;
 4. the full-sequence forward (logits, collected K/V, loss) of both
    architectures' smoke configurations on the card against the CPU;
 5. qwen2.5-32b prefill at full width (the serve run's 8 layers and
@@ -142,6 +146,8 @@ def check_kernels(torch, cfg, dev) -> list[dict]:
                   "dtype": str(dt)},
     }
 
+    rope_row = check_rope_kv_append(torch, cfg, dev, pages)
+
     # paged_attention: within 3e-2 and BF16_ROW_TOL of a row's rms, window
     # off and on; lengths up to the serve run's longest sequence
     q = randn(B, H, dh)
@@ -220,7 +226,79 @@ def check_kernels(torch, cfg, dev) -> list[dict]:
         "max_abs_err", "row_scaled_err", "splits", "ms", "ms_l2_warm",
         "eager_ms", "plain_ms", "bound_ms", "sdpa_pregathered_ms", "shape")}
     pa_row["sweep"] = check_paged_sweep(torch, dev)
-    return [kv_row, pa_row]
+    return [kv_row, rope_row, pa_row]
+
+
+def check_rope_kv_append(torch, cfg, dev, pages) -> dict:
+    """rope_kv_append at the serve run's shape (8 lanes, 40/8 heads,
+    head_dim 128, bf16, bias and RoPE on, the engine's arena), bit-equal to
+    its plain version over q_rot and the whole arena; a lane on a -1 table
+    column and a lane past the table write the dump page."""
+    from repro_torch.kernels.kv_update import kernel as kvk
+    from repro_torch.layers.rope import rope_freqs
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    B, H, K, dh, page = LANES, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim, cfg.page_size
+    P = MAX_SEQ // page
+    dt = cfg.dtype
+    es = torch.empty((), dtype=dt).element_size()
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device=dev)).to(dt)
+
+    pos = torch.randint(0, LONG_PROMPT + 64, (B,), generator=g, device=dev,
+                        dtype=torch.int32)
+    pos[B - 1] = P * page + 5                     # past the table
+    table = torch.randperm(pages - 1, generator=g, device=dev)[:B * P]
+    table = table.to(torch.int32).reshape(B, P)
+    table[B - 2, int(pos[B - 2]) // page] = -1    # a -1 column: dump page
+    if int(pos[B - 2]) % page == int(pos[B - 1]) % page:
+        pos[B - 2] = (int(pos[B - 2]) // page) * page + \
+            (int(pos[B - 1]) + 1) % page          # its own dump slot
+    args = (randn(B, H * dh), randn(B, K * dh), randn(B, K * dh),
+            randn(H * dh, scale=0.5), randn(K * dh, scale=0.5),
+            randn(K * dh, scale=0.5), rope_freqs(dh, cfg.rope_theta, dev),
+            pos, table)
+    ak, av = randn(pages, page, K, dh), randn(pages, page, K, dh)
+    rk, rv = ak.clone(), av.clone()
+    want = kvk.rope_kv_append_plain(*args, rk, rv)
+    got = kvk.rope_kv_append(*args, ak, av)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(ak, rk)
+            and torch.equal(av, rv)):
+        raise AssertionError("rope_kv_append kernel differs from its plain "
+                             "version")
+    err = max(float((got.float() - want.float()).abs().max()),
+              float((ak.float() - rk.float()).abs().max()),
+              float((av.float() - rv.float()).abs().max()))
+    # bytes: q, k, v, the biases, freqs, pos and one table entry a lane
+    # read; q_rot and the K and V rows written.  Operations: the angle, per
+    # (lane, head, pair) four products and two sums, a bias add an element
+    nbytes = (2 * B * H * dh + 4 * B * K * dh + (H + 2 * K) * dh) * es \
+        + dh // 2 * 4 + 2 * B * 4
+    ops = B * (dh // 2 + 3 * (H + K) * dh + (H + 2 * K) * dh)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS * 1e3
+    return {
+        "name": "rope_kv_append", "route": "cuda",
+        "source": "src/repro_torch/csrc/kv_update.cu",
+        "replaces": "src/repro/kernels/kv_update/kernel.py:47",
+        "max_abs_err": err, "tolerance": 0.0,
+        "ms": graph_ms(torch, lambda: kvk.rope_kv_append(*args, ak, av)),
+        "eager_ms": event_ms(torch, lambda: kvk.rope_kv_append(*args, ak,
+                                                              av)),
+        "plain_ms": event_ms(torch, lambda: kvk.rope_kv_append_plain(
+            *args, ak, av)),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "library_call": "none (no single PyTorch call adds the biases, "
+                        "rotates q and k and writes the paged K/V rows)",
+        "shape": {"q": [B, H * dh], "kv": [B, K * dh],
+                  "arena": [pages, page, K, dh], "table": [B, P],
+                  "dtype": str(dt)},
+    }
 
 
 # paged_attention beyond the serve run: the reference's head layouts, the
@@ -574,6 +652,7 @@ def serve_full_width(torch, cfg, params, dev) -> dict:
 
     # counts start at 0 here: everything below is the main path
     kvk.launches = 0
+    kvk.rope_kv_append_launches = 0
     pak.launches = 0
     t_run = time.perf_counter()
     for _ in range(4):
@@ -607,11 +686,15 @@ def serve_full_width(torch, cfg, params, dev) -> dict:
             raise AssertionError(f"lane {lane} did not resume after recovery")
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
-    counts = {"kv_update": kvk.launches, "paged_attention": pak.launches}
+    counts = {"kv_update": kvk.launches,
+              "rope_kv_append": kvk.rope_kv_append_launches,
+              "paged_attention": pak.launches}
     want = cfg.num_layers * steps
-    if counts["kv_update"] != want or counts["paged_attention"] != want:
-        raise AssertionError(f"launch counts {counts} != layers x steps "
-                             f"= {want}")
+    if counts["rope_kv_append"] != want or \
+            counts["paged_attention"] != want or counts["kv_update"] != 0:
+        raise AssertionError(f"launch counts {counts}: want layers x steps "
+                             f"= {want} of rope_kv_append and "
+                             f"paged_attention, 0 of kv_update")
     steady = sorted(step_s[5:])
     return {
         "model": cfg.name, "layers": cfg.num_layers,

@@ -12,6 +12,17 @@
 // Semantics: a page id < 0 writes to the LAST page (the reserved dump
 // page), as the Pallas kernel does.  A slot outside [0, page) or a page
 // id past the arena is dropped, as a JAX scatter drops it.
+//
+// rope_kv_append_launch is kv_update redesigned for the decode layer: one
+// launch does everything between the layer's QKV matmuls and its paged
+// attention (the chain of the reference's serving/tp_layers.py
+// attn_decode_tp before its gather).  A block per lane adds the QKV
+// biases, rotates q and k (half-split RoPE in fp32), looks the lane's page
+// up in the block table, writes the rotated K row and the V row into the
+// arena slot and the rotated q to q_out.  It reads pos and the table on
+// the device, so the decode step needs no host sync and can be captured
+// in a CUDA graph.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,5 +85,243 @@ extern "C" int kv_update_launch(void* ak, void* av, const void* kn,
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// VEC consecutive elements, moved in one load / store
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+constexpr int MAX_HALF = 128;      // head_dim <= 256
+constexpr int MAX_THREADS = 1024;
+
+// Rotation item w of lane b: chunk c of head `head` (q heads first, then
+// the K heads), elements c..c+VEC paired with half+c..half+c+VEC.
+// load_item issues the loads of both halves and of their bias.
+template <typename T, int VEC>
+struct Item {
+  Pack<T, VEC> x1, x2, b1, b2;
+  int head, c;
+};
+
+template <typename T, int VEC>
+__device__ __forceinline__ void load_item(
+    Item<T, VEC>& it, int w, int b, int H, int K, int dh, int chunks,
+    const T* q, const T* k, const T* bq, const T* bk) {
+  using V = Pack<T, VEC>;
+  const int half = dh >> 1;
+  it.head = w / chunks;
+  it.c = (w - it.head * chunks) * VEC;
+  const T* src;
+  const T* bias;
+  if (it.head < H) {
+    src = q + ((size_t)b * H + it.head) * dh;
+    bias = bq ? bq + (size_t)it.head * dh : nullptr;
+  } else {
+    const int kh = it.head - H;
+    src = k + ((size_t)b * K + kh) * dh;
+    bias = bk ? bk + (size_t)kh * dh : nullptr;
+  }
+  it.x1 = *reinterpret_cast<const V*>(src + it.c);
+  it.x2 = *reinterpret_cast<const V*>(src + half + it.c);
+  if (bias != nullptr) {
+    it.b1 = *reinterpret_cast<const V*>(bias + it.c);
+    it.b2 = *reinterpret_cast<const V*>(bias + half + it.c);
+  }
+}
+
+// x + bias rounded to T, as an eager add in T rounds it
+template <typename T, int VEC>
+__device__ __forceinline__ void add(Pack<T, VEC>& x, const Pack<T, VEC>& b) {
+#pragma unroll
+  for (int j = 0; j < VEC; ++j)
+    x.v[j] = from_f<T>(__fadd_rn(to_f(x.v[j]), to_f(b.v[j])));
+}
+
+// One block per lane b, a thread per rotation item where the block allows
+// ((H + K) * half / VEC items).  The kernel is a latency chain: pos, then
+// the table entry; freqs, then cos/sin.  So every thread first issues all
+// its independent loads (pos, its freqs entry, its first q/k item, its
+// first V chunk, their biases) and only then uses them: the chain is two
+// loads deep.  Each product and sum of the rotation is rounded to fp32 on
+// its own (__fmul_rn / __fadd_rn / __fsub_rn: nvcc may not contract them
+// into FMAs), as the eager x1 * cos - x2 * sin of layers/rope.py rounds
+// them; cosf / sinf are the precise ones (no --use_fast_math).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(MAX_THREADS) rope_kv_append_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ bq,
+    const T* __restrict__ bk, const T* __restrict__ bv,
+    const float* __restrict__ freqs, const int* __restrict__ pos,
+    const int* __restrict__ block_table, T* __restrict__ ak,
+    T* __restrict__ av, T* __restrict__ q_out, int H, int K, int dh, int P,
+    int npages, int page) {
+  __shared__ float cs[2 * MAX_HALF];           // cos, then sin
+  using V = Pack<T, VEC>;
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  const int half = dh >> 1;
+  const int chunks = half / VEC;
+  const int items = (H + K) * chunks;
+  const int vitems = K * dh / VEC;
+
+  // the independent loads, all in flight before any use
+  const int p = pos[b];
+  const float f0 = (freqs != nullptr && t < half) ? freqs[t] : 0.f;
+  Item<T, VEC> it;
+  if (t < items) load_item(it, t, b, H, K, dh, chunks, q, k, bq, bk);
+  V xv, bvv;
+  if (t < vitems) {
+    xv = *reinterpret_cast<const V*>(v + (size_t)b * K * dh + t * VEC);
+    if (bv != nullptr) bvv = *reinterpret_cast<const V*>(bv + t * VEC);
+  }
+
+  // the page and slot of position p: block_table[b, p / page] when that
+  // column exists (else -1); an id < 0 goes to the dump page, an id past
+  // the arena drops the write
+  int lp = p / page, slot = p % page;
+  if (slot < 0) {
+    slot += page;
+    lp -= 1;
+  }
+  int pid = (lp >= 0 && lp < P) ? block_table[(size_t)b * P + lp] : -1;
+
+  const float fp = static_cast<float>(p);
+  if (freqs != nullptr) {
+    for (int i = t; i < half; i += blockDim.x) {
+      const float ang = __fmul_rn(fp, i == t ? f0 : freqs[i]);
+      cs[i] = cosf(ang);
+      cs[MAX_HALF + i] = sinf(ang);
+    }
+  }
+
+  if (pid < 0) pid = npages - 1;
+  const size_t row = ((size_t)pid * page + slot) * K * dh;
+  T* k_row = pid < npages ? ak + row : nullptr;
+  T* v_row = pid < npages ? av + row : nullptr;
+
+  // the V row
+  if (v_row != nullptr) {
+    for (int i = t; i < vitems; i += blockDim.x) {
+      if (i != t) {
+        xv = *reinterpret_cast<const V*>(v + (size_t)b * K * dh + i * VEC);
+        if (bv != nullptr) bvv = *reinterpret_cast<const V*>(bv + i * VEC);
+      }
+      if (bv != nullptr) add(xv, bvv);
+      *reinterpret_cast<V*>(v_row + i * VEC) = xv;
+    }
+  }
+  if (freqs != nullptr) __syncthreads();
+
+  for (int w = t; w < items; w += blockDim.x) {
+    if (w != t) load_item(it, w, b, H, K, dh, chunks, q, k, bq, bk);
+    if (bq != nullptr) {
+      add(it.x1, it.b1);
+      add(it.x2, it.b2);
+    }
+    if (freqs != nullptr) {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float a = to_f(it.x1.v[j]), e = to_f(it.x2.v[j]);
+        const float co = cs[it.c + j], si = cs[MAX_HALF + it.c + j];
+        it.x1.v[j] =
+            from_f<T>(__fsub_rn(__fmul_rn(a, co), __fmul_rn(e, si)));
+        it.x2.v[j] =
+            from_f<T>(__fadd_rn(__fmul_rn(a, si), __fmul_rn(e, co)));
+      }
+    }
+    // q_out, or the K row (none when the write drops)
+    T* dst = it.head < H ? q_out + ((size_t)b * H + it.head) * dh
+             : k_row     ? k_row + (size_t)(it.head - H) * dh
+                         : nullptr;
+    if (dst != nullptr) {
+      *reinterpret_cast<V*>(dst + it.c) = it.x1;
+      *reinterpret_cast<V*>(dst + half + it.c) = it.x2;
+    }
+  }
+}
+
+template <typename T, int VEC>
+void launch_rope(const void* q, const void* k, const void* v,
+                 const void* bq, const void* bk, const void* bv,
+                 const float* freqs, const int* pos, const int* table,
+                 void* ak, void* av, void* q_out, int B, int H, int K,
+                 int dh, int P, int npages, int page, cudaStream_t s) {
+  const int items = (H + K) * (dh / 2 / VEC);
+  const int threads = items >= MAX_THREADS ? MAX_THREADS
+                                           : ((items + 31) / 32) * 32;
+  rope_kv_append_kernel<T, VEC><<<B, threads, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(bq),
+      static_cast<const T*>(bk), static_cast<const T*>(bv), freqs, pos,
+      table, static_cast<T*>(ak), static_cast<T*>(av),
+      static_cast<T*>(q_out), H, K, dh, P, npages, page);
+}
+
+template <typename T>
+void dispatch_rope(bool wide, const void* q, const void* k, const void* v,
+                   const void* bq, const void* bk, const void* bv,
+                   const float* freqs, const int* pos, const int* table,
+                   void* ak, void* av, void* q_out, int B, int H, int K,
+                   int dh, int P, int npages, int page, cudaStream_t s) {
+  if (wide)
+    launch_rope<T, 16 / sizeof(T)>(q, k, v, bq, bk, bv, freqs, pos, table,
+                                   ak, av, q_out, B, H, K, dh, P, npages,
+                                   page, s);
+  else
+    launch_rope<T, 1>(q, k, v, bq, bk, bv, freqs, pos, table, ak, av,
+                      q_out, B, H, K, dh, P, npages, page, s);
+}
+
+}  // namespace
+
+// q [B, H*dh], k, v [B, K*dh] in dtype (0 fp32, 1 bf16); bq, bk, bv the
+// biases [H*dh], [K*dh] or all null; freqs fp32 [dh/2] or null (no RoPE);
+// pos int32 [B]; block_table int32 [B, P]; arenas [npages, page, K, dh];
+// q_out [B, H, dh].  H % K == 0, dh even and <= 256 (the wrapper checks).
+// Rows move in 16-byte units when half a head row and every pointer allow.
+extern "C" int rope_kv_append_launch(
+    const void* q, const void* k, const void* v, const void* bq,
+    const void* bk, const void* bv, const float* freqs, const int* pos,
+    const int* block_table, void* ak, void* av, void* q_out, int B, int H,
+    int K, int dh, int P, int npages, int page, int dtype, void* stream) {
+  if (B <= 0) return 0;
+  if (dh <= 0 || dh % 2 || dh / 2 > MAX_HALF || K <= 0 || H % K || P <= 0 ||
+      page <= 0 || npages <= 0 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t es = dtype == 0 ? 4 : 2;
+  const uintptr_t align =
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(bq) |
+      reinterpret_cast<uintptr_t>(bk) | reinterpret_cast<uintptr_t>(bv) |
+      reinterpret_cast<uintptr_t>(ak) | reinterpret_cast<uintptr_t>(av) |
+      reinterpret_cast<uintptr_t>(q_out) |
+      static_cast<uintptr_t>(dh / 2 * es);
+  const bool wide = align % 16 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    dispatch_rope<float>(wide, q, k, v, bq, bk, bv, freqs, pos, block_table,
+                         ak, av, q_out, B, H, K, dh, P, npages, page, s);
+  else
+    dispatch_rope<__nv_bfloat16>(wide, q, k, v, bq, bk, bv, freqs, pos,
+                                 block_table, ak, av, q_out, B, H, K, dh, P,
+                                 npages, page, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,6 +7,13 @@ Both update the arenas IN PLACE.  A page id < 0 writes to the last page
 (the reserved dump page), as the Pallas kernel does; a slot outside
 ``[0, page)`` is dropped.  (The reference's ``kv_update_ref`` drops
 negative ids instead; the engine never reads the dump page.)
+
+``rope_kv_append`` is kv_update redesigned for the decode layer: one
+launch of ``csrc/kv_update.cu``'s ``rope_kv_append_launch`` does what the
+layer does between its QKV matmuls and its paged attention (bias, RoPE on
+q and k, the page/slot lookup of ``pos`` in the block table, the K/V
+write) and returns the rotated q.  ``rope_kv_append_plain`` is that chain
+in plain PyTorch, as the decode layer ran it before.
 """
 
 from __future__ import annotations
@@ -14,8 +21,13 @@ from __future__ import annotations
 import torch
 
 from .. import build
+from ...layers.rope import apply_rope
 
-launches = 0          # kernel launches since the caller last zeroed this
+launches = 0          # kv_update launches since the caller last zeroed this
+rope_kv_append_launches = 0   # rope_kv_append launches, likewise
+
+MAX_HEAD_DIM = 256
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def kv_update_plain(arena_k, arena_v, k_new, v_new, page_ids, slots):
@@ -72,3 +84,121 @@ def kv_update(arena_k, arena_v, k_new, v_new, page_ids, slots):
     build.check(err, "kv_update")
     launches += 1
     return arena_k, arena_v
+
+
+def rope_kv_append_plain(q, k, v, bq, bk, bv, freqs, pos, block_table,
+                         arena_k, arena_v):
+    """Plain PyTorch version of ``rope_kv_append`` (same arguments): the
+    bias add, ``apply_rope`` on q and k, the page/slot lookup and
+    ``kv_update_plain``, op by op.  Returns q_rot [B, H, dh]."""
+    B = q.shape[0]
+    _, page, K, dh = arena_k.shape
+    H = q.shape[1] // dh
+    P = block_table.shape[1]
+    if bq is not None:
+        q, k, v = q + bq, k + bk, v + bv
+    q = q.reshape(B, H, dh)
+    k = k.reshape(B, K, dh)
+    v = v.reshape(B, K, dh)
+    if freqs is not None:
+        q = apply_rope(q[:, None], pos[:, None], freqs=freqs)[:, 0]
+        k = apply_rope(k[:, None], pos[:, None], freqs=freqs)[:, 0]
+    slot = (pos % page).to(torch.int32)
+    lpage = (pos // page).long()
+    in_table = lpage < P
+    pid = torch.gather(block_table, 1,
+                       torch.clamp(lpage, max=P - 1)[:, None])[:, 0]
+    pid = torch.where(in_table, pid, -1).to(torch.int32)
+    kv_update_plain(arena_k, arena_v, k.to(arena_k.dtype).contiguous(),
+                    v.to(arena_v.dtype).contiguous(), pid, slot)
+    return q
+
+
+def _check_rope(q, k, v, bq, bk, bv, freqs, pos, block_table, arena_k,
+                arena_v):
+    if arena_k.dim() != 4 or arena_v.shape != arena_k.shape:
+        raise ValueError("arenas must both be [pages, page, K, dh]")
+    _, _, K, dh = arena_k.shape
+    if dh % 2 or not 0 < dh <= MAX_HEAD_DIM:
+        raise ValueError(f"rope_kv_append takes an even head_dim <= "
+                         f"{MAX_HEAD_DIM}, not {dh}")
+    if q.dim() != 2 or q.shape[1] % dh:
+        raise ValueError(f"q must be [B, H * {dh}], got {tuple(q.shape)}")
+    B, H = q.shape[0], q.shape[1] // dh
+    if H == 0 or H % K:
+        raise ValueError(f"{H} query heads do not group over {K} KV heads")
+    if k.shape != (B, K * dh) or v.shape != k.shape:
+        raise ValueError(f"k and v must be [B, {K * dh}], got "
+                         f"{tuple(k.shape)} / {tuple(v.shape)}")
+    biases = (bq, bk, bv)
+    if any(b is None for b in biases) and any(b is not None for b in biases):
+        raise ValueError("give all three biases or none")
+    if bq is not None and (bq.shape != (H * dh,) or bk.shape != (K * dh,)
+                           or bv.shape != (K * dh,)):
+        raise ValueError("the biases must be [H * dh], [K * dh], [K * dh]")
+    if freqs is not None and (freqs.shape != (dh // 2,)
+                              or freqs.dtype != torch.float32):
+        raise ValueError(f"freqs must be float32 [{dh // 2}]")
+    if pos.shape != (B,) or block_table.dim() != 2 \
+            or block_table.shape[0] != B or block_table.shape[1] == 0:
+        raise ValueError("pos must be [B] and block_table [B, P], P > 0")
+    if pos.dtype != torch.int32 or block_table.dtype != torch.int32:
+        raise TypeError("pos and block_table must be int32")
+    # (is_cuda, device index): far cheaper than comparing torch.device
+    # objects, on a path that runs once a layer a decode step
+    where = (arena_k.is_cuda, arena_k.get_device())
+    for t in (q, k, v, *biases, freqs, pos, block_table, arena_v):
+        if t is not None and (t.is_cuda, t.get_device()) != where:
+            raise ValueError("all tensors must be on one device")
+
+
+def rope_kv_append(q, k, v, bq, bk, bv, freqs, pos, block_table, arena_k,
+                   arena_v):
+    """The decode layer's step between its QKV matmuls and its attention.
+
+    q: [B, H * dh], k, v: [B, K * dh] (the matmul outputs); bq, bk, bv:
+    the biases [H * dh], [K * dh], [K * dh] or all None; freqs: float32
+    [dh / 2] (``layers.rope.rope_freqs``) or None for no RoPE; pos: int32
+    [B] (>= 0); block_table: int32 [B, P]; arena_k/v: [pages, page, K,
+    dh], updated IN PLACE: the rotated K row and the V row of lane b land
+    in page ``block_table[b, pos // page]`` (-1 when ``pos // page >= P``;
+    an id < 0 → the dump page, the last), slot ``pos % page``.  Returns
+    the rotated q [B, H, dh].  Refuses an odd head_dim, one above 256 and
+    H % K != 0."""
+    global rope_kv_append_launches
+    _check_rope(q, k, v, bq, bk, bv, freqs, pos, block_table, arena_k,
+                arena_v)
+    dev = arena_k.device
+    if dev.type == "cpu":
+        return rope_kv_append_plain(q, k, v, bq, bk, bv, freqs, pos,
+                                    block_table, arena_k, arena_v)
+    if dev.type != "cuda":
+        raise ValueError(f"rope_kv_append runs on cuda or cpu, not {dev}")
+    dt = arena_k.dtype
+    if dt not in _DTYPE_CODE:
+        raise TypeError(f"rope_kv_append takes float32 or bfloat16, not "
+                        f"{dt}")
+    biases = (bq, bk, bv)
+    for t in (q, k, v, arena_v, *biases):
+        if t is not None and t.dtype != dt:
+            raise TypeError("q, k, v, the biases and the arenas must share "
+                            "one dtype")
+    for t in (q, k, v, *biases, freqs, pos, block_table, arena_k, arena_v):
+        if t is not None and not t.is_contiguous():
+            raise ValueError("rope_kv_append needs contiguous tensors")
+    npages, page, K, dh = arena_k.shape
+    B, H = q.shape[0], q.shape[1] // dh
+    q_out = torch.empty((B, H, dh), dtype=dt, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = build.library().rope_kv_append_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(bq), ptr(bk), ptr(bv),
+        ptr(freqs), pos.data_ptr(), block_table.data_ptr(),
+        arena_k.data_ptr(), arena_v.data_ptr(), q_out.data_ptr(), B, H, K,
+        dh, block_table.shape[1], npages, page, _DTYPE_CODE[dt],
+        build.stream_ptr(dev))
+    build.check(err, "rope_kv_append")
+    rope_kv_append_launches += 1
+    return q_out

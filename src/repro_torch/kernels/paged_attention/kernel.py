@@ -57,7 +57,7 @@ def paged_attention_plain(q, arena_k, arena_v, block_table, lengths, *,
     v = arena_v[bt].reshape(B, P * page, K, dh).float()
     qg = q.reshape(B, K, g, dh).float() * (dh ** -0.5)
     s = torch.einsum("bkgd,btkd->bkgt", qg, k)
-    valid = _valid(block_table, lengths, page, window)
+    valid = valid_positions(block_table, lengths, page, window)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     m = s.max(dim=-1, keepdim=True).values
     e = torch.where(valid[:, None, None, :], torch.exp(s - m), 0.0)
@@ -66,7 +66,7 @@ def paged_attention_plain(q, arena_k, arena_v, block_table, lengths, *,
     return o.reshape(B, H, dh).to(q.dtype)
 
 
-def _valid(block_table, lengths, page: int, window: int):
+def valid_positions(block_table, lengths, page: int, window: int):
     """[B, P * page] bool: the positions the kernel attends over."""
     P = block_table.shape[1]
     pos = torch.arange(P * page, device=block_table.device)[None]
@@ -116,7 +116,7 @@ def paged_attention_split_plain(q, arena_k, arena_v, block_table, lengths,
     v = arena_v[bt].reshape(B, P * page, K, dh).float()
     qg = q.reshape(B, K, g, dh).float() * (dh ** -0.5)
     s_all = torch.einsum("bkgd,btkd->bkgt", qg, k)
-    valid = _valid(block_table, lengths, page, window)[:, None, None, :]
+    valid = valid_positions(block_table, lengths, page, window)[:, None, None, :]
     parts = []
     for sp in range(splits):
         lo, hi = sp * per * tile, min((sp + 1) * per * tile, P * page)

@@ -1,36 +1,42 @@
 """Where a decode step's time goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \
-        [--steps 8] [--out profile_out]
+        [--steps 8] [--out profile_out] [--parent PARENT_DIR]
 
 Builds the serving engine of ``chip_smoke.py``'s serve run (qwen2.5-32b
 at full width cut to 8 layers, random weights from a seed; 8 lanes,
 max_seq 1024), admits 8 requests (half with 300-token prompts on the
 span path, half with short prompts on lazy pages), runs 300 steps so
 every lane attends over 300 positions, then records ``--steps`` engine
-steps under ``torch.profiler``.  Prints the wall time
-per step, the device time per step by kernel (top entries), the share
-of device time in the two port kernels and in matmuls, and the device's
-busy share (kernel time over wall time).  Writes the Chrome trace and
-the table to ``--out``.
+steps under ``torch.profiler``.  Reports the wall time per step, the
+device time per step by kernel (top entries), the CUDA kernels launched a
+step (``kernels_per_step``; memory copies and sets counted apart), the
+host's time a step (``host_ms_per_step``: wall minus device time), the
+share of device time in the port's kernels and in matmuls, and the
+device's busy share (kernel time over wall time).  The two counts print
+on lines of their own, then the summary as one JSON line, last.  Writes
+the Chrome trace and the summary to ``--out``.
+
+With ``--parent``, the script runs itself once per tree, with that tree's
+``src`` first on the path, in the order parent, change, change, parent
+(this module is read from the change's tree; it uses only the engine's
+API, the same in both), prints the numbers side by side and writes them
+to ``--out/profile_decode_trees.json``.
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
+import subprocess
+import sys
 import time
 from pathlib import Path
 
-import torch
-
-from ..configs import get_config
-from ..device import resolve_device
-from ..models.params import init_params
-from ..serving.engine import ServingEngine
-
+ROOT = Path(__file__).resolve().parents[3]
 SEED, LAYERS, LANES, MAX_SEQ, PROMPT = 0, 8, 8, 1024, 300
+TREE_KEYS = ("kernels_per_step", "copies_per_step", "device_ms_per_step",
+             "host_ms_per_step", "wall_ms_per_step", "device_busy_share")
 
 
 def _device_us(evt) -> float:
@@ -40,11 +46,17 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--steps", type=int, default=8)
-    ap.add_argument("--out", default="profile_out")
-    args = ap.parse_args(argv)
+def _is_copy(name: str) -> bool:
+    return name.lower().startswith(("memcpy", "memset"))
+
+
+def profile(steps: int, out: Path) -> dict:
+    import torch
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import ServingEngine
 
     dev = resolve_device("cuda")
     cfg = dataclasses.replace(get_config("qwen2.5-32b"), num_layers=LAYERS)
@@ -64,7 +76,7 @@ def main(argv=None):
             torch.profiler.ProfilerActivity.CUDA]
     walls = []
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(args.steps):
+        for _ in range(steps):
             t = time.perf_counter()
             eng.step()
             torch.cuda.synchronize()
@@ -76,8 +88,7 @@ def main(argv=None):
             continue
         us = _device_us(evt)
         if us > 0:
-            rows.append((evt.key, us / args.steps / 1e3, evt.count
-                         // args.steps))
+            rows.append((evt.key, us / steps / 1e3, evt.count / steps))
     rows.sort(key=lambda r: -r[1])
     dev_ms = sum(r[1] for r in rows)
 
@@ -91,20 +102,77 @@ def main(argv=None):
         "positions": int(eng.dstate["pos"].max()),
         "wall_ms_per_step": wall_ms,
         "device_ms_per_step": dev_ms,
+        "host_ms_per_step": wall_ms - dev_ms,
         "device_busy_share": dev_ms / wall_ms,
+        "kernels_per_step": sum(n for k, _, n in rows if not _is_copy(k)),
+        "copies_per_step": sum(n for k, _, n in rows if _is_copy(k)),
         "share_paged_attention": share(lambda k: any(w in k for w in (
             "paged_attention", "paged_bf16_kernel", "paged_f32_kernel"))),
-        "share_kv_update": share(lambda k: "kv_update" in k),
+        "share_rope_kv_append": share(lambda k: "rope_kv_append" in k),
+        "share_kv_update": share(lambda k: "kv_update_kernel" in k),
         "share_gemm": share(lambda k: any(w in k for w in (
             "gemm", "gemv", "cutlass", "nvjet", "sm90_xmma"))),
         "top": [{"kernel": k[:120], "ms_per_step": ms, "calls_per_step": n}
                 for k, ms, n in rows[:15]],
     }
-    out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out / "profile_decode_trace.json"))
     (out / "profile_decode.json").write_text(json.dumps(summary, indent=1))
-    print(json.dumps(summary, indent=1))
+    return summary
+
+
+def run_one(steps: int, out: Path) -> dict:
+    summary = profile(steps, out)
+    print(f"kernels_per_step: {summary['kernels_per_step']}")
+    print(f"host_ms_per_step: {summary['host_ms_per_step']}")
+    print(json.dumps(summary))
+    return summary
+
+
+def compare(parent: Path, steps: int, out: Path) -> list[dict]:
+    """This script on each tree in turns parent, change, change, parent;
+    each run's outputs go to ``out/<i>_<label>``."""
+    order = [("parent", parent), ("change", ROOT), ("change", ROOT),
+             ("parent", parent)]
+    code = ("import sys; from pathlib import Path; "
+            "sys.path.insert(0, sys.argv[1]); sys.path.insert(0, sys.argv[2]); "
+            "from profile_decode import run_one; "
+            "run_one(int(sys.argv[3]), Path(sys.argv[4]))")
+    here = str(Path(__file__).resolve().parent)
+    runs = []
+    for i, (label, tree) in enumerate(order):
+        proc = subprocess.run(
+            [sys.executable, "-c", code, here, str(tree / "src"), str(steps),
+             str((out / f"{i}_{label}").resolve())],
+            capture_output=True, text=True, timeout=900, cwd=tree)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{label} ({tree}) failed:\n"
+                               f"{proc.stderr[-4000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        res["label"] = label
+        runs.append(res)
+    print("decode step under the profiler, in the order parent, change, "
+          "change, parent:")
+    for key in TREE_KEYS:
+        print(f"  {key}: " + ", ".join(f"{r[key]:.4f}" for r in runs))
+    (out / "profile_decode_trees.json").write_text(json.dumps(runs, indent=1))
+    return runs
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--out", default="profile_out", type=Path)
+    ap.add_argument("--parent", type=Path)
+    args = ap.parse_args(argv)
+    if args.parent is not None:
+        parent = args.parent.resolve()
+        if not (parent / "src" / "repro_torch").is_dir():
+            raise SystemExit(f"{parent} holds no src/repro_torch")
+        args.out.mkdir(parents=True, exist_ok=True)
+        compare(parent, args.steps, args.out)
+        return
+    run_one(args.steps, args.out)
 
 
 if __name__ == "__main__":

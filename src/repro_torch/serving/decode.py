@@ -20,6 +20,7 @@ import torch
 from ..device import resolve_device
 from ..layers.common import apply_norm
 from ..layers.mlp import apply_mlp
+from ..layers.rope import rope_freqs
 from ..models.config import ModelConfig
 from . import tp_layers as tpl
 
@@ -63,12 +64,14 @@ def _unit(tree, u: int):
     return tree[u]
 
 
-def _apply_layer(cfg: ModelConfig, spec, p, x, pos, block_table, state):
+def _apply_layer(cfg: ModelConfig, spec, p, x, pos, block_table, state,
+                 step_in):
     mixer, ffn = spec
     h = apply_norm(cfg.norm, p["norm1"], x)
     win = cfg.window if mixer == "local_attn" else 0
     x = x + tpl.attn_decode_tp(cfg, p["attn"], h, pos, state["k"],
-                               state["v"], block_table, window=win)
+                               state["v"], block_table, window=win,
+                               **step_in)
     if ffn != "none":
         h = apply_norm(cfg.norm, p["norm2"], x)
         x = x + apply_mlp(cfg, p["ffn"], h)
@@ -84,13 +87,17 @@ def decode_step(cfg: ModelConfig, params: dict, dstate: dict,
     pos = dstate["pos"]
     block_table = dstate["block_table"]
     kv_pos = dstate["kv_pos"]
+    # what every layer of the step shares, computed once
+    step_in = {"lengths": (pos + 1).to(torch.int32),
+               "freqs": rope_freqs(cfg.head_dim, cfg.rope_theta, pos.device)
+               if cfg.use_rope else None}
     x = tpl.embed_tp(params["embed"], tokens)
     for u in range(cfg.full_units):
         unit_p = _unit(params["units"], u)
         for i, spec in enumerate(cfg.pattern):
             st = _unit(dstate["units"][f"l{i}"], u)
             x = _apply_layer(cfg, spec, unit_p[f"l{i}"], x, pos,
-                             block_table, st)
+                             block_table, st, step_in)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     logits = tpl.logits_tp(table, x)

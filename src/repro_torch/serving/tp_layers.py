@@ -2,20 +2,22 @@
 at tensor-parallel degree 1, where every ``psum`` / ``pmax`` is the
 identity).
 
-The KV write and the paged attention go through the kernel wrappers:
-the CUDA kernels on a CUDA tensor, their plain versions on a CPU tensor.
-The projections stay ``torch.matmul``, as the reference leaves them to
-XLA outside any Pallas kernel.
+Between its QKV matmuls and its paged attention the decode layer makes
+one call, ``rope_kv_append`` (bias, RoPE, page/slot lookup and the K/V
+write), then ``paged_attention``: the CUDA kernels on a CUDA tensor,
+their plain versions on a CPU tensor.  The projections stay
+``torch.matmul``, as the reference leaves them to XLA outside any Pallas
+kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels.kv_update.kernel import kv_update
-from ..kernels.paged_attention.kernel import paged_attention
+from ..kernels.kv_update.kernel import rope_kv_append
+from ..kernels.paged_attention.kernel import paged_attention, \
+    valid_positions
 from ..layers.common import unembed
-from ..layers.rope import apply_rope
 
 
 def embed_tp(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -40,49 +42,62 @@ def greedy_sample_tp(logits: torch.Tensor) -> torch.Tensor:
 
 def attn_decode_tp(cfg, p: dict, x: torch.Tensor, pos: torch.Tensor,
                    arena_k: torch.Tensor, arena_v: torch.Tensor,
-                   block_table: torch.Tensor, *, window: int = 0):
+                   block_table: torch.Tensor, *, freqs, lengths,
+                   window: int = 0):
     """One-token paged attention (bf16/fp32 KV).
 
     x:           [B, D]
     arena_k/v:   [pages, page, K, dh], the last page the dump page;
                  updated IN PLACE with this token's K/V
     block_table: int32 [B, P] page ids (-1 unused)
+    freqs:       ``rope_freqs(dh, theta)`` on x's device; None without
+                 RoPE
+    lengths:     int32 ``pos + 1``
+                 (``decode_step`` computes both once a step, for every
+                 layer)
 
     The new token's K/V land at page ``block_table[b, pos // page]``,
     slot ``pos % page`` (page id < 0 → the dump page).  The attention
-    reads ``lengths = pos + 1`` positions through the block table; this
-    agrees with the reference's per-slot ``kv_pos <= pos`` mask while
-    pages fill contiguously (the engine contract).  Returns y [B, D].
+    reads ``lengths`` positions through the block table; this agrees with
+    the reference's per-slot ``kv_pos <= pos`` mask while pages fill
+    contiguously (the engine contract).  With a window, a lane left with
+    no valid position gets the mean of the V rows, as the reference's
+    layer gives it (``windowed_empty_lanes``).  Returns y [B, D].
     """
     if cfg.kv_dtype == "int8":
         raise NotImplementedError("int8 KV decode is not ported yet")
     B, _ = x.shape
-    h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    page = arena_k.shape[1]
-    P = block_table.shape[1]
+    h, dh = cfg.num_heads, cfg.head_dim
 
     q = torch.matmul(x, p["wq"])
     k_new = torch.matmul(x, p["wk"])
     v_new = torch.matmul(x, p["wv"])
-    if cfg.qkv_bias:
-        q, k_new, v_new = q + p["bq"], k_new + p["bk"], v_new + p["bv"]
-    q = q.reshape(B, h, dh)
-    k_new = k_new.reshape(B, kvh, dh)
-    v_new = v_new.reshape(B, kvh, dh)
-    if cfg.use_rope:
-        q = apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
-        k_new = apply_rope(k_new[:, None], pos[:, None],
-                           cfg.rope_theta)[:, 0]
-
-    slot = (pos % page).to(torch.int32)
-    lpage = (pos // page).long()
-    in_table = lpage < P
-    pid = torch.gather(block_table, 1,
-                       torch.clamp(lpage, max=P - 1)[:, None])[:, 0]
-    pid = torch.where(in_table, pid, -1).to(torch.int32)
-    kv_update(arena_k, arena_v, k_new.to(arena_k.dtype).contiguous(),
-              v_new.to(arena_v.dtype).contiguous(), pid, slot)
-
-    out = paged_attention(q.contiguous(), arena_k, arena_v, block_table,
-                          (pos + 1).to(torch.int32), window=window)
+    bias = (p["bq"], p["bk"], p["bv"]) if cfg.qkv_bias else (None,) * 3
+    q = rope_kv_append(q, k_new, v_new, *bias, freqs, pos, block_table,
+                       arena_k, arena_v)
+    out = paged_attention(q, arena_k, arena_v, block_table, lengths,
+                          window=window)
+    if window:
+        out = windowed_empty_lanes(out, arena_v, block_table, lengths,
+                                   window)
     return torch.matmul(out.reshape(B, h * dh).to(x.dtype), p["wo"])
+
+
+def windowed_empty_lanes(out, arena_v, block_table, lengths, window: int):
+    """A windowed decode past its table (``pos >= P * page + window - 1``)
+    leaves a lane no valid position.  The reference's layer then weighs
+    every gathered row alike (its masked scores are all -1e30, so
+    ``exp(s - max) = 1``): its output is the mean of the ``P * page`` V
+    rows of the lane's table, a -1 page read as the dump page, summed in
+    V's dtype and divided in fp32.  Gives such lanes that mean (the
+    kernel gives them 0) and leaves the others' ``out`` as it is."""
+    B, H, dh = out.shape
+    npages, page, K, _ = arena_v.shape
+    P = block_table.shape[1]
+    empty = ~valid_positions(block_table, lengths, page, window).any(dim=1)
+    bt = torch.where(block_table < 0, npages - 1, block_table).long()
+    rows = arena_v[bt].reshape(B, P * page, K, dh)
+    acc = rows.float().sum(dim=1).to(arena_v.dtype)
+    mean = (acc.float() / (P * page)).to(out.dtype)
+    mean = mean.repeat_interleave(H // K, dim=1)            # [B, H, dh]
+    return torch.where(empty[:, None, None], mean, out)

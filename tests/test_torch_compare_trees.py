@@ -1,6 +1,6 @@
 """``repro_torch.launch.compare_trees`` reads what ``chip_smoke.py``
 prints; checked here on a made-up run (the tool itself runs on the
-card)."""
+card).  ``profile_decode``'s CPU-side helpers likewise."""
 
 import json
 
@@ -39,3 +39,17 @@ def test_parse_reads_the_smoke_lines():
 def test_refuses_a_parent_without_chip_smoke(tmp_path):
     with pytest.raises(SystemExit):
         ct.main(["--parent", str(tmp_path), "--out", str(tmp_path / "o")])
+
+
+def test_profile_decode_refuses_a_parent_without_the_port(tmp_path):
+    from repro_torch.launch import profile_decode as pd
+    with pytest.raises(SystemExit):
+        pd.main(["--parent", str(tmp_path), "--out", str(tmp_path / "o")])
+
+
+def test_profile_decode_counts_copies_apart_from_kernels():
+    from repro_torch.launch import profile_decode as pd
+    assert pd._is_copy("Memcpy HtoD (Pageable -> Device)")
+    assert pd._is_copy("Memset (Device)")
+    assert not pd._is_copy("void (anonymous namespace)::"
+                           "rope_kv_append_kernel<__nv_bfloat16, 8>(...)")

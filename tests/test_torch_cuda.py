@@ -43,6 +43,78 @@ def test_kv_update_kernel_bit_equal(dev, dt):
     assert torch.equal(ak, rk) and torch.equal(av, rv)
 
 
+def _rope_inputs(dev, H, K, dh, dt, bias=True, rope=True, page=16, P=4):
+    """Lanes at a page's first, last and next slots, mid-page, on a -1
+    table column and past the table (the last two onto the dump page, at
+    different slots); random q, k, v, biases and arenas."""
+    from repro_torch.layers.rope import rope_freqs
+    g = torch.Generator().manual_seed(H + K + dh)
+    pos = torch.tensor([0, page - 1, page, 2 * page + 3, 2 * page + 5,
+                        P * page + 40], dtype=torch.int32)
+    B, pages = pos.shape[0], pos.shape[0] * P + 1
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g)).to(dt).to(dev)
+
+    bt = torch.randperm(pages - 1, generator=g)[:B * P].reshape(B, P)
+    bt = bt.to(torch.int32)
+    bt[4, (2 * page + 5) // page] = -1
+    biases = (rnd(H * dh, scale=0.5), rnd(K * dh, scale=0.5),
+              rnd(K * dh, scale=0.5)) if bias else (None,) * 3
+    freqs = rope_freqs(dh, 1e6, dev) if rope else None
+    return (rnd(B, H * dh), rnd(B, K * dh), rnd(B, K * dh), *biases, freqs,
+            pos.to(dev), bt.to(dev), rnd(pages, page, K, dh),
+            rnd(pages, page, K, dh))
+
+
+@pytest.mark.parametrize("H,K,dh,dt,bias,rope", [
+    (40, 8, 128, torch.bfloat16, True, True),      # qwen2.5-32b
+    (40, 8, 128, torch.float32, True, True),
+    (48, 1, 128, torch.bfloat16, True, True),      # granite-20b
+    (96, 8, 192, torch.bfloat16, True, True),      # nemotron-4-340b
+    (24, 2, 128, torch.bfloat16, True, True),      # starcoder2-3b
+    (16, 1, 256, torch.bfloat16, True, True),      # recurrentgemma-9b
+    (16, 1, 256, torch.float32, True, True),
+    (40, 8, 128, torch.bfloat16, False, True),
+    (40, 8, 128, torch.bfloat16, True, False),
+    (40, 8, 128, torch.float32, False, False),
+    (8, 2, 6, torch.bfloat16, True, True),         # rows not 16-byte units
+])
+def test_rope_kv_append_kernel_bit_equal(dev, H, K, dh, dt, bias, rope):
+    args = _rope_inputs(dev, H, K, dh, dt, bias, rope)
+    ak, av = args[-2:]
+    rk, rv = ak.clone(), av.clone()
+    want = kvk.rope_kv_append_plain(*args[:-2], rk, rv)
+    n, n_kv = kvk.rope_kv_append_launches, kvk.launches
+    got = kvk.rope_kv_append(*args)
+    torch.cuda.synchronize()
+    assert kvk.rope_kv_append_launches == n + 1 and kvk.launches == n_kv
+    assert got.shape == want.shape and got.dtype == dt
+    assert torch.equal(got, want)
+    assert torch.equal(ak, rk) and torch.equal(av, rv)
+
+
+def test_rope_kv_append_survives_graph_capture(dev):
+    """Captured in a CUDA graph and replayed, the kernel writes the same
+    arena and q as an eager call: it reads pos and the table on the
+    device."""
+    args = _rope_inputs(dev, 40, 8, 128, torch.bfloat16)
+    ak, av = args[-2:]
+    ek, ev = ak.clone(), av.clone()
+    eager = kvk.rope_kv_append(*args[:-2], ek, ev)
+    torch.cuda.synchronize()
+    n = kvk.rope_kv_append_launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kvk.rope_kv_append(*args)
+    assert not torch.equal(ak, ek)               # captured, not yet run
+    graph.replay()
+    torch.cuda.synchronize()
+    assert kvk.rope_kv_append_launches == n + 1  # the capture's launch
+    assert torch.equal(out, eager)
+    assert torch.equal(ak, ek) and torch.equal(av, ev)
+
+
 @pytest.mark.parametrize("B,H,K,pages,page,P,dh,dt,win", [
     (2, 4, 2, 16, 16, 4, 64, torch.float32, 0),
     (2, 8, 1, 16, 32, 3, 128, torch.bfloat16, 0),
