@@ -4,34 +4,46 @@
     python3 chip_smoke.py
 
 Builds the port's five CUDA kernels from ``src/repro_torch/csrc``, holds
-each kernel against its plain PyTorch version at its path's shapes (and
+each kernel against its plain PyTorch version at its paths' shapes (and
 times both), then drives the port's paths:
 
-1. the kernels against their plain versions (serving shapes, the
-   decode layer's fused bias + RoPE + K/V write ``rope_kv_append`` with a
-   lane on the dump page and one past its table, the reference's sweep
-   shapes, the edges of the kernels' tiles, qwen2.5-32b's
-   prefill and mamba2-370m's scan; the flash rows name the variant that
-   ran; paged_attention also at every head layout of the reference's
-   configs, 8 x 32768 and 1 x 32768 positions, page and split edges and
-   fp32, timed with the L2 cache cold and warm);
-2. the serving engine on the card against the same engine on the CPU;
-3. qwen2.5-32b served at full width (cut to 8 layers, random weights from
-   a seed) through the paged engine: short prompts, a 300-token prompt on
-   the span path, a published prefix with an exact and a partial hit, and
-   a crash-and-recover mid-run; every layer of every step launches
-   ``rope_kv_append`` and ``paged_attention`` once, the standalone
-   ``kv_update`` never;
-4. the full-sequence forward (logits, collected K/V, loss) of both
-   architectures' smoke configurations on the card against the CPU;
-5. qwen2.5-32b prefill at full width (the serve run's 8 layers and
-   weights): ``forward(collect_kv=True)`` and ``loss_fn`` on 8192 tokens;
+1. the kernels against their plain versions (the serve runs' shapes --
+   qwen2.5-32b 40/8, granite-20b 48/1, recurrentgemma-9b 16/1 at head_dim
+   256 with its window -- for the decode layer's fused bias + RoPE + K/V
+   write ``rope_kv_append`` (a lane on the dump page and one past its
+   table) and ``paged_attention``; the reference's sweep shapes and the
+   edges of the kernels' tiles, flash_attention at head_dim 192 and 256
+   among them; the prefills of qwen2.5-32b and recurrentgemma-9b and
+   mamba2-370m's scan; the flash rows name the variant that ran;
+   paged_attention also at every head layout of the reference's configs,
+   8 x 32768 and 1 x 32768 positions, page and split edges and fp32,
+   timed with the L2 cache cold and warm);
+2. the serving engine on the card against the same engine on the CPU, on
+   the qwen2.5-32b, mamba2-370m and recurrentgemma-9b smoke configs, a
+   lane reused at the end;
+3. four serve runs at full width through the paged engine (random
+   weights from a seed): qwen2.5-32b cut to 8 layers, granite-20b (all 52
+   layers), recurrentgemma-9b (all 38) and mamba2-370m (all 48): short
+   prompts, and where the model has attention a 300-token prompt on the
+   span path and a published prefix with an exact and a partial hit; a
+   crash-and-recover mid-run and a finished lane reused; every attention
+   layer of every step launches ``rope_kv_append`` and
+   ``paged_attention`` once, the standalone ``kv_update`` never;
+4. the full-sequence forward (logits, collected K/V, loss) of every
+   architecture's smoke configuration on the card against the CPU;
+5. the prefills at full width, ``forward(collect_kv=True)`` and
+   ``loss_fn`` on 8192 tokens: qwen2.5-32b (the serve run's 8 layers and
+   weights) and recurrentgemma-9b (all 38 layers: flash at head_dim 256,
+   window 2048, and the RG-LRU scan);
 6. mamba2-370m scoring, all 48 layers: ``forward`` and ``loss_fn`` on
    8 x 4096 tokens.
 
-Every phase that fails raises.  The last lines are the card, a JSON
-``kernels`` line and ``{"ok": true, "device": {...}}``.  Needs CUDA and
-this repo's ``src/``; exits non-zero without either.
+Each run prints a ``... detail:`` line.  The launch counters are set to 0
+just before each path and read just after it; the ``kernels`` line gives
+every kernel's launches on every path.  Every phase that fails raises.
+The last lines are the card, the JSON ``kernels`` line and
+``{"ok": true, "device": {...}}``.  Needs CUDA and this repo's ``src/``;
+exits non-zero without either.
 """
 
 from __future__ import annotations
@@ -92,9 +104,7 @@ def check_kernels(torch, cfg, dev) -> list[dict]:
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     B, H, K, dh, page = LANES, cfg.num_heads, cfg.num_kv_heads, \
         cfg.head_dim, cfg.page_size
-    P = MAX_SEQ // page
-    per_lane_sbs = -(-(MAX_SEQ // page + 2) // PAGES_PER_SB)
-    pages = (LANES * per_lane_sbs + 1) * PAGES_PER_SB + 1     # engine arena
+    pages, P = engine_shape(cfg)                              # engine arena
     dt = cfg.dtype
     es = torch.empty((), dtype=dt).element_size()
 
@@ -230,8 +240,8 @@ def check_kernels(torch, cfg, dev) -> list[dict]:
 
 
 def check_rope_kv_append(torch, cfg, dev, pages) -> dict:
-    """rope_kv_append at the serve run's shape (8 lanes, 40/8 heads,
-    head_dim 128, bf16, bias and RoPE on, the engine's arena), bit-equal to
+    """rope_kv_append at a serve run's shape (8 lanes, the config's heads,
+    head_dim and biases, bf16, RoPE on, the engine's arena), bit-equal to
     its plain version over q_rot and the whole arena; a lane on a -1 table
     column and a lane past the table write the dump page."""
     from repro_torch.kernels.kv_update import kernel as kvk
@@ -256,10 +266,10 @@ def check_rope_kv_append(torch, cfg, dev, pages) -> dict:
     if int(pos[B - 2]) % page == int(pos[B - 1]) % page:
         pos[B - 2] = (int(pos[B - 2]) // page) * page + \
             (int(pos[B - 1]) + 1) % page          # its own dump slot
-    args = (randn(B, H * dh), randn(B, K * dh), randn(B, K * dh),
-            randn(H * dh, scale=0.5), randn(K * dh, scale=0.5),
-            randn(K * dh, scale=0.5), rope_freqs(dh, cfg.rope_theta, dev),
-            pos, table)
+    bias = (randn(H * dh, scale=0.5), randn(K * dh, scale=0.5),
+            randn(K * dh, scale=0.5)) if cfg.qkv_bias else (None,) * 3
+    args = (randn(B, H * dh), randn(B, K * dh), randn(B, K * dh), *bias,
+            rope_freqs(dh, cfg.rope_theta, dev), pos, table)
     ak, av = randn(pages, page, K, dh), randn(pages, page, K, dh)
     rk, rv = ak.clone(), av.clone()
     want = kvk.rope_kv_append_plain(*args, rk, rv)
@@ -275,9 +285,10 @@ def check_rope_kv_append(torch, cfg, dev, pages) -> dict:
     # bytes: q, k, v, the biases, freqs, pos and one table entry a lane
     # read; q_rot and the K and V rows written.  Operations: the angle, per
     # (lane, head, pair) four products and two sums, a bias add an element
-    nbytes = (2 * B * H * dh + 4 * B * K * dh + (H + 2 * K) * dh) * es \
+    nb = (H + 2 * K) * dh if cfg.qkv_bias else 0     # bias elements
+    nbytes = (2 * B * H * dh + 4 * B * K * dh + nb) * es \
         + dh // 2 * 4 + 2 * B * 4
-    ops = B * (dh // 2 + 3 * (H + K) * dh + (H + 2 * K) * dh)
+    ops = B * (dh // 2 + 3 * (H + K) * dh + nb)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_FLOPS * 1e3
     return {
@@ -299,6 +310,68 @@ def check_rope_kv_append(torch, cfg, dev, pages) -> dict:
                   "arena": [pages, page, K, dh], "table": [B, P],
                   "dtype": str(dt)},
     }
+
+
+def engine_shape(cfg) -> tuple[int, int]:
+    """(arena pages, table columns) of a serve run's engine: the arena
+    ``ServingEngine`` sizes for LANES lanes, MAX_SEQ and PAGES_PER_SB, and
+    the table ``make_dstate`` sizes (a window caps it)."""
+    page = cfg.page_size
+    per_lane_sbs = -(-(MAX_SEQ // page + 2) // PAGES_PER_SB)
+    pages = (LANES * per_lane_sbs + 1) * PAGES_PER_SB + 1
+    P = max(1, MAX_SEQ // page)
+    if cfg.window:
+        P = min(P, (cfg.window + page - 1) // page + 1)
+    return pages, P
+
+
+def check_serve_shape(torch, cfg, dev) -> dict:
+    """rope_kv_append (bit-equal) and paged_attention (3e-2 and
+    BF16_ROW_TOL of a row's rms, with the config's window) against their
+    plain versions at a serve run's shape: its heads, head_dim, arena and
+    table, lengths up to the run's longest sequence.  Times, bounds and
+    plain times of both."""
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.paged_attention import kernel as pak
+    from repro_torch.launch import bench_paged as bp
+
+    pages, P = engine_shape(cfg)
+    rope = check_rope_kv_append(torch, cfg, dev, pages)
+    H, K, dh, page, window = cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim, cfg.page_size, cfg.window
+    lens = bp.serve_lengths(LANES)
+    inputs = bp.make_inputs(torch, dev, LANES, H, K, dh, page, P, lens,
+                            cfg.dtype, SEED + 30, pages=pages)
+    want = pak.paged_attention_plain(*inputs, window=window)
+    got = pak.paged_attention(*inputs, window=window)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    row_err = fak.row_scaled_error(got, want)
+    if not (err < 3e-2 and row_err < fak.BF16_ROW_TOL):
+        raise AssertionError(f"paged_attention at {cfg.name}'s serve shape "
+                             f"differs from its plain version by {err}, "
+                             f"{row_err} of a row's rms")
+    t_bytes, tokens = bp.bytes_bound_ms(inputs, window)
+    t_ops = 4 * H * dh * tokens / BF16_FLOPS * 1e3
+    paged = {
+        "max_abs_err": err, "row_scaled_err": row_err,
+        "splits": pak.split_count(LANES, K, P, page)[0],
+        **bp.time_cold_warm(torch, pak.paged_attention, inputs,
+                            window=window),
+        "eager_ms": event_ms(torch, lambda: pak.paged_attention(
+            *inputs, window=window)),
+        "plain_ms": event_ms(torch, lambda: pak.paged_attention_plain(
+            *inputs, window=window)),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "shape": {"q": [LANES, H, dh], "arena": [pages, page, K, dh],
+                  "block_table": [LANES, P], "valid_tokens": tokens,
+                  "window": window, "dtype": str(cfg.dtype)}}
+    keep = ("max_abs_err", "ms", "eager_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "shape")
+    return {"rope_kv_append": {k: rope[k] for k in keep}, "paged_attention":
+            paged}
 
 
 # paged_attention beyond the serve run: the reference's head layouts, the
@@ -395,6 +468,9 @@ FLASH_SWEEP = [  # B, H, K, S, dh, causal, window, dtype
     (1, 4, 2, 1000, 128, False, 0, "bfloat16"),
     (1, 4, 2, 512, 128, True, 48, "bfloat16"),        # window edge tiles
     (2, 40, 8, 1000, 128, True, 0, "bfloat16"),       # a tile at a head's end
+    (1, 96, 8, 1000, 192, True, 0, "bfloat16"),       # nemotron-4-340b
+    (1, 16, 1, 1000, 256, True, 48, "bfloat16"),      # recurrentgemma-9b
+    (1, 4, 1, 300, 256, True, 0, "float32"),
 ]
 SSD_SWEEP = [  # Bz, H, S, P, N, dtype, log-decay per step (None: random)
     (2, 2, 256, 64, 32, "float32", None),
@@ -438,10 +514,11 @@ def ssd_bound(Bz, H, S, P, N, chunk=64) -> tuple[float, str]:
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def check_forward_kernels(torch, dev, flash_main, ssd_main) -> list[dict]:
+def check_forward_kernels(torch, dev, flash_mains, ssd_main) -> list[dict]:
     """flash_attention and ssd_scan against their plain versions on the
-    reference's sweep shapes and the main paths' shapes (``flash_main``,
-    ``ssd_main``); times at the main paths' shapes."""
+    reference's sweep shapes and the timed shapes (``flash_mains``: the
+    first the row's own, the others in its ``timed_shapes``; ``ssd_main``),
+    with full times at the timed shapes."""
     from repro_torch.kernels.flash_attention import kernel as fak
     from repro_torch.kernels.ssd_scan import kernel as ssk
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -450,8 +527,8 @@ def check_forward_kernels(torch, dev, flash_main, ssd_main) -> list[dict]:
     def randn(*shape, dt=torch.float32, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
 
-    sweep, row = [], None
-    for B, H, K, S, dh, causal, win, dtn in FLASH_SWEEP + [flash_main]:
+    sweep, row, timed = [], None, []
+    for B, H, K, S, dh, causal, win, dtn in FLASH_SWEEP + flash_mains:
         dt = getattr(torch, dtn)
         q, k, v = randn(B, H, S, dh, dt=dt), randn(B, K, S, dh, dt=dt), \
             randn(B, K, S, dh, dt=dt)
@@ -484,17 +561,28 @@ def check_forward_kernels(torch, dev, flash_main, ssd_main) -> list[dict]:
 
         def run():
             return fak.flash_attention(q, k, v, causal=causal, window=win)
-        main = (B, H, K, S, dh, causal, win, dtn) == flash_main
+        main = (B, H, K, S, dh, causal, win, dtn) in flash_mains
         ms = graph_ms(torch, run, iters=20 if main else 50)
         if not main:
             sweep.append({"shape": shape, "variant": variant,
                           "max_abs_err": err, "row_scaled_err": row_err,
                           "tolerance": tol, "ms": ms, "bound_ms": bound})
             continue
-        row = {
-            "name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention/kernel.py:95",
+        if win:       # the window as a mask: keys (s - win, s]
+            pos = torch.arange(S, device=dev)
+            mask = (pos[None] <= pos[:, None]) & \
+                (pos[None] > pos[:, None] - win)
+
+            def lib():
+                return sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+            call = ("F.scaled_dot_product_attention(attn_mask=<causal "
+                    "window>, enable_gqa=True) on the same q, k, v")
+        else:
+            def lib():
+                return sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+            call = ("F.scaled_dot_product_attention(is_causal=True, "
+                    "enable_gqa=True) on the same q, k, v")
+        timed.append({
             "variant": variant,
             "max_abs_err": err, "row_scaled_err": row_err,
             "tolerance": tol, "ms": ms,
@@ -502,12 +590,13 @@ def check_forward_kernels(torch, dev, flash_main, ssd_main) -> list[dict]:
             "plain_ms": event_ms(torch, lambda: fak.flash_attention_plain(
                 q, k, v, causal=causal, window=win), iters=3, warmup=1),
             "bound_ms": bound, "bound_by": by,
-            "library_ms": event_ms(torch, lambda: sdpa(
-                q, k, v, is_causal=True, enable_gqa=True), iters=20),
-            "library_call": "F.scaled_dot_product_attention(is_causal=True, "
-                            "enable_gqa=True) on the same q, k, v",
-            "shape": shape, "sweep": sweep,
-        }
+            "library_ms": event_ms(torch, lib, iters=20),
+            "library_call": call, "shape": shape})
+        del q, k, v, want, got
+    row = dict({"name": "flash_attention", "route": "cuda",
+                "source": "src/repro_torch/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention/kernel.py:95"},
+               **timed[0], timed_shapes=timed[1:], sweep=sweep)
     rows = [row]
 
     sweep = []
@@ -570,10 +659,10 @@ def engine_script(eng, vocab: int) -> list:
     for _ in range(len(prompt)):
         seen.append(eng.step())
     eng.publish_prefix(a)
-    eng.add_request(prompt, share_prefix=True)          # exact hit
-    eng.add_request(prompt[:8] + [int(t) for t in
-                                  rng.integers(1, vocab, size=10)],
-                    share_prefix=True)                  # partial hit, split
+    seen.append(eng.add_request(prompt, share_prefix=True))  # exact hit
+    seen.append(eng.add_request(
+        prompt[:8] + [int(t) for t in rng.integers(1, vocab, size=10)],
+        share_prefix=True))                              # partial hit, split
     for _ in range(10):
         seen.append(eng.step())
     stats = eng.crash_and_recover()
@@ -582,6 +671,11 @@ def engine_script(eng, vocab: int) -> list:
     for _ in range(6):
         seen.append(eng.step())
     eng.finish(a)
+    # the finished lane is reused: its recurrent state carries over
+    # (ROADMAP C10), so the new sequence's tokens depend on it
+    seen.append(eng.add_request([3, 1, 4, 1, 5]))
+    for _ in range(6):
+        seen.append(eng.step())
     seen.append({f: getattr(eng.astate, f).cpu().tolist()
                  for f in eng.astate._fields})
     seen.append(eng.dstate["block_table"].cpu().tolist())
@@ -589,39 +683,81 @@ def engine_script(eng, vocab: int) -> list:
     return seen
 
 
+ENGINE_ARCHS = ("qwen2.5-32b", "mamba2-370m", "recurrentgemma-9b")
+
+
 def check_engine_vs_cpu(torch, dev) -> dict:
+    """The engine script on the card and on the CPU, fp32 smoke configs
+    (page 8), the same weights: every observation equal."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.params import init_params
     from repro_torch.serving.engine import ServingEngine
 
-    cfg = dataclasses.replace(get_smoke_config("qwen2.5-32b"),
-                              dtype=torch.float32, page_size=8)
-    cpu_params = init_params(cfg, torch.Generator().manual_seed(SEED),
-                             device="cpu")
-    runs = {}
-    for d in ("cpu", dev):
-        eng = ServingEngine(cfg, _to(cpu_params, d), lanes=4, max_seq=64,
-                            pages_per_sb=2, device=d)
-        runs[str(d)] = engine_script(eng, cfg.vocab_size)
-    cpu, gpu = runs["cpu"], runs[str(dev)]
-    if cpu != gpu:
-        bad = next(i for i, (x, y) in enumerate(zip(cpu, gpu)) if x != y)
-        raise AssertionError(f"engine on the card differs from the CPU at "
-                             f"call {bad}: {gpu[bad]} vs {cpu[bad]}")
-    emitted = sum(len(s) for s in cpu if isinstance(s, dict)
-                  and all(isinstance(k, int) for k in s))
-    return {"calls_compared": len(cpu), "tokens_emitted": emitted}
+    out = {}
+    for arch in ENGINE_ARCHS:
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  dtype=torch.float32, page_size=8)
+        cpu_params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                                 device="cpu")
+        runs = {}
+        for d in ("cpu", dev):
+            eng = ServingEngine(cfg, _to(cpu_params, d), lanes=4,
+                                max_seq=64, pages_per_sb=2, device=d)
+            runs[str(d)] = engine_script(eng, cfg.vocab_size)
+        cpu, gpu = runs["cpu"], runs[str(dev)]
+        if cpu != gpu:
+            bad = next(i for i, (x, y) in enumerate(zip(cpu, gpu))
+                       if x != y)
+            raise AssertionError(f"{arch}: engine on the card differs from "
+                                 f"the CPU at call {bad}: {gpu[bad]} vs "
+                                 f"{cpu[bad]}")
+        emitted = sum(len(s) for s in cpu if isinstance(s, dict)
+                      and all(isinstance(k, int) for k in s))
+        out[arch] = {"calls_compared": len(cpu), "tokens_emitted": emitted}
+    return out
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the main path at full width
+# phase 3: the serve runs at full width
 # ---------------------------------------------------------------------------
-def serve_full_width(torch, cfg, params, dev) -> dict:
-    import numpy as np
+KERNELS = ("kv_update", "rope_kv_append", "paged_attention",
+           "flash_attention", "ssd_scan")
+
+
+def _counters():
+    """Each kernel's (module, counter name)."""
+    from repro_torch.kernels.flash_attention import kernel as fak
     from repro_torch.kernels.kv_update import kernel as kvk
     from repro_torch.kernels.paged_attention import kernel as pak
+    from repro_torch.kernels.ssd_scan import kernel as ssk
+    return {"kv_update": (kvk, "launches"),
+            "rope_kv_append": (kvk, "rope_kv_append_launches"),
+            "paged_attention": (pak, "launches"),
+            "flash_attention": (fak, "launches"),
+            "ssd_scan": (ssk, "launches")}
+
+
+def zero_counts() -> None:
+    for mod, name in _counters().values():
+        setattr(mod, name, 0)
+
+
+def read_counts() -> dict:
+    return {k: getattr(mod, name) for k, (mod, name) in _counters().items()}
+
+
+def serve_full_width(torch, cfg, params, dev) -> dict:
+    """The paged engine at a serve run's shape: four short prompts, and
+    where the model has attention a LONG_PROMPT-token prompt on the span
+    path, published, with an exact and a partial hit; a crash-and-recover
+    mid-run after which every lane resumes; a finished lane reused.
+    Every attention layer of every step launches rope_kv_append and
+    paged_attention once, nothing else launches a kernel."""
+    import numpy as np
+    from repro_torch.configs import get_config
     from repro_torch.serving.engine import ServingEngine
 
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     weight_bytes = sum(t.numel() * t.element_size() for t in
                        _leaves(params))
@@ -630,6 +766,7 @@ def serve_full_width(torch, cfg, params, dev) -> dict:
     setup_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED + 3)
     V = cfg.vocab_size
+    attn = cfg.attn_layers > 0
 
     def toks(n):
         return [int(t) for t in rng.integers(1, V, size=n)]
@@ -650,27 +787,26 @@ def serve_full_width(torch, cfg, params, dev) -> dict:
                 if not 0 <= tok < V:
                     raise AssertionError(f"token {tok} outside the vocab")
 
-    # counts start at 0 here: everything below is the main path
-    kvk.launches = 0
-    kvk.rope_kv_append_launches = 0
-    pak.launches = 0
+    # counts start at 0 here: everything below is the path
+    zero_counts()
     t_run = time.perf_counter()
-    for _ in range(4):
-        engine.add_request(toks(int(rng.integers(4, 17))))
+    short = [engine.add_request(toks(int(rng.integers(4, 17))))
+             for _ in range(4)]
     long_prompt = toks(LONG_PROMPT)
     owner = engine.add_request(long_prompt, share_prefix=True)
-    if owner not in engine.large_spans:
+    if attn and owner not in engine.large_spans:
         raise AssertionError("the long prompt did not take the span path")
     run(LONG_PROMPT)
-    engine.publish_prefix(owner)
-    exact = engine.add_request(long_prompt, share_prefix=True)
-    if exact not in engine.shared_spans:
-        raise AssertionError("no exact prefix hit")
-    page = cfg.page_size
-    partial = engine.add_request(long_prompt[:page] + toks(60),
-                                 share_prefix=True)
-    if engine.lane_states.partial_hits.get(partial) != 1:
-        raise AssertionError("no partial prefix hit")
+    if attn:
+        engine.publish_prefix(owner)
+        exact = engine.add_request(long_prompt, share_prefix=True)
+        if exact not in engine.shared_spans:
+            raise AssertionError("no exact prefix hit")
+        page = cfg.page_size
+        partial = engine.add_request(long_prompt[:page] + toks(60),
+                                     share_prefix=True)
+        if engine.lane_states.partial_hits.get(partial) != 1:
+            raise AssertionError("no partial prefix hit")
     run(24)
     before = {lane: list(s.tokens) for lane, s in engine.sessions.items()}
     pos_before = engine.dstate["pos"].cpu().clone()
@@ -684,26 +820,34 @@ def serve_full_width(torch, cfg, params, dev) -> dict:
         if now[:len(toks_before)] != toks_before or \
                 int(pos_after[lane]) != int(pos_before[lane]) + after_crash:
             raise AssertionError(f"lane {lane} did not resume after recovery")
+    engine.finish(short[0])
+    if engine.add_request(toks(8)) != short[0]:
+        raise AssertionError("the finished lane was not reused")
+    run(12)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
-    counts = {"kv_update": kvk.launches,
-              "rope_kv_append": kvk.rope_kv_append_launches,
-              "paged_attention": pak.launches}
-    want = cfg.num_layers * steps
-    if counts["rope_kv_append"] != want or \
-            counts["paged_attention"] != want or counts["kv_update"] != 0:
-        raise AssertionError(f"launch counts {counts}: want layers x steps "
-                             f"= {want} of rope_kv_append and "
-                             f"paged_attention, 0 of kv_update")
+    counts = read_counts()
+    want = cfg.attn_layers * steps
+    if counts != dict.fromkeys(KERNELS, 0) | {"rope_kv_append": want,
+                                              "paged_attention": want}:
+        raise AssertionError(f"launch counts {counts}: want attention "
+                             f"layers x steps = {want} of rope_kv_append "
+                             f"and paged_attention, 0 of the others")
     steady = sorted(step_s[5:])
+    published = get_config(cfg.name).num_layers
+    arena = next((st["k"] for st in engine.dstate["units"].values()
+                  if "k" in st), None)
     return {
         "model": cfg.name, "layers": cfg.num_layers,
-        "cut": f"depth 64 -> {cfg.num_layers} layers; widths as published",
+        "cut": (f"depth {published} -> {cfg.num_layers} layers; widths as "
+                f"published" if cfg.num_layers < published else
+                "none: every layer, widths as published"),
         "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
         "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": V,
+        "pattern": [list(x) for x in cfg.pattern], "window": cfg.window,
         "dtype": str(cfg.dtype), "weight_gb": weight_bytes / 1e9,
         "lanes": LANES, "max_seq": MAX_SEQ, "pages_per_sb": PAGES_PER_SB,
-        "arena_pages": int(engine.dstate["units"]["l0"]["k"].shape[1]),
+        "arena_pages": int(arena.shape[1]) if arena is not None else 0,
         "setup_s": setup_s, "run_s": run_s, "steps": steps,
         "crash_at_step": crash_step, "recovery": stats,
         "ms_per_step_mean": 1e3 * sum(step_s) / len(step_s),
@@ -728,14 +872,14 @@ def _to(tree, d):
 
 
 def check_forward_vs_cpu(torch, dev) -> dict:
-    """Both architectures' smoke configurations in fp32, the same weights
+    """Every architecture's smoke configuration in fp32, the same weights
     on both devices: logits, collected K/V and the loss within 1e-3."""
-    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs import ARCHS, get_smoke_config
     from repro_torch.models import transformer as T
     from repro_torch.models.params import init_params
 
     out = {}
-    for arch in ("qwen2.5-32b", "mamba2-370m"):
+    for arch in ARCHS:
         cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
         params = init_params(cfg, torch.Generator().manual_seed(SEED),
                              device="cpu")
@@ -777,7 +921,9 @@ def _ce_from_logits(torch, logits, tokens) -> float:
 def run_forward(torch, cfg, params, dev, run, kernel, collect_kv) -> dict:
     """One warm-up forward, then the counted run: ``forward`` (with
     ``collect_kv`` when asked) and ``loss_fn`` on the run's random batch,
-    each timed between device synchronizations."""
+    each timed between device synchronizations.  ``kernel`` is the name of
+    the port kernel on the path: once a layer of its mixer a pass, and
+    no other kernel launches."""
     from repro_torch.launch.profile_forward import run_batch
     from repro_torch.models import transformer as T
     B, S = run.batch, run.seq
@@ -791,7 +937,7 @@ def run_forward(torch, cfg, params, dev, run, kernel, collect_kv) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
 
     # counts start at 0 here: everything below is the path
-    kernel.launches = 0
+    zero_counts()
     t = time.perf_counter()
     out = T.forward(cfg, params, batch, collect_kv=collect_kv)
     torch.cuda.synchronize()
@@ -800,16 +946,20 @@ def run_forward(torch, cfg, params, dev, run, kernel, collect_kv) -> dict:
     loss, parts = T.loss_fn(cfg, params, batch)
     torch.cuda.synchronize()
     loss_s = time.perf_counter() - t
-    launches = kernel.launches
+    counts = read_counts()
+    launches = counts[kernel]
 
     logits = out[0]
     if logits.shape != (B, S, cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{cfg.name}: logits {tuple(logits.shape)} "
                              f"are not finite [B, S, V]")
-    if launches != 2 * cfg.num_layers:
-        raise AssertionError(f"{cfg.name}: {launches} kernel launches in "
-                             f"forward + loss_fn, not 2 x {cfg.num_layers}")
+    mixers = {"flash_attention": ("attn", "local_attn"),
+              "ssd_scan": ("mamba2",)}[kernel]
+    n = sum(mx in mixers for mx, _ in cfg.layer_specs)
+    if counts != dict.fromkeys(KERNELS, 0) | {kernel: 2 * n}:
+        raise AssertionError(f"{cfg.name}: launches {counts} in forward + "
+                             f"loss_fn, not 2 x {n} of {kernel} alone")
     res = {"model": cfg.name, "layers": cfg.num_layers, "batch": B,
            "seq": S, "dtype": str(cfg.dtype)}
     if collect_kv:
@@ -831,7 +981,7 @@ def run_forward(torch, cfg, params, dev, run, kernel, collect_kv) -> dict:
         "first_forward_s": first_s,
         "ms_per_forward": 1e3 * fwd_s, "tokens_per_s": B * S / fwd_s,
         "ms_loss_fn": 1e3 * loss_s, "loss": float(loss), "ce_check": ce_full,
-        "launches": launches, "launches_per_forward": launches // 2,
+        "launches": counts, "launches_per_forward": launches // 2,
         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
     })
     return res
@@ -845,6 +995,27 @@ def _leaves(tree):
         yield tree
 
 
+def report_serve(serve: dict, card: str) -> None:
+    name = serve["model"]
+    print(f"serve: {name} at full width, {serve['layers']} layers "
+          f"({serve['cut']}); {serve['steps']} steps, "
+          f"{serve['ms_per_step_median']:.3f} ms/step (median), "
+          f"{serve['tokens_per_s']:.1f} tokens/s on {card}", flush=True)
+    print(f"[serve] {name} crash at step {serve['crash_at_step']}; "
+          f"recovery: {serve['recovery']}", flush=True)
+    print(f"serve {name} detail: " + json.dumps(
+        {k: v for k, v in serve.items() if k != "recovery"}, default=str),
+        flush=True)
+
+
+def report_forward(kind: str, res: dict, card: str) -> None:
+    print(f"{kind}: {res['model']}, {res['layers']} layers, {res['batch']} "
+          f"x {res['seq']} tokens: {res['ms_per_forward']:.3f} ms/forward, "
+          f"{res['tokens_per_s']:.1f} tokens/s, launches {res['launches']} "
+          f"in forward + loss_fn on {card}", flush=True)
+    print(f"{kind} {res['model']} detail: " + json.dumps(res), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -854,9 +1025,8 @@ def main() -> int:
         return fail(f"{src}/repro_torch not found: run from a checkout")
     sys.path.insert(0, str(src))
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import kernel as fak
-    from repro_torch.kernels.ssd_scan import kernel as ssk
     from repro_torch.launch.bench_paged import card_line
+    from repro_torch.launch.profile_decode import serve_config
     from repro_torch.launch.profile_forward import RUNS, run_config
     from repro_torch.layers.ssd import n_heads
     from repro_torch.models.params import init_params
@@ -864,21 +1034,38 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card}", flush=True)
+    t_all = time.perf_counter()
 
     t0 = time.perf_counter()
     build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({build.build_info['library']})", flush=True)
 
-    # the serve run and the prefill share the prefill run's depth cut
-    qrun, mrun = RUNS["qwen2.5-32b"], RUNS["mamba2-370m"]
-    cfg, mcfg = run_config("qwen2.5-32b"), run_config("mamba2-370m")
-    flash_main = (qrun.batch, cfg.num_heads, cfg.num_kv_heads, qrun.seq,
-                  cfg.head_dim, True, 0, "bfloat16")
+    # the qwen2.5-32b serve run and prefill share the prefill's depth cut
+    qrun, mrun, rrun = (RUNS[a] for a in ("qwen2.5-32b", "mamba2-370m",
+                                          "recurrentgemma-9b"))
+    cfg, mcfg, rcfg = (run_config(a) for a in ("qwen2.5-32b", "mamba2-370m",
+                                               "recurrentgemma-9b"))
+    gcfg = serve_config("granite-20b")
+    flash_mains = [
+        (qrun.batch, cfg.num_heads, cfg.num_kv_heads, qrun.seq,
+         cfg.head_dim, True, 0, "bfloat16"),
+        (rrun.batch, rcfg.num_heads, rcfg.num_kv_heads, rrun.seq,
+         rcfg.head_dim, True, rcfg.window, "bfloat16"),
+        (1, 96, 8, 4096, 192, True, 0, "bfloat16")]   # nemotron-4-340b heads
     ssd_main = (mrun.batch, n_heads(mcfg), mrun.seq, mcfg.ssm_head_dim,
                 mcfg.ssm_state, "float32", None)
     kernels = check_kernels(torch, cfg, dev) + check_forward_kernels(
-        torch, dev, flash_main, ssd_main)
+        torch, dev, flash_mains, ssd_main)
+    by_name = {row["name"]: row for row in kernels}
+    for c in (gcfg, rcfg):
+        shapes = check_serve_shape(torch, c, dev)
+        for name, res in shapes.items():
+            by_name[name].setdefault("serve_shapes", {})[c.name] = res
+            print(f"kernel {name} at {c.name}'s serve shape: max_abs_err "
+                  f"{res['max_abs_err']} ms {res['ms']:.5f} eager "
+                  f"{res['eager_ms']:.5f} plain {res['plain_ms']:.5f} bound "
+                  f"{res['bound_ms']:.5f}", flush=True)
     for row in kernels:
         print(f"kernel {row['name']}: max_abs_err {row['max_abs_err']} "
               f"ms {row['ms']:.5f} eager {row['eager_ms']:.5f} "
@@ -888,58 +1075,73 @@ def main() -> int:
     ref = check_engine_vs_cpu(torch, dev)
     print(f"engine on the card == engine on the CPU (fp32 smoke): {ref}",
           flush=True)
-
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
-                         device=dev)
-    torch.cuda.synchronize()
-    print(f"init {cfg.name} ({cfg.num_layers} layers): "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    serve = serve_full_width(torch, cfg, params, dev)
-    print(f"serve: {cfg.name} at full width, cut to {cfg.num_layers} "
-          f"layers; {serve['steps']} steps, "
-          f"{serve['ms_per_step_median']:.3f} ms/step (median), "
-          f"{serve['tokens_per_s']:.1f} tokens/s on {card}", flush=True)
-    print(f"[serve] crash at step {serve['crash_at_step']}; recovery: "
-          f"{serve['recovery']}", flush=True)
-    print(f"launches on the main path: {serve['launches']}", flush=True)
-    print("serve detail: " + json.dumps(
-        {k: v for k, v in serve.items() if k != "recovery"}, default=str),
-        flush=True)
-    torch.cuda.empty_cache()
-
     fwd_ref = check_forward_vs_cpu(torch, dev)
     print(f"forward on the card == forward on the CPU (fp32 smoke, 1e-3): "
           f"{fwd_ref}", flush=True)
 
-    prefill = run_forward(torch, cfg, params, dev, qrun, fak,
+    paths: dict[str, dict] = {}     # each path's launch counts
+
+    def weights(c):
+        t = time.perf_counter()
+        p = init_params(c, torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+        torch.cuda.synchronize()
+        print(f"init {c.name} ({c.num_layers} layers): "
+              f"{time.perf_counter() - t:.2f} s", flush=True)
+        return p
+
+    # qwen2.5-32b: serve, then the prefill with the same weights
+    params = weights(cfg)
+    serve = serve_full_width(torch, cfg, params, dev)
+    report_serve(serve, card)
+    paths[f"serve {cfg.name}"] = serve["launches"]
+    prefill = run_forward(torch, cfg, params, dev, qrun, "flash_attention",
                           collect_kv=True)
-    print(f"prefill: {cfg.name} at full width, cut to {cfg.num_layers} "
-          f"layers, {qrun.batch} x {qrun.seq} tokens: "
-          f"{prefill['ms_per_forward']:.3f} ms/forward, "
-          f"{prefill['tokens_per_s']:.1f} tokens/s, flash_attention "
-          f"launches {prefill['launches_per_forward']} per forward on "
-          f"{card}", flush=True)
-    print("prefill detail: " + json.dumps(prefill), flush=True)
+    report_forward("prefill", prefill, card)
+    paths[f"prefill {cfg.name}"] = prefill["launches"]
     del params
     torch.cuda.empty_cache()
 
-    mparams = init_params(mcfg, torch.Generator(device=dev).manual_seed(SEED),
-                          device=dev)
-    score = run_forward(torch, mcfg, mparams, dev, mrun, ssk,
+    # granite-20b: serve (MQA, 48 query heads on one KV head)
+    params = weights(gcfg)
+    gserve = serve_full_width(torch, gcfg, params, dev)
+    report_serve(gserve, card)
+    paths[f"serve {gcfg.name}"] = gserve["launches"]
+    del params
+    torch.cuda.empty_cache()
+
+    # recurrentgemma-9b: serve (RG-LRU + windowed MQA at head_dim 256,
+    # a tail), then the prefill with the same weights
+    params = weights(rcfg)
+    rserve = serve_full_width(torch, rcfg, params, dev)
+    report_serve(rserve, card)
+    paths[f"serve {rcfg.name}"] = rserve["launches"]
+    rprefill = run_forward(torch, rcfg, params, dev, rrun,
+                           "flash_attention", collect_kv=True)
+    report_forward("prefill", rprefill, card)
+    paths[f"prefill {rcfg.name}"] = rprefill["launches"]
+    del params
+    torch.cuda.empty_cache()
+
+    # mamba2-370m: serve (attention-free), then scoring
+    params = weights(mcfg)
+    mserve = serve_full_width(torch, mcfg, params, dev)
+    report_serve(mserve, card)
+    paths[f"serve {mcfg.name}"] = mserve["launches"]
+    score = run_forward(torch, mcfg, params, dev, mrun, "ssd_scan",
                         collect_kv=False)
     score["weight_gb"] = sum(t.numel() * t.element_size()
-                             for t in _leaves(mparams)) / 1e9
-    print(f"score: {mcfg.name}, all {mcfg.num_layers} layers, "
-          f"{mrun.batch} x {mrun.seq} tokens: {score['ms_per_forward']:.3f} "
-          f"ms/forward, {score['tokens_per_s']:.1f} tokens/s, ssd_scan "
-          f"launches {score['launches_per_forward']} per forward on {card}",
-          flush=True)
-    print("score detail: " + json.dumps(score), flush=True)
+                             for t in _leaves(params)) / 1e9
+    report_forward("score", score, card)
+    paths[f"score {mcfg.name}"] = score["launches"]
+    del params
+    torch.cuda.empty_cache()
+    print(f"chip_smoke: {time.perf_counter() - t_all:.1f} s", flush=True)
 
-    launches = dict(serve["launches"], flash_attention=prefill["launches"],
-                    ssd_scan=score["launches"])
-    line = [dict(row, launches=launches[row["name"]]) for row in kernels]
+    line = [dict(row, launches=sum(c[row["name"]] for c in paths.values()),
+                 launches_by_path={p: c[row["name"]]
+                                   for p, c in paths.items()})
+            for row in kernels]
     print(card)
     print(json.dumps({"kernels": line}, default=str))
     print(json.dumps({"ok": True, "device": {

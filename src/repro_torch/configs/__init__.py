@@ -2,15 +2,16 @@
 
 ``get_config(arch)`` returns the published configuration;
 ``get_smoke_config(arch)`` a reduced same-family configuration for CPU
-tests.  The port serves qwen2.5-32b and runs the full-sequence forward of
-qwen2.5-32b and mamba2-370m.
+tests.  The port serves, and runs the full-sequence forward of, the dense,
+Mamba-2 and RG-LRU hybrid families.
 """
 
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ("qwen2_5_32b", "mamba2_370m")
+ARCHS = ("qwen2_5_32b", "mamba2_370m", "granite_20b", "starcoder2_3b",
+         "nemotron_4_340b", "recurrentgemma_9b")
 
 
 def canon(arch: str) -> str:

@@ -36,11 +36,19 @@
 //   128-byte swizzle the wgmma descriptors walk); a 3-D box clamps at S,
 //   so a partial last tile reads zeros and never the next head's rows.
 //   The grid is ordered longest query tiles first.
-// 1 (bf16, other head dims: 16..112 except 64) -- the Ampere-style kernel:
-//   `mma.sync.m16n8k16`, 64-row query tiles over four warps, K/V tiles of
-//   64 keys in two `cp.async` stages, `ldmatrix` fragments.
+// 1 (bf16, the other multiples of 16 up to 256) -- the Ampere-style
+//   kernel: `mma.sync.m16n8k16`, 64-row query tiles over four warps, K/V
+//   tiles of 64 keys in two `cp.async` stages, `ldmatrix` fragments.  Up to
+//   dh 128 a warp keeps its Q fragments in registers for the whole key
+//   loop.  Above it (nemotron-4-340b's 192, recurrentgemma-9b's 256) the
+//   fp32 accumulator alone takes dh / 2 registers a thread (128 at 256),
+//   so Q stays in shared memory and each 16-column k-step's fragment is
+//   read there once a key tile, before the eight n-tiles that use it.
+//   Shared memory is (64 + 4 * 64) * (dh + 8) bf16 values: 169 KB at
+//   dh 256, above the 48 KB default, so the launch opts in.
 // 0 (fp32) -- a plain FMA path (a warp per query row, a lane per key for
-//   Q.K and per head-dim column for P.V) that keeps full fp32 throughout.
+//   Q.K and per head-dim column for P.V) that keeps full fp32 throughout;
+//   a lane holds dh / 32 accumulator columns (4 up to dh 128, else 8).
 //
 // Numerics (as the Pallas kernel): scores in fp32; the scale dh^-0.5 is
 // applied in fp32 to the fp32 dot (the reference scales q in fp32 before
@@ -641,6 +649,17 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
       : "r"(a));
 }
 
+// the A fragment of rows r0 and r0 + 8, columns c, c + 1, c + 8, c + 9 of
+// the Q tile in shared memory (row stride ld)
+__device__ __forceinline__ void load_q_frag(uint32_t* a,
+                                            const __nv_bfloat16* qs, int r0,
+                                            int ld, int c) {
+  a[0] = *reinterpret_cast<const uint32_t*>(qs + r0 * ld + c);
+  a[1] = *reinterpret_cast<const uint32_t*>(qs + (r0 + 8) * ld + c);
+  a[2] = *reinterpret_cast<const uint32_t*>(qs + r0 * ld + c + 8);
+  a[3] = *reinterpret_cast<const uint32_t*>(qs + (r0 + 8) * ld + c + 8);
+}
+
 // rows [row0, row0 + rows) of a [S, DH] head into smem (stride DH + kPad),
 // asynchronously; rows at or past S are zero
 template <int DH>
@@ -667,6 +686,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int KS = DH / 16;      // k-steps of Q.K
   constexpr int NT = DH / 8;       // n-tiles of P.V
   constexpr int TILE = kBK * LD;   // elements of one K or V tile
+  constexpr bool kQReg = DH <= 128;  // Q fragments in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* kvs = qs + kBQ * LD;  // [2 stages][K tile, V tile]
@@ -704,7 +724,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int n = 0; n < NT; ++n)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  uint32_t qf[KS][4];
+  uint32_t qf[kQReg ? KS : 1][4];
   const float sl = scale * kLog2e;
   // ldmatrix row addresses: matrix mat = lane / 8, row lane % 8
   const int mat = lane / 8, mrow = lane % 8;
@@ -724,16 +744,12 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
     const __nv_bfloat16* ks = kvs + stage * 2 * TILE;
     const __nv_bfloat16* vs = ks + TILE;
-    if (t0 == t_begin) {
-      // this warp's 16 query rows as A fragments, for every k-step
+    if constexpr (kQReg) {
+      if (t0 == t_begin) {
+        // this warp's 16 query rows as A fragments, for every k-step
 #pragma unroll
-      for (int s = 0; s < KS; ++s) {
-        const int c = s * 16 + tig * 2;
-        qf[s][0] = *reinterpret_cast<const uint32_t*>(qs + r0 * LD + c);
-        qf[s][1] = *reinterpret_cast<const uint32_t*>(qs + (r0 + 8) * LD + c);
-        qf[s][2] = *reinterpret_cast<const uint32_t*>(qs + r0 * LD + c + 8);
-        qf[s][3] =
-            *reinterpret_cast<const uint32_t*>(qs + (r0 + 8) * LD + c + 8);
+        for (int s = 0; s < KS; ++s)
+          load_q_frag(qf[s], qs, r0, LD, s * 16 + tig * 2);
       }
     }
 
@@ -743,16 +759,33 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int n = 0; n < kBK / 8; ++n)
       sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+    if constexpr (kQReg) {
 #pragma unroll
-    for (int n = 0; n < kBK / 8; n += 2) {
-      const __nv_bfloat16* kp =
-          ks + (n * 8 + (mat / 2) * 8 + mrow) * LD + (mat % 2) * 8;
+      for (int n = 0; n < kBK / 8; n += 2) {
+        const __nv_bfloat16* kp =
+            ks + (n * 8 + (mat / 2) * 8 + mrow) * LD + (mat % 2) * 8;
+#pragma unroll
+        for (int s = 0; s < KS; ++s) {
+          uint32_t bf[4];
+          ldsm_x4(bf, kp + s * 16);
+          mma_bf16(sc[n], qf[s], bf[0], bf[1]);
+          mma_bf16(sc[n + 1], qf[s], bf[2], bf[3]);
+        }
+      }
+    } else {
+      // k-step outermost: one Q fragment from shared memory at a time
 #pragma unroll
       for (int s = 0; s < KS; ++s) {
-        uint32_t bf[4];
-        ldsm_x4(bf, kp + s * 16);
-        mma_bf16(sc[n], qf[s], bf[0], bf[1]);
-        mma_bf16(sc[n + 1], qf[s], bf[2], bf[3]);
+        uint32_t qa[4];
+        load_q_frag(qa, qs, r0, LD, s * 16 + tig * 2);
+#pragma unroll
+        for (int n = 0; n < kBK / 8; n += 2) {
+          uint32_t bf[4];
+          ldsm_x4(bf, ks + (n * 8 + (mat / 2) * 8 + mrow) * LD +
+                          (mat % 2) * 8 + s * 16);
+          mma_bf16(sc[n], qa, bf[0], bf[1]);
+          mma_bf16(sc[n + 1], qa, bf[2], bf[3]);
+        }
       }
     }
 
@@ -853,8 +886,9 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 // ---------------------------------------------------------------------------
 constexpr int kRows32 = 8;         // query rows per block, a warp each
 constexpr int kKeys32 = 32;        // keys per tile, a lane each
-constexpr int kMaxDh32 = 128;
 
+// kCols: head-dim columns a lane accumulates (dh <= 32 * kCols)
+template <int kCols>
 __global__ void __launch_bounds__(kRows32 * 32)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int H,
@@ -881,7 +915,6 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     qs[i] = q0 + r < S ? qh[(size_t)(q0 + r) * dh + i % dh] : 0.f;
   }
 
-  constexpr int kCols = kMaxDh32 / 32;            // head-dim columns a lane
   float acc[kCols];
 #pragma unroll
   for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
@@ -967,14 +1000,26 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kCols>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
                int H, int K, int S, int dh, int causal, int window,
                float scale, cudaStream_t stream) {
+  // 37 KB at dh 128, 74 KB at dh 256: the largest dh of the instance opts
+  // in above the 48 KB default
+  constexpr size_t kMaxSmem = sizeof(float) *
+      ((size_t)2 * kKeys32 * (32 * kCols + 1) + (size_t)kRows32 * 32 * kCols);
   const size_t smem = sizeof(float) * ((size_t)2 * kKeys32 * (dh + 1) +
                                        (size_t)kRows32 * dh);
-  // at most 37 KB (dh = 128): under the 48 KB default, no opt-in needed
+  static bool opted_in = false;      // once, before any graph capture
+  if (!opted_in) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_f32_kernel<kCols>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kMaxSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted_in = true;
+  }
   dim3 grid((S + kRows32 - 1) / kRows32, H, B);
-  flash_f32_kernel<<<grid, kRows32 * 32, smem, stream>>>(
+  flash_f32_kernel<kCols><<<grid, kRows32 * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), H, K, S, dh,
       causal, window, scale);
@@ -985,8 +1030,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
 
 // q [B, H, S, dh], k/v [B, K, S, dh], out [B, H, S, dh], all contiguous.
 // variant (the wrapper's choice, `flash_variant`): 0 = float32 FMA (dh a
-// multiple of 16 up to 128), 1 = bfloat16 mma.sync (dh a multiple of 16 up
-// to 112, not 64), 2 = bfloat16 wgmma + TMA (dh 64 or 128).  H % K == 0;
+// multiple of 16 up to 256), 1 = bfloat16 mma.sync (dh a multiple of 16 up
+// to 256, not 64 or 128), 2 = bfloat16 wgmma + TMA (dh 64 or 128).  H % K == 0;
 // 16-byte aligned pointers for bf16.  A variant that does not take dh is
 // refused, never replaced.
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -995,11 +1040,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int window, float scale, int variant,
                                       void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (K <= 0 || H % K != 0 || dh % 16 != 0 || dh > 128 || dh <= 0)
+  if (K <= 0 || H % K != 0 || dh % 16 != 0 || dh > 256 || dh <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 0)
-    return launch_f32(q, k, v, out, B, H, K, S, dh, causal, window, scale, s);
+    return dh <= 128
+        ? launch_f32<4>(q, k, v, out, B, H, K, S, dh, causal, window, scale, s)
+        : launch_f32<8>(q, k, v, out, B, H, K, S, dh, causal, window, scale,
+                        s);
   if (variant == 2) {
     if (dh == 64)
       return wg::launch<64>(q, k, v, out, B, H, K, S, causal, window, scale,
@@ -1017,6 +1065,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 80: return launch_mma<80>(q, k, v, out, B, H, K, S, causal, window, scale, s);
     case 96: return launch_mma<96>(q, k, v, out, B, H, K, S, causal, window, scale, s);
     case 112: return launch_mma<112>(q, k, v, out, B, H, K, S, causal, window, scale, s);
+    case 144: return launch_mma<144>(q, k, v, out, B, H, K, S, causal, window, scale, s);
+    case 160: return launch_mma<160>(q, k, v, out, B, H, K, S, causal, window, scale, s);
+    case 176: return launch_mma<176>(q, k, v, out, B, H, K, S, causal, window, scale, s);
+    case 192: return launch_mma<192>(q, k, v, out, B, H, K, S, causal, window, scale, s);
+    case 208: return launch_mma<208>(q, k, v, out, B, H, K, S, causal, window, scale, s);
+    case 224: return launch_mma<224>(q, k, v, out, B, H, K, S, causal, window, scale, s);
+    case 240: return launch_mma<240>(q, k, v, out, B, H, K, S, causal, window, scale, s);
+    case 256: return launch_mma<256>(q, k, v, out, B, H, K, S, causal, window, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

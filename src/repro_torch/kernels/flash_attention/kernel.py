@@ -11,9 +11,10 @@ key t is visible to query s iff t <= s (causal) and t > s - window (with
 a window); the output is acc / max(l, 1e-20) in q's dtype.  Any S is
 taken: the kernel masks a partial last tile.  Three kernel variants, chosen
 by dtype and head_dim only (``flash_variant``): bf16 at head_dim 64 or 128
-runs the Hopper kernel (``wgmma`` + TMA, warp-specialised), bf16 at other
-head dims (a multiple of 16 up to 112) the ``mma.sync`` kernel, fp32 an
-FMA kernel; other head dims raise.
+runs the Hopper kernel (``wgmma`` + TMA, warp-specialised), bf16 at the
+other multiples of 16 up to 256 the ``mma.sync`` kernel (above 128 with Q
+kept in shared memory: nemotron-4-340b's 192, recurrentgemma-9b's 256),
+fp32 an FMA kernel (multiples of 16 up to 256); other head dims raise.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 from .. import build
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 
 launches = 0          # kernel launches since the caller last zeroed this
 last_variant = None   # the variant the last launch ran
@@ -36,7 +37,7 @@ WGMMA_HEAD_DIMS = (64, 128)
 def flash_variant(dtype, head_dim: int) -> str:
     """The kernel variant for a dtype and head_dim: ``"wgmma"`` (bf16,
     head_dim 64 or 128), ``"mma_sync"`` (bf16, another multiple of 16 up
-    to 112) or ``"fma"`` (fp32).  Raises for what no variant takes."""
+    to 256) or ``"fma"`` (fp32, a multiple of 16 up to 256).  Raises for what no variant takes."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention takes float32 or bfloat16, got "
                         f"{dtype}")

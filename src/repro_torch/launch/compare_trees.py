@@ -44,11 +44,10 @@ def parse(stdout: str) -> dict:
                                             "bound_ms", "plain_ms",
                                             "library_ms", "launches",
                                             "variant", "splits")}
-        else:
-            for name in DETAILS:
-                tag = f"{name} detail: "
-                if line.startswith(tag):
-                    out[name] = json.loads(line[len(tag):])
+        elif " detail: " in line and line.split(" ")[0] in DETAILS:
+            # "<run> detail: {...}" or "<run> <model> detail: {...}"
+            key, _, js = line.partition(" detail: ")
+            out[key] = json.loads(js)
     return out
 
 
@@ -91,7 +90,10 @@ def main(argv=None) -> int:
         cells = [r["kernels"].get(name, {}).get("ms") for r in runs]
         print(f"  {name}: " + ", ".join("-" if c is None else f"{c:.5f}"
                                         for c in cells))
-    for name, key in DETAILS.items():
+    details = sorted({k for r in runs for k in r
+                      if k.split(" ")[0] in DETAILS})
+    for name in details:
+        key = DETAILS[name.split(" ")[0]]
         cells = [r.get(name, {}).get(key) for r in runs]
         print(f"  {name} {key}: " + ", ".join(
             "-" if c is None else f"{c:.3f}" for c in cells))

@@ -1,11 +1,12 @@
 """Where a decode step's time goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \
-        [--steps 8] [--out profile_out] [--parent PARENT_DIR]
+        [--arch qwen2.5-32b] [--steps 8] [--out profile_out] \
+        [--parent PARENT_DIR]
 
-Builds the serving engine of ``chip_smoke.py``'s serve run (qwen2.5-32b
-at full width cut to 8 layers, random weights from a seed; 8 lanes,
-max_seq 1024), admits 8 requests (half with 300-token prompts on the
+Builds the serving engine of one of ``chip_smoke.py``'s serve runs
+(``--arch``, at full width and the depth of ``SERVE_LAYERS``, random
+weights from a seed; 8 lanes, max_seq 1024), admits 8 requests (half with 300-token prompts on the
 span path, half with short prompts on lazy pages), runs 300 steps so
 every lane attends over 300 positions, then records ``--steps`` engine
 steps under ``torch.profiler``.  Reports the wall time per step, the
@@ -15,7 +16,8 @@ host's time a step (``host_ms_per_step``: wall minus device time), the
 share of device time in the port's kernels and in matmuls, and the
 device's busy share (kernel time over wall time).  The two counts print
 on lines of their own, then the summary as one JSON line, last.  Writes
-the Chrome trace and the summary to ``--out``.
+the Chrome trace and the summary to ``--out`` (file names carry the
+architecture).
 
 With ``--parent``, the script runs itself once per tree, with that tree's
 ``src`` first on the path, in the order parent, change, change, parent
@@ -34,7 +36,11 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[3]
-SEED, LAYERS, LANES, MAX_SEQ, PROMPT = 0, 8, 8, 1024, 300
+SEED, LANES, MAX_SEQ, PROMPT = 0, 8, 1024, 300
+# the serve runs' depths (chip_smoke.py serves these): qwen2.5-32b cut to
+# 8 of its 64 layers, the others whole
+SERVE_LAYERS = {"qwen2.5-32b": 8, "granite-20b": 52,
+                "recurrentgemma-9b": 38, "mamba2-370m": 48}
 TREE_KEYS = ("kernels_per_step", "copies_per_step", "device_ms_per_step",
              "host_ms_per_step", "wall_ms_per_step", "device_busy_share")
 
@@ -50,16 +56,22 @@ def _is_copy(name: str) -> bool:
     return name.lower().startswith(("memcpy", "memset"))
 
 
-def profile(steps: int, out: Path) -> dict:
-    import torch
+def serve_config(arch: str):
+    """The architecture's published configuration at its serve depth."""
     import dataclasses
     from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch),
+                               num_layers=SERVE_LAYERS[arch])
+
+
+def profile(steps: int, out: Path, arch: str = "qwen2.5-32b") -> dict:
+    import torch
     from repro_torch.device import resolve_device
     from repro_torch.models.params import init_params
     from repro_torch.serving.engine import ServingEngine
 
     dev = resolve_device("cuda")
-    cfg = dataclasses.replace(get_config("qwen2.5-32b"), num_layers=LAYERS)
+    cfg = serve_config(arch)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = init_params(cfg, gen, device=dev)
     eng = ServingEngine(cfg, params, lanes=LANES, max_seq=MAX_SEQ,
@@ -116,20 +128,22 @@ def profile(steps: int, out: Path) -> dict:
                 for k, ms, n in rows[:15]],
     }
     out.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out / "profile_decode_trace.json"))
-    (out / "profile_decode.json").write_text(json.dumps(summary, indent=1))
+    stem = f"profile_decode_{arch.replace('.', '_')}"
+    prof.export_chrome_trace(str(out / f"{stem}_trace.json"))
+    (out / f"{stem}.json").write_text(json.dumps(summary, indent=1))
     return summary
 
 
-def run_one(steps: int, out: Path) -> dict:
-    summary = profile(steps, out)
+def run_one(steps: int, out: Path, arch: str = "qwen2.5-32b") -> dict:
+    summary = profile(steps, out, arch)
     print(f"kernels_per_step: {summary['kernels_per_step']}")
     print(f"host_ms_per_step: {summary['host_ms_per_step']}")
     print(json.dumps(summary))
     return summary
 
 
-def compare(parent: Path, steps: int, out: Path) -> list[dict]:
+def compare(parent: Path, steps: int, out: Path,
+            arch: str = "qwen2.5-32b") -> list[dict]:
     """This script on each tree in turns parent, change, change, parent;
     each run's outputs go to ``out/<i>_<label>``."""
     order = [("parent", parent), ("change", ROOT), ("change", ROOT),
@@ -137,13 +151,13 @@ def compare(parent: Path, steps: int, out: Path) -> list[dict]:
     code = ("import sys; from pathlib import Path; "
             "sys.path.insert(0, sys.argv[1]); sys.path.insert(0, sys.argv[2]); "
             "from profile_decode import run_one; "
-            "run_one(int(sys.argv[3]), Path(sys.argv[4]))")
+            "run_one(int(sys.argv[3]), Path(sys.argv[4]), sys.argv[5])")
     here = str(Path(__file__).resolve().parent)
     runs = []
     for i, (label, tree) in enumerate(order):
         proc = subprocess.run(
             [sys.executable, "-c", code, here, str(tree / "src"), str(steps),
-             str((out / f"{i}_{label}").resolve())],
+             str((out / f"{i}_{label}").resolve()), arch],
             capture_output=True, text=True, timeout=900, cwd=tree)
         if proc.returncode != 0:
             raise RuntimeError(f"{label} ({tree}) failed:\n"
@@ -161,6 +175,8 @@ def compare(parent: Path, steps: int, out: Path) -> list[dict]:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2.5-32b",
+                    choices=list(SERVE_LAYERS))
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--out", default="profile_out", type=Path)
     ap.add_argument("--parent", type=Path)
@@ -170,9 +186,9 @@ def main(argv=None):
         if not (parent / "src" / "repro_torch").is_dir():
             raise SystemExit(f"{parent} holds no src/repro_torch")
         args.out.mkdir(parents=True, exist_ok=True)
-        compare(parent, args.steps, args.out)
+        compare(parent, args.steps, args.out, args.arch)
         return
-    run_one(args.steps, args.out)
+    run_one(args.steps, args.out, args.arch)
 
 
 if __name__ == "__main__":

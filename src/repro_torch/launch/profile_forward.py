@@ -1,11 +1,13 @@
 """Where a full-sequence forward's time goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_forward \
-        [--arch qwen2.5-32b mamba2-370m] [--out profile_out]
+        [--arch qwen2.5-32b mamba2-370m recurrentgemma-9b] [--out profile_out]
 
 For each architecture, builds its run in ``RUNS`` at full width (random
 weights from a seed): qwen2.5-32b cut to 8 layers on one 8192-token
-prompt, mamba2-370m with all 48 layers on 8 x 4096 tokens.
+prompt, mamba2-370m with all 48 layers on 8 x 4096 tokens,
+recurrentgemma-9b with all 38 layers on one 8192-token prompt (flash at
+head_dim 256 with its 2048-token window, and the RG-LRU scan).
 ``chip_smoke.py`` times these same runs.  Runs one warm-up forward, then
 records one ``forward`` under ``torch.profiler``.  Prints the wall time,
 the device time by kernel (top entries), the shares of the port's kernel,
@@ -43,7 +45,8 @@ class ForwardRun:
 
 
 RUNS = {"qwen2.5-32b": ForwardRun(8, 1, 8192, "flash"),       # depth cut
-        "mamba2-370m": ForwardRun(48, 8, 4096, "ssd")}        # whole model
+        "mamba2-370m": ForwardRun(48, 8, 4096, "ssd"),        # whole model
+        "recurrentgemma-9b": ForwardRun(38, 1, 8192, "flash")}  # whole
 
 
 def run_config(arch: str):

@@ -5,7 +5,10 @@ projections (z | x | BC | dt), depthwise causal convolutions, the chunked
 SSD scan, the D skip and the gated RMS norm.  On a CUDA tensor the scan
 is the ``ssd_scan`` kernel; on a CPU tensor it is ``ssd_chunked``, the
 reference's chunked form computed in the kernel's phases
-(``ssd_phases``).  The one-token decode half is not ported yet.
+(``ssd_phases``).  ``mamba2_decode`` is the one-token recurrent update of
+the layer (the reference writes it in ``jnp``, no kernel); the decode step
+runs ``serving.tp_layers.mamba2_decode_tp``, which normalizes as the
+reference's decode step does.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd_scan.kernel import ssd_phases, ssd_scan
+from .common import causal_conv, conv_step
 
 
 def d_inner(cfg):
@@ -26,12 +30,7 @@ def n_heads(cfg):
 
 def _causal_conv(u, w, b):
     """Depthwise causal conv1d over [B, S, C]; SiLU in fp32."""
-    W = w.shape[0]
-    pad = F.pad(u, (0, 0, W - 1, 0))
-    out = pad[:, 0:u.shape[1]] * w[0]
-    for k in range(1, W):
-        out = out + pad[:, k:k + u.shape[1]] * w[k]
-    return F.silu((out + b).float()).to(u.dtype)
+    return F.silu(causal_conv(u, w, b).float()).to(u.dtype)
 
 
 def _gated_norm(y, z, w, eps=1e-6):
@@ -95,3 +94,47 @@ def mamba2_forward(cfg, p, x):
     y = y + p["D"][None, None, :, None] * xh
     y = _gated_norm(y.reshape(Bsz, S, Di), z.float(), p["norm_w"])
     return torch.matmul(y.to(x.dtype), p["out_proj"])
+
+
+def mamba2_init_state(cfg, batch: int, device=None) -> dict:
+    """Zero recurrent state, fp32: the SSM state h [B, H, P, N] and the
+    last conv_width - 1 inputs of both convolutions."""
+    Di, N, H, P = d_inner(cfg), cfg.ssm_state, n_heads(cfg), cfg.ssm_head_dim
+    W = cfg.conv_width - 1
+    f32 = torch.float32
+    return {"h": torch.zeros((batch, H, P, N), dtype=f32, device=device),
+            "conv_x": torch.zeros((batch, W, Di), dtype=f32, device=device),
+            "conv_bc": torch.zeros((batch, W, 2 * N), dtype=f32,
+                                   device=device)}
+
+
+def mamba2_step(cfg, p, x, state):
+    """The recurrence of one token, shared by the layer and the decode
+    step: x [B, D] -> (y [B, Di] fp32 before the gated norm, z, the new
+    state)."""
+    Bsz = x.shape[0]
+    N, H, P = cfg.ssm_state, n_heads(cfg), cfg.ssm_head_dim
+    z = torch.matmul(x, p["in_z"])
+    xs = torch.matmul(x, p["in_x"]).float()
+    bc = torch.matmul(x, p["in_bc"]).float()
+    dt = torch.matmul(x, p["in_dt"])
+    hist_x = torch.cat([state["conv_x"], xs[:, None, :]], dim=1)
+    hist_bc = torch.cat([state["conv_bc"], bc[:, None, :]], dim=1)
+    cx = F.silu(conv_step(hist_x, p["conv_x_w"], p["conv_x_b"]))
+    cbc = F.silu(conv_step(hist_bc, p["conv_bc_w"], p["conv_bc_b"]))
+    Bm, Cm = cbc[:, :N], cbc[:, N:]
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    a = torch.exp(dt * -torch.exp(p["A_log"]))                   # [B, H]
+    xh = cx.reshape(Bsz, H, P)
+    h = (state["h"] * a[:, :, None, None]
+         + (xh * dt[:, :, None])[..., None] * Bm[:, None, None, :])
+    y = torch.einsum("bn,bhpn->bhp", Cm, h) + p["D"][None, :, None] * xh
+    return y.reshape(Bsz, -1), z, {"h": h, "conv_x": hist_x[:, 1:],
+                                   "conv_bc": hist_bc[:, 1:]}
+
+
+def mamba2_decode(cfg, p, x, state):
+    """Single-token recurrent update.  x: [B, D] -> ([B, D], state')."""
+    y, z, new = mamba2_step(cfg, p, x, state)
+    y = _gated_norm(y, z.float(), p["norm_w"])
+    return torch.matmul(y.to(x.dtype), p["out_proj"]), new

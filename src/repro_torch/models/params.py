@@ -3,13 +3,15 @@ built elsewhere.
 
 ``init_params`` builds the same tree as the reference's
 ``models.transformer.init_params`` for any pattern of ``attn`` /
-``local_attn`` / ``mamba2`` mixers with ``mlp`` / ``none`` feed-forward:
-``units/l{i}/{norm1, attn|ssd, norm2, ffn}`` stacked over the pattern's
+``local_attn`` / ``mamba2`` / ``rglru`` mixers with ``mlp`` / ``none``
+feed-forward: ``units/l{i}/{norm1, attn|ssd|rglru, norm2, ffn}`` stacked
+over the pattern's
 full units, ``tail/t{i}`` for the remainder, ``final_norm``, ``embed``
 and ``unembed`` (absent when the embeddings are tied) -- with the same
 shapes, dtypes and scale rule (normal x fan_in^-0.5, embed/unembed
 d^-0.5, conv taps width^-0.5, norms ones in fp32, biases zeros, the SSD
-``A_log``/``D``/``dt_bias``/``norm_w`` in fp32).  The numbers come from a
+``A_log``/``D``/``dt_bias``/``norm_w`` and the RG-LRU ``lam`` (2.0) in
+fp32).  The numbers come from a
 ``torch.Generator`` and differ from JAX's.
 """
 
@@ -88,10 +90,16 @@ def _init_layer(cfg: ModelConfig, spec, gen, lead: tuple, dev) -> dict:
             "dt_bias": const(H, 0, f32), "norm_w": const(Di, 1, f32),
             "out_proj": w(Di, D),
         }
+    elif mixer == "rglru":
+        D, W, cw = cfg.d_model, cfg.lru_width, cfg.conv_width
+        p["rglru"] = {
+            "in_x": w(D, W), "in_g": w(D, W),
+            "conv_w": w(cw, W, scale=cw ** -0.5), "conv_b": const(W, 0, dt),
+            "wa": w(W, W), "wx": w(W, W),
+            "lam": const(W, 2.0, torch.float32), "out": w(W, D),
+        }
     else:
-        raise NotImplementedError(
-            f"{cfg.name}: the {mixer!r} mixer is not ported yet "
-            f"(ROADMAP A2/A3)")
+        raise ValueError(f"unknown mixer {mixer!r}")
     if ffn == "mlp":
         d, f = cfg.d_model, cfg.d_ff
         p["norm2"] = _norm(cfg, lead, dev)
@@ -101,7 +109,7 @@ def _init_layer(cfg: ModelConfig, spec, gen, lead: tuple, dev) -> dict:
     elif ffn != "none":
         raise NotImplementedError(
             f"{cfg.name}: the {ffn!r} feed-forward is not ported yet "
-            f"(ROADMAP A2/A3)")
+            f"(ROADMAP A5)")
     return p
 
 

@@ -8,7 +8,8 @@ stacked unit parameters (rematerialization means nothing without a
 backward).  Everything runs under ``torch.inference_mode()``; the kernel
 wrappers refuse inputs that require grad, so a backward has to be added
 on purpose.  Attention runs the ``flash_attention`` kernel and Mamba-2
-the ``ssd_scan`` kernel on a CUDA tensor.
+the ``ssd_scan`` kernel on a CUDA tensor; RG-LRU's scan is plain PyTorch
+(``layers/rglru.py::linear_scan``).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..layers import attention, ssd
+from ..layers import attention, rglru, ssd
 from ..layers.common import apply_norm, embed, unembed
 from ..layers.mlp import apply_mlp
 from .config import ModelConfig
@@ -37,15 +38,16 @@ def _apply_layer(cfg: ModelConfig, spec, p, x, positions):
                                         causal=cfg.causal, window=cfg.window)
     elif mixer == "mamba2":
         h = ssd.mamba2_forward(cfg, p["ssd"], h)
+    elif mixer == "rglru":
+        h = rglru.rglru_forward(cfg, p["rglru"], h)
     else:
-        raise NotImplementedError(
-            f"the {mixer!r} mixer is not ported yet (ROADMAP A2/A3)")
+        raise NotImplementedError(f"unknown mixer {mixer!r}")
     x = x + h
     if ffn == "mlp":
         x = x + apply_mlp(cfg, p["ffn"], apply_norm(cfg.norm, p["norm2"], x))
     elif ffn != "none":
         raise NotImplementedError(
-            f"the {ffn!r} feed-forward is not ported yet (ROADMAP A2/A3)")
+            f"the {ffn!r} feed-forward is not ported yet (ROADMAP A5)")
     return x, kv
 
 
@@ -61,7 +63,7 @@ def _stack(cfg: ModelConfig, params, batch, collect_kv: bool):
     if cfg.frontend is not None and "embeds" in batch:
         raise NotImplementedError(
             "the audio and vision front ends (batch['embeds']) are not "
-            "ported yet (ROADMAP A3)")
+            "ported yet (ROADMAP A6)")
     x = embed(batch["tokens"], params["embed"])
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,

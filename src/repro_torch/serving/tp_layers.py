@@ -7,17 +7,23 @@ one call, ``rope_kv_append`` (bias, RoPE, page/slot lookup and the K/V
 write), then ``paged_attention``: the CUDA kernels on a CUDA tensor,
 their plain versions on a CPU tensor.  The projections stay
 ``torch.matmul``, as the reference leaves them to XLA outside any Pallas
-kernel.
+kernel.  The recurrent mixers (``mamba2_decode_tp``, ``rglru_decode_tp``)
+are plain PyTorch, as the reference writes them in ``jnp``; they round as
+the reference's ``_tp`` versions do, which differ from its layer
+functions, and update the lane states IN PLACE, as the arenas are.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels.kv_update.kernel import rope_kv_append
 from ..kernels.paged_attention.kernel import paged_attention, \
     valid_positions
-from ..layers.common import unembed
+from ..layers.common import conv_step, unembed
+from ..layers.rglru import gate_coeffs
+from ..layers.ssd import mamba2_step
 
 
 def embed_tp(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -101,3 +107,41 @@ def windowed_empty_lanes(out, arena_v, block_table, lengths, window: int):
     mean = (acc.float() / (P * page)).to(out.dtype)
     mean = mean.repeat_interleave(H // K, dim=1)            # [B, H, dh]
     return torch.where(empty[:, None, None], mean, out)
+
+
+def _store(state: dict, new: dict) -> None:
+    """Write a mixer's new recurrent state into its decode-state views."""
+    for k, v in new.items():
+        state[k].copy_(v)
+
+
+def mamba2_decode_tp(cfg, p: dict, x: torch.Tensor, state: dict):
+    """One-token Mamba-2 update (the reference's ``mamba2_decode_tp`` at
+    TP = 1).  Its gated RMS norm divides ``sum(y * y)`` by d_inner, where
+    the layer function takes a mean.  ``state`` ({"h", "conv_x",
+    "conv_bc"}, fp32) is updated in place.  Returns y [B, D]."""
+    y, z, new = mamba2_step(cfg, p, x, state)
+    y = y * F.silu(z.float())
+    ssq = torch.sum(y * y, dim=-1, keepdim=True) / y.shape[1]
+    y = y * torch.rsqrt(ssq + 1e-6) * p["norm_w"]
+    _store(state, new)
+    return torch.matmul(y.to(x.dtype), p["out_proj"])
+
+
+def rglru_decode_tp(cfg, p: dict, x: torch.Tensor, state: dict):
+    """One-token RG-LRU update (the reference's ``rglru_decode_tp`` at
+    TP = 1).  The gate matmuls take the convolution cast to x's dtype but
+    the input gate multiplies the fp32 convolution (the layer function
+    casts it first).  ``state`` ({"h", "conv"}, fp32) is updated in
+    place.  Returns y [B, D]."""
+    xr = torch.matmul(x, p["in_x"]).float()
+    xg = torch.matmul(x, p["in_g"])
+    hist = torch.cat([state["conv"], xr[:, None, :]], dim=1)
+    conv = conv_step(hist, p["conv_w"], p["conv_b"])
+    cx = conv.to(x.dtype)
+    a, b = gate_coeffs(p, torch.matmul(cx, p["wa"]), torch.matmul(cx, p["wx"]),
+                       conv)
+    h = a * state["h"] + b
+    y = h * F.gelu(xg.float(), approximate="tanh")
+    _store(state, {"h": h, "conv": hist[:, 1:]})
+    return torch.matmul(y.to(x.dtype), p["out"])

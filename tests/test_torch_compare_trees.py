@@ -36,6 +36,23 @@ def test_parse_reads_the_smoke_lines():
     assert res["serve"]["ms_per_step_median"] == 8.7
 
 
+def test_parse_reads_one_detail_line_a_run():
+    """Since the smoke serves several models, a detail line names its
+    model: ``serve granite-20b detail: {...}``."""
+    out = "\n".join([
+        "serve qwen2.5-32b detail: " + json.dumps({"ms_per_step_median": 5.0}),
+        "serve granite-20b detail: " + json.dumps({"ms_per_step_median": 30.}),
+        "prefill recurrentgemma-9b detail: " + json.dumps(
+            {"ms_per_forward": 400.0}),
+        "kernel paged_attention at granite-20b's serve shape: ms 0.02",
+    ])
+    res = ct.parse(out)
+    assert res["serve qwen2.5-32b"]["ms_per_step_median"] == 5.0
+    assert res["serve granite-20b"]["ms_per_step_median"] == 30.0
+    assert res["prefill recurrentgemma-9b"]["ms_per_forward"] == 400.0
+    assert "serve" not in res
+
+
 def test_refuses_a_parent_without_chip_smoke(tmp_path):
     with pytest.raises(SystemExit):
         ct.main(["--parent", str(tmp_path), "--out", str(tmp_path / "o")])

@@ -275,6 +275,10 @@ def test_decode_tokens_match_cpu(dev):
     (1, 4, 2, 1000, 128, False, 0, torch.bfloat16),
     (1, 4, 2, 512, 128, True, 48, torch.bfloat16),    # window edge tiles
     (2, 40, 8, 1000, 128, True, 0, torch.bfloat16),   # a tile at a head's end
+    # head_dim above 128: the mma.sync kernel with Q in shared memory
+    (1, 96, 8, 1000, 192, True, 0, torch.bfloat16),   # nemotron-4-340b
+    (1, 16, 1, 1000, 256, True, 48, torch.bfloat16),  # recurrentgemma-9b
+    (1, 4, 1, 300, 256, True, 0, torch.float32),
 ])
 def test_flash_attention_kernel_vs_plain(dev, B, H, K, S, dh, causal, win,
                                          dt):
@@ -356,7 +360,8 @@ def test_kernels_refuse_inputs_that_require_grad(dev):
         ssk.ssd_scan(x, x.detach()[..., 0], bc, bc)
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-32b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "mamba2-370m",
+                                  "granite-20b", "recurrentgemma-9b"])
 def test_forward_matches_cpu(dev, arch):
     """fp32 smoke model: logits, collected K/V and the loss of the forward
     on the card (kernels) equal the forward on the CPU within 1e-3."""
@@ -390,7 +395,67 @@ def test_forward_matches_cpu(dev, arch):
     for name, (k, v) in kc["units"].items():
         assert float((k - kg["units"][name][0]).abs().max()) < 1e-3
         assert float((v - kg["units"][name][1]).abs().max()) < 1e-3
-    if arch == "qwen2.5-32b":
-        assert fak.launches - n_fa == 2 * cfg.num_layers
-    else:
-        assert ssk.launches - n_ss == 2 * cfg.num_layers
+    n_attn = sum(mx in ("attn", "local_attn") for mx, _ in cfg.layer_specs)
+    n_ssd = sum(mx == "mamba2" for mx, _ in cfg.layer_specs)
+    assert fak.launches - n_fa == 2 * n_attn
+    assert ssk.launches - n_ss == 2 * n_ssd
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+def test_engine_matches_cpu(dev, arch):
+    """fp32 smoke model: the serving engine on the card and on the CPU,
+    the same calls (requests, steps, a crash and recovery, a finished lane
+    reused with its recurrent state carried over): the same tokens, block
+    tables and positions after every call; the recurrent states within
+    1e-4 at the end."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import ServingEngine
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32,
+                              page_size=8)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+    def to(tree, d):
+        if isinstance(tree, dict):
+            return {k: to(v, d) for k, v in tree.items()}
+        return tree.to(d)
+
+    engines = [ServingEngine(cfg, to(cpu, d), lanes=3, max_seq=64,
+                             pages_per_sb=2, device=d)
+               for d in ("cpu", "cuda")]
+
+    def both(name, *args, **kw):
+        outs = [getattr(e, name)(*args, **kw) for e in engines]
+        if name == "crash_and_recover":
+            outs = [{k: v for k, v in o.items() if k != "phases"}
+                    for o in outs]
+        assert outs[0] == outs[1], (name, outs)
+        for f in ("pos", "block_table", "kv_pos"):
+            assert torch.equal(engines[0].dstate[f],
+                               engines[1].dstate[f].cpu()), (name, f)
+        return outs[0]
+
+    a = both("add_request", [5, 9, 3, 7, 1, 2, 8, 4, 6, 3, 2, 1, 9, 9, 5, 5,
+                             4], share_prefix=True)
+    both("add_request", [7, 7])
+    for _ in range(17):
+        both("step")
+    both("publish_prefix", a)
+    both("add_request", [5, 9, 3, 7, 1, 2, 8, 4, 6, 3, 2, 1, 9, 9, 5, 5, 4],
+         share_prefix=True)
+    for _ in range(5):
+        both("step")
+    both("crash_and_recover")
+    for _ in range(3):
+        both("step")
+    both("finish", a)
+    assert both("add_request", [1, 2, 3]) == a
+    for _ in range(6):
+        both("step")
+    for part in ("units", "tail"):
+        for name, st in engines[0].dstate[part].items():
+            for k, v in st.items():
+                if k in ("h", "conv", "conv_x", "conv_bc"):
+                    other = engines[1].dstate[part][name][k].cpu()
+                    assert float((v - other).abs().max()) < 1e-4, (name, k)

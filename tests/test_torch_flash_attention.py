@@ -110,8 +110,13 @@ def test_flash_wrapper_checks():
     (torch.bfloat16, 80, "mma_sync"),   # the hubert sweep
     (torch.bfloat16, 16, "mma_sync"),
     (torch.bfloat16, 112, "mma_sync"),
+    (torch.bfloat16, 144, "mma_sync"),  # Q in shared memory from here
+    (torch.bfloat16, 192, "mma_sync"),  # nemotron-4-340b
+    (torch.bfloat16, 256, "mma_sync"),  # recurrentgemma-9b
     (torch.float32, 128, "fma"),
     (torch.float32, 64, "fma"),
+    (torch.float32, 192, "fma"),
+    (torch.float32, 256, "fma"),
 ])
 def test_flash_variant_by_dtype_and_head_dim(dt, dh, variant):
     """The wrapper picks the kernel by dtype and head_dim alone."""
@@ -120,7 +125,10 @@ def test_flash_variant_by_dtype_and_head_dim(dt, dh, variant):
 
 @pytest.mark.parametrize("dt,dh,err", [
     (torch.bfloat16, 72, ValueError),
-    (torch.bfloat16, 144, ValueError),
+    (torch.bfloat16, 272, ValueError),  # past 256
+    (torch.bfloat16, 200, ValueError),  # not a multiple of 16
+    (torch.float32, 272, ValueError),
+    (torch.bfloat16, 0, ValueError),
     (torch.float16, 64, TypeError),
 ])
 def test_flash_variant_refuses(dt, dh, err):

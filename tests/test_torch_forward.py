@@ -1,7 +1,10 @@
 """The port's full-sequence forward (``models/transformer.py``) against the
 reference's ``T.forward`` / ``T.loss_fn`` on the smoke configurations of
-qwen2.5-32b (attention + SwiGLU MLP) and mamba2-370m (Mamba-2, tied
-embeddings): the same numpy weights (reference params carried across with
+every architecture the port has: qwen2.5-32b (attention + SwiGLU MLP),
+mamba2-370m (Mamba-2, tied embeddings), granite-20b (MQA, LayerNorm,
+GELU), starcoder2-3b (QKV bias, tied), nemotron-4-340b (squared ReLU) and
+recurrentgemma-9b (RG-LRU + local attention, a tail of two RG-LRU
+layers): the same numpy weights (reference params carried across with
 ``from_numpy_tree``) and the same numpy tokens into both."""
 
 import dataclasses
@@ -22,7 +25,8 @@ from repro_torch.layers import mlp as tmlp  # noqa: E402
 from repro_torch.models import params as tparams  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 
-ARCHS = ["qwen2.5-32b", "mamba2-370m"]
+ARCHS = ["qwen2.5-32b", "mamba2-370m", "granite-20b", "starcoder2-3b",
+         "nemotron-4-340b", "recurrentgemma-9b"]
 _DT = {"fp32": (jnp.float32, torch.float32),
        "bf16": (jnp.bfloat16, torch.bfloat16)}
 # fp32: the reference's own chunked-vs-naive bound (test_models.py);
@@ -83,6 +87,8 @@ def _eager_reference(jcfg, jp, jb):
             x, _, kv = JT._apply_layer(jcfg, spec, unit[f"l{i}"], x, pos)
             if kv is not None:
                 kvs.setdefault(f"l{i}", []).append(kv)
+    for i, spec in enumerate(jcfg.tail_specs):
+        x, _, _ = JT._apply_layer(jcfg, spec, jp["tail"][f"t{i}"], x, pos)
     x = apply_norm(jcfg.norm, jp["final_norm"], x)
     table = jp["embed"] if jcfg.tie_embeddings else jp["unembed"]
     kv = {name: tuple(jnp.stack(t) for t in zip(*v))
@@ -114,7 +120,7 @@ def test_forward_logits_kv_and_loss_match_reference(arch, dt):
     assert _err(tl, jl) < _TOL[dt]
     assert float(aux) == 0.0
     assert tkv["units"].keys() == jkv.keys()
-    assert tkv["tail"] == {}
+    assert tkv["tail"] == {}                       # no attention in a tail
     for name, (jk, jv) in jkv.items():
         tk, tv = tkv["units"][name]
         assert tk.shape == jk.shape and tv.shape == jv.shape
@@ -234,11 +240,16 @@ def test_unported_paths_raise():
     audio = dataclasses.replace(tcfg, frontend="audio")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TT.forward(audio, tp, {"embeds": torch.zeros((1, 4, tcfg.d_model))})
-    for pattern in ((("attn", "moe"),), (("rglru", "mlp"),)):
+    for pattern in ((("attn", "moe"),), (("local_attn", "moe"),)):
         cfg = dataclasses.replace(tcfg, pattern=pattern)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tparams.init_params(cfg, torch.Generator().manual_seed(0),
                                 device="cpu")
+    # int8 KV decode (ROADMAP A2) raises where the decode state is made
+    from repro_torch.serving import decode as tdec
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdec.make_dstate(dataclasses.replace(tcfg, kv_dtype="int8"),
+                         batch=2, max_seq=64, device="cpu")
     # attention over any S on the pallas path (no block-multiple contract)
     cfg = dataclasses.replace(tcfg, attn_impl="pallas")
     toks = torch.as_tensor(_tokens(tcfg, S=13))

@@ -55,7 +55,10 @@ def test_port_imports_neither_jax_nor_reference():
     for rel in ("models/transformer.py", "layers/attention.py",
                 "layers/ssd.py", "layers/mlp.py",
                 "kernels/flash_attention/kernel.py",
-                "kernels/ssd_scan/kernel.py", "launch/profile_forward.py"):
+                "kernels/ssd_scan/kernel.py", "launch/profile_forward.py",
+                "layers/rglru.py", "configs/granite_20b.py",
+                "configs/starcoder2_3b.py", "configs/nemotron_4_340b.py",
+                "configs/recurrentgemma_9b.py"):
         assert PORT / rel in files, rel
     assert (ROOT / "chip_smoke.py") in files
     found = {str(f.relative_to(ROOT)): _bad_imports(f) for f in files}
