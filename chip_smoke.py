@@ -9,34 +9,41 @@ times both), then drives the port's paths:
 
 1. the kernels against their plain versions (the serve runs' shapes --
    qwen2.5-32b 40/8, granite-20b 48/1, recurrentgemma-9b 16/1 at head_dim
-   256 with its window -- for the decode layer's fused bias + RoPE + K/V
-   write ``rope_kv_append`` (a lane on the dump page and one past its
-   table) and ``paged_attention``; the reference's sweep shapes and the
-   edges of the kernels' tiles, flash_attention at head_dim 192 and 256
-   among them; the prefills of qwen2.5-32b and recurrentgemma-9b and
-   mamba2-370m's scan; the flash rows name the variant that ran;
+   256 with its window, granite-moe-3b-a800m 24/8 at head_dim 64,
+   moonshot-v1-16b-a3b 16/16 -- for the decode layer's fused bias + RoPE
+   + K/V write ``rope_kv_append`` (a lane on the dump page and one past
+   its table) and ``paged_attention``; the reference's sweep shapes and
+   the edges of the kernels' tiles, flash_attention at head_dim 192 and
+   256 among them; the prefills of qwen2.5-32b, recurrentgemma-9b and
+   granite-moe-3b-a800m, hubert-xlarge's encode (no causal mask, head_dim
+   80) and mamba2-370m's scan; the flash rows name the variant that ran;
    paged_attention also at every head layout of the reference's configs,
    8 x 32768 and 1 x 32768 positions, page and split edges and fp32,
    timed with the L2 cache cold and warm);
 2. the serving engine on the card against the same engine on the CPU, on
-   the qwen2.5-32b, mamba2-370m and recurrentgemma-9b smoke configs, a
-   lane reused at the end;
-3. four serve runs at full width through the paged engine (random
-   weights from a seed): qwen2.5-32b cut to 8 layers, granite-20b (all 52
-   layers), recurrentgemma-9b (all 38) and mamba2-370m (all 48): short
-   prompts, and where the model has attention a 300-token prompt on the
-   span path and a published prefix with an exact and a partial hit; a
+   the qwen2.5-32b, mamba2-370m, recurrentgemma-9b and granite-moe-3b-a800m
+   smoke configs, a lane reused at the end;
+3. serve runs at full width through the paged engine (random weights from
+   a seed): qwen2.5-32b cut to 8 layers, granite-20b (all 52 layers),
+   recurrentgemma-9b (all 38), mamba2-370m (all 48), granite-moe-3b-a800m
+   (all 32) and moonshot-v1-16b-a3b (all 48, ~56 GB): short prompts, and
+   where the model has attention a 300-token prompt on the span path and
+   a published prefix with an exact and a partial hit; a
    crash-and-recover mid-run and a finished lane reused; every attention
    layer of every step launches ``rope_kv_append`` and
    ``paged_attention`` once, the standalone ``kv_update`` never;
-4. the full-sequence forward (logits, collected K/V, loss) of every
-   architecture's smoke configuration on the card against the CPU;
+4. the full-sequence forward (logits, collected K/V, aux, loss) of every
+   architecture's smoke configuration on the card against the CPU (the
+   front-end stubs fed frame / patch embeddings);
 5. the prefills at full width, ``forward(collect_kv=True)`` and
-   ``loss_fn`` on 8192 tokens: qwen2.5-32b (the serve run's 8 layers and
-   weights) and recurrentgemma-9b (all 38 layers: flash at head_dim 256,
-   window 2048, and the RG-LRU scan);
+   ``loss_fn``: qwen2.5-32b (the serve run's 8 layers and weights, 8192
+   tokens), recurrentgemma-9b (all 38 layers, 8192 tokens: flash at
+   head_dim 256, window 2048, and the RG-LRU scan) and
+   granite-moe-3b-a800m (the serve run's weights, 4096 tokens: flash at
+   24/8 heads of 64 and the per-row MoE dispatch);
 6. mamba2-370m scoring, all 48 layers: ``forward`` and ``loss_fn`` on
-   8 x 4096 tokens.
+   8 x 4096 tokens; hubert-xlarge's encode, all 48 layers: ``forward``
+   and the frame loss on 8 x 2048 frame embeddings.
 
 Each run prints a ``... detail:`` line.  The launch counters are set to 0
 just before each path and read just after it; the ``kernels`` line gives
@@ -388,6 +395,10 @@ PAGED_SWEEP = [
      "bfloat16", None),
     ("starcoder2-3b 24/2", 4, 24, 2, 128, 128, 32, _LENS, 0, "bfloat16",
      None),
+    ("granite-moe-3b-a800m 24/8 dh64", 4, 24, 8, 64, 128, 32, _LENS, 0,
+     "bfloat16", None),
+    ("moonshot-v1-16b-a3b 16/16", 4, 16, 16, 128, 128, 32, _LENS, 0,
+     "bfloat16", None),
     ("long 8 x 32768", 8, 40, 8, 128, 128, 256, 32768, 0, "bfloat16", None),
     ("single 1 x 32768", 1, 40, 8, 128, 128, 256, 32768, 0, "bfloat16",
      None),
@@ -471,6 +482,8 @@ FLASH_SWEEP = [  # B, H, K, S, dh, causal, window, dtype
     (1, 96, 8, 1000, 192, True, 0, "bfloat16"),       # nemotron-4-340b
     (1, 16, 1, 1000, 256, True, 48, "bfloat16"),      # recurrentgemma-9b
     (1, 4, 1, 300, 256, True, 0, "float32"),
+    (1, 24, 8, 1000, 64, True, 0, "bfloat16"),        # granite-moe-3b-a800m
+    (2, 16, 16, 1000, 80, False, 0, "bfloat16"),      # hubert-xlarge
 ]
 SSD_SWEEP = [  # Bz, H, S, P, N, dtype, log-decay per step (None: random)
     (2, 2, 256, 64, 32, "float32", None),
@@ -580,7 +593,7 @@ def check_forward_kernels(torch, dev, flash_mains, ssd_main) -> list[dict]:
         else:
             def lib():
                 return sdpa(q, k, v, is_causal=causal, enable_gqa=True)
-            call = ("F.scaled_dot_product_attention(is_causal=True, "
+            call = (f"F.scaled_dot_product_attention(is_causal={causal}, "
                     "enable_gqa=True) on the same q, k, v")
         timed.append({
             "variant": variant,
@@ -683,7 +696,11 @@ def engine_script(eng, vocab: int) -> list:
     return seen
 
 
-ENGINE_ARCHS = ("qwen2.5-32b", "mamba2-370m", "recurrentgemma-9b")
+# (arch, config overrides): the MoE runs at capacity_factor 100, as the
+# reference's MoE decode tests
+ENGINE_ARCHS = (("qwen2.5-32b", {}), ("mamba2-370m", {}),
+                ("recurrentgemma-9b", {}),
+                ("granite-moe-3b-a800m", {"capacity_factor": 100.0}))
 
 
 def check_engine_vs_cpu(torch, dev) -> dict:
@@ -694,9 +711,9 @@ def check_engine_vs_cpu(torch, dev) -> dict:
     from repro_torch.serving.engine import ServingEngine
 
     out = {}
-    for arch in ENGINE_ARCHS:
+    for arch, kw in ENGINE_ARCHS:
         cfg = dataclasses.replace(get_smoke_config(arch),
-                                  dtype=torch.float32, page_size=8)
+                                  dtype=torch.float32, page_size=8, **kw)
         cpu_params = init_params(cfg, torch.Generator().manual_seed(SEED),
                                  device="cpu")
         runs = {}
@@ -759,8 +776,7 @@ def serve_full_width(torch, cfg, params, dev) -> dict:
 
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    weight_bytes = sum(t.numel() * t.element_size() for t in
-                       _leaves(params))
+    nbytes = weight_bytes(params)
     engine = ServingEngine(cfg, params, lanes=LANES, max_seq=MAX_SEQ,
                            pages_per_sb=PAGES_PER_SB, device=dev)
     setup_s = time.perf_counter() - t0
@@ -845,11 +861,12 @@ def serve_full_width(torch, cfg, params, dev) -> dict:
         "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
         "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": V,
         "pattern": [list(x) for x in cfg.pattern], "window": cfg.window,
-        "dtype": str(cfg.dtype), "weight_gb": weight_bytes / 1e9,
+        "dtype": str(cfg.dtype), "weight_gb": nbytes / 1e9,
         "lanes": LANES, "max_seq": MAX_SEQ, "pages_per_sb": PAGES_PER_SB,
         "arena_pages": int(arena.shape[1]) if arena is not None else 0,
         "setup_s": setup_s, "run_s": run_s, "steps": steps,
         "crash_at_step": crash_step, "recovery": stats,
+        "floor_ms_per_step": nbytes / HBM_BYTES_PER_S * 1e3,
         "ms_per_step_mean": 1e3 * sum(step_s) / len(step_s),
         "ms_per_step_median": 1e3 * steady[len(steady) // 2],
         "tokens_emitted": emitted,
@@ -873,7 +890,8 @@ def _to(tree, d):
 
 def check_forward_vs_cpu(torch, dev) -> dict:
     """Every architecture's smoke configuration in fp32, the same weights
-    on both devices: logits, collected K/V and the loss within 1e-3."""
+    on both devices: logits, collected K/V, aux and the loss within 1e-3
+    (the front-end stubs fed random embeddings)."""
     from repro_torch.configs import ARCHS, get_smoke_config
     from repro_torch.models import transformer as T
     from repro_torch.models.params import init_params
@@ -883,18 +901,22 @@ def check_forward_vs_cpu(torch, dev) -> dict:
         cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
         params = init_params(cfg, torch.Generator().manual_seed(SEED),
                              device="cpu")
-        toks = torch.randint(0, cfg.vocab_size, (2, 64),
-                             generator=torch.Generator().manual_seed(SEED + 6))
+        g = torch.Generator().manual_seed(SEED + 6)
+        toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=g)
         batch = {"tokens": toks, "labels": toks}
+        if cfg.frontend:
+            batch = {"embeds": torch.randn((2, 64, cfg.d_model),
+                                           generator=g), "labels": toks}
         res = {}
         for d in ("cpu", dev):
             p, b = _to(params, d), _to(batch, d)
-            logits, _, kv = T.forward(cfg, p, b, collect_kv=True)
+            logits, aux, kv = T.forward(cfg, p, b, collect_kv=True)
             loss, _ = T.loss_fn(cfg, p, b)
-            res[str(d)] = _to((logits, kv["units"], loss), "cpu")
-        (lc, kc, sc), (lg, kg, sg) = res["cpu"], res[str(dev)]
+            res[str(d)] = _to((logits, kv["units"], loss, aux), "cpu")
+        (lc, kc, sc, ac), (lg, kg, sg, ag) = res["cpu"], res[str(dev)]
         errs = {"logits": float((lc - lg).abs().max()),
-                "loss": abs(float(sc) - float(sg))}
+                "loss": abs(float(sc) - float(sg)),
+                "aux": abs(float(ac) - float(ag))}
         for name, (k, v) in kc.items():
             errs[f"{name}.k"] = float((k - kg[name][0]).abs().max())
             errs[f"{name}.v"] = float((v - kg[name][1]).abs().max())
@@ -909,12 +931,13 @@ def check_forward_vs_cpu(torch, dev) -> dict:
 # ---------------------------------------------------------------------------
 # phases 5 and 6: the full-sequence forward at full width
 # ---------------------------------------------------------------------------
-def _ce_from_logits(torch, logits, tokens) -> float:
-    """Mean next-token CE straight from full logits (a check of
-    ``loss_fn``'s chunked CE)."""
-    lg = logits[:, :-1]
-    lse = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, tokens[:, 1:, None].long())[..., 0]
+def _ce_from_logits(torch, logits, labels, causal: bool) -> float:
+    """Mean CE straight from full logits (a check of ``loss_fn``'s chunked
+    CE): next-token for a causal model, frame by frame for an encoder."""
+    if causal:
+        logits, labels = logits[:, :-1], labels[:, 1:]
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return float((lse - gold).mean())
 
 
@@ -928,7 +951,6 @@ def run_forward(torch, cfg, params, dev, run, kernel, collect_kv) -> dict:
     from repro_torch.models import transformer as T
     B, S = run.batch, run.seq
     batch = run_batch(cfg, run, dev)
-    toks = batch["tokens"]
     torch.cuda.synchronize()
     t = time.perf_counter()
     T.forward(cfg, params, batch)
@@ -971,7 +993,7 @@ def run_forward(torch, cfg, params, dev, run, kernel, collect_kv) -> dict:
                                      f"{tuple(k.shape)} != {want} or not "
                                      f"finite")
             res[f"kv_{name}"] = list(want)
-    ce_full = _ce_from_logits(torch, logits, toks)
+    ce_full = _ce_from_logits(torch, logits, batch["labels"], cfg.causal)
     ce = float(parts["ce"])
     if not abs(ce - ce_full) < 1e-3 * max(1.0, ce_full):
         raise AssertionError(f"{cfg.name}: loss_fn's CE {ce} != the CE of "
@@ -981,6 +1003,7 @@ def run_forward(torch, cfg, params, dev, run, kernel, collect_kv) -> dict:
         "first_forward_s": first_s,
         "ms_per_forward": 1e3 * fwd_s, "tokens_per_s": B * S / fwd_s,
         "ms_loss_fn": 1e3 * loss_s, "loss": float(loss), "ce_check": ce_full,
+        "aux": float(parts["aux"]),
         "launches": counts, "launches_per_forward": launches // 2,
         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
     })
@@ -993,6 +1016,10 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def weight_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(params))
 
 
 def report_serve(serve: dict, card: str) -> None:
@@ -1041,24 +1068,28 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({build.build_info['library']})", flush=True)
 
-    # the qwen2.5-32b serve run and prefill share the prefill's depth cut
-    qrun, mrun, rrun = (RUNS[a] for a in ("qwen2.5-32b", "mamba2-370m",
-                                          "recurrentgemma-9b"))
-    cfg, mcfg, rcfg = (run_config(a) for a in ("qwen2.5-32b", "mamba2-370m",
-                                               "recurrentgemma-9b"))
+    # the qwen2.5-32b serve run and prefill share the prefill's depth cut;
+    # granite-moe-3b-a800m's serve run and prefill, its whole depth
+    names = ("qwen2.5-32b", "mamba2-370m", "recurrentgemma-9b",
+             "granite-moe-3b-a800m", "hubert-xlarge")
+    qrun, mrun, rrun, gmrun, hrun = (RUNS[a] for a in names)
+    cfg, mcfg, rcfg, gmcfg, hcfg = (run_config(a) for a in names)
     gcfg = serve_config("granite-20b")
+    mscfg = serve_config("moonshot-v1-16b-a3b")
+
+    def main_shape(run, c):
+        return (run.batch, c.num_heads, c.num_kv_heads, run.seq, c.head_dim,
+                c.causal, c.window, "bfloat16")
     flash_mains = [
-        (qrun.batch, cfg.num_heads, cfg.num_kv_heads, qrun.seq,
-         cfg.head_dim, True, 0, "bfloat16"),
-        (rrun.batch, rcfg.num_heads, rcfg.num_kv_heads, rrun.seq,
-         rcfg.head_dim, True, rcfg.window, "bfloat16"),
-        (1, 96, 8, 4096, 192, True, 0, "bfloat16")]   # nemotron-4-340b heads
+        main_shape(qrun, cfg), main_shape(rrun, rcfg),
+        (1, 96, 8, 4096, 192, True, 0, "bfloat16"),   # nemotron-4-340b heads
+        main_shape(gmrun, gmcfg), main_shape(hrun, hcfg)]
     ssd_main = (mrun.batch, n_heads(mcfg), mrun.seq, mcfg.ssm_head_dim,
                 mcfg.ssm_state, "float32", None)
     kernels = check_kernels(torch, cfg, dev) + check_forward_kernels(
         torch, dev, flash_mains, ssd_main)
     by_name = {row["name"]: row for row in kernels}
-    for c in (gcfg, rcfg):
+    for c in (gcfg, rcfg, gmcfg, mscfg):
         shapes = check_serve_shape(torch, c, dev)
         for name, res in shapes.items():
             by_name[name].setdefault("serve_shapes", {})[c.name] = res
@@ -1130,10 +1161,40 @@ def main() -> int:
     paths[f"serve {mcfg.name}"] = mserve["launches"]
     score = run_forward(torch, mcfg, params, dev, mrun, "ssd_scan",
                         collect_kv=False)
-    score["weight_gb"] = sum(t.numel() * t.element_size()
-                             for t in _leaves(params)) / 1e9
+    score["weight_gb"] = weight_bytes(params) / 1e9
     report_forward("score", score, card)
     paths[f"score {mcfg.name}"] = score["launches"]
+    del params
+    torch.cuda.empty_cache()
+
+    # granite-moe-3b-a800m: serve (MoE decode over every expert, 24/8 heads
+    # of 64), then the prefill with the same weights (per-row dispatch)
+    params = weights(gmcfg)
+    gmserve = serve_full_width(torch, gmcfg, params, dev)
+    report_serve(gmserve, card)
+    paths[f"serve {gmcfg.name}"] = gmserve["launches"]
+    gmprefill = run_forward(torch, gmcfg, params, dev, gmrun,
+                            "flash_attention", collect_kv=True)
+    report_forward("prefill", gmprefill, card)
+    paths[f"prefill {gmcfg.name}"] = gmprefill["launches"]
+    del params
+    torch.cuda.empty_cache()
+
+    # moonshot-v1-16b-a3b: serve, 48 layers of 64 experts (~56 GB)
+    params = weights(mscfg)
+    msserve = serve_full_width(torch, mscfg, params, dev)
+    report_serve(msserve, card)
+    paths[f"serve {mscfg.name}"] = msserve["launches"]
+    del params
+    torch.cuda.empty_cache()
+
+    # hubert-xlarge: encode frame embeddings, no causal mask
+    params = weights(hcfg)
+    encode = run_forward(torch, hcfg, params, dev, hrun, "flash_attention",
+                         collect_kv=False)
+    encode["weight_gb"] = weight_bytes(params) / 1e9
+    report_forward("encode", encode, card)
+    paths[f"encode {hcfg.name}"] = encode["launches"]
     del params
     torch.cuda.empty_cache()
     print(f"chip_smoke: {time.perf_counter() - t_all:.1f} s", flush=True)

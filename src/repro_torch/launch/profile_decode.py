@@ -40,7 +40,8 @@ SEED, LANES, MAX_SEQ, PROMPT = 0, 8, 1024, 300
 # the serve runs' depths (chip_smoke.py serves these): qwen2.5-32b cut to
 # 8 of its 64 layers, the others whole
 SERVE_LAYERS = {"qwen2.5-32b": 8, "granite-20b": 52,
-                "recurrentgemma-9b": 38, "mamba2-370m": 48}
+                "recurrentgemma-9b": 38, "mamba2-370m": 48,
+                "granite-moe-3b-a800m": 32, "moonshot-v1-16b-a3b": 48}
 TREE_KEYS = ("kernels_per_step", "copies_per_step", "device_ms_per_step",
              "host_ms_per_step", "wall_ms_per_step", "device_busy_share")
 

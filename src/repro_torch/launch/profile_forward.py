@@ -1,13 +1,17 @@
 """Where a full-sequence forward's time goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_forward \
-        [--arch qwen2.5-32b mamba2-370m recurrentgemma-9b] [--out profile_out]
+        [--arch qwen2.5-32b mamba2-370m ...] [--out profile_out]
 
 For each architecture, builds its run in ``RUNS`` at full width (random
 weights from a seed): qwen2.5-32b cut to 8 layers on one 8192-token
 prompt, mamba2-370m with all 48 layers on 8 x 4096 tokens,
 recurrentgemma-9b with all 38 layers on one 8192-token prompt (flash at
-head_dim 256 with its 2048-token window, and the RG-LRU scan).
+head_dim 256 with its 2048-token window, and the RG-LRU scan),
+granite-moe-3b-a800m with all 32 layers on one 4096-token prompt (its
+context; flash at 24/8 heads of 64 and the per-row MoE dispatch) and
+hubert-xlarge with all 48 layers on 8 x 2048 frame embeddings (~41 s of
+audio each at 50 frames/s; flash without a causal mask at head_dim 80).
 ``chip_smoke.py`` times these same runs.  Runs one warm-up forward, then
 records one ``forward`` under ``torch.profiler``.  Prints the wall time,
 the device time by kernel (top entries), the shares of the port's kernel,
@@ -46,7 +50,9 @@ class ForwardRun:
 
 RUNS = {"qwen2.5-32b": ForwardRun(8, 1, 8192, "flash"),       # depth cut
         "mamba2-370m": ForwardRun(48, 8, 4096, "ssd"),        # whole model
-        "recurrentgemma-9b": ForwardRun(38, 1, 8192, "flash")}  # whole
+        "recurrentgemma-9b": ForwardRun(38, 1, 8192, "flash"),  # whole
+        "granite-moe-3b-a800m": ForwardRun(32, 1, 4096, "flash"),  # whole
+        "hubert-xlarge": ForwardRun(48, 8, 2048, "flash")}    # whole
 
 
 def run_config(arch: str):
@@ -55,10 +61,17 @@ def run_config(arch: str):
 
 
 def run_batch(cfg, run: ForwardRun, dev) -> dict:
-    """The run's random tokens (from the seed), as tokens and labels."""
+    """The run's random batch (from the seed): tokens, which are their
+    own next-token labels, or, for a front-end stub, fp32 frame
+    embeddings [B, S, D] with frame labels in the vocabulary."""
     g = torch.Generator(device=dev).manual_seed(SEED + 7)
-    toks = torch.randint(0, cfg.vocab_size, (run.batch, run.seq),
-                         generator=g, device=dev)
+    shape = (run.batch, run.seq)
+    if cfg.frontend:
+        return {"embeds": torch.randn(shape + (cfg.d_model,), generator=g,
+                                      device=dev),
+                "labels": torch.randint(0, cfg.vocab_size, shape,
+                                        generator=g, device=dev)}
+    toks = torch.randint(0, cfg.vocab_size, shape, generator=g, device=dev)
     return {"tokens": toks, "labels": toks}
 GEMM_WORDS = ("gemm", "gemv", "cutlass", "nvjet", "sm90_xmma")
 

@@ -84,8 +84,8 @@ class ModelConfig:
                    if mx in ("attn", "local_attn"))
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense attention + MLP stack
-        (embeddings included once per table)."""
+        """Analytic parameter count (embeddings included once per table),
+        the reference's: projections only, the padded experts left out."""
         n = self.vocab_size * self.d_model
         if not self.tie_embeddings and self.vocab_size:
             n += self.vocab_size * self.d_model
@@ -94,7 +94,18 @@ class ModelConfig:
                 n += self.d_model * (self.num_heads + 2 * self.num_kv_heads) \
                      * self.head_dim
                 n += self.num_heads * self.head_dim * self.d_model
+            elif mixer == "mamba2":
+                di = self.expand * self.d_model
+                h = di // self.ssm_head_dim
+                n += self.d_model * (2 * di + 2 * self.ssm_state + h)
+                n += di * self.d_model
+            elif mixer == "rglru":
+                w = self.lru_width
+                n += 2 * self.d_model * w + 2 * w * w + w * self.d_model
+            k = 3 if self.mlp == "swiglu" else 2
             if ffn == "mlp":
-                k = 3 if self.mlp == "swiglu" else 2
                 n += k * self.d_model * self.d_ff
+            elif ffn == "moe":
+                n += self.num_experts * k * self.d_model * self.d_ff
+                n += self.d_model * self.num_experts
         return n

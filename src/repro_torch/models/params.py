@@ -3,16 +3,15 @@ built elsewhere.
 
 ``init_params`` builds the same tree as the reference's
 ``models.transformer.init_params`` for any pattern of ``attn`` /
-``local_attn`` / ``mamba2`` / ``rglru`` mixers with ``mlp`` / ``none``
-feed-forward: ``units/l{i}/{norm1, attn|ssd|rglru, norm2, ffn}`` stacked
-over the pattern's
-full units, ``tail/t{i}`` for the remainder, ``final_norm``, ``embed``
-and ``unembed`` (absent when the embeddings are tied) -- with the same
-shapes, dtypes and scale rule (normal x fan_in^-0.5, embed/unembed
-d^-0.5, conv taps width^-0.5, norms ones in fp32, biases zeros, the SSD
-``A_log``/``D``/``dt_bias``/``norm_w`` and the RG-LRU ``lam`` (2.0) in
-fp32).  The numbers come from a
-``torch.Generator`` and differ from JAX's.
+``local_attn`` / ``mamba2`` / ``rglru`` mixers with ``mlp`` / ``moe`` /
+``none`` feed-forward: ``units/l{i}/{norm1, attn|ssd|rglru, norm2, ffn}``
+stacked over the pattern's full units, ``tail/t{i}`` for the remainder,
+``final_norm``, ``embed`` and ``unembed`` (absent when the embeddings are
+tied) -- with the same shapes, dtypes and scale rule (normal x
+fan_in^-0.5, embed/unembed d^-0.5, conv taps width^-0.5, norms ones in
+fp32, biases zeros, the SSD ``A_log``/``D``/``dt_bias``/``norm_w``, the
+RG-LRU ``lam`` (2.0) and the MoE ``router`` in fp32).  The numbers come
+from a ``torch.Generator`` and differ from JAX's.
 """
 
 from __future__ import annotations
@@ -106,10 +105,22 @@ def _init_layer(cfg: ModelConfig, spec, gen, lead: tuple, dev) -> dict:
         p["ffn"] = {"wi": w(d, f), "wg": w(d, f), "wo": w(f, d)}
         if cfg.mlp != "swiglu":
             del p["ffn"]["wg"]
+    elif ffn == "moe":
+        # the reference's init_moe: its fan-in is shape[0], so the experts
+        # are scaled by (E + pad)^-0.5, and the padded experts are random
+        # too (ROADMAP C13)
+        d, f = cfg.d_model, cfg.d_ff
+        ep = cfg.num_experts + cfg.expert_pad
+        p["norm2"] = _norm(cfg, lead, dev)
+        moe = {"router": param(gen, lead + (d, cfg.num_experts),
+                               torch.float32, dev, lead=len(lead)),
+               "wi": w(ep, d, f)}
+        if cfg.mlp == "swiglu":
+            moe["wg"] = w(ep, d, f)
+        moe["wo"] = w(ep, f, d)
+        p["ffn"] = moe
     elif ffn != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {ffn!r} feed-forward is not ported yet "
-            f"(ROADMAP A5)")
+        raise ValueError(f"unknown feed-forward {ffn!r}")
     return p
 
 

@@ -9,7 +9,8 @@ backward).  Everything runs under ``torch.inference_mode()``; the kernel
 wrappers refuse inputs that require grad, so a backward has to be added
 on purpose.  Attention runs the ``flash_attention`` kernel and Mamba-2
 the ``ssd_scan`` kernel on a CUDA tensor; RG-LRU's scan is plain PyTorch
-(``layers/rglru.py::linear_scan``).
+(``layers/rglru.py::linear_scan``), and so is the MoE dispatch
+(``layers/moe.py``), whose load-balancing losses sum into ``aux``.
 """
 
 from __future__ import annotations
@@ -20,14 +21,16 @@ import torch.nn.functional as F
 from ..layers import attention, rglru, ssd
 from ..layers.common import apply_norm, embed, unembed
 from ..layers.mlp import apply_mlp
+from ..layers.moe import apply_moe
 from .config import ModelConfig
 
 
 def _apply_layer(cfg: ModelConfig, spec, p, x, positions):
-    """One (mixer, ffn) layer.  Returns (x, kv) -- kv is the layer's
-    (k, v) [B, S, K, dh] for attention mixers, else None.  (The mixers
-    and feed-forwards ported so far add no auxiliary loss.)"""
+    """One (mixer, ffn) layer.  Returns (x, aux, kv) -- aux is the MoE
+    load-balancing loss (0 for the other feed-forwards), kv the layer's
+    (k, v) [B, S, K, dh] for attention mixers, else None."""
     mixer, ffn = spec
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kv = None
     h = apply_norm(cfg.norm, p["norm1"], x)
     if mixer == "attn":
@@ -43,12 +46,15 @@ def _apply_layer(cfg: ModelConfig, spec, p, x, positions):
     else:
         raise NotImplementedError(f"unknown mixer {mixer!r}")
     x = x + h
-    if ffn == "mlp":
-        x = x + apply_mlp(cfg, p["ffn"], apply_norm(cfg.norm, p["norm2"], x))
-    elif ffn != "none":
-        raise NotImplementedError(
-            f"the {ffn!r} feed-forward is not ported yet (ROADMAP A5)")
-    return x, kv
+    if ffn != "none":
+        h = apply_norm(cfg.norm, p["norm2"], x)
+        if ffn == "moe":
+            h, aux = apply_moe(cfg, p["ffn"], h,
+                               capacity_factor=cfg.capacity_factor)
+        else:
+            h = apply_mlp(cfg, p["ffn"], h)
+        x = x + h
+    return x, aux, kv
 
 
 def _unit(params: dict, u: int) -> dict:
@@ -59,31 +65,34 @@ def _unit(params: dict, u: int) -> dict:
 
 
 def _stack(cfg: ModelConfig, params, batch, collect_kv: bool):
-    """Embed, every layer, final norm.  Returns (x, aux, kv)."""
+    """Embed (or, with a front end, take ``batch["embeds"]``), every
+    layer, final norm.  Returns (x, aux, kv), aux summed over the
+    layers."""
     if cfg.frontend is not None and "embeds" in batch:
-        raise NotImplementedError(
-            "the audio and vision front ends (batch['embeds']) are not "
-            "ported yet (ROADMAP A6)")
-    x = embed(batch["tokens"], params["embed"])
+        x = batch["embeds"].to(cfg.dtype)
+    else:
+        x = embed(batch["tokens"], params["embed"])
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
     kv_units = {f"l{i}": [] for i, (mx, _) in enumerate(cfg.pattern)
                 if mx in ("attn", "local_attn")}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for u in range(cfg.full_units):
         unit_p = _unit(params["units"], u)
         for i, spec in enumerate(cfg.pattern):
-            x, kv = _apply_layer(cfg, spec, unit_p[f"l{i}"], x, positions)
+            x, a, kv = _apply_layer(cfg, spec, unit_p[f"l{i}"], x, positions)
+            aux = aux + a
             if collect_kv and kv is not None:
                 kv_units[f"l{i}"].append(kv)
     kv_tail = {}
     for i, spec in enumerate(cfg.tail_specs):
-        x, kv = _apply_layer(cfg, spec, params["tail"][f"t{i}"], x,
-                             positions)
+        x, a, kv = _apply_layer(cfg, spec, params["tail"][f"t{i}"], x,
+                                positions)
+        aux = aux + a
         if collect_kv and kv is not None:
             kv_tail[f"t{i}"] = kv
     x = apply_norm(cfg.norm, params["final_norm"], x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kv = None
     if collect_kv:
         units = {name: (torch.stack([k for k, _ in kvs]),
@@ -101,8 +110,9 @@ def _table(cfg: ModelConfig, params):
 def forward(cfg: ModelConfig, params, batch, *, collect_kv: bool = False):
     """Full-sequence forward.
 
-    batch: {"tokens": int [B, S]}.  Returns (logits fp32 [B, S, V], aux)
-    and, with ``collect_kv``, a third item {"units": {"l{i}": (k, v)},
+    batch: {"tokens": int [B, S]}, or {"embeds": [B, S, D]} for the
+    front-end stubs (hubert-xlarge, internvl2-26b).  Returns (logits fp32
+    [B, S, V], aux) and, with ``collect_kv``, a third item {"units": {"l{i}": (k, v)},
     "tail": {"t{i}": (k, v)}}: each attention layer's k/v [B, S, K, dh],
     stacked over units ([U, B, S, K, dh]) -- what prefill writes into the
     paged arena.

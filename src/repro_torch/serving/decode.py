@@ -3,7 +3,8 @@
 Port of the reference's ``serving/decode.py`` (``make_dstate`` and
 ``_decode_local``) without the mesh: embed → per layer its mixer
 (``attn_decode_tp``, ``mamba2_decode_tp`` or ``rglru_decode_tp``) +
-``apply_mlp`` → the tail layers → final norm → logits → greedy sample.
+``apply_mlp`` or ``moe_decode_tp`` → the tail layers → final norm →
+logits → greedy sample.
 The decode state is a dict of tensors on one device:
 
   {"pos": i32[B], "block_table": i32[B, P], "kv_pos": i32[B, P, page],
@@ -103,12 +104,12 @@ def _apply_layer(cfg: ModelConfig, spec, p, x, pos, block_table, state,
         raise NotImplementedError(
             f"the {mixer!r} mixer does not decode in the port yet")
     x = x + y
-    if ffn == "moe":
-        raise NotImplementedError(
-            "the 'moe' feed-forward is not ported yet (ROADMAP A5)")
     if ffn != "none":
         h = apply_norm(cfg.norm, p["norm2"], x)
-        x = x + apply_mlp(cfg, p["ffn"], h)
+        if ffn == "moe":
+            x = x + tpl.moe_decode_tp(cfg, p["ffn"], h)
+        else:
+            x = x + apply_mlp(cfg, p["ffn"], h)
     return x
 
 

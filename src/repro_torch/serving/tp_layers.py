@@ -7,10 +7,11 @@ one call, ``rope_kv_append`` (bias, RoPE, page/slot lookup and the K/V
 write), then ``paged_attention``: the CUDA kernels on a CUDA tensor,
 their plain versions on a CPU tensor.  The projections stay
 ``torch.matmul``, as the reference leaves them to XLA outside any Pallas
-kernel.  The recurrent mixers (``mamba2_decode_tp``, ``rglru_decode_tp``)
-are plain PyTorch, as the reference writes them in ``jnp``; they round as
-the reference's ``_tp`` versions do, which differ from its layer
-functions, and update the lane states IN PLACE, as the arenas are.
+kernel.  The MoE feed-forward (``moe_decode_tp``) and the recurrent
+mixers (``mamba2_decode_tp``, ``rglru_decode_tp``) are plain PyTorch, as
+the reference writes them in ``jnp``.  The mixers round as the
+reference's ``_tp`` versions do, which differ from its layer functions,
+and update the lane states IN PLACE, as the arenas are.
 """
 
 from __future__ import annotations
@@ -71,7 +72,8 @@ def attn_decode_tp(cfg, p: dict, x: torch.Tensor, pos: torch.Tensor,
     layer gives it (``windowed_empty_lanes``).  Returns y [B, D].
     """
     if cfg.kv_dtype == "int8":
-        raise NotImplementedError("int8 KV decode is not ported yet")
+        raise NotImplementedError("int8 KV decode is not ported yet "
+                                  "(ROADMAP A2)")
     B, _ = x.shape
     h, dh = cfg.num_heads, cfg.head_dim
 
@@ -107,6 +109,30 @@ def windowed_empty_lanes(out, arena_v, block_table, lengths, window: int):
     mean = (acc.float() / (P * page)).to(out.dtype)
     mean = mean.repeat_interleave(H // K, dim=1)            # [B, H, dh]
     return torch.where(empty[:, None, None], mean, out)
+
+
+def moe_decode_tp(cfg, p: dict, x: torch.Tensor):
+    """One-token MoE feed-forward (the reference's ``moe_decode_tp`` at
+    TP = 1): every expert, the padded ones included, runs densely over the
+    B tokens; the top-k gates, scattered into [B, E] and padded with zeros
+    to ``wi.shape[0]`` experts, weigh the combine in fp32.  No capacity,
+    no drop, and no value read back to the host.  (Without SwiGLU the
+    reference's decode applies GELU, whatever ``cfg.mlp`` says; so does
+    this.)  Returns y [B, D] in x's dtype."""
+    E = p["wi"].shape[0]
+    probs = torch.softmax(torch.matmul(x.float(), p["router"]), dim=-1)
+    gate, expert = torch.topk(probs, cfg.top_k, dim=-1)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    gates = torch.zeros((x.shape[0], E), dtype=torch.float32,
+                        device=x.device).scatter_add_(1, expert, gate)
+    h = torch.matmul(x, p["wi"])                            # [E, B, f]
+    if cfg.mlp == "swiglu":
+        g = torch.matmul(x, p["wg"])
+        h = F.silu(g.float()).to(x.dtype) * h
+    else:
+        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    y = torch.matmul(h, p["wo"])                            # [E, B, D]
+    return torch.einsum("ebd,be->bd", y.float(), gates).to(x.dtype)
 
 
 def _store(state: dict, new: dict) -> None:

@@ -79,6 +79,8 @@ def _rope_inputs(dev, H, K, dh, dt, bias=True, rope=True, page=16, P=4):
     (40, 8, 128, torch.bfloat16, True, False),
     (40, 8, 128, torch.float32, False, False),
     (8, 2, 6, torch.bfloat16, True, True),         # rows not 16-byte units
+    (24, 8, 64, torch.bfloat16, False, True),      # granite-moe-3b-a800m
+    (16, 16, 128, torch.bfloat16, False, True),    # moonshot-v1-16b-a3b
 ])
 def test_rope_kv_append_kernel_bit_equal(dev, H, K, dh, dt, bias, rope):
     args = _rope_inputs(dev, H, K, dh, dt, bias, rope)
@@ -133,6 +135,9 @@ def test_rope_kv_append_survives_graph_capture(dev):
     (4, 40, 8, 70, 16, 64, 128, torch.float32, 0),
     (2, 48, 1, 40, 16, 32, 256, torch.float32, 0),
     (1, 40, 8, 260, 128, 256, 128, torch.bfloat16, 0),   # 32768 positions
+    # the MoE archs' layouts: g 3 at dh 64, g 1 (MHA) at dh 128
+    (4, 24, 8, 70, 128, 16, 64, torch.bfloat16, 0),
+    (4, 16, 16, 70, 128, 16, 128, torch.bfloat16, 0),
 ])
 def test_paged_attention_kernel_vs_plain(dev, B, H, K, pages, page, P, dh,
                                          dt, win):
@@ -279,6 +284,8 @@ def test_decode_tokens_match_cpu(dev):
     (1, 96, 8, 1000, 192, True, 0, torch.bfloat16),   # nemotron-4-340b
     (1, 16, 1, 1000, 256, True, 48, torch.bfloat16),  # recurrentgemma-9b
     (1, 4, 1, 300, 256, True, 0, torch.float32),
+    (1, 24, 8, 1000, 64, True, 0, torch.bfloat16),    # granite-moe-3b-a800m
+    (2, 16, 16, 1000, 80, False, 0, torch.bfloat16),  # hubert-xlarge
 ])
 def test_flash_attention_kernel_vs_plain(dev, B, H, K, S, dh, causal, win,
                                          dt):
@@ -361,10 +368,12 @@ def test_kernels_refuse_inputs_that_require_grad(dev):
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-32b", "mamba2-370m",
-                                  "granite-20b", "recurrentgemma-9b"])
+                                  "granite-20b", "recurrentgemma-9b",
+                                  "granite-moe-3b-a800m", "hubert-xlarge"])
 def test_forward_matches_cpu(dev, arch):
-    """fp32 smoke model: logits, collected K/V and the loss of the forward
-    on the card (kernels) equal the forward on the CPU within 1e-3."""
+    """fp32 smoke model: logits, collected K/V, aux and the loss of the
+    forward on the card (kernels) equal the forward on the CPU within 1e-3
+    (hubert-xlarge fed frame embeddings)."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import transformer as T
@@ -379,19 +388,23 @@ def test_forward_matches_cpu(dev, arch):
             return tuple(to(v, d) for v in tree)
         return tree.to(d)
 
-    toks = torch.randint(0, cfg.vocab_size, (2, 64),
-                         generator=torch.Generator().manual_seed(4))
+    g = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=g)
     batch = {"tokens": toks, "labels": toks}
+    if cfg.frontend:
+        batch = {"embeds": torch.randn((2, 64, cfg.d_model), generator=g),
+                 "labels": toks}
     n_fa, n_ss = fak.launches, ssk.launches
     outs = {}
     for d in ("cpu", "cuda"):
         p, b = to(cpu, d), to(batch, d)
-        logits, _, kv = T.forward(cfg, p, b, collect_kv=True)
+        logits, aux, kv = T.forward(cfg, p, b, collect_kv=True)
         loss, _ = T.loss_fn(cfg, p, b)
-        outs[d] = to((logits, kv, loss), "cpu")
-    (lc, kc, sc), (lg, kg, sg) = outs["cpu"], outs["cuda"]
+        outs[d] = to((logits, kv, loss, aux), "cpu")
+    (lc, kc, sc, ac), (lg, kg, sg, ag) = outs["cpu"], outs["cuda"]
     assert float((lc - lg).abs().max()) < 1e-3
     assert abs(float(sc) - float(sg)) < 1e-3
+    assert abs(float(ac) - float(ag)) < 1e-3
     for name, (k, v) in kc["units"].items():
         assert float((k - kg["units"][name][0]).abs().max()) < 1e-3
         assert float((v - kg["units"][name][1]).abs().max()) < 1e-3
@@ -401,19 +414,22 @@ def test_forward_matches_cpu(dev, arch):
     assert ssk.launches - n_ss == 2 * n_ssd
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b",
+                                  "granite-moe-3b-a800m"])
 def test_engine_matches_cpu(dev, arch):
     """fp32 smoke model: the serving engine on the card and on the CPU,
     the same calls (requests, steps, a crash and recovery, a finished lane
-    reused with its recurrent state carried over): the same tokens, block
-    tables and positions after every call; the recurrent states within
-    1e-4 at the end."""
+    reused, a recurrent lane with its state carried over): the same
+    tokens, block tables and positions after every call; the recurrent
+    states within 1e-4 at the end."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.params import init_params
     from repro_torch.serving.engine import ServingEngine
     cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32,
                               page_size=8)
+    if cfg.family == "moe":     # as the reference's MoE decode tests
+        cfg = dataclasses.replace(cfg, capacity_factor=100.0)
     cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
 
     def to(tree, d):

@@ -1,15 +1,19 @@
 """The port's decode step against the reference's ``make_decode_step`` (one
 host device) and against the full-sequence ``T.forward``, on the smoke
-configurations of the dense, Mamba-2 and RG-LRU hybrid families: the
-reference's ``test_serving.py::test_decode_matches_oracle`` cases, held on
-the port.
+configurations of the dense, MoE, Mamba-2 and RG-LRU hybrid families:
+the reference's ``test_serving.py::test_decode_matches_oracle`` cases,
+held on the port.
 
 bf16 (granite-20b, starcoder2-3b, nemotron-4-340b, mamba2-370m): logits
 within 3e-2 of the largest logit, against ``T.forward`` and against the
 reference's step (the reference's bound; bf16 rounds at other places in
 the two frameworks, ROADMAP C4).  fp32 (all five, recurrentgemma-9b the
 reference's own fp32 case): logits within 1e-3, identical greedy tokens
-at every step, and the recurrent states within 1e-4 at the end."""
+at every step, and the recurrent states within 1e-4 at the end.  The MoE
+archs (granite-moe-3b-a800m, moonshot-v1-16b-a3b) run in fp32 with
+``capacity_factor=100``, as the reference's own cases do: top-k routing
+is discrete, and the full-sequence oracle must drop no token (the decode
+step has no capacity)."""
 
 import dataclasses
 
@@ -49,11 +53,14 @@ def _leaves(tree, prefix=""):
     ("granite_20b", "fp32"), ("starcoder2_3b", "fp32"),
     ("nemotron_4_340b", "fp32"), ("mamba2_370m", "fp32"),
     ("recurrentgemma_9b", "fp32"),
+    ("granite_moe_3b_a800m", "fp32"), ("moonshot_v1_16b_a3b", "fp32"),
 ])
 def test_decode_matches_reference(arch, dt):
     jdt, tdt = _DT[dt]
-    jcfg = dataclasses.replace(get_smoke_config(arch), dtype=jdt)
-    tcfg = dataclasses.replace(t_smoke(arch), dtype=tdt)
+    moe = get_smoke_config(arch).family == "moe"
+    kw = {"capacity_factor": 100.0} if moe else {}
+    jcfg = dataclasses.replace(get_smoke_config(arch), dtype=jdt, **kw)
+    tcfg = dataclasses.replace(t_smoke(arch), dtype=tdt, **kw)
     params = jax.tree.map(np.asarray, T.init_params(jcfg,
                                                     jax.random.PRNGKey(1)))
     rng = np.random.default_rng(5)

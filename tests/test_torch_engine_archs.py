@@ -1,7 +1,9 @@
 """The port's serving engine against the reference engine, call for call,
 on the smoke configurations of granite-20b (MQA, one KV head),
-recurrentgemma-9b (RG-LRU + local attention, a tail of RG-LRU layers) and
-mamba2-370m (attention-free), in fp32 from the same weights.  After every
+recurrentgemma-9b (RG-LRU + local attention, a tail of RG-LRU layers),
+mamba2-370m (attention-free) and granite-moe-3b-a800m (MoE, 8 real and 8
+padded experts; ``capacity_factor=100``, as the reference's MoE decode
+cases), in fp32 from the same weights.  After every
 call ``test_torch_twin.Twin`` compares tokens, block tables, ``kv_pos``,
 ``AllocState``, prefix records and span records; the recurrent states are
 compared too (1e-4).
@@ -34,11 +36,11 @@ pytestmark = pytest.mark.usefixtures("jit_reference_recover")
 _STATE_KEYS = ("h", "conv", "conv_x", "conv_bc")
 
 
-def _models(arch):
+def _models(arch, **kw):
     jcfg = dataclasses.replace(get_smoke_config(arch), page_size=PAGE,
-                               dtype=jnp.float32)
+                               dtype=jnp.float32, **kw)
     tcfg = dataclasses.replace(t_smoke(arch), page_size=PAGE,
-                               dtype=torch.float32)
+                               dtype=torch.float32, **kw)
     params = jax.tree.map(np.asarray, T.init_params(jcfg,
                                                     jax.random.PRNGKey(0)))
     return jcfg, tcfg, jax.tree.map(jnp.asarray, params), \
@@ -58,6 +60,11 @@ def hybrid():
 @pytest.fixture(scope="module")
 def ssm():
     return _models("mamba2_370m")
+
+
+@pytest.fixture(scope="module")
+def moe():
+    return _models("granite_moe_3b_a800m", capacity_factor=100.0)
 
 
 def _recurrent(dstate):
@@ -161,3 +168,29 @@ def test_engine_attention_free_matches_with_reuse(ssm):
     tw.steps(5)
     _check_states(tw, "after the reuse")
     tw("finish", b)
+
+
+def test_engine_moe_matches_with_crash_and_reuse(moe):
+    """The MoE decode (every expert over the lanes, gates masking the
+    combine) through every engine path: span prompt, lazy pages, publish,
+    exact and partial hits, a crash and recovery, a reused lane."""
+    tw = Twin(moe, lanes=3, max_seq=64, pages_per_sb=2)
+    prompt = _prompt(5, 20)
+    a = tw("add_request", prompt, share_prefix=True)        # span path
+    assert a in tw.t.large_spans
+    b = tw("add_request", [3, 1, 4])                        # lazy pages
+    tw.steps(len(prompt))
+    tw("publish_prefix", a)
+    c = tw("add_request", prompt, share_prefix=True)        # exact hit
+    assert c in tw.t.shared_spans
+    tw.steps(5)
+    tw("finish", c)
+    c = tw("add_request", prompt[:PAGE] + _prompt(6, 5), share_prefix=True)
+    assert tw.t.lane_states.partial_hits[c] == 1            # partial hit
+    tw.steps(6)
+    tw("crash_and_recover")
+    tw.steps(4)
+    tw("finish", b)
+    assert tw("add_request", [2, 7, 1, 8]) == b             # lane reuse
+    tw.steps(6)
+    tw("finish", a)

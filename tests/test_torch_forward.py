@@ -4,8 +4,12 @@ every architecture the port has: qwen2.5-32b (attention + SwiGLU MLP),
 mamba2-370m (Mamba-2, tied embeddings), granite-20b (MQA, LayerNorm,
 GELU), starcoder2-3b (QKV bias, tied), nemotron-4-340b (squared ReLU) and
 recurrentgemma-9b (RG-LRU + local attention, a tail of two RG-LRU
-layers): the same numpy weights (reference params carried across with
-``from_numpy_tree``) and the same numpy tokens into both."""
+layers), granite-moe-3b-a800m and moonshot-v1-16b-a3b (MoE, the
+load-balancing loss compared too), hubert-xlarge (non-causal, LayerNorm,
+GELU, no RoPE) and internvl2-26b, the last two fed ``embeds`` as the
+reference's ``tests/test_models.py`` feeds them: the same numpy weights
+(reference params carried across with ``from_numpy_tree``) and the same
+numpy tokens or embeddings into both."""
 
 import dataclasses
 
@@ -26,7 +30,8 @@ from repro_torch.models import params as tparams  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 
 ARCHS = ["qwen2.5-32b", "mamba2-370m", "granite-20b", "starcoder2-3b",
-         "nemotron-4-340b", "recurrentgemma-9b"]
+         "nemotron-4-340b", "recurrentgemma-9b", "granite-moe-3b-a800m",
+         "moonshot-v1-16b-a3b", "hubert-xlarge", "internvl2-26b"]
 _DT = {"fp32": (jnp.float32, torch.float32),
        "bf16": (jnp.bfloat16, torch.bfloat16)}
 # fp32: the reference's own chunked-vs-naive bound (test_models.py);
@@ -49,6 +54,25 @@ def _params(jcfg, seed=0):
 def _tokens(cfg, B=2, S=32, seed=1):
     rng = np.random.default_rng(seed)
     return rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+
+
+def _batches(cfg, B=2, S=32, seed=1):
+    """The same batch for both packages: tokens with their next-token
+    labels, or, with a front end, fp32 embeddings [B, S, D] and frame
+    labels in the vocabulary; one label ignored (-1)."""
+    if cfg.frontend:
+        rng = np.random.default_rng(seed)
+        x = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+        labels = rng.integers(0, cfg.vocab_size, size=(B, S)).astype(
+            np.int32)
+        key, jx, tx = "embeds", jnp.asarray(x), torch.as_tensor(x)
+    else:
+        toks = _tokens(cfg, B, S, seed)
+        labels = np.roll(toks, -1, axis=1)
+        key, jx, tx = "tokens", jnp.asarray(toks), torch.as_tensor(toks)
+    labels[0, 5] = -1
+    return ({key: jx, "labels": jnp.asarray(labels)},
+            {key: tx, "labels": torch.as_tensor(labels)})
 
 
 def _np(x):
@@ -77,24 +101,32 @@ def _eager_reference(jcfg, jp, jb):
     |h| ~ 4, above the 3e-2 bound).  The port rounds after every op, as
     the eager reference does; in bf16 it is held to this form."""
     from repro.layers.common import apply_norm, embed, unembed
-    x = embed(jb["tokens"], jp["embed"])
+    if jcfg.frontend:
+        x = jb["embeds"].astype(jcfg.dtype)
+    else:
+        x = embed(jb["tokens"], jp["embed"])
     B, S = x.shape[:2]
     pos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32)[None], (B, S))
-    kvs = {}
+    kvs, aux = {}, jnp.float32(0.0)
     for u in range(jcfg.full_units):
         unit = jax.tree.map(lambda a: a[u], jp["units"])
         for i, spec in enumerate(jcfg.pattern):
-            x, _, kv = JT._apply_layer(jcfg, spec, unit[f"l{i}"], x, pos)
+            x, a, kv = JT._apply_layer(jcfg, spec, unit[f"l{i}"], x, pos)
+            aux = aux + a
             if kv is not None:
                 kvs.setdefault(f"l{i}", []).append(kv)
     for i, spec in enumerate(jcfg.tail_specs):
-        x, _, _ = JT._apply_layer(jcfg, spec, jp["tail"][f"t{i}"], x, pos)
+        x, a, _ = JT._apply_layer(jcfg, spec, jp["tail"][f"t{i}"], x, pos)
+        aux = aux + a
     x = apply_norm(jcfg.norm, jp["final_norm"], x)
     table = jp["embed"] if jcfg.tie_embeddings else jp["unembed"]
     kv = {name: tuple(jnp.stack(t) for t in zip(*v))
           for name, v in kvs.items()}
-    ce = JT.chunked_ce(jcfg, x[:, :-1], table, jb["labels"][:, 1:])
-    return unembed(x, table), kv, x, ce
+    if jcfg.causal:
+        ce = JT.chunked_ce(jcfg, x[:, :-1], table, jb["labels"][:, 1:])
+    else:
+        ce = JT.chunked_ce(jcfg, x, table, jb["labels"])
+    return unembed(x, table), kv, x, ce + 0.01 * aux, aux
 
 
 @pytest.mark.parametrize("dt", ["fp32", "bf16"])
@@ -102,23 +134,22 @@ def _eager_reference(jcfg, jp, jb):
 def test_forward_logits_kv_and_loss_match_reference(arch, dt):
     jcfg, tcfg = _cfgs(arch, dt)
     jp, tp = _params(jcfg)
-    toks = _tokens(jcfg)
-    labels = np.roll(toks, -1, axis=1)
-    labels[0, 5] = -1                              # an ignored label
-    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
-    tb = {"tokens": torch.as_tensor(toks), "labels": torch.as_tensor(labels)}
+    jb, tb = _batches(jcfg)
 
     if dt == "fp32":
-        jl, _, jkv = JT.forward(jcfg, jp, jb, collect_kv=True)
+        jl, jaux, jkv = JT.forward(jcfg, jp, jb, collect_kv=True)
         jkv = jkv["units"]
         jx, _ = JT.hidden_states(jcfg, jp, jb)
-        jloss = JT.loss_fn(jcfg, jp, jb)[1]["ce"]
+        jloss = JT.loss_fn(jcfg, jp, jb)[0]
     else:
-        jl, jkv, jx, jloss = _eager_reference(jcfg, jp, jb)
+        jl, jkv, jx, jloss, jaux = _eager_reference(jcfg, jp, jb)
     tl, aux, tkv = TT.forward(tcfg, tp, tb, collect_kv=True)
     assert tl.dtype == torch.float32 and tl.shape == jl.shape
     assert _err(tl, jl) < _TOL[dt]
-    assert float(aux) == 0.0
+    if tcfg.family == "moe":           # the load-balancing loss, summed
+        assert float(aux) > 0 and abs(float(aux) - float(jaux)) < _TOL[dt]
+    else:
+        assert float(aux) == 0.0
     assert tkv["units"].keys() == jkv.keys()
     assert tkv["tail"] == {}                       # no attention in a tail
     for name, (jk, jv) in jkv.items():
@@ -132,7 +163,8 @@ def test_forward_logits_kv_and_loss_match_reference(arch, dt):
     assert _err(tx, jx) < _TOL[dt]
     tloss, tparts = TT.loss_fn(tcfg, tp, tb)
     assert abs(float(tloss) - float(jloss)) < _TOL[dt]
-    assert abs(float(tparts["ce"]) - float(jloss)) < _TOL[dt]
+    assert abs(float(tparts["ce"]) + 0.01 * float(tparts["aux"])
+               - float(jloss)) < _TOL[dt]
 
 
 @pytest.mark.parametrize("chunk", [256, 7, 1])
@@ -234,25 +266,49 @@ def test_from_numpy_tree_mamba2_bit_exact():
 
 
 def test_unported_paths_raise():
+    """int8 KV (ROADMAP A2) is the one path left to port: it raises where
+    the decode state is made and in the decode layer.  The MoE
+    feed-forward and the ``embeds`` front end, which raised before, now
+    run; attention takes any S on the pallas path."""
     _, tcfg = _cfgs("qwen2.5-32b", "fp32")
     tp = tparams.init_params(tcfg, torch.Generator().manual_seed(0),
                              device="cpu")
-    audio = dataclasses.replace(tcfg, frontend="audio")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.forward(audio, tp, {"embeds": torch.zeros((1, 4, tcfg.d_model))})
-    for pattern in ((("attn", "moe"),), (("local_attn", "moe"),)):
-        cfg = dataclasses.replace(tcfg, pattern=pattern)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tparams.init_params(cfg, torch.Generator().manual_seed(0),
-                                device="cpu")
-    # int8 KV decode (ROADMAP A2) raises where the decode state is made
     from repro_torch.serving import decode as tdec
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdec.make_dstate(dataclasses.replace(tcfg, kv_dtype="int8"),
-                         batch=2, max_seq=64, device="cpu")
+    from repro_torch.serving import tp_layers as ttp
+    int8 = dataclasses.replace(tcfg, kv_dtype="int8")
+    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+        tdec.make_dstate(int8, batch=2, max_seq=64, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+        ttp.attn_decode_tp(int8, tp["units"]["l0"]["attn"],
+                           torch.zeros((1, tcfg.d_model)), None, None, None,
+                           None, freqs=None, lengths=None)
     # attention over any S on the pallas path (no block-multiple contract)
     cfg = dataclasses.replace(tcfg, attn_impl="pallas")
     toks = torch.as_tensor(_tokens(tcfg, S=13))
     logits, _ = TT.forward(cfg, tp, {"tokens": toks})
     assert logits.shape == (2, 13, tcfg.vocab_size)
     assert tatt.NEG_INF == -1e30
+    # the moe pattern (both mixers) and the embeds front end now run
+    for pattern in ((("attn", "moe"),), (("local_attn", "moe"),)):
+        cfg = dataclasses.replace(tcfg, pattern=pattern, num_experts=4,
+                                  top_k=2, window=8)
+        p = tparams.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+        logits, aux = TT.forward(cfg, p, {"tokens": toks})
+        assert logits.shape == (2, 13, tcfg.vocab_size) and float(aux) > 0
+        st = tdec.make_dstate(cfg, batch=2, max_seq=64, device="cpu")
+        st["block_table"] = torch.arange(
+            st["block_table"].numel(), dtype=torch.int32).reshape(2, -1)
+        _, tok = tdec.decode_step(cfg, p, st, toks[:, 0].to(torch.int32))
+        assert tok.shape == (2,)
+    audio = dataclasses.replace(tcfg, frontend="audio")
+    emb = torch.randn((1, 4, tcfg.d_model),
+                      generator=torch.Generator().manual_seed(1))
+    logits, _ = TT.forward(audio, tp, {"embeds": emb})
+    assert logits.shape == (1, 4, tcfg.vocab_size)
+    # the embeddings replace the token table's rows (the smoke config's
+    # tables are untied): a table of zeros changes nothing
+    assert not tcfg.tie_embeddings
+    zeroed = dict(tp, embed=torch.zeros_like(tp["embed"]))
+    again, _ = TT.forward(audio, zeroed, {"embeds": emb})
+    assert torch.equal(again, logits)

@@ -58,7 +58,10 @@ def test_port_imports_neither_jax_nor_reference():
                 "kernels/ssd_scan/kernel.py", "launch/profile_forward.py",
                 "layers/rglru.py", "configs/granite_20b.py",
                 "configs/starcoder2_3b.py", "configs/nemotron_4_340b.py",
-                "configs/recurrentgemma_9b.py"):
+                "configs/recurrentgemma_9b.py", "layers/moe.py",
+                "configs/granite_moe_3b_a800m.py",
+                "configs/moonshot_v1_16b_a3b.py", "configs/hubert_xlarge.py",
+                "configs/internvl2_26b.py"):
         assert PORT / rel in files, rel
     assert (ROOT / "chip_smoke.py") in files
     found = {str(f.relative_to(ROOT)): _bad_imports(f) for f in files}
@@ -97,3 +100,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert eng.step() == {}              # still teacher-forcing the prompt
     serve.main(["--arch", "qwen2.5-32b", "--smoke", "--steps", "2",
                 "--requests", "2", "--device", "cpu"])
+    # and so do the MoE archs' (the serve CLI takes them like the others)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "granite-moe-3b-a800m", "--smoke", "--steps",
+                    "1"])
+    serve.main(["--arch", "granite-moe-3b-a800m", "--smoke", "--steps", "2",
+                "--requests", "2", "--crash-at", "1", "--device", "cpu"])
