@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's five CUDA kernels from ``src/repro_torch/csrc``, holds
+Builds the port's six CUDA kernels from ``src/repro_torch/csrc``, holds
 each kernel against its plain PyTorch version at its paths' shapes (and
 times both), then drives the port's paths:
 
@@ -43,7 +43,17 @@ times both), then drives the port's paths:
    24/8 heads of 64 and the per-row MoE dispatch);
 6. mamba2-370m scoring, all 48 layers: ``forward`` and ``loss_fn`` on
    8 x 4096 tokens; hubert-xlarge's encode, all 48 layers: ``forward``
-   and the frame loss on 8 x 2048 frame embeddings.
+   and the frame loss on 8 x 2048 frame embeddings;
+7. training: the flash backward kernel ``flash_attention_bwd`` against
+   its plain version at starcoder2-3b's training shape (2 x 4096, 24/2
+   heads of 128, causal) and at the other archs' head layouts, a partial
+   tile, a window and fp32 (and the forward's log-sum-exp against the
+   plain version's); one train step of the starcoder2-3b smoke config on
+   the card against the CPU; the trainer learning a fixed pattern on the
+   card; and starcoder2-3b whole (30 layers, published widths) trained
+   through ``Trainer`` for a warm step and five more at 2 x 4096 tokens
+   (bf16, AdamW, remat per unit): 60 forward and 30 backward flash
+   launches a step.
 
 Each run prints a ``... detail:`` line.  The launch counters are set to 0
 just before each path and read just after it; the ``kernels`` line gives
@@ -738,7 +748,7 @@ def check_engine_vs_cpu(torch, dev) -> dict:
 # phase 3: the serve runs at full width
 # ---------------------------------------------------------------------------
 KERNELS = ("kv_update", "rope_kv_append", "paged_attention",
-           "flash_attention", "ssd_scan")
+           "flash_attention", "ssd_scan", "flash_attention_bwd")
 
 
 def _counters():
@@ -751,7 +761,8 @@ def _counters():
             "rope_kv_append": (kvk, "rope_kv_append_launches"),
             "paged_attention": (pak, "launches"),
             "flash_attention": (fak, "launches"),
-            "ssd_scan": (ssk, "launches")}
+            "ssd_scan": (ssk, "launches"),
+            "flash_attention_bwd": (fak, "bwd_launches")}
 
 
 def zero_counts() -> None:
@@ -881,11 +892,13 @@ def serve_full_width(torch, cfg, params, dev) -> dict:
 # phase 4: the full-sequence forward on the card against the CPU
 # ---------------------------------------------------------------------------
 def _to(tree, d):
+    """A copy on ``d`` (``.to`` alone returns the tensor itself when it is
+    already there, and a train step updates its parameters in place)."""
     if isinstance(tree, dict):
         return {k: _to(v, d) for k, v in tree.items()}
     if isinstance(tree, tuple):
         return tuple(_to(v, d) for v in tree)
-    return tree.to(d)
+    return tree.to(d, copy=True)
 
 
 def check_forward_vs_cpu(torch, dev) -> dict:
@@ -965,7 +978,8 @@ def run_forward(torch, cfg, params, dev, run, kernel, collect_kv) -> dict:
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t
     t = time.perf_counter()
-    loss, parts = T.loss_fn(cfg, params, batch)
+    with torch.no_grad():                  # scoring: no graph is kept
+        loss, parts = T.loss_fn(cfg, params, batch)
     torch.cuda.synchronize()
     loss_s = time.perf_counter() - t
     counts = read_counts()
@@ -1008,6 +1022,312 @@ def run_forward(torch, cfg, params, dev, run, kernel, collect_kv) -> dict:
         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
     })
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 7: training -- the flash backward kernel, a step against the CPU,
+# learning on the card, and starcoder2-3b whole
+# ---------------------------------------------------------------------------
+# the backward kernel's shapes: the training run's, the other archs' head
+# layouts the kernel takes (dh <= 128), a partial tile, a window, fp32
+FLASH_BWD_SWEEP = [  # B, H, K, S, dh, causal, window, dtype
+    (1, 40, 8, 2048, 128, True, 0, "bfloat16"),       # qwen2.5-32b
+    (1, 24, 8, 2048, 64, True, 0, "bfloat16"),        # granite-moe-3b-a800m
+    (1, 48, 1, 1024, 128, True, 0, "bfloat16"),       # granite-20b
+    (2, 16, 16, 1000, 80, False, 0, "bfloat16"),      # hubert-xlarge
+    (1, 4, 2, 200, 128, True, 0, "bfloat16"),         # partial tile
+    (1, 4, 2, 512, 128, True, 48, "bfloat16"),        # window 48
+    (1, 4, 2, 200, 64, True, 0, "float32"),
+    (1, 8, 2, 300, 128, False, 48, "float32"),        # fp32, window
+]
+TRAIN_ARCH = "starcoder2-3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 6    # one warm step + 5
+
+
+def flash_bwd_flops(B, H, S, dh, causal, window) -> int:
+    """Five products (S, dP, dV, dK, dQ) of 2 dh flops a visible pair."""
+    import numpy as np
+    qpos = np.arange(S)
+    hi = qpos + 1 if causal else np.full(S, S)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(S, int)
+    return 10 * B * H * dh * int((hi - lo).sum())
+
+
+def check_flash_lse(torch, dev) -> dict:
+    """The forward kernel's log-sum-exp against the plain version's, for
+    each variant, with one query row scaled up so its max is large (the
+    wgmma kernel keeps its running max in log2 units): within 1e-4 of
+    max(1, |lse|)."""
+    from repro_torch.kernels.flash_attention import kernel as fak
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    out = {}
+    for B, H, K, S, dh, causal, win, dtn in [
+            (1, 4, 2, 300, 128, True, 0, "bfloat16"),     # wgmma
+            (1, 4, 2, 300, 80, False, 0, "bfloat16"),     # mma.sync
+            (1, 4, 2, 300, 64, True, 48, "float32")]:     # fma
+        dt = getattr(torch, dtn)
+        q = torch.randn((B, H, S, dh), generator=g, device=dev)
+        q[0, 1, 77] *= 30.0
+        q = q.to(dt)
+        k = torch.randn((B, K, S, dh), generator=g, device=dev).to(dt)
+        v = torch.randn((B, K, S, dh), generator=g, device=dev).to(dt)
+        _, lse = fak._launch_fwd(q, k, v, causal, win, with_lse=True)
+        _, want = fak.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                                window=win)
+        torch.cuda.synchronize()
+        err = float(((lse - want).abs() / want.abs().clamp(min=1.0)).max())
+        if not err < 1e-4:
+            raise AssertionError(f"flash_attention's lse ({fak.last_variant}"
+                                 f") differs from the plain version's by "
+                                 f"{err} of max(1, |lse|)")
+        out[fak.last_variant] = {"rel_err": err,
+                                 "large_row_lse": float(want[0, 1, 77])}
+    return out
+
+
+def check_flash_bwd(torch, dev) -> dict:
+    """The backward kernel against its plain version on the same inputs
+    (o and lse from the forward kernel) at the training run's shape and at
+    FLASH_BWD_SWEEP: bf16 dq, dk and dv each within BF16_ROW_TOL of a
+    row's rms (the rms floored at GRAD_ROW_FLOOR of the tensor's), fp32
+    within 1e-4 of max |plain|.  Times at the training run's shape; the
+    library call is SDPA's forward + backward less its forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fak
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    c = get_config(TRAIN_ARCH)
+    main = (TRAIN_BATCH, c.num_heads, c.num_kv_heads, TRAIN_SEQ, c.head_dim,
+            True, 0, "bfloat16")
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    sweep, row = [], None
+    for case in [main] + FLASH_BWD_SWEEP:
+        B, H, K, S, dh, causal, win, dtn = case
+        dt = getattr(torch, dtn)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dt)
+        q, k, v, do = randn(B, H, S, dh), randn(B, K, S, dh), \
+            randn(B, K, S, dh), randn(B, H, S, dh)
+        o, lse = fak._launch_fwd(q, k, v, causal, win, with_lse=True)
+        want = fak.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                             causal=causal, window=win)
+        got = fak.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                      window=win)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            if dt == torch.float32:
+                e, unit = float((a - b).abs().max() / b.abs().max()), \
+                    "of max |plain|"
+                bad = not e < 1e-4
+            else:
+                e = fak.row_scaled_error(a, b, floor=fak.GRAD_ROW_FLOOR)
+                unit, bad = "of a row's rms", not e < fak.BF16_ROW_TOL
+            errs[name] = e
+            if bad:
+                raise AssertionError(
+                    f"flash_attention_bwd {case}: {name} differs from the "
+                    f"plain version by {e} {unit}")
+        flops = flash_bwd_flops(B, H, S, dh, causal, win)
+        es = q.element_size()
+        nbytes = es * (3 * B * H * S * dh + 2 * B * K * S * dh
+                       + 2 * B * H * S * dh + 2 * B * K * S * dh) \
+            + 4 * B * H * S
+        peak = BF16_FLOPS if es == 2 else FP32_FLOPS
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(t_ops, t_bytes)
+
+        def run():
+            return fak.flash_attention_bwd(q, k, v, o, lse, do,
+                                           causal=causal, window=win)
+        shape = {"q": [B, H, S, dh], "kv": [B, K, S, dh], "causal": causal,
+                 "window": win, "dtype": dtn}
+        tol = "1e-4 of max |plain|" if dt == torch.float32 else \
+            {"row_scaled": fak.BF16_ROW_TOL, "floor": fak.GRAD_ROW_FLOOR}
+        if case != main:
+            sweep.append({"shape": shape, "errors": errs, "tolerance": tol,
+                          "ms": graph_ms(torch, run, iters=10),
+                          "bound_ms": bound})
+            print(f"flash_attention_bwd {case}: {errs}", flush=True)
+            continue
+        qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+
+        def lib_fwd_bwd():
+            sdpa(qr, kr, vr, is_causal=True, enable_gqa=True).backward(do)
+        lib = event_ms(torch, lib_fwd_bwd, iters=10) - event_ms(
+            torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+            iters=10)
+        row = {
+            "name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "none: the reference's gradient is XLA's autodiff "
+                        "of src/repro/layers/attention.py:80 "
+                        "(chunked_attention); its Pallas kernel "
+                        "(src/repro/kernels/flash_attention/kernel.py:95) "
+                        "is forward-only",
+            "max_abs_err": max(float((a.float() - b.float()).abs().max())
+                               for a, b in zip(got, want)),
+            "row_scaled_err": errs, "tolerance": tol,
+            "ms": graph_ms(torch, run, iters=10),
+            "eager_ms": event_ms(torch, run, iters=10),
+            "plain_ms": event_ms(torch, lambda: fak.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, causal=causal, window=win), iters=2,
+                warmup=1),
+            "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib,
+            "library_call": "F.scaled_dot_product_attention(is_causal=True, "
+                            "enable_gqa=True) forward + backward, less its "
+                            "forward, on the same q, k, v, dO",
+            "shape": shape}
+        del qr, kr, vr
+    del q, k, v, do, o, lse, want, got
+    torch.cuda.empty_cache()
+    row["sweep"] = sweep
+    return row
+
+
+def check_train_vs_cpu(torch, dev) -> dict:
+    """One train step of the starcoder2-3b smoke configuration in fp32 on
+    the card and on the CPU from the same weights and batch: the loss,
+    every gradient leaf and every parameter after the step within 1e-3
+    (the card runs both flash kernels, fp32 variants)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.params import init_params
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.step import loss_and_grads, make_train_step
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_smoke_config(TRAIN_ARCH),
+                              dtype=torch.float32)
+    cpu = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    gen = torch.Generator().manual_seed(SEED + 42)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen)
+    batch = {"tokens": toks, "labels": toks}
+    res = {}
+    for d in ("cpu", dev):
+        p, b = _to(cpu, d), _to(batch, d)
+        loss, grads = loss_and_grads(cfg, p, b)
+        step = make_train_step(cfg, AdamWConfig(warmup_steps=1))
+        p, _, m = step(p, init_opt_state(p), b)
+        res[str(d)] = (float(loss), {k: g.detach().cpu() for k, g in
+                                     tree_leaves(grads)},
+                       {k: t.detach().cpu() for k, t in tree_leaves(p)},
+                       float(m["grad_norm"]))
+    (lc, gc, pc, nc), (lg, gg, pg, ng) = res["cpu"], res[str(dev)]
+    errs = {"loss": abs(lc - lg), "grad_norm": abs(nc - ng),
+            "grads": max(float((gc[k] - gg[k]).abs().max()) for k in gc),
+            "params": max(float((pc[k] - pg[k]).abs().max()) for k in pc)}
+    bad = {k: e for k, e in errs.items() if not e < 1e-3}
+    if bad:
+        raise AssertionError(f"the train step on the card differs from the "
+                             f"CPU: {bad}")
+    return errs
+
+
+def learn_fixed_pattern(torch, dev) -> dict:
+    """The trainer on the card (starcoder2-3b smoke, 2 layers, vocab 64,
+    bf16) on a repeated 7-token pattern: 30 steps, the last loss below 0.7
+    of the first."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.optimizer import AdamWConfig
+    cfg = dataclasses.replace(get_smoke_config(TRAIN_ARCH), num_layers=2,
+                              vocab_size=64)
+    tr = Trainer(cfg, AdamWConfig(lr=3e-3, warmup_steps=5), device=dev)
+
+    class Fixed:
+        def batch_at(self, step):
+            t = (np.arange(2 * 32).reshape(2, 32) % 7).astype(np.int32)
+            return {"tokens": t, "labels": t}
+    hist = tr.run(Fixed(), steps=30, log_every=1000)
+    if not hist[-1] < 0.7 * hist[0]:
+        raise AssertionError(f"the trainer on the card did not learn the "
+                             f"pattern: loss {hist[0]} -> {hist[-1]}")
+    return {"first_loss": hist[0], "last_loss": hist[-1], "steps": 30}
+
+
+def train_full_width(torch, dev) -> dict:
+    """starcoder2-3b whole (30 layers, published widths, random weights
+    from the seed, bf16, AdamW, remat per unit) through ``Trainer`` on
+    ``TokenStream`` batches of TRAIN_BATCH x TRAIN_SEQ: TRAIN_STEPS steps,
+    the first a warm-up.  Losses and grad norms finite, the parameters
+    moved, and per step 2 forward flash launches a layer (the forward and
+    the unit's recompute) and 1 backward, nothing else."""
+    import math
+    import statistics
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.optimizer import AdamWConfig
+    cfg = get_config(TRAIN_ARCH)
+    t = time.perf_counter()
+    tr = Trainer(cfg, AdamWConfig(), seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    stream = TokenStream(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+
+    def probe():
+        return {"wq": tr.params["units"]["l0"]["attn"]["wq"][0],
+                "embed": tr.params["embed"][:256]}
+    before = {k: t.detach().float().clone() for k, t in probe().items()}
+    norms = []
+    step_fn = tr.step_fn
+
+    def recorded(*args):
+        out = step_fn(*args)
+        norms.append(float(out[2]["grad_norm"]))
+        return out
+    tr.step_fn = recorded
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # counts start at 0 here: everything below is the path
+    zero_counts()
+    losses = tr.run(stream, steps=TRAIN_STEPS, log_every=1)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    L = cfg.num_layers
+    want = dict.fromkeys(KERNELS, 0) | {
+        "flash_attention": 2 * L * TRAIN_STEPS,
+        "flash_attention_bwd": L * TRAIN_STEPS}
+    if counts != want:
+        raise AssertionError(f"train launches {counts}, want {want}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"non-finite loss or grad norm: {losses} "
+                             f"{norms}")
+    moved = {k: float((t.detach().float() - before[k]).abs().max())
+             for k, t in probe().items()}
+    if not all(m > 0 for m in moved.values()):
+        raise AssertionError(f"the parameters did not move: {moved}")
+    step_ms = [1e3 * x for x in tr.step_times[1:]]
+    ms = statistics.median(step_ms)
+    T = TRAIN_BATCH * TRAIN_SEQ
+    n_params = cfg.param_count()
+    attn_fwd = 4 * TRAIN_BATCH * cfg.num_heads * cfg.head_dim * \
+        (TRAIN_SEQ * (TRAIN_SEQ + 1) // 2) * L
+    model_flops = 6 * n_params * T + 3 * attn_fwd
+    # what the step computes with the unit remat: one more forward
+    remat_flops = model_flops + 2 * n_params * T + attn_fwd
+    return {
+        "model": cfg.name, "layers": L, "d_model": cfg.d_model,
+        "heads": [cfg.num_heads, cfg.num_kv_heads],
+        "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+        "vocab": cfg.vocab_size, "dtype": str(cfg.dtype),
+        "cut": "none: every layer, widths as published",
+        "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "steps": TRAIN_STEPS, "setup_s": setup_s, "losses": losses,
+        "grad_norms": norms, "moved": moved,
+        "ms_per_step_median": ms, "ms_per_step": step_ms,
+        "first_step_ms": 1e3 * tr.step_times[0],
+        "tokens_per_s": T / (ms / 1e3),
+        "model_flops_per_step": model_flops,
+        "remat_flops_per_step": remat_flops,
+        "model_flop_share": model_flops / (ms / 1e3) / BF16_FLOPS,
+        "ideal_ms_at_peak": remat_flops / BF16_FLOPS * 1e3,
+        "peak_mem_gb": peak, "launches": counts,
+        "launches_per_step": {k: v // TRAIN_STEPS for k, v in counts.items()},
+    }
 
 
 def _leaves(tree):
@@ -1088,7 +1408,12 @@ def main() -> int:
                 mcfg.ssm_state, "float32", None)
     kernels = check_kernels(torch, cfg, dev) + check_forward_kernels(
         torch, dev, flash_mains, ssd_main)
+    lse = check_flash_lse(torch, dev)
+    print(f"flash_attention lse == plain lse (1e-4 of max(1, |lse|)): "
+          f"{lse}", flush=True)
+    kernels.append(check_flash_bwd(torch, dev))
     by_name = {row["name"]: row for row in kernels}
+    by_name["flash_attention"]["lse_check"] = lse
     for c in (gcfg, rcfg, gmcfg, mscfg):
         shapes = check_serve_shape(torch, c, dev)
         for name, res in shapes.items():
@@ -1109,6 +1434,9 @@ def main() -> int:
     fwd_ref = check_forward_vs_cpu(torch, dev)
     print(f"forward on the card == forward on the CPU (fp32 smoke, 1e-3): "
           f"{fwd_ref}", flush=True)
+    train_ref = check_train_vs_cpu(torch, dev)
+    print(f"train step on the card == train step on the CPU ({TRAIN_ARCH} "
+          f"fp32 smoke, 1e-3): {train_ref}", flush=True)
 
     paths: dict[str, dict] = {}     # each path's launch counts
 
@@ -1196,6 +1524,21 @@ def main() -> int:
     report_forward("encode", encode, card)
     paths[f"encode {hcfg.name}"] = encode["launches"]
     del params
+    torch.cuda.empty_cache()
+
+    # training: learning on the card, then starcoder2-3b whole
+    learned = learn_fixed_pattern(torch, dev)
+    print(f"trainer on the card learns a fixed pattern: {learned}",
+          flush=True)
+    train = train_full_width(torch, dev)
+    print(f"train: {train['model']} whole, {train['layers']} layers, "
+          f"{train['batch']} x {train['seq']} tokens: "
+          f"{train['ms_per_step_median']:.3f} ms/step (median of "
+          f"{train['steps'] - 1}), {train['tokens_per_s']:.1f} tokens/s, "
+          f"model-FLOP share {train['model_flop_share']:.3f}, peak "
+          f"{train['peak_mem_gb']:.2f} GB on {card}", flush=True)
+    print(f"train {train['model']} detail: " + json.dumps(train), flush=True)
+    paths[f"train {train['model']}"] = train["launches"]
     torch.cuda.empty_cache()
     print(f"chip_smoke: {time.perf_counter() - t_all:.1f} s", flush=True)
 

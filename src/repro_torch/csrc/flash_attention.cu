@@ -68,6 +68,7 @@
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -360,8 +361,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
-                   __nv_bfloat16* __restrict__ out, int H, int K, int S,
-                   int causal, int window, float scale) {
+                   __nv_bfloat16* __restrict__ out,
+                   float* __restrict__ lse, int H, int K, int S, int causal,
+                   int window, float scale) {
   using L = Smem<DH>;
   constexpr int NB = L::kBoxes;
   extern __shared__ unsigned char smem_raw[];
@@ -504,12 +506,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       pin<DH / 2>(o);
     }
 
-    // full row sums across the quad, then the output rows
+    // full row sums across the quad; each row's log-sum-exp (natural
+    // units: m is in scaled log2 units) when asked; then the output rows
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-      l[r] = 1.f / fmaxf(l[r], 1e-20f);
+      l[r] = fmaxf(l[r], 1e-20f);
+      if (lse != nullptr && t == 0 && qpos[r] < S)
+        lse[static_cast<size_t>(bh) * S + qpos[r]] =
+            (m[r] + log2f(l[r])) * kLn2;
+      l[r] = 1.f / l[r];
     }
     __nv_bfloat16* oh = out + static_cast<size_t>(bh) * S * DH;
 #pragma unroll
@@ -566,9 +573,9 @@ bool make_map(CUtensorMap* map, EncodeTiled fn, const void* ptr, int heads,
 }
 
 template <int DH>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int K, int S, int causal, int window, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int H, int K, int S, int causal, int window,
+           float scale, cudaStream_t stream) {
   static_assert(kBQ == 128 && kBK == 128, "maps use 128-row boxes");
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
@@ -590,8 +597,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   }
   dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   flash_wgmma_kernel<DH><<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), H, K, S, causal, window,
-      scale);
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, H, K, S, causal,
+      window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -680,8 +687,9 @@ __global__ void __launch_bounds__(kWarps * 32)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ out, int H, int K, int S,
-                  int causal, int window, float scale) {
+                  __nv_bfloat16* __restrict__ out,
+                  float* __restrict__ lse, int H, int K, int S, int causal,
+                  int window, float scale) {
   constexpr int LD = DH + kPad;
   constexpr int KS = DH / 16;      // k-steps of Q.K
   constexpr int NT = DH / 8;       // n-tiles of P.V
@@ -860,12 +868,16 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();                           // this stage consumed
   }
 
-  // full row sums across the quad, then the output rows
+  // full row sums across the quad; the log-sum-exp when asked (m is in
+  // scaled log2 units); then the output rows
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    l[r] = 1.f / fmaxf(l[r], 1e-20f);
+    l[r] = fmaxf(l[r], 1e-20f);
+    if (lse != nullptr && tig == 0 && qpos[r] < S)
+      lse[((size_t)b * H + h) * S + qpos[r]] = (m[r] + log2f(l[r])) * kLn2;
+    l[r] = 1.f / l[r];
   }
   __nv_bfloat16* oh = out + ((size_t)b * H + h) * S * DH;
 #pragma unroll
@@ -891,8 +903,9 @@ constexpr int kKeys32 = 32;        // keys per tile, a lane each
 template <int kCols>
 __global__ void __launch_bounds__(kRows32 * 32)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int H,
-                 int K, int S, int dh, int causal, int window, float scale) {
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, int H, int K, int S, int dh,
+                 int causal, int window, float scale) {
   extern __shared__ __align__(16) float smem32[];
   const int ld = dh + 1;                          // odd stride: no conflicts
   float* ks = smem32;                             // [kKeys32][dh + 1]
@@ -968,7 +981,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   if (qp >= S) return;
-  const float inv = 1.f / fmaxf(l, 1e-20f);
+  l = fmaxf(l, 1e-20f);
+  if (lse != nullptr && lane == 0)
+    lse[((size_t)b * H + h) * S + qp] = m + logf(l);
+  const float inv = 1.f / l;
   float* orow = out + ((size_t)b * H + h) * S * dh + (size_t)qp * dh;
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
@@ -979,7 +995,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DH>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
-               int B, int H, int K, int S, int causal, int window,
+               float* lse, int B, int H, int K, int S, int causal, int window,
                float scale, cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) * (size_t)(kBQ + 4 * kBK) *
                       (DH + kPad);
@@ -996,14 +1012,14 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      H, K, S, causal, window, scale);
+      lse, H, K, S, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int kCols>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int H, int K, int S, int dh, int causal, int window,
-               float scale, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int H, int K, int S, int dh, int causal,
+               int window, float scale, cudaStream_t stream) {
   // 37 KB at dh 128, 74 KB at dh 256: the largest dh of the instance opts
   // in above the 48 KB default
   constexpr size_t kMaxSmem = sizeof(float) *
@@ -1021,58 +1037,62 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   dim3 grid((S + kRows32 - 1) / kRows32, H, B);
   flash_f32_kernel<kCols><<<grid, kRows32 * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), H, K, S, dh,
-      causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, H, K, S,
+      dh, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q [B, H, S, dh], k/v [B, K, S, dh], out [B, H, S, dh], all contiguous.
+// lse, when not null, receives each query row's log-sum-exp of its scaled
+// scores, fp32 [B, H, S], natural units (the backward's input); with a
+// null pointer nothing more is stored.
 // variant (the wrapper's choice, `flash_variant`): 0 = float32 FMA (dh a
 // multiple of 16 up to 256), 1 = bfloat16 mma.sync (dh a multiple of 16 up
 // to 256, not 64 or 128), 2 = bfloat16 wgmma + TMA (dh 64 or 128).  H % K == 0;
 // 16-byte aligned pointers for bf16.  A variant that does not take dh is
 // refused, never replaced.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int H,
-                                      int K, int S, int dh, int causal,
-                                      int window, float scale, int variant,
-                                      void* stream) {
+                                      const void* v, void* out, float* lse,
+                                      int B, int H, int K, int S, int dh,
+                                      int causal, int window, float scale,
+                                      int variant, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (K <= 0 || H % K != 0 || dh % 16 != 0 || dh > 256 || dh <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 0)
     return dh <= 128
-        ? launch_f32<4>(q, k, v, out, B, H, K, S, dh, causal, window, scale, s)
-        : launch_f32<8>(q, k, v, out, B, H, K, S, dh, causal, window, scale,
-                        s);
+        ? launch_f32<4>(q, k, v, out, lse, B, H, K, S, dh, causal, window,
+                        scale, s)
+        : launch_f32<8>(q, k, v, out, lse, B, H, K, S, dh, causal, window,
+                        scale, s);
   if (variant == 2) {
     if (dh == 64)
-      return wg::launch<64>(q, k, v, out, B, H, K, S, causal, window, scale,
-                            s);
+      return wg::launch<64>(q, k, v, out, lse, B, H, K, S, causal, window,
+                            scale, s);
     if (dh == 128)
-      return wg::launch<128>(q, k, v, out, B, H, K, S, causal, window, scale,
-                             s);
+      return wg::launch<128>(q, k, v, out, lse, B, H, K, S, causal, window,
+                             scale, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (variant != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (dh) {
-    case 16: return launch_mma<16>(q, k, v, out, B, H, K, S, causal, window, scale, s);
-    case 32: return launch_mma<32>(q, k, v, out, B, H, K, S, causal, window, scale, s);
-    case 48: return launch_mma<48>(q, k, v, out, B, H, K, S, causal, window, scale, s);
-    case 80: return launch_mma<80>(q, k, v, out, B, H, K, S, causal, window, scale, s);
-    case 96: return launch_mma<96>(q, k, v, out, B, H, K, S, causal, window, scale, s);
-    case 112: return launch_mma<112>(q, k, v, out, B, H, K, S, causal, window, scale, s);
-    case 144: return launch_mma<144>(q, k, v, out, B, H, K, S, causal, window, scale, s);
-    case 160: return launch_mma<160>(q, k, v, out, B, H, K, S, causal, window, scale, s);
-    case 176: return launch_mma<176>(q, k, v, out, B, H, K, S, causal, window, scale, s);
-    case 192: return launch_mma<192>(q, k, v, out, B, H, K, S, causal, window, scale, s);
-    case 208: return launch_mma<208>(q, k, v, out, B, H, K, S, causal, window, scale, s);
-    case 224: return launch_mma<224>(q, k, v, out, B, H, K, S, causal, window, scale, s);
-    case 240: return launch_mma<240>(q, k, v, out, B, H, K, S, causal, window, scale, s);
-    case 256: return launch_mma<256>(q, k, v, out, B, H, K, S, causal, window, scale, s);
+    case 16: return launch_mma<16>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
+    case 32: return launch_mma<32>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
+    case 48: return launch_mma<48>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
+    case 80: return launch_mma<80>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
+    case 96: return launch_mma<96>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
+    case 112: return launch_mma<112>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
+    case 144: return launch_mma<144>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
+    case 160: return launch_mma<160>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
+    case 176: return launch_mma<176>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
+    case 192: return launch_mma<192>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
+    case 208: return launch_mma<208>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
+    case 224: return launch_mma<224>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
+    case 240: return launch_mma<240>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
+    case 256: return launch_mma<256>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -103,8 +103,11 @@ def library() -> ctypes.CDLL:
             i, i, i, p]
         lib.paged_attention_launch.restype = i
         lib.flash_attention_launch.argtypes = [
-            p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+            p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]
         lib.flash_attention_launch.restype = i
+        lib.flash_attention_bwd_launch.argtypes = [p] * 11 + [i] * 7 + [
+            ctypes.c_float, i, p]
+        lib.flash_attention_bwd_launch.restype = i
         lib.ssd_scan_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
                                         i, p]
         lib.ssd_scan_launch.restype = i

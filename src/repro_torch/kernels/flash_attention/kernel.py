@@ -1,9 +1,15 @@
-"""Full-sequence attention forward (GQA, causal or not, sliding window).
+"""Full-sequence attention (GQA, causal or not, sliding window) and its
+gradient.
 
-``flash_attention`` launches the CUDA kernel ``csrc/flash_attention.cu``
-(the port of the Pallas TPU kernel
-``kernels/flash_attention/kernel.py::flash_attention`` of the reference)
-on CUDA tensors and runs ``flash_attention_plain`` on CPU tensors.
+``flash_attention`` is an autograd Function.  On CUDA tensors its forward
+launches the CUDA kernel ``csrc/flash_attention.cu`` (the port of the
+Pallas TPU kernel ``kernels/flash_attention/kernel.py::flash_attention``
+of the reference), which also writes each query row's log-sum-exp when an
+input requires grad, and its backward launches ``csrc/flash_attention_bwd.cu``
+(``flash_attention_bwd``; the reference has no Pallas backward: its
+gradient is XLA's autodiff of ``chunked_attention``).  On CPU tensors the
+Function runs the plain versions, ``flash_attention_fwd_plain`` and
+``flash_attention_bwd_plain``.
 
 q: [B, H, S, dh]; k/v: [B, K, S, dh] with H % K == 0 (query head h reads
 KV head h // (H // K)).  Scores and softmax in fp32 with q scaled in fp32;
@@ -14,7 +20,9 @@ by dtype and head_dim only (``flash_variant``): bf16 at head_dim 64 or 128
 runs the Hopper kernel (``wgmma`` + TMA, warp-specialised), bf16 at the
 other multiples of 16 up to 256 the ``mma.sync`` kernel (above 128 with Q
 kept in shared memory: nemotron-4-340b's 192, recurrentgemma-9b's 256),
-fp32 an FMA kernel (multiples of 16 up to 256); other head dims raise.
+fp32 an FMA kernel (multiples of 16 up to 256); other head dims raise.  The
+backward kernel takes head_dim up to 128 (``mma.sync`` in bf16, FMA in
+fp32); above it, a gradient on the card raises (ROADMAP B8).
 """
 
 from __future__ import annotations
@@ -26,8 +34,11 @@ from .. import build
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 
-launches = 0          # kernel launches since the caller last zeroed this
-last_variant = None   # the variant the last launch ran
+BWD_MAX_HEAD_DIM = 128
+
+launches = 0          # forward kernel launches since the caller zeroed this
+bwd_launches = 0      # backward kernel launches, likewise
+last_variant = None   # the variant the last forward launch ran
 
 # the C entry point's ``variant`` codes
 VARIANTS = {"fma": 0, "mma_sync": 1, "wgmma": 2}
@@ -49,10 +60,12 @@ def flash_variant(dtype, head_dim: int) -> str:
     return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          block_q: int = 1024):
-    """Plain PyTorch version of the kernel: dense fp32 scores and softmax
-    for ``block_q`` query rows at a time (bounds the score buffer)."""
+def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
+                              window: int = 0, block_q: int = 1024):
+    """Plain PyTorch version of the forward kernel: dense fp32 scores and
+    softmax for ``block_q`` query rows at a time (bounds the score buffer).
+    Returns (out in q's dtype, lse fp32 [B, H, S]): each row's
+    log-sum-exp of its scaled scores, natural units."""
     B, H, S, dh = q.shape
     K = k.shape[1]
     g = H // K
@@ -60,24 +73,77 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     vf = v.float()[:, :, None]
     kpos = torch.arange(S, device=q.device)
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     for s0 in range(0, S, block_q):
         s1 = min(S, s0 + block_q)
         qg = q[:, :, s0:s1].reshape(B, K, g, s1 - s0, dh).float() \
             * (dh ** -0.5)
         s = torch.matmul(qg, kf.transpose(-1, -2))  # [B, K, g, bq, S]
-        qpos = kpos[s0:s1, None]
-        mask = torch.ones((s1 - s0, S), dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= kpos[None] <= qpos
-        if window:
-            mask &= kpos[None] > qpos - window
+        mask = _mask(kpos, s0, s1, causal, window)
         s = torch.where(mask, s, NEG_INF)
         m = s.amax(dim=-1, keepdim=True)
         e = torch.where(mask, torch.exp(s - m), 0.0)
-        l = e.sum(dim=-1, keepdim=True)
-        o = torch.matmul(e, vf) / torch.clamp(l, min=1e-20)
+        l = torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-20)
+        o = torch.matmul(e, vf) / l
         out[:, :, s0:s1] = o.reshape(B, H, s1 - s0, dh).to(q.dtype)
-    return out
+        lse[:, :, s0:s1] = (m + torch.log(l)).reshape(B, H, s1 - s0)
+    return out, lse
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          block_q: int = 1024):
+    """The forward's output alone (``flash_attention_fwd_plain``)."""
+    return flash_attention_fwd_plain(q, k, v, causal=causal, window=window,
+                                     block_q=block_q)[0]
+
+
+def _mask(kpos, s0, s1, causal, window):
+    """Visible keys of query rows s0 .. s1 - 1: bool [s1 - s0, S]."""
+    qpos = kpos[s0:s1, None]
+    mask = torch.ones((s1 - s0, kpos.shape[0]), dtype=torch.bool,
+                      device=kpos.device)
+    if causal:
+        mask &= kpos[None] <= qpos
+    if window:
+        mask &= kpos[None] > qpos - window
+    return mask
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              window: int = 0, block_q: int = 1024):
+    """Plain PyTorch version of the backward kernel: dense fp32 for
+    ``block_q`` query rows at a time.  With s = scale q.k, P = exp(s -
+    lse), D = rowsum(dO o): dV = P^T dO, dS = P (dO V^T - D), dQ = scale
+    dS K, dK = scale dS^T Q; dk and dv sum the g query heads of their KV
+    head.  Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    B, H, S, dh = q.shape
+    K = k.shape[1]
+    g = H // K
+    scale = dh ** -0.5
+    kf = k.float()[:, :, None]                       # [B, K, 1, S, dh]
+    vf = v.float()[:, :, None]
+    kpos = torch.arange(S, device=q.device)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    for s0 in range(0, S, block_q):
+        s1 = min(S, s0 + block_q)
+        n = s1 - s0
+
+        def grouped(t):
+            return t[:, :, s0:s1].reshape(B, K, g, n, -1).float()
+        qg = grouped(q) * scale
+        dog = grouped(do)
+        s = torch.matmul(qg, kf.transpose(-1, -2))  # [B, K, g, bq, S]
+        mask = _mask(kpos, s0, s1, causal, window)
+        p = torch.where(mask, torch.exp(s - grouped(lse[..., None])), 0.0)
+        dv += torch.matmul(p.transpose(-1, -2), dog).sum(2)
+        dp = torch.matmul(dog, vf.transpose(-1, -2))
+        delta = (dog * grouped(o)).sum(-1, keepdim=True)
+        ds = p * (dp - delta)
+        dq[:, :, s0:s1] = (torch.matmul(ds, kf) * scale).reshape(B, H, n, dh)
+        dk += torch.matmul(ds.transpose(-1, -2), qg).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # A bf16 output is held to the plain version row by row: the largest
@@ -88,12 +154,19 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
 BF16_ROW_TOL = 2.0 ** -4
 
 
-def row_scaled_error(got, want) -> float:
-    """Max over query rows of max |got - want| / rms(want), both taken
-    along head_dim."""
+# A gradient row can be exactly 0 where the output's is not (dq of a
+# causal first row, whose one key takes all the weight): gradients are
+# held with each row's rms floored at this fraction of the whole tensor's.
+GRAD_ROW_FLOOR = 2.0 ** -10
+
+
+def row_scaled_error(got, want, floor: float = 0.0) -> float:
+    """Max over rows of max |got - want| / rms(want), both taken along
+    head_dim; a row's rms is floored at ``floor`` x the tensor's rms."""
     diff = (got.float() - want.float()).abs().amax(-1)
     rms = want.float().square().mean(-1).sqrt()
-    return float((diff / rms.clamp(min=1e-30)).max())
+    low = floor * float(want.float().square().mean().sqrt())
+    return float((diff / rms.clamp(min=max(low, 1e-30))).max())
 
 
 def _check(q, k, v):
@@ -108,35 +181,116 @@ def _check(q, k, v):
             raise ValueError("q, k and v must be on one device")
         if t.dtype != q.dtype:
             raise TypeError("q, k and v must have one dtype")
-    if any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention is forward-only: it has no "
-                           "backward kernel")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+
+
+def _check_kernel_inputs(name, tensors):
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} needs contiguous tensors")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} reads 16-byte rows: tensors must be "
+                             f"16-byte aligned")
+
+
+def _launch_fwd(q, k, v, causal, window, with_lse):
+    """The forward kernel: (out, lse or None)."""
+    global launches, last_variant
+    B, H, S, dh = q.shape
+    variant = flash_variant(q.dtype, dh)
+    _check_kernel_inputs("flash_attention", (q, k, v))
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    err = build.library().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if with_lse else None, B, H, k.shape[1], S, dh,
+        int(causal), int(window), float(dh ** -0.5), VARIANTS[variant],
+        build.stream_ptr(q.device))
+    build.check(err, f"flash_attention ({variant})")
+    launches += 1
+    last_variant = variant
+    return out, lse
+
+
+def _check_bwd_head_dim(dtype, head_dim: int) -> None:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention_bwd takes float32 or bfloat16, "
+                        f"got {dtype}")
+    if head_dim % 16 or not 0 < head_dim <= BWD_MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"flash_attention's backward kernel takes a head_dim that is a "
+            f"multiple of 16 up to {BWD_MAX_HEAD_DIM}, not {head_dim}: a "
+            f"gradient above it on the card waits for ROADMAP B8")
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0):
+    """The backward kernel on CUDA tensors: (dq, dk, dv) in the inputs'
+    dtypes from the forward's output ``o`` and log-sum-exp ``lse`` (fp32
+    [B, H, S]) and the output's gradient ``do``."""
+    global bwd_launches
+    _check(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda, not {q.device}")
+    B, H, S, dh = q.shape
+    _check_bwd_head_dim(q.dtype, dh)
+    if o.shape != q.shape or do.shape != q.shape or \
+            lse.shape != (B, H, S) or lse.dtype != torch.float32 or \
+            o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError("o and do must be like q, lse fp32 [B, H, S]")
+    _check_kernel_inputs("flash_attention_bwd", (q, k, v, o, lse, do))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    # scratch: D = rowsum(dO o) and the fp32 dq accumulator
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    err = build.library().flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, k.shape[1], S,
+        dh, int(causal), int(window), float(dh ** -0.5),
+        int(q.dtype == torch.bfloat16), build.stream_ptr(q.device))
+    build.check(err, "flash_attention_bwd")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the kernels' gradient: the forward keeps q, k, v,
+    its output and the rows' log-sum-exp; the backward recomputes the
+    weights from them.  CPU tensors take the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        grad = any(ctx.needs_input_grad[:3])
+        if q.device.type == "cpu":
+            out, lse = flash_attention_fwd_plain(q, k, v, causal=causal,
+                                                 window=window)
+        else:
+            out, lse = _launch_fwd(q, k, v, causal, window, with_lse=grad)
+        if grad:
+            ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd_plain if q.device.type == "cpu" \
+            else flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, out, lse, do.contiguous(),
+                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: [B, H, S, dh]; k/v: [B, K, S, dh].  Returns [B, H, S, dh] in
-    q's dtype."""
-    global launches, last_variant
+    q's dtype, differentiable in q, k and v."""
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device}")
-    B, H, S, dh = q.shape
-    variant = flash_variant(q.dtype, dh)
-    for t in (q, k, v):
-        if not t.is_contiguous():
-            raise ValueError("flash_attention needs contiguous tensors")
-        if t.data_ptr() % 16:
-            raise ValueError("flash_attention reads 16-byte rows: tensors "
-                             "must be 16-byte aligned")
-    out = torch.empty_like(q)
-    err = build.library().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
-        k.shape[1], S, dh, int(causal), int(window), float(dh ** -0.5),
-        VARIANTS[variant], build.stream_ptr(q.device))
-    build.check(err, f"flash_attention ({variant})")
-    launches += 1
-    last_variant = variant
-    return out
+    if q.device.type == "cuda" and torch.is_grad_enabled() and \
+            any(t.requires_grad for t in (q, k, v)):
+        _check_bwd_head_dim(q.dtype, q.shape[-1])
+    return FlashAttention.apply(q, k, v, causal, window)

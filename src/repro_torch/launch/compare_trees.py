@@ -8,7 +8,8 @@
 is committed.  Runs ``chip_smoke.py`` of each tree from its own root, in
 the order parent, change, change, parent, so drift of the card or the host
 falls on both sides.  From each run it reads the card line, the
-``kernels`` line and the serve, prefill and score detail lines; prints the
+``kernels`` line and the serve, prefill, score, encode and train detail
+lines (a tree that has no such run shows "-"); prints the
 kernels' device ms and the runs' end-to-end numbers side by side; and
 writes the numbers to ``--out/compare_trees.json`` and each run's output
 beside it.  Fails if any run fails.
@@ -25,10 +26,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[3]
 
-RUN_TIMEOUT_S = 600      # a chip_smoke.py run takes about a minute
+RUN_TIMEOUT_S = 1200     # chip_smoke.py's own limit
 
 DETAILS = {"serve": "ms_per_step_median", "prefill": "ms_per_forward",
-           "score": "ms_per_forward"}
+           "score": "ms_per_forward", "encode": "ms_per_forward",
+           "train": "ms_per_step_median"}
 
 
 def parse(stdout: str) -> dict:

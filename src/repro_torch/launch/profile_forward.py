@@ -83,6 +83,19 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def device_rows(prof) -> list[tuple[str, float, int]]:
+    """(kernel, device ms, calls) of a profile, longest first."""
+    rows = []
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = _device_us(evt)
+        if us > 0:
+            rows.append((evt.key, us / 1e3, evt.count))
+    rows.sort(key=lambda r: -r[1])
+    return rows
+
+
 def profile(arch: str, out: Path, dev) -> dict:
     run = RUNS[arch]
     B, S, kernel = run.batch, run.seq, run.kernel
@@ -99,14 +112,7 @@ def profile(arch: str, out: Path, dev) -> dict:
         T.forward(cfg, params, batch)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
-    rows = []
-    for evt in prof.key_averages():
-        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        us = _device_us(evt)
-        if us > 0:
-            rows.append((evt.key, us / 1e3, evt.count))
-    rows.sort(key=lambda r: -r[1])
+    rows = device_rows(prof)
     dev_ms = sum(r[1] for r in rows)
 
     def share(pred):

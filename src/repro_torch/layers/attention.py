@@ -1,12 +1,13 @@
 """Grouped-query attention over a full sequence (training / prefill).
 
-Ports of the reference's ``layers/attention.py`` forward functions.  The
-projections stay ``torch.matmul``, as the reference leaves them to XLA.
-On a CUDA tensor the ``"chunked"`` (the reference's default) and
-``"pallas"`` implementations both run the ``flash_attention`` kernel --
-they compute the same function; on a CPU tensor ``"chunked"`` is the
-reference's online-softmax loop over KV chunks and ``"pallas"`` the
-kernel's plain version.  ``"naive"`` is the dense path everywhere.  The
+Ports of the reference's ``layers/attention.py`` full-sequence functions.
+The projections stay ``torch.matmul``, as the reference leaves them to
+XLA.  On a CUDA tensor the ``"chunked"`` (the reference's default) and
+``"pallas"`` implementations both run the ``flash_attention`` autograd
+Function -- they compute the same function, and its gradient is the
+backward kernel; on a CPU tensor ``"chunked"`` is the reference's
+differentiable online-softmax loop over KV chunks and ``"pallas"`` the
+Function's plain versions.  ``"naive"`` is the dense path everywhere.  The
 one-token decode half lives in ``serving/tp_layers.py``.
 """
 
@@ -106,8 +107,9 @@ def chunked_attention(cfg, p, x, positions, *, causal: bool = True,
 
 def pallas_attention(cfg, p, x, positions, *, causal: bool = True,
                      window: int = 0):
-    """Attention through the ``flash_attention`` kernel wrapper (forward
-    only).  Positions are the sequence index, as the kernel assumes."""
+    """Attention through the ``flash_attention`` Function (the forward and
+    backward kernels on CUDA).  Positions are the sequence index, as the
+    kernel assumes."""
     B, S, _ = x.shape
     h, dh = cfg.num_heads, cfg.head_dim
     q, k, v = _qkv(cfg, p, x, positions)

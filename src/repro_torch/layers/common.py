@@ -1,9 +1,13 @@
-"""Norms, embedding and unembedding (forward only), and the depthwise
-causal convolution of the recurrent mixers.
+"""Norms, embedding and unembedding, and the depthwise causal convolution
+of the recurrent mixers.
 
-Ports of the reference's ``layers/common.py`` forward numerics: the norm
-statistics come from an fp32 row sum and are cast back to the input
-dtype before scaling, as in the reference.
+Ports of the reference's ``layers/common.py``: the norm statistics come
+from an fp32 row sum and are cast back to the input dtype before scaling,
+as in the reference.  ``rmsnorm`` and ``layernorm`` are autograd Functions
+whose backward is the reference's custom VJP (``_rms_bwd``, ``_ln_bwd``)
+op for op, with its casts: every [.., D] tensor in x's dtype, the row
+sums and the weight (and bias) gradients summed in fp32 and cast to the
+weight's dtype.
 """
 
 from __future__ import annotations
@@ -12,21 +16,80 @@ import torch
 import torch.nn.functional as F
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
+def _f32_rowsum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a.float() * b.float()).sum(-1)
+
+
+def _f32_colsum(a: torch.Tensor, b: torch.Tensor | None = None):
+    """sum over every leading dim of a (* b), fp32: [D]."""
+    a = a.float() if b is None else a.float() * b.float()
+    return a.reshape(-1, a.shape[-1]).sum(0)
+
+
+def _rms_inv(x, eps):
     xf = x.float()
-    inv = torch.rsqrt((xf * xf).sum(-1) / x.shape[-1] + eps)
-    return x * inv[..., None].to(x.dtype) * w.to(x.dtype)
+    return torch.rsqrt((xf * xf).sum(-1) / x.shape[-1] + eps)
 
 
-def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-              eps: float = 1e-5):
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        inv = _rms_inv(x, eps)
+        ctx.save_for_backward(x, w, inv)
+        return x * inv[..., None].to(x.dtype) * w.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, w, inv = ctx.saved_tensors
+        d = x.shape[-1]
+        t = ct * w.to(x.dtype)
+        dot = _f32_rowsum(t, x)
+        coef = (inv ** 3 * dot / d)[..., None].to(x.dtype)
+        dx = t * inv[..., None].to(x.dtype) - x * coef
+        xhat = x * inv[..., None].to(x.dtype)
+        dw = _f32_colsum(ct, xhat).to(w.dtype)
+        return dx, dw, None
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
+    return _RMSNorm.apply(x, w, eps)
+
+
+def _ln_stats(x, eps):
     d = x.shape[-1]
     xf = x.float()
     mu = xf.sum(-1) / d
     ssq = (xf * xf).sum(-1) / d
     inv = torch.rsqrt(ssq - mu * mu + eps)
     xhat = (x - mu[..., None].to(x.dtype)) * inv[..., None].to(x.dtype)
-    return xhat * w.to(x.dtype) + b.to(x.dtype)
+    return xhat, mu, inv
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, eps):
+        xhat, mu, inv = _ln_stats(x, eps)
+        ctx.save_for_backward(x, w, mu, inv)
+        return xhat * w.to(x.dtype) + b.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, w, mu, inv = ctx.saved_tensors
+        d = x.shape[-1]
+        xhat = (x - mu[..., None].to(x.dtype)) * inv[..., None].to(x.dtype)
+        t = ct * w.to(x.dtype)
+        m1 = (t.float().sum(-1) / d)[..., None]
+        m2 = (_f32_rowsum(t, xhat) / d)[..., None]
+        dx = (t - m1.to(x.dtype) - xhat * m2.to(x.dtype)) \
+            * inv[..., None].to(x.dtype)
+        dw = _f32_colsum(ct, xhat).to(w.dtype)
+        db = _f32_colsum(ct).to(w.dtype)
+        return dx, dw, db, None
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5):
+    return _LayerNorm.apply(x, w, b, eps)
 
 
 def apply_norm(kind: str, p: dict, x: torch.Tensor):

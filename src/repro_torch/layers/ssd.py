@@ -1,4 +1,4 @@
-"""Mamba-2 (SSD, state-space duality) over a full sequence (forward).
+"""Mamba-2 (SSD, state-space duality) over a full sequence (forward only).
 
 Port of the reference's ``layers/ssd.py`` forward half: split input
 projections (z | x | BC | dt), depthwise causal convolutions, the chunked
@@ -59,7 +59,14 @@ def ssd_chunked(cfg, xdt, loga, Bc, Cc, h0=None):
 
 
 def mamba2_forward(cfg, p, x):
-    """Full-sequence SSD.  x: [B, S, D] -> [B, S, D]."""
+    """Full-sequence SSD.  x: [B, S, D] -> [B, S, D].  Forward only: with
+    grad enabled and an input that requires it, it raises (on the CPU too,
+    so the card and the CPU train the same archs)."""
+    if torch.is_grad_enabled() and (
+            x.requires_grad or any(t.requires_grad for t in p.values())):
+        raise NotImplementedError(
+            "Mamba-2 has no backward yet: its gradient needs the ssd_scan "
+            "backward kernel (ROADMAP A7b); mamba2 models do not train")
     Bsz, S, D = x.shape
     Di, N, H, P = d_inner(cfg), cfg.ssm_state, n_heads(cfg), cfg.ssm_head_dim
     Q = cfg.ssm_chunk

@@ -1,14 +1,21 @@
 """Full-sequence forward of the model stack: logits, hidden states and the
-next-token loss (prefill and scoring; forward only).
+next-token loss (prefill, scoring and training).
 
-Port of the reference's ``models/transformer.py`` forward half.  Layers
-are grouped into pattern units whose parameters are stacked; the
-reference's ``lax.scan`` over units is a Python loop that indexes the
-stacked unit parameters (rematerialization means nothing without a
-backward).  Everything runs under ``torch.inference_mode()``; the kernel
-wrappers refuse inputs that require grad, so a backward has to be added
-on purpose.  Attention runs the ``flash_attention`` kernel and Mamba-2
-the ``ssd_scan`` kernel on a CUDA tensor; RG-LRU's scan is plain PyTorch
+Port of the reference's ``models/transformer.py``.  Layers are grouped
+into pattern units whose parameters are stacked; the reference's
+``lax.scan`` over units is a Python loop over the stacked leaves, each
+unbound once a pass (``unbind(0)``), so that under autograd one ``stack``
+forms a stacked leaf's gradient.  ``forward`` runs under
+``torch.inference_mode()``; ``hidden_states``, ``chunked_ce`` and
+``loss_fn`` are differentiable, and callers that only score wrap them in
+``torch.no_grad()``.  With grad enabled and ``cfg.remat == "unit"`` each
+pattern unit runs under ``torch.utils.checkpoint.checkpoint`` (the
+reference's ``jax.checkpoint``): only unit inputs are kept, and the
+backward recomputes a unit's forward.  Each CE chunk is checkpointed
+whenever grad is on, whatever ``cfg.remat`` says, as in the reference.
+Attention runs the ``flash_attention`` kernel (forward and backward) and
+Mamba-2 the ``ssd_scan`` kernel (forward only: its gradient raises,
+ROADMAP A7b) on a CUDA tensor; RG-LRU's scan is plain PyTorch
 (``layers/rglru.py::linear_scan``), and so is the MoE dispatch
 (``layers/moe.py``), whose load-balancing losses sum into ``aux``.
 """
@@ -17,6 +24,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..layers import attention, rglru, ssd
 from ..layers.common import apply_norm, embed, unembed
@@ -57,11 +65,13 @@ def _apply_layer(cfg: ModelConfig, spec, p, x, positions):
     return x, aux, kv
 
 
-def _unit(params: dict, u: int) -> dict:
-    """Unit ``u``'s slice of the stacked unit parameters."""
+def _unbind(params: dict, n: int) -> list[dict]:
+    """The stacked unit parameters as ``n`` per-unit trees: each leaf
+    unbound once along the unit axis."""
     if isinstance(params, dict):
-        return {k: _unit(v, u) for k, v in params.items()}
-    return params[u]
+        per_key = {k: _unbind(v, n) for k, v in params.items()}
+        return [{k: per_key[k][u] for k in params} for u in range(n)]
+    return params.unbind(0)
 
 
 def _stack(cfg: ModelConfig, params, batch, collect_kv: bool):
@@ -78,13 +88,26 @@ def _stack(cfg: ModelConfig, params, batch, collect_kv: bool):
     kv_units = {f"l{i}": [] for i, (mx, _) in enumerate(cfg.pattern)
                 if mx in ("attn", "local_attn")}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for u in range(cfg.full_units):
-        unit_p = _unit(params["units"], u)
+
+    def unit_fn(x, unit_p):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        kvs = {}
         for i, spec in enumerate(cfg.pattern):
             x, a, kv = _apply_layer(cfg, spec, unit_p[f"l{i}"], x, positions)
             aux = aux + a
-            if collect_kv and kv is not None:
-                kv_units[f"l{i}"].append(kv)
+            if kv is not None:
+                kvs[f"l{i}"] = kv
+        return x, aux, kvs
+
+    for unit_p in _unbind(params["units"], cfg.full_units):
+        if cfg.remat == "unit" and torch.is_grad_enabled():
+            x, a, kvs = checkpoint(unit_fn, x, unit_p, use_reentrant=False)
+        else:
+            x, a, kvs = unit_fn(x, unit_p)
+        aux = aux + a
+        if collect_kv:
+            for name, kv in kvs.items():
+                kv_units[name].append(kv)
     kv_tail = {}
     for i, spec in enumerate(cfg.tail_specs):
         x, a, kv = _apply_layer(cfg, spec, params["tail"][f"t{i}"], x,
@@ -124,7 +147,6 @@ def forward(cfg: ModelConfig, params, batch, *, collect_kv: bool = False):
     return logits, aux
 
 
-@torch.inference_mode()
 def hidden_states(cfg: ModelConfig, params, batch):
     """Final-norm hidden states [B, S, D] (the pre-unembed activations),
     and aux."""
@@ -132,11 +154,19 @@ def hidden_states(cfg: ModelConfig, params, batch):
     return x, aux
 
 
-@torch.inference_mode()
+def _ce_chunk(xs, table, ls):
+    """Summed CE of one chunk (labels < 0 ignored) and its label count."""
+    logits = unembed(xs, table)                          # [B, c, V] fp32
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, ls.clamp(min=0)[..., None])[..., 0]
+    mask = ls >= 0
+    return torch.where(mask, lse - gold, 0.0).sum(), mask.sum()
+
+
 def chunked_ce(cfg: ModelConfig, x, table, labels, *, chunk: int = 256):
     """Mean cross-entropy over the vocabulary, ``chunk`` positions at a
-    time, so no [B, S, V] fp32 logits are ever built.  Labels < 0 are
-    ignored."""
+    time, so no [B, S, V] fp32 logits are ever built (under remat the
+    backward recomputes each chunk's logits).  Labels < 0 are ignored."""
     B, S, D = x.shape
     chunk = min(chunk, S)
     while S % chunk:
@@ -144,17 +174,16 @@ def chunked_ce(cfg: ModelConfig, x, table, labels, *, chunk: int = 256):
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for s0 in range(0, S, chunk):
-        logits = unembed(x[:, s0:s0 + chunk], table)      # [B, c, V] fp32
-        ls = labels[:, s0:s0 + chunk].long()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, ls.clamp(min=0)[..., None])[..., 0]
-        mask = ls >= 0
-        tot = tot + torch.where(mask, lse - gold, 0.0).sum()
-        cnt = cnt + mask.sum()
+        args = (x[:, s0:s0 + chunk], table, labels[:, s0:s0 + chunk].long())
+        if torch.is_grad_enabled():        # the reference remats always
+            s, n = checkpoint(_ce_chunk, *args, use_reentrant=False)
+        else:
+            s, n = _ce_chunk(*args)
+        tot = tot + s
+        cnt = cnt + n
     return tot / torch.clamp(cnt, min=1.0)
 
 
-@torch.inference_mode()
 def loss_fn(cfg: ModelConfig, params, batch, *, aux_weight: float = 0.01,
             loss_chunk: int = 256):
     """Next-token (causal) or frame-classification CE loss.  Returns

@@ -358,13 +358,108 @@ def test_ssd_scan_kernel_edges(dev, Bz, H, S, P, N, dt, decay):
 
 
 def test_kernels_refuse_inputs_that_require_grad(dev):
+    # flash_attention has a backward kernel since it became an autograd
+    # Function: the gradient is the kernel's (one launch), equal to the
+    # plain backward's on the same o and lse; above head_dim 128 it raises
     q = torch.randn((1, 2, 64, 64), device=dev, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        fak.flash_attention(q, q.detach(), q.detach())
+    n = fak.bwd_launches
+    out = fak.flash_attention(q, q.detach(), q.detach())
+    (dq,) = torch.autograd.grad(out, q, torch.ones_like(out))
+    assert fak.bwd_launches == n + 1
+    o, lse = fak._launch_fwd(q.detach(), q.detach(), q.detach(), True, 0,
+                             with_lse=True)
+    want = fak.flash_attention_bwd_plain(q.detach(), q.detach(), q.detach(),
+                                         o, lse, torch.ones_like(o))[0]
+    assert float((dq - want).abs().max()) < 1e-4 * float(want.abs().max())
+    wide = torch.randn((1, 2, 64, 192), device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
+        fak.flash_attention(wide, wide.detach(), wide.detach())
+    with torch.no_grad():                 # the forward alone still runs
+        fak.flash_attention(wide, wide.detach(), wide.detach())
     x = torch.randn((1, 1, 64, 16), device=dev, requires_grad=True)
     bc = torch.randn((1, 64, 16), device=dev)
     with pytest.raises(RuntimeError, match="forward-only"):
         ssk.ssd_scan(x, x.detach()[..., 0], bc, bc)
+
+
+# chip_smoke.py's FLASH_BWD_SWEEP, with the training run's heads at S 1024
+@pytest.mark.parametrize("B,H,K,S,dh,causal,win,dt", [
+    (2, 24, 2, 1024, 128, True, 0, torch.bfloat16),   # starcoder2-3b heads
+    (1, 40, 8, 1024, 128, True, 0, torch.bfloat16),   # qwen2.5-32b
+    (1, 24, 8, 1024, 64, True, 0, torch.bfloat16),    # granite-moe-3b-a800m
+    (1, 48, 1, 1024, 128, True, 0, torch.bfloat16),   # granite-20b
+    (2, 16, 16, 1000, 80, False, 0, torch.bfloat16),  # hubert-xlarge
+    (1, 4, 2, 200, 128, True, 0, torch.bfloat16),     # partial tile
+    (1, 4, 2, 512, 128, True, 48, torch.bfloat16),    # window 48
+    (1, 4, 2, 100, 16, True, 0, torch.bfloat16),      # smoke head_dim
+    (1, 4, 2, 200, 64, True, 0, torch.float32),
+    (1, 8, 2, 300, 128, False, 48, torch.float32),
+])
+def test_flash_attention_bwd_kernel_vs_plain(dev, B, H, K, S, dh, causal,
+                                             win, dt):
+    """dq, dk, dv of the backward kernel against its plain version on the
+    forward kernel's o and lse: bf16 within BF16_ROW_TOL of a row's rms
+    (floored at GRAD_ROW_FLOOR of the tensor's), fp32 within 1e-4 of
+    max |plain|; the forward's lse against the plain version's."""
+    g = torch.Generator(device="cpu").manual_seed(6)
+    q, k, v, do = (torch.randn(shape, generator=g).to(dt).to(dev)
+                   for shape in ((B, H, S, dh), (B, K, S, dh), (B, K, S, dh),
+                                 (B, H, S, dh)))
+    o, lse = fak._launch_fwd(q, k, v, causal, win, with_lse=True)
+    _, want_lse = fak.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                                window=win)
+    assert float(((lse - want_lse).abs() /
+                  want_lse.abs().clamp(min=1.0)).max()) < 1e-4
+    want = fak.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         window=win)
+    n = fak.bwd_launches
+    got = fak.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                  window=win)
+    torch.cuda.synchronize()
+    assert fak.bwd_launches == n + 1
+    for a, b in zip(got, want):
+        assert a.dtype == dt and a.shape == b.shape
+        if dt == torch.float32:
+            assert float((a - b).abs().max()) < 1e-4 * float(b.abs().max())
+        else:
+            assert fak.row_scaled_error(a, b, floor=fak.GRAD_ROW_FLOOR) < \
+                fak.BF16_ROW_TOL
+
+
+def test_train_step_matches_cpu(dev):
+    """One train step of the starcoder2-3b smoke config in fp32 on the card
+    (both flash kernels) and on the CPU: loss, grads and the updated
+    parameters within 1e-3; the flash kernels launch 2 forward (the
+    forward and the unit's recompute) and 1 backward a layer."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.params import init_params
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.step import loss_and_grads, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_smoke_config("starcoder2-3b"),
+                              dtype=torch.float32)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for d in ("cpu", "cuda"):
+        # a copy on either device: the step updates its params in place
+        p = tree_map(lambda t: t.to(d, copy=True), cpu)
+        b = {"tokens": toks.to(d), "labels": toks.to(d)}
+        n_f, n_b = fak.launches, fak.bwd_launches
+        loss, grads = loss_and_grads(cfg, p, b)
+        if d == "cuda":
+            assert fak.launches - n_f == 2 * cfg.num_layers
+            assert fak.bwd_launches - n_b == cfg.num_layers
+        p, _, _ = make_train_step(cfg, AdamWConfig(warmup_steps=1))(
+            p, init_opt_state(p), b)
+        out[d] = (float(loss), [g.cpu() for _, g in tree_leaves(grads)],
+                  [t.detach().cpu() for _, t in tree_leaves(p)])
+    assert abs(out["cpu"][0] - out["cuda"][0]) < 1e-3
+    for i in (1, 2):
+        for a, b in zip(out["cpu"][i], out["cuda"][i]):
+            assert float((a - b).abs().max()) < 1e-3
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-32b", "mamba2-370m",

@@ -100,8 +100,14 @@ def test_flash_wrapper_checks():
                             torch.zeros((1, 3, 8, 16)))
     with pytest.raises(TypeError):
         fak.flash_attention(q, q.double(), q.double())
-    with pytest.raises(RuntimeError, match="forward-only"):
-        fak.flash_attention(q.requires_grad_(), q.detach(), q.detach())
+    # since the backward kernel landed the wrapper is an autograd
+    # Function: on the CPU the gradient flows through the plain backward
+    qg = torch.randn((1, 4, 8, 16), requires_grad=True)
+    kg = torch.randn((1, 2, 8, 16), requires_grad=True)
+    out = fak.flash_attention(qg, kg, kg.detach())
+    out.square().sum().backward()
+    assert qg.grad is not None and kg.grad is not None
+    assert float(qg.grad.abs().sum()) > 0 and float(kg.grad.abs().sum()) > 0
 
 
 @pytest.mark.parametrize("dt,dh,variant", [

@@ -1,0 +1,148 @@
+"""The gradient of the port's ``flash_attention``:
+``flash_attention_bwd_plain`` (the backward kernel's plain version)
+against ``jax.vjp`` of the reference's
+``chunked_attention`` (the function XLA differentiates for the reference's
+training), fed q, k and v through identity projections; the autograd
+Function on the CPU against autograd through the plain forward; the
+forward's log-sum-exp; and the refusals.  The CUDA kernel itself is held
+against the plain version on the card (``test_torch_cuda.py``,
+``chip_smoke.py``)."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.layers import attention as JA  # noqa: E402
+from repro.models.config import ModelConfig as JConfig  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fak  # noqa: E402
+
+_J = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
+_T = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _inputs(seed, B, H, K, S, dh):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((B, H, S, dh), (B, K, S, dh), (B, K, S, dh),
+                          (B, H, S, dh))]
+
+
+def _ref_vjp(q, k, v, do, causal, window, dt):
+    """(dq, dk, dv) from jax.vjp of the reference's chunked attention:
+    x = [q | k | v] along d_model, the projections slices of the identity
+    (exact in either dtype), no RoPE, no bias."""
+    B, H, S, dh = q.shape
+    K = k.shape[1]
+    D = (H + 2 * K) * dh
+    jdt = _J[dt]
+    cfg = JConfig(name="core", family="dense", num_layers=1, d_model=D,
+                  num_heads=H, num_kv_heads=K, head_dim=dh, use_rope=False,
+                  causal=causal, window=window, dtype=jdt)
+    eye = jnp.eye(D, dtype=jdt)
+    p = {"wq": eye[:, :H * dh], "wk": eye[:, H * dh:(H + K) * dh],
+         "wv": eye[:, (H + K) * dh:], "wo": eye[:H * dh]}
+    pos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32)[None], (B, S))
+
+    def flat(t):
+        return t.transpose(0, 2, 1, 3).reshape(B, S, -1)
+
+    def core(q, k, v):
+        x = jnp.concatenate([flat(q), flat(k), flat(v)], axis=-1)
+        out, _ = JA.chunked_attention(cfg, p, x, pos, causal=causal,
+                                      window=window)
+        return out[..., :H * dh].reshape(B, S, H, dh).transpose(0, 2, 1, 3)
+
+    args = [jnp.asarray(a, jdt) for a in (q, k, v)]
+    _, vjp = jax.vjp(core, *args)
+    return [np.asarray(jnp.asarray(g, jnp.float32))
+            for g in vjp(jnp.asarray(do, jdt))]
+
+
+# g 1 / 3 / 12, S 13 / 64 / 200, causal / window 16 / none, dh 16 / 80 / 128
+@pytest.mark.parametrize("B,H,K,S,dh,causal,win,dt", [
+    (2, 4, 4, 13, 16, True, 0, "fp32"),       # g 1, S below a tile
+    (1, 6, 2, 64, 80, True, 16, "fp32"),      # g 3, window
+    (1, 12, 1, 200, 16, False, 0, "fp32"),    # g 12, no mask
+    (1, 3, 1, 200, 128, True, 0, "fp32"),
+    (1, 3, 1, 64, 128, True, 16, "bf16"),
+    (1, 12, 1, 200, 16, True, 0, "bf16"),
+])
+def test_flash_bwd_plain_vs_reference_vjp(B, H, K, S, dh, causal, win, dt):
+    q, k, v, do = _inputs(0, B, H, K, S, dh)
+    want = _ref_vjp(q, k, v, do, causal, win, dt)
+    tq, tk, tv, tdo = (torch.as_tensor(a).to(_T[dt]) for a in (q, k, v, do))
+    o, lse = fak.flash_attention_fwd_plain(tq, tk, tv, causal=causal,
+                                           window=win)
+    got = fak.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo,
+                                        causal=causal, window=win)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == _T[dt]
+        err = float(np.abs(g.float().numpy() - w).max())
+        if dt == "fp32":
+            assert err < 2e-5 * np.abs(w).max(), (name, err)
+        else:
+            # 3e-2 at unit scale: |dk| sums g x S terms and reaches ~5 at
+            # g 12, where one bf16 ulp of the reference's own rounding is
+            # 2^-5, so the bound scales with max(1, max |ref|)
+            assert err < 3e-2 * max(1.0, np.abs(w).max()), (name, err)
+
+
+@pytest.mark.parametrize("H,K,S,dh,causal,win", [
+    (4, 2, 37, 16, True, 0), (3, 1, 50, 32, False, 0),
+    (6, 3, 64, 16, True, 8), (2, 2, 19, 48, False, 5)])
+def test_flash_function_on_cpu_vs_autograd_of_plain(H, K, S, dh, causal,
+                                                   win):
+    """The Function's plain backward against torch.autograd through the
+    plain forward (float64 inputs, so the difference is the plain
+    versions' fp32 arithmetic)."""
+    q, k, v, do = (torch.as_tensor(a, dtype=torch.float64)
+                   for a in _inputs(1, 2, H, K, S, dh))
+    grads = []
+    for fn in (fak.flash_attention, fak.flash_attention_plain):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, causal=causal, window=win)
+        grads.append(torch.autograd.grad(out, leaves, do))
+    for g, w in zip(*grads):
+        assert float((g - w).abs().max()) < 1e-5 * float(w.abs().max())
+
+
+def test_flash_plain_lse_is_the_rows_logsumexp():
+    """lse = logsumexp of each row's scaled, masked scores, also at a row
+    whose max is large (the kernels work relative to the running max)."""
+    q, k, v, _ = (torch.as_tensor(a) for a in _inputs(2, 1, 4, 2, 70, 32))
+    q[0, 1, 40] *= 60.0
+    for causal, win in ((True, 0), (True, 9), (False, 0)):
+        _, lse = fak.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                               window=win, block_q=16)
+        s = torch.einsum("bkgsd,bktd->bkgst",
+                         q.reshape(1, 2, 2, 70, 32) * 32 ** -0.5, k)
+        pos = torch.arange(70)
+        mask = fak._mask(pos, 0, 70, causal, win)
+        want = torch.logsumexp(torch.where(mask, s, -torch.inf), -1)
+        assert float((lse - want.reshape(1, 4, 70)).abs().max()) < 1e-4
+    assert float(lse[0, 1, 40]) > 30.0
+
+
+def test_flash_grad_refusals():
+    """The backward kernel's limits: head_dim a multiple of 16 up to 128;
+    above it a gradient on the card raises, naming its ROADMAP item (a
+    CPU tensor takes the plain backward at any head_dim)."""
+    for dh in (144, 192, 256, 72):
+        with pytest.raises(NotImplementedError, match="ROADMAP B8"):
+            fak._check_bwd_head_dim(torch.bfloat16, dh)
+    for dh in (16, 64, 80, 128):
+        fak._check_bwd_head_dim(torch.bfloat16, dh)
+        fak._check_bwd_head_dim(torch.float32, dh)
+    with pytest.raises(TypeError):
+        fak._check_bwd_head_dim(torch.float16, 64)
+    q = torch.zeros((1, 2, 8, 192), requires_grad=True)
+    out = fak.flash_attention(q, q.detach(), q.detach())
+    out.sum().backward()
+    assert q.grad.shape == q.shape
+    with pytest.raises(ValueError, match="runs on cuda"):
+        z = torch.zeros((1, 2, 8, 16))
+        fak.flash_attention_bwd(z, z, z, z, torch.zeros((1, 2, 8)), z)

@@ -3,7 +3,10 @@
 points refuse to fall back to the CPU when CUDA is absent."""
 
 import ast
+import os
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
@@ -61,7 +64,10 @@ def test_port_imports_neither_jax_nor_reference():
                 "configs/recurrentgemma_9b.py", "layers/moe.py",
                 "configs/granite_moe_3b_a800m.py",
                 "configs/moonshot_v1_16b_a3b.py", "configs/hubert_xlarge.py",
-                "configs/internvl2_26b.py"):
+                "configs/internvl2_26b.py", "tree.py", "train/optimizer.py",
+                "train/step.py", "train/loop.py", "data/pipeline.py",
+                "distributed/compression.py", "launch/train.py",
+                "launch/profile_train.py"):
         assert PORT / rel in files, rel
     assert (ROOT / "chip_smoke.py") in files
     found = {str(f.relative_to(ROOT)): _bad_imports(f) for f in files}
@@ -81,10 +87,28 @@ def test_import_checker_catches_forbidden_imports(tmp_path):
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.configs import get_smoke_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models.params import init_params
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.optimizer import AdamWConfig
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # the train entry points: the trainer and the CLI raise without CUDA
+    # unless asked for the CPU; --ckpt waits for the checkpoint slice
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(get_smoke_config("starcoder2-3b"), AdamWConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--arch", "starcoder2-3b", "--smoke", "--steps", "1"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
+        train.main(["--arch", "starcoder2-3b", "--smoke", "--ckpt", "x",
+                    "--device", "cpu"])
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "starcoder2-3b", "--smoke", "--steps", "3", "--device", "cpu"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "final loss" in out.stdout
     cfg = get_smoke_config("qwen2.5-32b")
     params = init_params(cfg, torch.Generator().manual_seed(0),
                          device="cpu")
