@@ -1034,9 +1034,12 @@ FLASH_BWD_SWEEP = [  # B, H, K, S, dh, causal, window, dtype
     (1, 40, 8, 2048, 128, True, 0, "bfloat16"),       # qwen2.5-32b
     (1, 24, 8, 2048, 64, True, 0, "bfloat16"),        # granite-moe-3b-a800m
     (1, 48, 1, 1024, 128, True, 0, "bfloat16"),       # granite-20b
+    (1, 16, 16, 2048, 128, True, 0, "bfloat16"),      # moonshot's MHA, g 1
+    (1, 48, 1, 1000, 128, True, 0, "bfloat16"),       # split, S % 128 != 0
     (2, 16, 16, 1000, 80, False, 0, "bfloat16"),      # hubert-xlarge
     (1, 4, 2, 200, 128, True, 0, "bfloat16"),         # partial tile
     (1, 4, 2, 512, 128, True, 48, "bfloat16"),        # window 48
+    (2, 6, 2, 333, 64, True, 100, "bfloat16"),        # window, dh 64
     (1, 4, 2, 200, 64, True, 0, "float32"),
     (1, 8, 2, 300, 128, False, 48, "float32"),        # fp32, window
 ]
@@ -1090,8 +1093,10 @@ def check_flash_bwd(torch, dev) -> dict:
     (o and lse from the forward kernel) at the training run's shape and at
     FLASH_BWD_SWEEP: bf16 dq, dk and dv each within BF16_ROW_TOL of a
     row's rms (the rms floored at GRAD_ROW_FLOOR of the tensor's), fp32
-    within 1e-4 of max |plain|.  Times at the training run's shape; the
-    library call is SDPA's forward + backward less its forward."""
+    within 1e-4 of max |plain|; the variant ``flash_bwd_variant`` names
+    and, on the wgmma variant, ``bwd_split_count``'s split of the heads.
+    Times at the training run's shape; the library call is SDPA's forward
+    + backward less its forward."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fak
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1114,6 +1119,13 @@ def check_flash_bwd(torch, dev) -> dict:
         got = fak.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                       window=win)
         torch.cuda.synchronize()
+        variant, splits = fak.last_bwd_variant, fak.last_bwd_splits
+        want_split = fak.bwd_split_count(B, H, K, S) \
+            if variant == "wgmma" else 1
+        if variant != fak.flash_bwd_variant(dt, dh) or splits != want_split:
+            raise AssertionError(
+                f"flash_attention_bwd {case} ran {variant} split {splits}, "
+                f"not {fak.flash_bwd_variant(dt, dh)} split {want_split}")
         errs = {}
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             if dt == torch.float32:
@@ -1145,10 +1157,13 @@ def check_flash_bwd(torch, dev) -> dict:
         tol = "1e-4 of max |plain|" if dt == torch.float32 else \
             {"row_scaled": fak.BF16_ROW_TOL, "floor": fak.GRAD_ROW_FLOOR}
         if case != main:
-            sweep.append({"shape": shape, "errors": errs, "tolerance": tol,
+            sweep.append({"shape": shape, "variant": variant,
+                          "splits": splits, "errors": errs,
+                          "tolerance": tol,
                           "ms": graph_ms(torch, run, iters=10),
                           "bound_ms": bound})
-            print(f"flash_attention_bwd {case}: {errs}", flush=True)
+            print(f"flash_attention_bwd {case} ({variant}, split {splits}): "
+                  f"{errs}", flush=True)
             continue
         qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
 
@@ -1165,6 +1180,7 @@ def check_flash_bwd(torch, dev) -> dict:
                         "(chunked_attention); its Pallas kernel "
                         "(src/repro/kernels/flash_attention/kernel.py:95) "
                         "is forward-only",
+            "variant": variant, "splits": splits,
             "max_abs_err": max(float((a.float() - b.float()).abs().max())
                                for a, b in zip(got, want)),
             "row_scaled_err": errs, "tolerance": tol,
@@ -1371,6 +1387,7 @@ def main() -> int:
     if not (src / "repro_torch" / "csrc").is_dir():
         return fail(f"{src}/repro_torch not found: run from a checkout")
     sys.path.insert(0, str(src))
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.launch.bench_paged import card_line
     from repro_torch.launch.profile_decode import serve_config
@@ -1400,10 +1417,15 @@ def main() -> int:
     def main_shape(run, c):
         return (run.batch, c.num_heads, c.num_kv_heads, run.seq, c.head_dim,
                 c.causal, c.window, "bfloat16")
+    tcfg = get_config(TRAIN_ARCH)
     flash_mains = [
         main_shape(qrun, cfg), main_shape(rrun, rcfg),
         (1, 96, 8, 4096, 192, True, 0, "bfloat16"),   # nemotron-4-340b heads
-        main_shape(gmrun, gmcfg), main_shape(hrun, hcfg)]
+        main_shape(gmrun, gmcfg), main_shape(hrun, hcfg),
+        # the training run's shape (its forward, without the LSE), so the
+        # row has SDPA's forward there beside the backward's
+        (TRAIN_BATCH, tcfg.num_heads, tcfg.num_kv_heads, TRAIN_SEQ,
+         tcfg.head_dim, True, 0, "bfloat16")]
     ssd_main = (mrun.batch, n_heads(mcfg), mrun.seq, mcfg.ssm_head_dim,
                 mcfg.ssm_state, "float32", None)
     kernels = check_kernels(torch, cfg, dev) + check_forward_kernels(

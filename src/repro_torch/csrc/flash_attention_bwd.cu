@@ -19,8 +19,51 @@
 // (S^T, dP^T, dV, dK, dQ), 10 * dh flops a pair, against q, k, v, o, dO read
 // once and dq, dk, dv written once: at starcoder2-3b's training shape (2 x
 // 4096, 24/2 heads of 128, causal) 5.15e11 flops, 0.521 ms at the bf16 peak.
+// Three variants, chosen by the wrapper by dtype and head_dim
+// (`kernel.py::flash_bwd_variant`; the `variant` argument below):
 //
-// Three launches, one call:
+// 2 (bf16, dh 64 or 128) -- the main path; only `wgmma` reaches the tensor
+//   cores' full rate.  A block owns a 128-key tile of one KV head and
+//   `splits` parts of its g query heads, and has three warpgroups.  The
+//   producer's one thread loads K and V once (TMA, 3-D tensor maps, 128-byte
+//   swizzle) and streams (head, 64-row query tile) steps of Q and dO (TMA)
+//   and the rows' lse (log2 units, from the prep pass) and D (bulk copies)
+//   through a two-slot ring with full and empty `mbarrier`s.  Each of the
+//   two consumer warpgroups owns 64 keys and keeps their dK and dV in
+//   registers over the whole loop (64 + 64 fp32 a thread at dh 128;
+//   `setmaxnreg` gives the consumers 240, the producer 24).  A step: S^T =
+//   K Q^T and dP^T = V dO^T as SS `wgmma.m64n64k16`; P^T in registers, as
+//   bf16 A fragments, and dV += P^T dO as RS `wgmma` (dO read MN-major)
+//   while dP^T finishes; dS^T likewise, written to shared memory in the
+//   swizzled layout TMA gives a tile (`stmatrix`, two buffers); dQ = dS K
+//   as an SS `wgmma` with both operands MN-major -- at dh 128 each group
+//   takes 64 columns over all 128 keys (a barrier of the two groups), at
+//   dh 64 each its own 64 keys --, then dK += dS^T Q (RS), which runs on
+//   while the dQ partial is staged.  dQ has no per-element atomics: each
+//   group stages its fp32 64 x 64 partial in shared memory as its
+//   registers lie, and its first thread adds it into the fp32 accumulator
+//   with one `cp.reduce.async.bulk .add.f32`, ordered by a bulk-async
+//   group; the post pass reads it back, scales and casts.  A block walks
+//   its query tiles from the last one down, heads inner, so the blocks in
+//   flight share a few dq tiles, which stay in L2.  Where B * K * ceil(S /
+//   128) blocks would not fill the card's 132 SMs, the g heads are split
+//   over blocks (`kernel.py::bwd_split_count`, from shapes alone): the
+//   parts' dK / dV meet in fp32 scratch by the same bulk reduce and the
+//   post pass casts them; without a split they are written from
+//   registers.  Query tiles wholly above the diagonal or outside the
+//   window are skipped; only steps that cross the diagonal, the window's
+//   edge or S are masked; a partial tile reads zeros through the 3-D box.
+//   The grid runs the longest key tiles (the causal first ones) first.
+//   On the card (H100, 700 W) the step is a chain of dependent phases in
+//   both groups at once: at the training shape the tensor cores are busy
+//   about half the time (PERF.md).
+// 1 (bf16, the other multiples of 16 up to 128: hubert-xlarge's 80, the
+//   smoke configs' 16) -- the Ampere-style kernel, described below.
+// 0 (fp32) -- an FMA kernel, described below.
+//
+// Launches of one call: (variant 2) memsets of the accumulators, prep (lse
+// in log2 units and D, rows padded to 64), main, post (dq; dk and dv with a
+// split); (variants 0, 1):
 //   1. prep: D (fp32, a warp a row) and the fp32 dq accumulator zeroed;
 //   2. main: a block per (64-key tile, batch x KV head).  It keeps its K and
 //      V tiles in shared memory and loops over the query tiles of every head
@@ -34,7 +77,7 @@
 //      columns an atomic (`atomicAdd` on a float2, sm_90; the key tiles'
 //      sums meet there in no fixed order);
 //   3. post: dq = scale * accumulator, cast to q's dtype.
-// The bf16 kernel rounds P and dS to bf16 for the products (fp32 sums), as
+// The bf16 kernels round P and dS to bf16 for the products (fp32 sums), as
 // the forward rounds P.  fp32 runs an FMA kernel: a warp a block, a lane
 // pair a key for the two dots (half of head_dim each), a lane a head_dim
 // column for the sums.  head_dim: a multiple of 16 up to 128; any S.
@@ -42,6 +85,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"        // TMA, mbarrier, bulk and wgmma helpers, maps
 
 namespace {
 
@@ -517,22 +562,600 @@ int run_prep_post(bool post, const void* o, const void* dout, float* delta,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16, dh 64 / 128: wgmma + TMA, warp-specialised
+// ---------------------------------------------------------------------------
+namespace wgb {
+
+using namespace hopper;
+
+constexpr int kBN = 128;           // keys a block, 64 a consumer group
+constexpr int kBM = 64;            // query rows a step
+constexpr int kThreads = 384;      // producer group + two consumer groups
+constexpr int kStages = 2;         // slots of the Q / dO / lse / D ring
+constexpr int kBoxQ = kBM * 128;   // bytes of a [64 rows][64 bf16] box
+constexpr int kBoxK = kBN * 128;   // bytes of a [128 rows][64 bf16] box
+constexpr int kAtom = 1024;        // 8 rows of 128 bytes: the swizzle atom
+constexpr int kDS = kBN * kBM * 2; // dS^T [128 keys][64 queries] bf16
+constexpr int kDQ = kBM * 64 * 4;  // a consumer's fp32 dQ partial, 64 x 64
+constexpr int kLD = 2 * kBM * 4;   // a step's lse (log2 units) and D
+
+template <int DH>
+struct Smem {
+  static constexpr int kBoxes = DH / 64;             // 64-column boxes a row
+  static constexpr int kTileK = kBoxes * kBoxK;      // K or V tile bytes
+  static constexpr int kTileQ = kBoxes * kBoxQ;      // Q or dO tile bytes
+  static constexpr int kV = kTileK;
+  static constexpr int kQ = 2 * kTileK;              // + kTileQ * slot
+  static constexpr int kDO = kQ + kStages * kTileQ;  // + kTileQ * slot
+  static constexpr int kDSb = kDO + kStages * kTileQ;  // two buffers
+  static constexpr int kDQs = kDSb + 2 * kDS;        // one a consumer group
+  static constexpr int kLDs = kDQs + 2 * kDQ;        // + kLD * slot
+  static constexpr int kBar = kLDs + kStages * kLD;
+  // barriers: full and empty a slot, and K/V's; then the alignment slack
+  static constexpr int kBytes = kBar + 8 * (2 * kStages + 1) + kAtom;
+  static_assert(kBytes <= 232448, "over the 227 KB a block can use");
+  // a consumer group's dK (then dV) fp32 staging at the end reuses the Q
+  // ring (group 0) or the dO ring (group 1)
+  static_assert(kStages * kTileQ == kBM * DH * 4, "staging fits a ring");
+};
+
+// The fp32 partials a consumer group adds into the scratch accumulators
+// are stored as its registers lie: for an m64nN accumulator, float4 j * 128
+// + (thread of the group) holds elements 4 j .. 4 j + 3, which are rows r
+// and r + 8 (r = 16 (thread / 32) + (thread % 32) / 4), columns c and c + 1
+// (c = 8 j + 2 (thread % 4)).  The staging writes are 16 contiguous bytes a
+// thread, and the post passes read the float4s back in order.
+// a consumer group's N fp32 accumulator registers into `stg`, as above
+template <int N>
+__device__ __forceinline__ void stage_acc(float4* stg, const float* acc,
+                                          int tid) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+    stg[j * 128 + tid] =
+        make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+}
+
+// whether keys kw0 .. kw0 + 63 against query rows q0 .. q0 + 63 need a
+// mask: only where they cross the diagonal, the window's edge or S
+__device__ __forceinline__ bool is_edge(int kw0, int q0, int S, int causal,
+                                        int window) {
+  return (causal && kw0 + 63 > q0) || (window && kw0 <= q0 + 63 - window) ||
+         kw0 + 64 > S || q0 + kBM > S;
+}
+
+// 2^x on the special-function unit (ftz; 2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// D = rowsum(dO * O) in fp32 and lse in log2 units, rows padded to Sp;
+// rows past S: lse and D 0 (their weights are masked).  A row is DH / 8
+// lanes, 16 bytes each.
+template <int DH>
+__global__ void prep_kernel(const __nv_bfloat16* __restrict__ o,
+                            const __nv_bfloat16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            float* __restrict__ lse2,
+                            float* __restrict__ delta, int rows, int S,
+                            int Sp) {
+  constexpr int kLanes = DH / 8;                     // lanes a row
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = i / kLanes, c = (i % kLanes) * 8;
+  const int bh = row / Sp, s = row % Sp;
+  const bool in = row < rows && s < S;
+  float sum = 0.f;
+  if (in) {
+    const size_t off = (static_cast<size_t>(bh) * S + s) * DH + c;
+    const uint4 a = *reinterpret_cast<const uint4*>(dout + off);
+    const uint4 b = *reinterpret_cast<const uint4*>(o + off);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 x = __bfloat1622float2(a2[k]), y = __bfloat1622float2(b2[k]);
+      sum = fmaf(x.x, y.x, fmaf(x.y, y.y, sum));
+    }
+  }
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (row < rows && c == 0) {
+    delta[row] = sum;
+    lse2[row] = in ? lse[static_cast<size_t>(bh) * S + s] * kLog2e : 0.f;
+  }
+}
+
+// dq = scale * accumulator, cast.  A block takes one staged 64 x 64 chunk
+// (a query tile's 64 columns): it reads the chunk's float4s in order,
+// turns each (rows r and r + 8, columns c and c + 1) into bf16 pairs in a
+// row-major tile in shared memory, and writes the tile's rows 16 bytes a
+// thread, so both sides of device memory are read and written in whole
+// segments.
+template <int DH>
+__global__ void __launch_bounds__(256)
+post_dq_kernel(const float* __restrict__ acc, __nv_bfloat16* __restrict__ dq,
+               int S, int nqt, float scale) {
+  __shared__ uint32_t tile[kBM][33];                 // bf16 pairs, padded
+  const size_t chunk = blockIdx.x;                   // (bh, qt, 64 columns)
+  const float4* src = reinterpret_cast<const float4*>(acc) + chunk * 1024;
+  for (int f = threadIdx.x; f < 1024; f += blockDim.x) {
+    const float4 a = src[f];
+    const int tid = f % 128;
+    const int r = 16 * (tid / 32) + (tid % 32) / 4;
+    const int p = 4 * (f / 128) + tid % 4;           // column pair
+    tile[r][p] = pack_bf16(a.x * scale, a.y * scale);
+    tile[r + 8][p] = pack_bf16(a.z * scale, a.w * scale);
+  }
+  __syncthreads();
+  const size_t tq = chunk / (DH / 64);
+  const int bh = static_cast<int>(tq / nqt);
+  const int row0 = static_cast<int>(tq % nqt) * kBM;
+  const int col0 = static_cast<int>(chunk % (DH / 64)) * 64;
+  for (int w = threadIdx.x; w < kBM * 8; w += blockDim.x) {
+    const int r = w / 8, p = (w % 8) * 4;            // 8 columns a thread
+    if (row0 + r >= S) continue;
+    *reinterpret_cast<uint4*>(
+        dq + (static_cast<size_t>(bh) * S + row0 + r) * DH + col0 + 2 * p) =
+        make_uint4(tile[r][p], tile[r][p + 1], tile[r][p + 2], tile[r][p + 3]);
+  }
+}
+
+// dk = scale * dk accumulator, dv = dv accumulator (the split's parts
+// summed), cast.  A thread reads one float4 of each: rows r and r + 8 of a
+// consumer group's 64 keys, columns c and c + 1.
+template <int DH>
+__global__ void post_dkv_kernel(const float* __restrict__ acc,
+                                __nv_bfloat16* __restrict__ dk,
+                                __nv_bfloat16* __restrict__ dv, int BK, int S,
+                                int nkt, float scale) {
+  const size_t n = static_cast<size_t>(BK) * nkt * kBN * DH / 4;
+  for (size_t f = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       f < n; f += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t part = f / (16 * DH);               // (bk, kt, group)
+    const int w = static_cast<int>(f % (16 * DH)), tid = w % 128;
+    const int r = 16 * (tid / 32) + (tid % 32) / 4;
+    const int d = 8 * (w / 128) + 2 * (tid % 4);
+    const int bk = static_cast<int>(part / (2 * nkt));
+    const int k0 = static_cast<int>(part % (2 * nkt)) * 64 + r;
+    const float4 a = reinterpret_cast<const float4*>(acc)[f];
+    const float4 b = reinterpret_cast<const float4*>(acc)[f + n];
+    const size_t base = static_cast<size_t>(bk) * S * DH + d;
+    if (k0 < S) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + base + static_cast<size_t>(k0) * DH) =
+          __floats2bfloat162_rn(a.x * scale, a.y * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + base + static_cast<size_t>(k0) * DH) =
+          __floats2bfloat162_rn(b.x, b.y);
+    }
+    if (k0 + 8 < S) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + base + static_cast<size_t>(k0 + 8) * DH) =
+          __floats2bfloat162_rn(a.z * scale, a.w * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + base + static_cast<size_t>(k0 + 8) * DH) =
+          __floats2bfloat162_rn(b.z, b.w);
+    }
+  }
+}
+
+// One block: a 128-key tile of one KV head and one part of its group's
+// query heads (`splits` parts of g / splits heads).  The producer's one
+// thread loads K and V once, then streams (head, 64-row query tile) steps
+// of Q, dO, lse and D through the ring; each consumer group owns 64 keys.
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const float* __restrict__ lse2,
+                       const float* __restrict__ delta,
+                       float* __restrict__ dq_acc,
+                       float* __restrict__ dkv_acc,
+                       __nv_bfloat16* __restrict__ dk,
+                       __nv_bfloat16* __restrict__ dv, int H, int K, int S,
+                       int splits, int causal, int window, float scale) {
+  using L = Smem<DH>;
+  constexpr int NB = L::kBoxes;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the buffers to it
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + kAtom - 1) & ~(kAtom - 1);
+  unsigned char* gbase = smem_raw + (base - raw);    // generic address
+  const uint32_t k_s = base, v_s = base + L::kV;
+  const uint32_t q_ring = base + L::kQ, do_ring = base + L::kDO;
+  const uint32_t ds_buf = base + L::kDSb, dq_stage = base + L::kDQs;
+  const uint32_t full = base + L::kBar;              // + 8 * slot
+  const uint32_t empty = full + 8 * kStages;
+  const uint32_t kvbar = empty + 8 * kStages;
+
+  const int g = H / K, gs = g / splits;
+  const int bk = blockIdx.x / splits, part = blockIdx.x % splits;
+  const int b = bk / K, kvh = bk % K;
+  const int kt = blockIdx.y, t0 = kt * kBN;         // tile 0 first: longest
+  const int nkt = gridDim.y;
+  const int Sp = (S + kBM - 1) / kBM * kBM, nqt = Sp / kBM;
+  // the query rows that see a key of this tile: [q_begin, q_end)
+  const int q_begin = causal ? t0 : 0;
+  const int q_end = window ? min(S, t0 + kBN - 1 + window) : S;
+  const int qt_begin = q_begin / kBM;
+  const int qt_last = (q_end + kBM - 1) / kBM - 1;
+  const int n_it = gs * (qt_last - qt_begin + 1);    // (head, query tile)
+  const int h0 = b * H + kvh * g + part * gs;        // first b * H + head
+  // Step it takes query tile qt_last - it / gs, head it % gs of the part:
+  // every block walks the query tiles from the last one down, heads inner,
+  // so the blocks in flight add into (and read Q and dO of) the same few
+  // query tiles, which stay in L2, where the dq accumulator as a whole
+  // (B H S dh fp32: 100 MB at the training shape) does not.  (Measured on
+  // the card: heads outer, query tiles up, made every add a trip to device
+  // memory.)  Both loops below count (head, tile) without a division.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);                   // one per consumer warp
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // ---------------- producer warpgroup: one thread starts every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kvbar, 2 * L::kTileK);
+      for (int c = 0; c < NB; ++c) {
+        tma_load(k_s + c * kBoxK, &tm_k, kvbar, 64 * c, t0, bk);
+        tma_load(v_s + c * kBoxK, &tm_v, kvbar, 64 * c, t0, bk);
+      }
+      for (int it = 0, hh = 0, qt = qt_last; it < n_it; ++it) {
+        const int s = it % kStages;
+        const int bh = h0 + hh, q0 = qt * kBM;
+        if (++hh == gs) {
+          hh = 0;
+          --qt;
+        }
+        if (it >= kStages) mbar_wait(empty + 8 * s, (it / kStages - 1) & 1);
+        mbar_expect_tx(full + 8 * s, 2 * L::kTileQ + kLD);
+        for (int c = 0; c < NB; ++c) {
+          tma_load(q_ring + s * L::kTileQ + c * kBoxQ, &tm_q, full + 8 * s,
+                   64 * c, q0, bh);
+          tma_load(do_ring + s * L::kTileQ + c * kBoxQ, &tm_do, full + 8 * s,
+                   64 * c, q0, bh);
+        }
+        const size_t row = static_cast<size_t>(bh) * Sp + q0;
+        bulk_load(base + L::kLDs + s * kLD, lse2 + row, kBM * 4,
+                  full + 8 * s);
+        bulk_load(base + L::kLDs + s * kLD + kBM * 4, delta + row, kBM * 4,
+                  full + 8 * s);
+      }
+    }
+  } else {
+    // ---------------- consumer warpgroups: 64 keys each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int grp = warp / 4 - 1;                    // 0 or 1
+    const int wq = warp % 4, t = lane % 4;
+    const int tid = threadIdx.x % 128;               // thread of the group
+    const int kw0 = t0 + 64 * grp;                   // this group's keys
+    const int kpos[2] = {kw0 + 16 * wq + lane / 4, kw0 + 16 * wq + lane / 4 + 8};
+    const float sl = scale * kLog2e;
+    // this group's 64 K and V rows: 8 swizzle atoms into each box
+    const uint32_t k_g = k_s + grp * 64 * 128, v_g = v_s + grp * 64 * 128;
+    float dk_acc[DH / 2], dv_acc[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    mbar_wait(kvbar, 0);
+
+    for (int it = 0, hh = 0, qt = qt_last; it < n_it; ++it) {
+      const int s = it % kStages;
+      const int bh = h0 + hh, q0 = qt * kBM;
+      const uint32_t q_slot = q_ring + s * L::kTileQ;
+      const uint32_t do_slot = do_ring + s * L::kTileQ;
+      const float* lse_s =
+          reinterpret_cast<const float*>(gbase + L::kLDs + s * kLD);
+      const float* d_s = lse_s + kBM;
+      mbar_wait(full + 8 * s, (it / kStages) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, K-major
+      // operands, 16 columns of dh a step
+      float st[32], dpt[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+      pin<32>(st);
+      pin<32>(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint32_t ok = (kk / 4) * kBoxK + (kk % 4) * 32;
+        const uint32_t oq = (kk / 4) * kBoxQ + (kk % 4) * 32;
+        wgmma_ss_m64n64<0, 0>(st, sdesc(k_g + ok, 16, kAtom),
+                              sdesc(q_slot + oq, 16, kAtom), kk > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint32_t ok = (kk / 4) * kBoxK + (kk % 4) * 32;
+        const uint32_t oq = (kk / 4) * kBoxQ + (kk % 4) * 32;
+        wgmma_ss_m64n64<0, 0>(dpt, sdesc(v_g + ok, 16, kAtom),
+                              sdesc(do_slot + oq, 16, kAtom), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();                               // S^T is done
+      pin<32>(st);
+
+      // P^T = 2^(s sl - lse2), masked where the tiles cross an edge, and
+      // as the A fragments of dV += P^T dO (16 queries a k-step:
+      // accumulator blocks 2 kk and 2 kk + 1), started while dP^T runs on
+      const bool edge = is_edge(kw0, q0, S, causal, window);
+      uint32_t pf[4][4], df[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = fast_exp2(fmaf(st[4 * j + e], sl, (e & 1) ? -l2.y : -l2.x));
+          if (edge) {
+            const int kp = kpos[e / 2], qp = q0 + 8 * j + 2 * t + (e & 1);
+            bool ok = kp < S && qp < S;
+            if (causal) ok = ok && kp <= qp;
+            if (window) ok = ok && kp > qp - window;
+            if (!ok) p = 0.f;
+          }
+          st[4 * j + e] = p;
+        }
+        pf[j / 2][(j % 2) * 2 + 0] = pack_bf16(st[4 * j + 0], st[4 * j + 1]);
+        pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(st[4 * j + 2], st[4 * j + 3]);
+      }
+      // dO [queries][dh] is MN-major for this product; 16 queries a step
+      // are two swizzle atoms; the second 64 columns of dh are the next box
+      // (the leading byte offset)
+      pin<DH / 2>(dv_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBM / 16; ++kk)
+        wgmma_pv<DH>(dv_acc, pf[kk], sdesc(do_slot + kk * 2 * kAtom, kBoxQ, kAtom));
+      wgmma_commit();
+      wgmma_wait<1>();                               // dP^T is done
+      pin<32>(dpt);
+
+      // dS^T = P^T (dP^T - D), as the A fragments of dK += dS^T Q, while
+      // dV runs on
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dd = *reinterpret_cast<const float2*>(d_s + 8 * j + 2 * t);
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[e] = st[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? dd.y : dd.x));
+        df[j / 2][(j % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+        df[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+
+      // dS^T to shared memory as [key][query] bf16, 128-byte rows in the
+      // 128-byte swizzle (16-byte chunk j of row r at chunk j ^ (r % 8)):
+      // the layout TMA gives a tile, read MN-major by dQ = dS K.  One
+      // `stmatrix` a k-step writes the fragment's four 8 x 8 blocks (lane l
+      // names row l % 8 of block l / 8).  Two buffers, so a step's writes
+      // never meet the last step's reads.
+      const uint32_t ds_s = ds_buf + (it & 1) * kDS;
+      {
+        const int row = 64 * grp + 16 * wq + ((lane / 8) % 2) * 8 + lane % 8;
+#pragma unroll
+        for (int kk = 0; kk < kBM / 16; ++kk) {
+          const int chunk = 2 * kk + lane / 16;
+          stmatrix_x4(ds_s + row * 128 + ((chunk ^ (row & 7)) << 4), df[kk]);
+        }
+      }
+      fence_proxy_async();
+
+      // dQ = dS K.  dh 128: group grp takes columns 64 grp .. 64 grp + 63
+      // over all 128 keys (both groups' dS rows: a barrier of the two);
+      // dh 64: each group its own 64 keys, all columns (the two partials
+      // meet in the accumulator)
+      float dq[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+      pin<32>(dq);
+      named_bar_sync(DH == 128 ? 1 : 2 + grp, DH == 128 ? 256 : 128);
+      pin<DH / 2>(dk_acc);
+      wgmma_fence();
+      if constexpr (DH == 128) {
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk)
+          wgmma_ss_m64n64<1, 1>(dq, sdesc(ds_s + kk * 2 * kAtom, kBoxQ, kAtom),
+                                sdesc(k_s + grp * kBoxK + kk * 2 * kAtom, kBoxK,
+                                      kAtom), kk > 0);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_m64n64<1, 1>(dq, sdesc(ds_s + grp * 8192 + kk * 2 * kAtom, kBoxQ,
+                                          kAtom),
+                                sdesc(k_g + kk * 2 * kAtom, kBoxK, kAtom), kk > 0);
+      }
+      wgmma_commit();
+      // dK += dS^T Q (Q read MN-major as dO), last: it runs on while the
+      // dQ partial is staged and handed to the bulk reduce
+#pragma unroll
+      for (int kk = 0; kk < kBM / 16; ++kk)
+        wgmma_pv<DH>(dk_acc, df[kk], sdesc(q_slot + kk * 2 * kAtom, kBoxQ, kAtom));
+      wgmma_commit();
+      wgmma_wait<1>();                               // dV and dQ
+      pin<DH / 2>(dv_acc);
+      pin<32>(dq);
+
+      // the dQ partial: staged as the registers lie, then one bulk reduce
+      // into the fp32 accumulator by the group's first thread
+      if (tid == 0) bulk_wait_read<0>();             // last step's staging
+      named_bar_sync(2 + grp, 128);
+      const uint32_t stage = dq_stage + grp * kDQ;
+      stage_acc<32>(reinterpret_cast<float4*>(gbase + L::kDQs + grp * kDQ),
+                    dq, tid);
+      fence_proxy_async();
+      named_bar_sync(2 + grp, 128);
+      if (tid == 0) {
+        const int chunk = DH == 128 ? grp : 0;
+        bulk_reduce_add(
+            dq_acc + ((static_cast<size_t>(bh) * nqt + qt) * (DH / 64) + chunk) *
+                         (kBM * 64),
+            stage, kDQ);
+        bulk_commit();
+      }
+      wgmma_wait<0>();                               // dK
+      pin<DH / 2>(dk_acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);     // Q and dO consumed
+      if (++hh == gs) {                              // the next step's tile
+        hh = 0;
+        --qt;
+      }
+    }
+
+    if (splits == 1) {
+      // dK = scale * dS^T Q and dV = P^T dO, straight from the registers
+      __nv_bfloat16* dkh = dk + static_cast<size_t>(bk) * S * DH;
+      __nv_bfloat16* dvh = dv + static_cast<size_t>(bk) * S * DH;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (kpos[r] >= S) continue;
+#pragma unroll
+        for (int j = 0; j < DH / 8; ++j) {
+          const size_t off = static_cast<size_t>(kpos[r]) * DH + 8 * j + 2 * t;
+          *reinterpret_cast<__nv_bfloat162*>(dkh + off) = __floats2bfloat162_rn(
+              dk_acc[4 * j + 2 * r] * scale, dk_acc[4 * j + 2 * r + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dvh + off) = __floats2bfloat162_rn(
+              dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+        }
+      }
+    } else {
+      // the split's partials meet in fp32 scratch, by bulk reduce, staged
+      // in this group's ring (both groups are past their last products)
+      named_bar_sync(1, 256);
+      const int off = grp == 0 ? L::kQ : L::kDO;
+      float4* stg = reinterpret_cast<float4*>(gbase + off);
+      const size_t part_off =
+          ((static_cast<size_t>(bk) * nkt + kt) * 2 + grp) * (64 * DH);
+      const size_t half = static_cast<size_t>(gridDim.x / splits) * nkt * kBN * DH;
+      stage_acc<DH / 2>(stg, dk_acc, tid);
+      fence_proxy_async();
+      named_bar_sync(2 + grp, 128);
+      if (tid == 0) {
+        bulk_reduce_add(dkv_acc + part_off, base + off, 64 * DH * 4);
+        bulk_commit();
+        bulk_wait_read<0>();
+      }
+      named_bar_sync(2 + grp, 128);
+      stage_acc<DH / 2>(stg, dv_acc, tid);
+      fence_proxy_async();
+      named_bar_sync(2 + grp, 128);
+      if (tid == 0) {
+        bulk_reduce_add(dkv_acc + half + part_off, base + off, 64 * DH * 4);
+        bulk_commit();
+      }
+    }
+    if (tid == 0) bulk_wait<0>();                    // every reduce landed
+  }
+}
+
+template <int DH>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* lse2, float* delta,
+           float* dq_acc, float* dkv_acc, void* dq, void* dk, void* dv, int B,
+           int H, int K, int S, int splits, int causal, int window,
+           float scale, cudaStream_t stream) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  // maps are built on the host for every call (no device work, so a CUDA
+  // graph capture records only the launches, with the maps as parameters)
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map(&mq, fn, q, B * H, S, DH, kBM) ||
+      !make_map(&mdo, fn, dout, B * H, S, DH, kBM) ||
+      !make_map(&mk, fn, k, B * K, S, DH, kBN) ||
+      !make_map(&mv, fn, v, B * K, S, DH, kBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int Sp = (S + kBM - 1) / kBM * kBM, nqt = Sp / kBM;
+  const int nkt = (S + kBN - 1) / kBN;
+  cudaError_t e = cudaMemsetAsync(
+      dq_acc, 0, sizeof(float) * static_cast<size_t>(B) * H * Sp * DH, stream);
+  if (e == cudaSuccess && splits > 1)
+    e = cudaMemsetAsync(dkv_acc, 0,
+                        sizeof(float) * 2 * static_cast<size_t>(B) * K * nkt *
+                            kBN * DH, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int rows = B * H * Sp;
+  prep_kernel<DH><<<(rows * (DH / 8) + 255) / 256, 256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, lse2, delta, rows, S, Sp);
+  const int smem = Smem<DH>::kBytes;
+  static bool opted_in = false;      // once, before any graph capture
+  if (!opted_in) {
+    e = cudaFuncSetAttribute(flash_bwd_wgmma_kernel<DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted_in = true;
+  }
+  dim3 grid(B * K * splits, nkt);
+  flash_bwd_wgmma_kernel<DH><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, mdo, lse2, delta, dq_acc, dkv_acc,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H, K,
+      S, splits, causal, window, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  post_dq_kernel<DH><<<B * H * nqt * (DH / 64), 256, 0, stream>>>(
+      dq_acc, static_cast<__nv_bfloat16*>(dq), S, nqt, scale);
+  if (splits > 1) {
+    const size_t kquads = static_cast<size_t>(B) * K * nkt * kBN * DH / 4;
+    const int kblocks = static_cast<int>(
+        (kquads + 255) / 256 < 4096 ? (kquads + 255) / 256 : 4096);
+    post_dkv_kernel<DH><<<kblocks, 256, 0, stream>>>(
+        dkv_acc, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), B * K, S, nkt, scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wgb
+
 }  // namespace
 
-// q, o, dout, dq [B, H, S, dh]; k, v, dk, dv [B, K, S, dh]; lse (the
-// forward's, natural units), delta [B, H, S] fp32; dq_acc [B, H, S, dh]
-// fp32 scratch; all contiguous, H % K == 0.  dtype: 0 = float32, 1 =
-// bfloat16 (16-byte aligned).  head_dim a multiple of 16 up to 128; what
-// the kernel does not take is refused, never replaced.
+// q, o, dout, dq [B, H, S, dh]; k, v, dk, dv [B, K, S, dh]; lse [B, H, S]
+// fp32 (the forward's, natural units); all contiguous, H % K == 0, bf16
+// 16-byte aligned.  fp32 scratch from the wrapper:
+//   variant 2: lse2 and delta [B, H, Sp] (Sp = S rounded up to 64), dq_acc
+//     B * H * Sp * dh, and with splits > 1 dkv_acc 2 * B * K * ceil(S /
+//     128) * 128 * dh;
+//   variants 0 and 1: delta [B, H, S] and dq_acc [B, H, S, dh]; lse2 and
+//     dkv_acc unused, splits 1.
+// variant (the wrapper's choice, `flash_bwd_variant`): 0 = float32 FMA,
+// 1 = bfloat16 mma.sync (dh a multiple of 16 up to 128), 2 = bfloat16
+// wgmma + TMA (dh 64 or 128).  splits (variant 2, `bwd_split_count`)
+// divides H / K.  What a variant does not take is refused, never replaced.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const float* lse, float* delta, float* dq_acc,
-    void* dq, void* dk, void* dv, int B, int H, int K, int S, int dh,
-    int causal, int window, float scale, int dtype, void* stream) {
+    const void* dout, const float* lse, float* lse2, float* delta,
+    float* dq_acc, float* dkv_acc, void* dq, void* dk, void* dv, int B,
+    int H, int K, int S, int dh, int causal, int window, int splits,
+    float scale, int variant, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (K <= 0 || H % K != 0 || dh % 16 != 0 || dh > 128 || dh <= 0 ||
-      (dtype != 0 && dtype != 1))
+      splits < 1 || (H / K) % splits != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == 2) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (dh == 64)
+      return wgb::launch<64>(q, k, v, o, dout, lse, lse2, delta, dq_acc,
+                             dkv_acc, dq, dk, dv, B, H, K, S, splits, causal,
+                             window, scale, st);
+    if (dh == 128)
+      return wgb::launch<128>(q, k, v, o, dout, lse, lse2, delta, dq_acc,
+                              dkv_acc, dq, dk, dv, B, H, K, S, splits, causal,
+                              window, scale, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if ((variant != 0 && variant != 1) || splits != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int dtype = variant;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = B * H * S;
   int err = dtype == 0
@@ -556,11 +1179,9 @@ extern "C" int flash_attention_bwd_launch(
       case 16: err = launch_bf16<16>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
       case 32: err = launch_bf16<32>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
       case 48: err = launch_bf16<48>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
-      case 64: err = launch_bf16<64>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
       case 80: err = launch_bf16<80>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
       case 96: err = launch_bf16<96>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
       case 112: err = launch_bf16<112>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
-      case 128: err = launch_bf16<128>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

@@ -5,7 +5,8 @@ process per source, all started together) and links into ONE shared
 library with a plain C interface, loaded with ``ctypes``.  The library
 is built at first use from the sources in this checkout, into
 ``_build/`` beside this package (listed in ``.gitignore``), and named by
-a hash of the sources and flags so an edit never loads a stale build.
+a hash of the sources, the headers they include (``csrc/*.cuh``) and the
+flags, so an edit never loads a stale build.
 Nothing here runs at import time: the CPU tests import every module.
 """
 
@@ -40,13 +41,18 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def _sources(csrc: Path | None = None) -> list[Path]:
+    """The translation units: every ``*.cu`` (each compiled on its own)."""
+    return sorted((csrc or CSRC).glob("*.cu"))
 
 
-def _digest(sources: list[Path]) -> str:
+def _digest(csrc: Path | None = None) -> str:
+    """A hash of the flags and of every ``*.cu`` and ``*.cuh`` under
+    ``csrc``: an edit to a header renames the library as an edit to a
+    source does."""
+    csrc = csrc or CSRC
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -54,7 +60,7 @@ def _digest(sources: list[Path]) -> str:
 
 def _build() -> Path:
     sources = _sources()
-    out = BUILD_DIR / f"libreprotorch_{_digest(sources)}.so"
+    out = BUILD_DIR / f"libreprotorch_{_digest()}.so"
     if out.exists():
         build_info.update(seconds=0.0, library=str(out), log="(cached)")
         return out
@@ -105,7 +111,7 @@ def library() -> ctypes.CDLL:
         lib.flash_attention_launch.argtypes = [
             p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]
         lib.flash_attention_launch.restype = i
-        lib.flash_attention_bwd_launch.argtypes = [p] * 11 + [i] * 7 + [
+        lib.flash_attention_bwd_launch.argtypes = [p] * 13 + [i] * 8 + [
             ctypes.c_float, i, p]
         lib.flash_attention_bwd_launch.restype = i
         lib.ssd_scan_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,

@@ -21,8 +21,12 @@ runs the Hopper kernel (``wgmma`` + TMA, warp-specialised), bf16 at the
 other multiples of 16 up to 256 the ``mma.sync`` kernel (above 128 with Q
 kept in shared memory: nemotron-4-340b's 192, recurrentgemma-9b's 256),
 fp32 an FMA kernel (multiples of 16 up to 256); other head dims raise.  The
-backward kernel takes head_dim up to 128 (``mma.sync`` in bf16, FMA in
-fp32); above it, a gradient on the card raises (ROADMAP B8).
+backward kernel takes head_dim up to 128, in three variants chosen the same
+way (``flash_bwd_variant``): bf16 at 64 or 128 the Hopper kernel (``wgmma``
++ TMA, dq by bulk reduce, the KV group's heads split over blocks where the
+grid is small: ``bwd_split_count``), bf16 at the other multiples of 16 the
+``mma.sync`` kernel, fp32 the FMA kernel; above 128, a gradient on the card
+raises (ROADMAP B8).
 """
 
 from __future__ import annotations
@@ -39,10 +43,24 @@ BWD_MAX_HEAD_DIM = 128
 launches = 0          # forward kernel launches since the caller zeroed this
 bwd_launches = 0      # backward kernel launches, likewise
 last_variant = None   # the variant the last forward launch ran
+last_bwd_variant = None   # the variant the last backward launch ran
+last_bwd_splits = None    # and its split of the KV group's heads
 
-# the C entry point's ``variant`` codes
+# the C entry points' ``variant`` codes (forward and backward alike)
 VARIANTS = {"fma": 0, "mma_sync": 1, "wgmma": 2}
 WGMMA_HEAD_DIMS = (64, 128)
+
+# the backward's wgmma variant: a block per 128-key tile, 64 query rows a
+# step (scratch rows padded to it), one block an SM (~194 KB of shared
+# memory).  A grid below the SM count splits each KV group's heads until it
+# has BWD_SPLIT_BLOCKS blocks: causal key tiles differ in work up to S / 64
+# fold, and four blocks an SM let the longest-first order even out the tail
+# (on an H100 at starcoder2-3b's 2 x 4096: split 6, 768 blocks, ran ~3 %
+# faster than split 2, 256 blocks)
+BWD_KEY_TILE = 128
+BWD_QUERY_TILE = 64
+BWD_SM_COUNT = 132        # an H100's SMs
+BWD_SPLIT_BLOCKS = 4 * BWD_SM_COUNT
 
 
 def flash_variant(dtype, head_dim: int) -> str:
@@ -215,6 +233,87 @@ def _launch_fwd(q, k, v, causal, window, with_lse):
     return out, lse
 
 
+def flash_bwd_variant(dtype, head_dim: int) -> str:
+    """The backward kernel's variant for a dtype and head_dim: ``"wgmma"``
+    (bf16, head_dim 64 or 128), ``"mma_sync"`` (bf16, another multiple of
+    16 up to 128) or ``"fma"`` (fp32, a multiple of 16 up to 128).  Raises
+    for what no variant takes (above 128: ROADMAP B8)."""
+    _check_bwd_head_dim(dtype, head_dim)
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
+
+
+def bwd_split_count(B: int, H: int, K: int, S: int) -> int:
+    """Parts into which the wgmma backward splits each KV group's g = H / K
+    query heads: 1 where B * K * ceil(S / BWD_KEY_TILE) blocks already
+    reach BWD_SM_COUNT, else the least divisor of g that brings the grid to
+    BWD_SPLIT_BLOCKS (g if none does).  A function of the shapes alone, so
+    a call makes no device-to-host sync and stays capturable in a CUDA
+    graph."""
+    if K <= 0 or H % K:
+        raise ValueError(f"H {H} is not a multiple of K {K}")
+    g = H // K
+    blocks = B * K * -(-S // BWD_KEY_TILE)
+    if blocks >= BWD_SM_COUNT:
+        return 1
+    return next((d for d in range(1, g + 1)
+                 if g % d == 0 and blocks * d >= BWD_SPLIT_BLOCKS), g)
+
+
+def flash_attention_bwd_split_plain(q, k, v, o, lse, do, *, causal=True,
+                                    window: int = 0, splits: int = 1,
+                                    key_tile: int = BWD_KEY_TILE,
+                                    query_tile: int = BWD_QUERY_TILE):
+    """The wgmma backward's decomposition in plain fp32: for each key tile
+    of ``key_tile`` keys and each of ``splits`` parts of a KV group's heads,
+    a dk / dv partial summed over the part's heads and its query tiles; dq
+    of each query tile summed from its per-key-tile partials; the parts'
+    dk / dv summed after.  Nothing is rounded to bf16 (the kernel rounds P
+    and dS for its products): this checks the sums, not the rounding.
+    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    B, H, S, dh = q.shape
+    K = k.shape[1]
+    g = H // K
+    if g % splits:
+        raise ValueError(f"splits {splits} does not divide g {g}")
+    gs = g // splits
+    scale = dh ** -0.5
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    delta = (dof * of).sum(-1)                       # [B, H, S]
+    pos = torch.arange(S, device=q.device)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk_parts = torch.zeros((splits,) + tuple(k.shape), dtype=torch.float32,
+                           device=q.device)
+    dv_parts = torch.zeros_like(dk_parts)
+    for t0 in range(0, S, key_tile):
+        t1 = min(S, t0 + key_tile)
+        q_begin = t0 if causal else 0
+        q_end = min(S, t0 + key_tile - 1 + window) if window else S
+        qt_begin = q_begin // query_tile * query_tile
+        for part in range(splits):
+            for hh in range(part * gs, (part + 1) * gs):
+                heads = torch.arange(K, device=q.device) * g + hh
+                for q0 in range(qt_begin, q_end, query_tile):
+                    q1 = min(S, q0 + query_tile)
+                    qs = qf[:, heads, q0:q1] * scale    # [B, K, n, dh]
+                    dos = dof[:, heads, q0:q1]
+                    s = torch.matmul(qs, kf[:, :, t0:t1].transpose(-1, -2))
+                    mask = _mask(pos, q0, q1, causal, window)[:, t0:t1]
+                    p = torch.where(
+                        mask, torch.exp(s - lse[:, heads, q0:q1, None]), 0.0)
+                    dp = torch.matmul(dos, vf[:, :, t0:t1].transpose(-1, -2))
+                    ds = p * (dp - delta[:, heads, q0:q1, None])
+                    dv_parts[part, :, :, t0:t1] += torch.matmul(
+                        p.transpose(-1, -2), dos)
+                    dk_parts[part, :, :, t0:t1] += torch.matmul(
+                        ds.transpose(-1, -2), qs)
+                    dq[:, heads, q0:q1] += torch.matmul(
+                        ds, kf[:, :, t0:t1]) * scale
+    return (dq.to(q.dtype), dk_parts.sum(0).to(k.dtype),
+            dv_parts.sum(0).to(v.dtype))
+
+
 def _check_bwd_head_dim(dtype, head_dim: int) -> None:
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention_bwd takes float32 or bfloat16, "
@@ -231,12 +330,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     """The backward kernel on CUDA tensors: (dq, dk, dv) in the inputs'
     dtypes from the forward's output ``o`` and log-sum-exp ``lse`` (fp32
     [B, H, S]) and the output's gradient ``do``."""
-    global bwd_launches
+    global bwd_launches, last_bwd_variant, last_bwd_splits
     _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cuda, not {q.device}")
     B, H, S, dh = q.shape
-    _check_bwd_head_dim(q.dtype, dh)
+    K = k.shape[1]
+    variant = flash_bwd_variant(q.dtype, dh)
     if o.shape != q.shape or do.shape != q.shape or \
             lse.shape != (B, H, S) or lse.dtype != torch.float32 or \
             o.dtype != q.dtype or do.dtype != q.dtype:
@@ -244,17 +344,31 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     _check_kernel_inputs("flash_attention_bwd", (q, k, v, o, lse, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
-    # scratch: D = rowsum(dO o) and the fp32 dq accumulator
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    # fp32 scratch: D = rowsum(dO o) and the dq accumulator; the wgmma
+    # variant pads rows to its query tile, keeps lse in log2 units beside D,
+    # and with a split sums the parts' dk / dv in an accumulator of their own
+    wg = variant == "wgmma"
+    splits = bwd_split_count(B, H, K, S) if wg else 1
+    rows = -(-S // BWD_QUERY_TILE) * BWD_QUERY_TILE if wg else S
+
+    def scratch(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=q.device)
+    delta = scratch(B, H, rows)
+    lse2 = scratch(B, H, rows) if wg else None
+    dq_acc = scratch(B, H, rows, dh)
+    dkv_acc = scratch(2, B, K, -(-S // BWD_KEY_TILE) * BWD_KEY_TILE, dh) \
+        if splits > 1 else None
     err = build.library().flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, k.shape[1], S,
-        dh, int(causal), int(window), float(dh ** -0.5),
-        int(q.dtype == torch.bfloat16), build.stream_ptr(q.device))
-    build.check(err, "flash_attention_bwd")
+        do.data_ptr(), lse.data_ptr(),
+        lse2.data_ptr() if wg else None, delta.data_ptr(),
+        dq_acc.data_ptr(), dkv_acc.data_ptr() if splits > 1 else None,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, K, S, dh,
+        int(causal), int(window), splits, float(dh ** -0.5),
+        VARIANTS[variant], build.stream_ptr(q.device))
+    build.check(err, f"flash_attention_bwd ({variant})")
     bwd_launches += 1
+    last_bwd_variant, last_bwd_splits = variant, splits
     return dq, dk, dv
 
 
@@ -292,5 +406,5 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     _check(q, k, v)
     if q.device.type == "cuda" and torch.is_grad_enabled() and \
             any(t.requires_grad for t in (q, k, v)):
-        _check_bwd_head_dim(q.dtype, q.shape[-1])
+        flash_bwd_variant(q.dtype, q.shape[-1])
     return FlashAttention.apply(q, k, v, causal, window)

@@ -29,7 +29,9 @@ from ..train.optimizer import AdamWConfig
 from .profile_forward import GEMM_WORDS, device_rows
 
 FLASH_FWD_WORDS = ("flash_wgmma", "flash_bf16", "flash_f32")
-FLASH_BWD_WORDS = ("flash_bwd", "bwd_prep", "bwd_post")
+# the backward's kernels: the mma.sync / FMA variants' prep and post, and
+# the wgmma variant's, whose namespace is wgb
+FLASH_BWD_WORDS = ("flash_bwd", "bwd_prep", "bwd_post", "::wgb::")
 
 
 def profile(arch: str, batch: int, seq: int, out: Path, dev) -> dict:

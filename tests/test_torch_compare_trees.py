@@ -70,3 +70,16 @@ def test_profile_decode_counts_copies_apart_from_kernels():
     assert pd._is_copy("Memset (Device)")
     assert not pd._is_copy("void (anonymous namespace)::"
                            "rope_kv_append_kernel<__nv_bfloat16, 8>(...)")
+
+
+def test_bench_flash_bwd_bound_counts_the_causal_pairs():
+    """``bench_flash_bwd``'s bound: five products of 2 dh flops over the
+    causal pairs at the bf16 peak, 0.521 ms at starcoder2-3b's training
+    shape; its shapes are the training run's and granite-20b's heads."""
+    from repro_torch.launch import bench_flash_bwd as bfb
+    pairs = sum(i + 1 for i in range(4096))
+    want = 10 * 2 * 24 * 128 * pairs / 989e12 * 1e3
+    assert abs(bfb.bound_ms(2, 24, 4096, 128) - want) < 1e-12
+    assert round(bfb.bound_ms(2, 24, 4096, 128), 3) == 0.521
+    assert bfb.SHAPES == {"train": (2, 24, 2, 4096, 128),
+                          "granite": (1, 48, 1, 1024, 128)}

@@ -382,25 +382,30 @@ def test_kernels_refuse_inputs_that_require_grad(dev):
         ssk.ssd_scan(x, x.detach()[..., 0], bc, bc)
 
 
-# chip_smoke.py's FLASH_BWD_SWEEP, with the training run's heads at S 1024
-@pytest.mark.parametrize("B,H,K,S,dh,causal,win,dt", [
-    (2, 24, 2, 1024, 128, True, 0, torch.bfloat16),   # starcoder2-3b heads
-    (1, 40, 8, 1024, 128, True, 0, torch.bfloat16),   # qwen2.5-32b
-    (1, 24, 8, 1024, 64, True, 0, torch.bfloat16),    # granite-moe-3b-a800m
-    (1, 48, 1, 1024, 128, True, 0, torch.bfloat16),   # granite-20b
-    (2, 16, 16, 1000, 80, False, 0, torch.bfloat16),  # hubert-xlarge
-    (1, 4, 2, 200, 128, True, 0, torch.bfloat16),     # partial tile
-    (1, 4, 2, 512, 128, True, 48, torch.bfloat16),    # window 48
-    (1, 4, 2, 100, 16, True, 0, torch.bfloat16),      # smoke head_dim
-    (1, 4, 2, 200, 64, True, 0, torch.float32),
-    (1, 8, 2, 300, 128, False, 48, torch.float32),
+# chip_smoke.py's FLASH_BWD_SWEEP, with the training run's heads at S 1024;
+# the variant each case runs (wgmma: bf16 at 64 / 128)
+@pytest.mark.parametrize("B,H,K,S,dh,causal,win,dt,variant", [
+    (2, 24, 2, 1024, 128, True, 0, torch.bfloat16, "wgmma"),  # starcoder2
+    (1, 40, 8, 1024, 128, True, 0, torch.bfloat16, "wgmma"),  # qwen2.5-32b
+    (1, 24, 8, 1024, 64, True, 0, torch.bfloat16, "wgmma"),   # granite-moe
+    (1, 48, 1, 1024, 128, True, 0, torch.bfloat16, "wgmma"),  # granite-20b
+    (1, 16, 16, 1024, 128, True, 0, torch.bfloat16, "wgmma"),  # moonshot MHA
+    (1, 48, 1, 1000, 128, True, 0, torch.bfloat16, "wgmma"),  # split, S%128
+    (2, 16, 16, 1000, 80, False, 0, torch.bfloat16, "mma_sync"),  # hubert
+    (1, 4, 2, 200, 128, True, 0, torch.bfloat16, "wgmma"),    # partial tile
+    (1, 4, 2, 512, 128, True, 48, torch.bfloat16, "wgmma"),   # window 48
+    (2, 6, 2, 333, 64, True, 100, torch.bfloat16, "wgmma"),   # window, dh 64
+    (1, 4, 2, 100, 16, True, 0, torch.bfloat16, "mma_sync"),  # smoke dh
+    (1, 4, 2, 200, 64, True, 0, torch.float32, "fma"),
+    (1, 8, 2, 300, 128, False, 48, torch.float32, "fma"),
 ])
 def test_flash_attention_bwd_kernel_vs_plain(dev, B, H, K, S, dh, causal,
-                                             win, dt):
+                                             win, dt, variant):
     """dq, dk, dv of the backward kernel against its plain version on the
     forward kernel's o and lse: bf16 within BF16_ROW_TOL of a row's rms
     (floored at GRAD_ROW_FLOOR of the tensor's), fp32 within 1e-4 of
-    max |plain|; the forward's lse against the plain version's."""
+    max |plain|; the forward's lse against the plain version's; the
+    variant that ran, and on wgmma its split of the KV group's heads."""
     g = torch.Generator(device="cpu").manual_seed(6)
     q, k, v, do = (torch.randn(shape, generator=g).to(dt).to(dev)
                    for shape in ((B, H, S, dh), (B, K, S, dh), (B, K, S, dh),
@@ -417,6 +422,9 @@ def test_flash_attention_bwd_kernel_vs_plain(dev, B, H, K, S, dh, causal,
                                   window=win)
     torch.cuda.synchronize()
     assert fak.bwd_launches == n + 1
+    assert fak.last_bwd_variant == variant == fak.flash_bwd_variant(dt, dh)
+    assert fak.last_bwd_splits == (fak.bwd_split_count(B, H, K, S)
+                                   if variant == "wgmma" else 1)
     for a, b in zip(got, want):
         assert a.dtype == dt and a.shape == b.shape
         if dt == torch.float32:
@@ -424,6 +432,37 @@ def test_flash_attention_bwd_kernel_vs_plain(dev, B, H, K, S, dh, causal,
         else:
             assert fak.row_scaled_error(a, b, floor=fak.GRAD_ROW_FLOOR) < \
                 fak.BF16_ROW_TOL
+
+
+def test_flash_attention_bwd_replays_in_a_cuda_graph(dev):
+    """The backward at the training run's shape (2 x 4096, 24/2 heads of
+    128, causal: the wgmma variant with its heads split) captured in a CUDA
+    graph and replayed: it makes no host sync, and the replay equals an
+    eager call within the bf16 row tolerance (dq's, and the split's dk /
+    dv, adds meet in no fixed order)."""
+    B, H, K, S, dh = 2, 24, 2, 4096, 128
+    g = torch.Generator(device="cpu").manual_seed(7)
+    q, k, v, do = (torch.randn(shape, generator=g).to(torch.bfloat16).to(dev)
+                   for shape in ((B, H, S, dh), (B, K, S, dh), (B, K, S, dh),
+                                 (B, H, S, dh)))
+    o, lse = fak._launch_fwd(q, k, v, True, 0, with_lse=True)
+    eager = fak.flash_attention_bwd(q, k, v, o, lse, do)
+    assert fak.last_bwd_variant == "wgmma" and fak.last_bwd_splits > 1
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):                  # warm-up off the graph
+        fak.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fak.flash_attention_bwd(q, k, v, o, lse, do)
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(got, eager):
+        assert bool(torch.isfinite(a).all())
+        assert fak.row_scaled_error(a, b, floor=fak.GRAD_ROW_FLOOR) < \
+            fak.BF16_ROW_TOL
 
 
 def test_train_step_matches_cpu(dev):

@@ -146,3 +146,110 @@ def test_flash_grad_refusals():
     with pytest.raises(ValueError, match="runs on cuda"):
         z = torch.zeros((1, 2, 8, 16))
         fak.flash_attention_bwd(z, z, z, z, torch.zeros((1, 2, 8)), z)
+
+
+# ---------------------------------------------------------------------------
+# the variants, the wgmma kernel's split of the KV group's heads, and its
+# decomposition
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 80, 96, 112, 128])
+def test_flash_bwd_variant_takes(dh):
+    """bf16 at 64 and 128 runs the wgmma kernel, at the other multiples of
+    16 up to 128 the mma.sync kernel; fp32 runs the FMA kernel."""
+    want = "wgmma" if dh in (64, 128) else "mma_sync"
+    assert fak.flash_bwd_variant(torch.bfloat16, dh) == want
+    assert fak.flash_bwd_variant(torch.float32, dh) == "fma"
+    assert fak.VARIANTS[want] in (1, 2)
+
+
+@pytest.mark.parametrize("dh", [8, 72, 144, 192, 256, 0])
+def test_flash_bwd_variant_refuses(dh):
+    for dt in (torch.bfloat16, torch.float32):
+        with pytest.raises(NotImplementedError, match="ROADMAP B8"):
+            fak.flash_bwd_variant(dt, dh)
+    with pytest.raises(TypeError):
+        fak.flash_bwd_variant(torch.float16, 64)
+
+
+@pytest.mark.parametrize("B,H,K,S,want", [
+    (2, 24, 2, 4096, 6),      # starcoder2-3b's training: 128 blocks -> 768
+    (1, 48, 1, 1024, 48),     # granite-20b: 8 blocks -> 384
+    (2, 24, 2, 8192, 1),      # 256 blocks fill the card already
+    (1, 33, 1, 17000, 1),     # 133 blocks, no split
+    (1, 40, 8, 2048, 5),      # qwen2.5-32b: g 5 has no smaller divisor
+    (1, 24, 8, 2048, 3),      # granite-moe-3b-a800m
+    (1, 16, 16, 4096, 1),     # moonshot's MHA, g 1: nothing to split
+    (4, 32, 8, 4096, 1),
+    (1, 4, 2, 200, 2),        # g 2: the most a group can split
+    (1, 12, 1, 16384, 6),     # 128 blocks: 6 reach 4 an SM, 4 do not
+    (1, 12, 1, 8192, 12),     # 64 blocks: only g reaches 528
+])
+def test_bwd_split_count(B, H, K, S, want):
+    """No split where the grid fills the card; otherwise the least divisor
+    of g that brings it to BWD_SPLIT_BLOCKS, g if none does."""
+    got = fak.bwd_split_count(B, H, K, S)
+    assert got == want
+    g = H // K
+    assert g % got == 0
+    blocks = B * K * -(-S // fak.BWD_KEY_TILE)
+    if blocks >= fak.BWD_SM_COUNT:
+        assert got == 1
+        return
+    assert blocks * got >= fak.BWD_SPLIT_BLOCKS or got == g
+    assert got == 1 or blocks * max(
+        d for d in range(1, got) if g % d == 0) < fak.BWD_SPLIT_BLOCKS
+
+
+def test_bwd_split_count_is_a_function_of_shapes():
+    """Ints in, an int out, the same each call: nothing to read from the
+    device, so the backward stays capturable."""
+    for B in (1, 2, 3):
+        for H, K in ((48, 1), (24, 2), (12, 4), (16, 16), (40, 8)):
+            for S in (1, 64, 127, 128, 1000, 4096):
+                a = fak.bwd_split_count(B, H, K, S)
+                assert a == fak.bwd_split_count(B, H, K, S)
+                assert isinstance(a, int) and (H // K) % a == 0
+    with pytest.raises(ValueError):
+        fak.bwd_split_count(1, 6, 4, 64)
+
+
+# (B, H, K, S, dh, causal, window, key_tile, query_tile): small tiles so a
+# small S spans several, partial last tiles, splits 1, 2 and g
+_SPLIT_CASES = [
+    (1, 4, 2, 40, 16, True, 0, 16, 8),
+    (2, 8, 2, 37, 32, True, 9, 16, 8),
+    (1, 8, 2, 50, 16, False, 0, 32, 16),
+    (1, 4, 1, 200, 64, True, 0, 128, 64),        # the kernel's own tiles
+]
+
+
+@pytest.mark.parametrize("case", _SPLIT_CASES)
+@pytest.mark.parametrize("which", ["1", "2", "g"])
+def test_flash_bwd_split_plain_vs_plain_and_reference_vjp(case, which):
+    """dk / dv summed from per-head-part partials and dq from per-key-tile
+    partials, as the wgmma kernel sums them, against the plain backward
+    and jax.vjp of the reference's chunked attention: fp32, 2e-5 of max."""
+    B, H, K, S, dh, causal, win, kt, qt = case
+    g = H // K
+    splits = {"1": 1, "2": 2, "g": g}[which]
+    q, k, v, do = _inputs(3, B, H, K, S, dh)
+    want = _ref_vjp(q, k, v, do, causal, win, "fp32")
+    tq, tk, tv, tdo = (torch.as_tensor(a) for a in (q, k, v, do))
+    o, lse = fak.flash_attention_fwd_plain(tq, tk, tv, causal=causal,
+                                           window=win)
+    got = fak.flash_attention_bwd_split_plain(
+        tq, tk, tv, o, lse, tdo, causal=causal, window=win, splits=splits,
+        key_tile=kt, query_tile=qt)
+    plain = fak.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo,
+                                          causal=causal, window=win)
+    for name, a, b, w in zip("qkv", got, plain, want):
+        lim = 2e-5 * np.abs(w).max()
+        assert float(np.abs(a.numpy() - w).max()) < lim, name
+        assert float((a - b).abs().max()) < lim, name
+
+
+def test_flash_bwd_split_plain_refuses_a_split_that_does_not_divide_g():
+    q, k, v, do = (torch.as_tensor(a) for a in _inputs(4, 1, 6, 2, 16, 16))
+    o, lse = fak.flash_attention_fwd_plain(q, k, v)
+    with pytest.raises(ValueError, match="does not divide"):
+        fak.flash_attention_bwd_split_plain(q, k, v, o, lse, do, splits=2)
