@@ -53,7 +53,18 @@ times both), then drives the port's paths:
    card; and starcoder2-3b whole (30 layers, published widths) trained
    through ``Trainer`` for a warm step and five more at 2 x 4096 tokens
    (bf16, AdamW, remat per unit): 60 forward and 30 backward flash
-   launches a step.
+   launches a step;
+8. checkpoints on the host Ralloc heap: the starcoder2-3b smoke state
+   (params and AdamW moments after a CPU step) saved from the card and
+   from the CPU into two fast-mode heaps, equal word for word, and a save
+   torn before its root swing, crashed, recovered: the first checkpoint
+   comes back bit for bit on the card and the torn shards are swept.  Then
+   the whole starcoder2-3b run of 7 saves its state (~30 GB) once after
+   its last step into a RAM heap; the heap crashes and is recovered, a new
+   ``Trainer`` resumes at step 6 with every leaf's checksum equal to the
+   saved one and trains two more steps (60 forward and 30 backward flash
+   launches a step): save, recover (by phase) and load seconds beside
+   pinned copies of 4 GB each way.
 
 Each run prints a ``... detail:`` line.  The launch counters are set to 0
 just before each path and read just after it; the ``kernels`` line gives
@@ -1045,6 +1056,7 @@ FLASH_BWD_SWEEP = [  # B, H, K, S, dh, causal, window, dtype
 ]
 TRAIN_ARCH = "starcoder2-3b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 6    # one warm step + 5
+RESUME_STEPS = 2          # steps after the checkpoint's crash and recovery
 
 
 def flash_bwd_flops(B, H, S, dh, causal, window) -> int:
@@ -1263,24 +1275,60 @@ def learn_fixed_pattern(torch, dev) -> dict:
     return {"first_loss": hist[0], "last_loss": hist[-1], "steps": 30}
 
 
-def train_full_width(torch, dev) -> dict:
+def train_full_width(torch, dev) -> tuple[dict, dict]:
     """starcoder2-3b whole (30 layers, published widths, random weights
     from the seed, bf16, AdamW, remat per unit) through ``Trainer`` on
     ``TokenStream`` batches of TRAIN_BATCH x TRAIN_SEQ: TRAIN_STEPS steps,
     the first a warm-up.  Losses and grad norms finite, the parameters
     moved, and per step 2 forward flash launches a layer (the forward and
-    the unit's recompute) and 1 backward, nothing else."""
+    the unit's recompute) and 1 backward, nothing else.
+
+    The trainer checkpoints to a ``CheckpointManager`` on a fast-mode RAM
+    heap sized for one save of the whole state (plus 5 %) with
+    ``ckpt_every=TRAIN_STEPS``: one save, after the last timed step.  Just
+    before it each leaf's checksum is taken on the card (``leaf_sums``).
+    Returns the run's numbers and what ``resume_full_width`` needs."""
     import math
     import statistics
+    from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs import get_config
+    from repro_torch.core.layout import SB_SIZE
+    from repro_torch.core.ralloc import Ralloc
     from repro_torch.data.pipeline import TokenStream
     from repro_torch.train.loop import Trainer
     from repro_torch.train.optimizer import AdamWConfig
     cfg = get_config(TRAIN_ARCH)
+    mem_available_gb = host_mem_available_gb()
     t = time.perf_counter()
     tr = Trainer(cfg, AdamWConfig(), seed=SEED, device=dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t
+
+    state = ckpt_state(tr)
+    state_bytes = sum(x.numel() * x.element_size() for x in _leaves(state))
+    del state
+    heap_size = -(-int(state_bytes * 1.05 + (64 << 20)) // SB_SIZE) * SB_SIZE
+    t = time.perf_counter()
+    heap = Ralloc(None, heap_size)
+    saved = {"heap": heap, "heap_size": heap_size, "state_bytes": state_bytes,
+             "heap_open_s": time.perf_counter() - t,
+             "mem_available_gb": mem_available_gb}
+    ckpt = CheckpointManager(heap)
+    real_save = ckpt.save
+    # the save's parts: block placement (descriptor writes) and the shard
+    # copies into the heap
+    parts = saved["save_parts_s"] = {"malloc": 0.0, "_store": 0.0}
+    for obj, name in ((heap, "malloc"), (ckpt, "_store")):
+        setattr(obj, name, _timed(getattr(obj, name), parts, name))
+
+    def timed_save(tree, step):
+        saved["leaf_sums"] = leaf_sums(torch, tree)
+        saved["step"] = step
+        t = time.perf_counter()
+        real_save(tree, step)
+        saved["save_s"] = time.perf_counter() - t
+    ckpt.save = timed_save
+    tr.ckpt, tr.ckpt_every = ckpt, TRAIN_STEPS
     stream = TokenStream(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
 
     def probe():
@@ -1343,6 +1391,265 @@ def train_full_width(torch, dev) -> dict:
         "ideal_ms_at_peak": remat_flops / BF16_FLOPS * 1e3,
         "peak_mem_gb": peak, "launches": counts,
         "launches_per_step": {k: v // TRAIN_STEPS for k, v in counts.items()},
+    }, saved
+
+
+def _timed(fn, acc: dict, key: str):
+    """``fn``, adding its seconds to ``acc[key]`` at every call."""
+    def call(*args, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            acc[key] += time.perf_counter() - t
+    return call
+
+
+def host_mem_available_gb() -> float:
+    """The host's ``MemAvailable`` (``/proc/meminfo``), GB."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024 / 1e9
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def ckpt_state(tr) -> dict:
+    """The tree a ``Trainer`` checkpoints."""
+    return {"p": tr.params, "o_m": tr.opt["m"], "o_v": tr.opt["v"]}
+
+
+def leaf_sums(torch, tree) -> list[int]:
+    """Per leaf, the int64 sum of its bits read as int16 / int32 (by its
+    element size), computed where the leaf lies."""
+    ints = {2: torch.int16, 4: torch.int32}
+    return [int(x.detach().view(ints[x.element_size()]).sum(
+        dtype=torch.int64)) for x in _leaves(tree)]
+
+
+def _bits_equal(torch, a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def copy_gb_per_s(torch, dev, nbytes: int, to_device: bool) -> float:
+    """GB/s of one ``nbytes`` copy between pinned host memory and the
+    card (after a warm copy of 64 MB), the floor of a save or a load."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    src, dst = (host, card) if to_device else (card, host)
+    dst[:64 << 20].copy_(src[:64 << 20])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    dst.copy_(src)
+    torch.cuda.synchronize()
+    return nbytes / (time.perf_counter() - t) / 1e9
+
+
+def pageable_d2h_gb_per_s(torch, dev, nbytes: int) -> dict:
+    """GB/s of an ``nbytes`` copy from the card into fresh pageable host
+    memory from ``np.zeros`` (every page faulted in by the copy, as a
+    save's heap is), again into the same, now resident, memory, and into
+    fresh anonymous memory advised to use transparent huge pages."""
+    import mmap
+    import numpy as np
+    card = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    buf = mmap.mmap(-1, nbytes, flags=mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS)
+    buf.madvise(mmap.MADV_HUGEPAGE)
+    zeros = torch.from_numpy(np.zeros(nbytes, np.uint8))
+    out = {}
+    for key, host in (("fresh", zeros), ("resident", zeros),
+                      ("fresh_hugepage",
+                       torch.from_numpy(np.frombuffer(buf, np.uint8)))):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        host.copy_(card)
+        torch.cuda.synchronize()
+        out[key] = nbytes / (time.perf_counter() - t) / 1e9
+    return out
+
+
+def check_checkpoint_vs_cpu(torch, dev) -> dict:
+    """Phase 8a: the starcoder2-3b smoke state (params and AdamW moments
+    after one CPU train step) saved with ``CheckpointManager`` from CUDA
+    tensors into one fast-mode heap and from the CPU tensors into another:
+    the two images equal word for word.  Then a second save from the card
+    torn between its fences and the root swing (``set_root`` raises once),
+    a crash, a reopen over the same image and ``recover``: ``load_latest``
+    gives the first checkpoint, bit-equal on the card, and the reachable
+    blocks are exactly its shards and manifest (the torn save's swept)."""
+    import numpy as np
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import layout
+    from repro_torch.core.ralloc import Ralloc
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.tree import tree_map
+    cfg = get_smoke_config(TRAIN_ARCH)
+    tr = Trainer(cfg, AdamWConfig(warmup_steps=1), seed=SEED, device="cpu")
+    tr.run(TokenStream(cfg.vocab_size, 2, 32, seed=SEED), steps=1,
+           log_every=1000)
+    cpu = ckpt_state(tr)
+    card = _to(cpu, dev)
+    size = 64 << 20
+    heaps, mgrs = {}, {}
+    for where, tree in (("cpu", cpu), ("cuda", card)):
+        heaps[where] = Ralloc(None, size)
+        mgrs[where] = CheckpointManager(heaps[where])
+        mgrs[where].save(tree, step=1)
+    used_sbs = int(heaps["cpu"].mem.read(layout.M_USED_SBS))
+    if not np.array_equal(heaps["cpu"].mem.nvm, heaps["cuda"].mem.nvm):
+        raise AssertionError("the heap saved from the card differs from the "
+                             "heap saved from the CPU")
+    heap = heaps["cuda"]
+    real = heap.set_root
+
+    def torn(*args, **kw):
+        heap.set_root = real
+        raise RuntimeError("crash before the root swing")
+    heap.set_root = torn
+    try:
+        mgrs["cuda"].save(tree_map(lambda t: t + 1, card), step=2)
+        raise AssertionError("the torn save committed")
+    except RuntimeError as e:
+        if "root swing" not in str(e):
+            raise
+    heap.heap.crash()
+    heap2 = Ralloc(None, size, backing=heap.mem.nvm)
+    mgr2 = CheckpointManager(heap2)
+    for root in (0, 1):
+        heap2.get_root(root, "ckpt_manifest")
+    stats = heap2.recover()
+    got, step = mgr2.load_latest(card)
+    leaves = list(zip(_leaves(got), _leaves(card)))
+    n = len(leaves)
+    if step != 1 or not all(g.device == c.device and _bits_equal(torch, g, c)
+                            for g, c in leaves):
+        raise AssertionError(f"load_latest after the torn save: step {step},"
+                             f" not the first checkpoint bit for bit")
+    if stats["reachable_blocks"] != n + 1:
+        raise AssertionError(f"reachable blocks {stats['reachable_blocks']}"
+                             f", want {n} shards + the manifest")
+    return {"leaves": n, "used_superblocks": used_sbs,
+            "card_image_equals_cpu_image": True, "restored_step": step,
+            "reachable_blocks": stats["reachable_blocks"],
+            "free_superblocks": stats["free_superblocks"]}
+
+
+def resume_full_width(torch, dev, saved: dict, stream_steps: int) -> dict:
+    """Phase 8b after the timed run: a crash of the heap holding its one
+    save, a reopen over the same image, ``recover`` (timed by phase, the
+    conservative scan's bytes counted), a new ``Trainer`` with the same
+    checkpoint store that starts at the saved step with every leaf's
+    checksum equal to the saved one, and ``stream_steps`` more steps:
+    finite losses and grad norms, 2 forward and 1 backward flash launches
+    a layer a step.  Beside it, one 4 GB copy each way through pinned
+    memory: the floors of the save and the load."""
+    import gc
+    import math
+    from repro_torch import obs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.heap_recovery import PHASES
+    from repro_torch.core.ralloc import Ralloc
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.optimizer import AdamWConfig
+    cfg = get_config(TRAIN_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    d2h = copy_gb_per_s(torch, dev, 4 << 30, to_device=False)
+    h2d = copy_gb_per_s(torch, dev, 4 << 30, to_device=True)
+    pageable = pageable_d2h_gb_per_s(torch, dev, 4 << 30)
+    torch.cuda.empty_cache()
+    thp = Path("/sys/kernel/mm/transparent_hugepage/enabled")
+
+    heap = saved.pop("heap")
+    heap.heap.crash()
+    image = heap.mem.nvm
+    del heap
+    scan = obs.counter("recovery.conservative_scan_bytes")
+    scan0 = scan.value
+    heap = Ralloc(None, saved["heap_size"], backing=image)
+    if not heap.dirty_restart:
+        raise AssertionError("the crashed heap reopened clean")
+    ckpt = CheckpointManager(heap)
+    for root in (0, 1):
+        heap.get_root(root, "ckpt_manifest")
+    t = time.perf_counter()
+    stats = heap.recover()
+    recover_s = time.perf_counter() - t
+
+    real_load = ckpt.load_latest
+    load = {}
+
+    def timed_load(tree_like=None):
+        t = time.perf_counter()
+        out = real_load(tree_like)
+        torch.cuda.synchronize()
+        load["s"] = time.perf_counter() - t
+        return out
+    ckpt.load_latest = timed_load
+    tr = Trainer(cfg, AdamWConfig(), seed=SEED, device=dev, ckpt=ckpt,
+                 ckpt_every=saved["step"])
+    if tr.start_step != saved["step"] or tr.opt["step"] != saved["step"]:
+        raise AssertionError(f"resumed at {tr.start_step}, want "
+                             f"{saved['step']}")
+    sums = leaf_sums(torch, ckpt_state(tr))
+    if sums != saved["leaf_sums"]:
+        bad = [i for i, (a, b) in enumerate(zip(sums, saved["leaf_sums"]))
+               if a != b]
+        raise AssertionError(f"restored leaves {bad} differ from the saved")
+    norms = []
+    step_fn = tr.step_fn
+
+    def recorded(*args):
+        out = step_fn(*args)
+        norms.append(float(out[2]["grad_norm"]))
+        return out
+    tr.step_fn = recorded
+    stream = TokenStream(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+
+    # counts start at 0 here: the resumed steps are the path
+    zero_counts()
+    losses = tr.run(stream, steps=tr.start_step + stream_steps, log_every=1)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    L = cfg.num_layers
+    want = dict.fromkeys(KERNELS, 0) | {
+        "flash_attention": 2 * L * stream_steps,
+        "flash_attention_bwd": L * stream_steps}
+    if counts != want:
+        raise AssertionError(f"resumed train launches {counts}, want {want}")
+    if len(losses) != stream_steps or not all(
+            math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"resumed losses {losses}, grad norms {norms}")
+    gb = saved["state_bytes"] / 1e9
+    return {
+        "model": cfg.name, "layers": L,
+        "cut": "none: every layer, widths as published",
+        "state_gb": gb, "leaves": len(saved["leaf_sums"]),
+        "heap_gb": saved["heap_size"] / 1e9,
+        "heap_open_s": saved["heap_open_s"],
+        "save_s": saved["save_s"], "save_gb_per_s": gb / saved["save_s"],
+        "save_parts_s": saved["save_parts_s"],
+        "d2h_pinned_4gb_gb_per_s": d2h,
+        "d2h_pageable_4gb_gb_per_s": pageable,
+        "host_transparent_hugepages": (thp.read_text().strip()
+                                       if thp.exists() else None),
+        "recover_s": recover_s,
+        "recover_phases_s": {k: stats["phases"][k]["seconds"]
+                             for k in PHASES},
+        "conservative_scan_bytes": scan.value - scan0,
+        "reachable_blocks": stats["reachable_blocks"],
+        "large_blocks": stats["large_blocks"],
+        "load_s": load["s"], "load_gb_per_s": gb / load["s"],
+        "h2d_pinned_4gb_gb_per_s": h2d,
+        "resumed_at_step": tr.start_step, "leaf_sums_equal": True,
+        "resumed_losses": losses, "resumed_grad_norms": norms,
+        "launches": counts,
+        "mem_available_gb_at_start": saved["mem_available_gb"],
     }
 
 
@@ -1459,6 +1766,10 @@ def main() -> int:
     train_ref = check_train_vs_cpu(torch, dev)
     print(f"train step on the card == train step on the CPU ({TRAIN_ARCH} "
           f"fp32 smoke, 1e-3): {train_ref}", flush=True)
+    ckpt_ref = check_checkpoint_vs_cpu(torch, dev)
+    print(f"checkpoint saved from the card == saved from the CPU, word for "
+          f"word; a torn save swept ({TRAIN_ARCH} smoke): {ckpt_ref}",
+          flush=True)
 
     paths: dict[str, dict] = {}     # each path's launch counts
 
@@ -1552,7 +1863,7 @@ def main() -> int:
     learned = learn_fixed_pattern(torch, dev)
     print(f"trainer on the card learns a fixed pattern: {learned}",
           flush=True)
-    train = train_full_width(torch, dev)
+    train, saved = train_full_width(torch, dev)
     print(f"train: {train['model']} whole, {train['layers']} layers, "
           f"{train['batch']} x {train['seq']} tokens: "
           f"{train['ms_per_step_median']:.3f} ms/step (median of "
@@ -1561,6 +1872,19 @@ def main() -> int:
           f"{train['peak_mem_gb']:.2f} GB on {card}", flush=True)
     print(f"train {train['model']} detail: " + json.dumps(train), flush=True)
     paths[f"train {train['model']}"] = train["launches"]
+    resumed = resume_full_width(torch, dev, saved, RESUME_STEPS)
+    resumed["card"] = card
+    print(f"checkpoint: {resumed['model']} whole, {resumed['state_gb']:.2f} "
+          f"GB of state: save {resumed['save_s']:.2f} s "
+          f"({resumed['save_gb_per_s']:.2f} GB/s; pinned copy to the host "
+          f"{resumed['d2h_pinned_4gb_gb_per_s']:.2f}), recover "
+          f"{resumed['recover_s']:.2f} s, load {resumed['load_s']:.2f} s "
+          f"({resumed['load_gb_per_s']:.2f} GB/s; pinned copy to the card "
+          f"{resumed['h2d_pinned_4gb_gb_per_s']:.2f}); resumed at step "
+          f"{resumed['resumed_at_step']} on {card}", flush=True)
+    print(f"checkpoint {resumed['model']} detail: " + json.dumps(resumed),
+          flush=True)
+    paths[f"train {resumed['model']} resumed"] = resumed["launches"]
     torch.cuda.empty_cache()
     print(f"chip_smoke: {time.perf_counter() - t_all:.1f} s", flush=True)
 

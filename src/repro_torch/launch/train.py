@@ -1,26 +1,33 @@
 """Training launcher.
 
-On the CPU (smoke configuration):
+On the CPU (smoke configuration), checkpointing to a heap file:
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \
-      --smoke --steps 50 --device cpu
+      --smoke --steps 50 --ckpt /tmp/train.heap --device cpu
 
 On the card, the published configuration whole (``--device`` defaults to
 ``cuda`` and raises without it):
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \
       --steps 6 --batch 2 --seq 4096
 
-Port of the reference's ``launch/train.py``; ``--ckpt`` waits for the
-checkpoint manager (ROADMAP A7b) and raises.  mamba2-370m raises at its
-first step (no ssd_scan backward yet), as do archs with head_dim above 128
-on the card (no flash backward there yet).
+Port of the reference's ``launch/train.py``.  ``--ckpt PATH`` opens (or
+creates) a 1 GiB Ralloc heap file at PATH, as the reference does, and
+the trainer saves a checkpoint there every ``--ckpt-every`` steps; a run
+over a heap that holds one resumes from its step.  The heap is closed
+cleanly at the end.  1 GiB holds the smoke configurations; a full-width
+state exhausts it (``MemoryError``, in the reference too: ROADMAP C).
+mamba2-370m raises at its first step (no ssd_scan backward yet), as do
+archs with head_dim above 128 on the card (no flash backward there yet).
 """
 
 from __future__ import annotations
 
 import argparse
 
+from ..checkpoint.manager import CheckpointManager
 from ..configs import get_config, get_smoke_config
+from ..core.ralloc import Ralloc
 from ..data.pipeline import TokenStream
+from ..device import resolve_device
 from ..distributed.compression import Int8ErrorFeedback
 from ..train.loop import Trainer
 from ..train.optimizer import AdamWConfig
@@ -43,16 +50,20 @@ def main(argv=None):
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.ckpt:
-        raise NotImplementedError(
-            "--ckpt needs the Ralloc-backed checkpoint manager, not ported "
-            "yet (ROADMAP A7b)")
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    resolve_device(args.device)         # raise before a heap file is made
+    ckpt = None
+    if args.ckpt:
+        heap = Ralloc(args.ckpt, 1 << 30)
+        ckpt = CheckpointManager(heap)
     stream = TokenStream(cfg.vocab_size, args.batch, args.seq, seed=0,
                          frontend_dim=cfg.d_model if cfg.frontend else 0)
     opt_cfg = AdamWConfig(lr=args.lr)
-    trainer = Trainer(cfg, opt_cfg, ckpt_every=args.ckpt_every,
+    trainer = Trainer(cfg, opt_cfg, ckpt=ckpt, ckpt_every=args.ckpt_every,
                       microbatches=args.microbatches, device=args.device)
+    if trainer.start_step:
+        print(f"[train] resumed from the checkpoint at step "
+              f"{trainer.start_step}")
     if args.compress_grads:
         trainer.step_fn = make_train_step(
             cfg, opt_cfg, microbatches=args.microbatches,
@@ -60,6 +71,8 @@ def main(argv=None):
     hist = trainer.run(stream, steps=args.steps)
     print(f"final loss {hist[-1]:.4f}; straggler events: "
           f"{trainer.straggler_events}")
+    if ckpt:
+        heap.close()
     return hist
 
 

@@ -1,6 +1,6 @@
 """``repro_torch.obs`` — metrics registry and phase spans for the port
-(a copy of the counter, gauge, histogram, span and snapshot parts of the
-reference's ``obs`` package).
+(a copy of the counter, gauge, histogram, span, source, reset and
+snapshot parts of the reference's ``obs`` package).
 
 One process-wide default :class:`~repro_torch.obs.registry.Registry`
 backs the module-level helpers; instrumented modules cache metric objects
@@ -9,18 +9,22 @@ enabled-flag branch.
 
 Metric names used by the port: ``device.*`` (engine allocator call
 sites), ``engine.*`` (publish queue), ``sched.*`` (admission),
-``serve.*`` (latency histograms), ``trie.*`` (prefix-cache hits) and
-``engine_recovery.*`` (named ``crash_and_recover`` phases).
+``serve.*`` (latency histograms), ``trie.*`` (prefix-cache hits),
+``engine_recovery.*`` (named ``crash_and_recover`` phases) and, for the
+host heap under the checkpoint store, the reference's ``heap.*``
+(flush/fence/cas/drain sources registered by ``PersistentHeap``),
+``alloc.*``, ``placement.*``, ``span.*`` and ``recovery.*`` names.
 """
 
 from __future__ import annotations
 
-from .registry import Counter, Gauge, Histogram, Registry
+from .registry import Counter, Gauge, Histogram, Registry, UnknownMetric
 
 __all__ = [
-    "Counter", "Gauge", "Histogram", "Registry", "get_registry",
-    "counter", "gauge", "histogram", "span", "snapshot", "enable",
-    "disable", "is_enabled",
+    "Counter", "Gauge", "Histogram", "Registry", "UnknownMetric",
+    "get_registry", "counter", "gauge", "histogram", "register_source",
+    "span", "snapshot", "reset", "reset_all", "enable", "disable",
+    "is_enabled",
 ]
 
 _default = Registry(enabled=True)
@@ -42,12 +46,24 @@ def histogram(name: str) -> Histogram:
     return _default.histogram(name)
 
 
-def span(name: str):
-    return _default.span(name)
+def register_source(name: str, read, reset=None) -> None:
+    _default.register_source(name, read, reset)
+
+
+def span(name: str, **args):
+    return _default.span(name, **args)
 
 
 def snapshot() -> dict:
     return _default.snapshot()
+
+
+def reset(*names: str) -> None:
+    _default.reset(*names)
+
+
+def reset_all() -> None:
+    _default.reset_all()
 
 
 def enable() -> None:

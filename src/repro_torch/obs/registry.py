@@ -1,7 +1,7 @@
 """Dependency-free metrics registry: counters, gauges, histograms, spans.
 
-The port's copy of the counter, gauge, histogram, span and snapshot parts
-of the reference's ``obs/registry.py``:
+The port's copy of the counter, gauge, histogram, span, source, reset and
+snapshot parts of the reference's ``obs/registry.py``:
 
   * **Near-zero cost when disabled.**  Every hot-path mutator
     (``Counter.inc``, ``Gauge.set``, ``Histogram.observe``) is one
@@ -10,6 +10,10 @@ of the reference's ``obs/registry.py``:
     is a bound-method call, never a registry lookup.
   * **Snapshot is plain data.**  :meth:`Registry.snapshot` returns a
     JSON-serializable dict.
+  * **Resets are named and checked.**  External counter *sources* (the
+    host heap's ``n_flush``/``n_fence``/... counts) register read/reset
+    callbacks; :meth:`Registry.reset` raises :class:`UnknownMetric` on a
+    name nothing registered, so a reset can never silently miss a heap.
 
 Spans (:meth:`Registry.span`) always *time* — recovery stats carry their
 phase durations whether or not metrics are on — but only accumulate into
@@ -25,8 +29,13 @@ import threading
 import time
 
 
+class UnknownMetric(KeyError):
+    """A reset named a metric nothing registered (or one that cannot be
+    reset) -- raised instead of silently skipping."""
+
+
 class Counter:
-    """Monotonic event count."""
+    """Monotonic event count (reset only via the registry)."""
 
     __slots__ = ("name", "value", "_reg")
 
@@ -38,6 +47,9 @@ class Counter:
     def inc(self, n: int = 1) -> None:
         if self._reg.enabled:
             self.value += n
+
+    def reset(self) -> None:
+        self.value = 0
 
 
 class Gauge:
@@ -53,6 +65,9 @@ class Gauge:
     def set(self, value) -> None:
         if self._reg.enabled:
             self.value = value
+
+    def reset(self) -> None:
+        self.value = 0
 
 
 class Histogram:
@@ -107,11 +122,12 @@ class _Span:
     registry's phase table only while enabled.  ``add(n)`` attributes an
     item count to the phase (blocks swept, records pruned, ...)."""
 
-    __slots__ = ("name", "seconds", "items", "_reg", "_t0")
+    __slots__ = ("name", "args", "seconds", "items", "_reg", "_t0")
 
-    def __init__(self, reg: "Registry", name: str):
+    def __init__(self, reg: "Registry", name: str, args: dict):
         self._reg = reg
         self.name = name
+        self.args = args
         self.seconds = 0.0
         self.items = 0
 
@@ -142,6 +158,7 @@ class Registry:
         self._counters: dict[str, Counter] = {}
         self._gauges: dict[str, Gauge] = {}
         self._histograms: dict[str, Histogram] = {}
+        self._sources: dict[str, tuple] = {}     # name -> (read, reset|None)
         self._phases: dict[str, dict] = {}
 
     # ------------------------------------------------------------ lifecycle
@@ -173,9 +190,16 @@ class Registry:
                 h = self._histograms.setdefault(name, Histogram(name, self))
         return h
 
+    def register_source(self, name: str, read, reset=None) -> None:
+        """Register an externally-owned counter (e.g. the host heap's
+        ``n_flush``).  Re-registering a name replaces the previous
+        binding: the newest owner (the live heap) wins."""
+        with self._lock:
+            self._sources[name] = (read, reset)
+
     # ------------------------------------------------------------ span/phase
-    def span(self, name: str) -> _Span:
-        return _Span(self, name)
+    def span(self, name: str, **args) -> _Span:
+        return _Span(self, name, args)
 
     def _record_span(self, span: _Span) -> None:
         row = self._phases.get(span.name)
@@ -188,11 +212,47 @@ class Registry:
 
     # -------------------------------------------------------------- queries
     def snapshot(self) -> dict:
+        counters = {n: c.value for n, c in self._counters.items()}
+        for name, (read, _reset) in self._sources.items():
+            counters[name] = read()
         return {
             "enabled": self.enabled,
-            "counters": {n: c.value for n, c in self._counters.items()},
+            "counters": counters,
             "gauges": {n: g.value for n, g in self._gauges.items()},
             "histograms": {n: h.summary()
                            for n, h in self._histograms.items() if h.count},
             "phases": {n: dict(row) for n, row in self._phases.items()},
         }
+
+    # --------------------------------------------------------------- resets
+    def reset(self, *names: str) -> None:
+        """Reset each named metric; unknown or unresettable names raise
+        :class:`UnknownMetric` (never silently skipped)."""
+        for name in names:
+            if name in self._counters:
+                self._counters[name].reset()
+            elif name in self._histograms:
+                self._histograms[name].reset()
+            elif name in self._gauges:
+                self._gauges[name].reset()
+            elif name in self._sources:
+                reset = self._sources[name][1]
+                if reset is None:
+                    raise UnknownMetric(
+                        f"metric source {name!r} has no reset callback")
+                reset()
+            else:
+                raise UnknownMetric(
+                    f"no resettable metric named {name!r} is registered")
+
+    def reset_all(self) -> None:
+        """Zero every registry-owned metric and clear the phase table.
+        External sources keep their owners' counts -- reset those by
+        name, so a missing registration is an error, not a skew."""
+        for c in self._counters.values():
+            c.reset()
+        for g in self._gauges.values():
+            g.reset()
+        for h in self._histograms.values():
+            h.reset()
+        self._phases.clear()

@@ -7,14 +7,20 @@ that raises, with a checkpoint store present, rebuilds the trainer from
 the last checkpoint and replays from its step; the data stream is a pure
 function of the step, so the replay sees the same batches).
 
-``ckpt`` takes the reference's interface: ``save(tree, step)`` and
-``load_latest(tree_like) -> (tree | None, step)``, the tree
-{"p": params, "o_m": m, "o_v": v}.  The Ralloc-backed checkpoint manager
-is not ported yet (ROADMAP A7b).  Unlike the reference, whose restore
-drops ``microbatches``, ``compressor`` and ``seed``, the rebuilt trainer
-keeps every setting it was made with (ROADMAP C15).  Parameters are built
-on ``device`` (``cuda`` unless told otherwise) outside inference mode, so
-autograd can save them.
+``ckpt`` is a ``checkpoint.manager.CheckpointManager`` on a Ralloc heap
+(or any store with its interface: ``save(tree, step)`` and
+``load_latest(tree_like) -> (tree | None, step)``), the tree
+{"p": params, "o_m": m, "o_v": v}.  Every ``ckpt_every`` steps the
+trainer saves it; a trainer built over a store that holds a committed
+checkpoint resumes from it: ``load_latest`` copies each leaf from the
+heap straight to the parameter's device and dtype, and the step counter
+and ``start_step`` take the checkpoint's step (a crash at any point
+resumes from the last committed manifest root; half-written checkpoints
+are GC'd by the heap's recovery, never read).  Unlike the reference,
+whose restore drops ``microbatches``, ``compressor`` and ``seed``, the
+rebuilt trainer keeps every setting it was made with (ROADMAP C15).
+Parameters are built on ``device`` (``cuda`` unless told otherwise)
+outside inference mode, so autograd can save them.
 """
 
 from __future__ import annotations
@@ -67,8 +73,8 @@ class Trainer:
                 self.start_step = step
 
     def _onto(self, tree, like):
-        """A restored tree (numpy arrays or tensors) as tensors like
-        ``like``."""
+        """A restored tree as tensors like ``like`` (no copy for a leaf
+        already on its device in its dtype, as ``load_latest`` gives)."""
         return tree_map(lambda x, ref: torch.as_tensor(x).to(
             device=ref.device, dtype=ref.dtype), tree, like)
 

@@ -1,5 +1,6 @@
 """Parameter trees: nested dicts of tensors, walked in the reference's
-order (JAX flattens a dict by its sorted keys)."""
+order (JAX flattens a dict by its sorted keys), and the string JAX gives
+such a tree's structure (``treedef_str``, kept in checkpoint manifests)."""
 
 from __future__ import annotations
 
@@ -33,3 +34,15 @@ def tree_unflatten(like, leaves: list):
             node = node[k]
         node[path[-1]] = next(it)
     return out
+
+
+def treedef_str(tree) -> str:
+    """``str(jax.tree.flatten(tree)[1])`` for a tree of nested dicts: keys
+    sorted and written with ``repr``, each leaf a ``*`` -- e.g.
+    ``PyTreeDef({'o_m': {'x': *}, 'p': {'a': *, 'b': *}})``."""
+    def node(t):
+        if isinstance(t, dict):
+            return "{" + ", ".join(f"{k!r}: {node(t[k])}"
+                                   for k in sorted(t)) + "}"
+        return "*"
+    return f"PyTreeDef({node(tree)})"

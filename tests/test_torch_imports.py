@@ -67,7 +67,11 @@ def test_port_imports_neither_jax_nor_reference():
                 "configs/internvl2_26b.py", "tree.py", "train/optimizer.py",
                 "train/step.py", "train/loop.py", "data/pipeline.py",
                 "distributed/compression.py", "launch/train.py",
-                "launch/profile_train.py"):
+                "launch/profile_train.py", "analysis/faults.py",
+                "core/pptr.py", "core/layout.py", "core/atomics.py",
+                "core/heap.py", "core/filters.py", "core/spans.py",
+                "core/heap_recovery.py", "core/ralloc.py",
+                "checkpoint/manager.py"):
         assert PORT / rel in files, rel
     assert (ROOT / "chip_smoke.py") in files
     found = {str(f.relative_to(ROOT)): _bad_imports(f) for f in files}
@@ -85,7 +89,7 @@ def test_import_checker_catches_forbidden_imports(tmp_path):
     assert _bad_imports(p) == []
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import serve, train
     from repro_torch.models.params import init_params
@@ -94,14 +98,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.train.optimizer import AdamWConfig
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     # the train entry points: the trainer and the CLI raise without CUDA
-    # unless asked for the CPU; --ckpt waits for the checkpoint slice
+    # unless asked for the CPU, with --ckpt too (before making its heap)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(get_smoke_config("starcoder2-3b"), AdamWConfig())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.main(["--arch", "starcoder2-3b", "--smoke", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
-        train.main(["--arch", "starcoder2-3b", "--smoke", "--ckpt", "x",
-                    "--device", "cpu"])
+    heap = tmp_path / "train.heap"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--arch", "starcoder2-3b", "--smoke", "--steps", "1",
+                    "--ckpt", str(heap)])
+    assert not heap.exists()
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
          "starcoder2-3b", "--smoke", "--steps", "3", "--device", "cpu"],
