@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's six CUDA kernels from ``src/repro_torch/csrc``, holds
+Builds the port's seven CUDA kernels from ``src/repro_torch/csrc``, holds
 each kernel against its plain PyTorch version at its paths' shapes (and
 times both), then drives the port's paths:
 
@@ -48,12 +48,17 @@ times both), then drives the port's paths:
    its plain version at starcoder2-3b's training shape (2 x 4096, 24/2
    heads of 128, causal) and at the other archs' head layouts, a partial
    tile, a window and fp32 (and the forward's log-sum-exp against the
-   plain version's); one train step of the starcoder2-3b smoke config on
-   the card against the CPU; the trainer learning a fixed pattern on the
-   card; and starcoder2-3b whole (30 layers, published widths) trained
-   through ``Trainer`` for a warm step and five more at 2 x 4096 tokens
-   (bf16, AdamW, remat per unit): 60 forward and 30 backward flash
-   launches a step;
+   plain version's); the scan's backward kernel ``ssd_scan_bwd`` against
+   its plain version at mamba2-370m's training shape (8 x 2048, 32 heads
+   of 64, N 128, fp32), the scan's sweep shapes and the smoke widths; one
+   fp32 train step of the starcoder2-3b and of the mamba2-370m smoke
+   configs on the card against the CPU; the trainer learning a fixed
+   pattern on the card; starcoder2-3b whole (30 layers, published widths)
+   trained through ``Trainer`` for a warm step and five more at 2 x 4096
+   tokens (bf16, AdamW, remat per unit): 60 forward and 30 backward flash
+   launches a step; and mamba2-370m whole (48 layers) the same way at
+   8 x 2048 tokens: 96 ``ssd_scan`` and 48 ``ssd_scan_bwd`` launches a
+   step;
 8. checkpoints on the host Ralloc heap: the starcoder2-3b smoke state
    (params and AdamW moments after a CPU step) saved from the card and
    from the CPU into two fast-mode heaps, equal word for word, and a save
@@ -533,26 +538,51 @@ def flash_bound(B, H, K, S, dh, causal, window, es) -> tuple[float, str]:
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def ssd_bound(Bz, H, S, P, N, chunk=64) -> tuple[float, str]:
-    """Least time for the chunked scan at the kernel's chunk, in fp32 FMAs:
+def ssd_flops(Bz, H, S, P, N, chunk=64) -> int:
+    """The chunked scan's least work at the kernel's chunk, in fp32 FMAs:
     per (batch, chunk) the lower triangle of C B^T, once, as B and C are
     shared by the heads; per head and chunk that triangle's product with
-    xdt, C h^T and the state update.  Against xdt, loga, B, C read once
-    and y written once (fp32)."""
+    xdt, C h^T and the state update."""
     nc = -(-S // chunk)
     tri = chunk * (chunk + 1) // 2
-    flops = 2 * Bz * nc * tri * N + \
+    return 2 * Bz * nc * tri * N + \
         2 * Bz * H * nc * (tri * P + 2 * chunk * N * P)
+
+
+def ssd_bound(Bz, H, S, P, N, chunk=64) -> tuple[float, str]:
+    """Least time for the chunked scan: ``ssd_flops`` against xdt, loga, B,
+    C read once and y written once (fp32)."""
+    flops = ssd_flops(Bz, H, S, P, N, chunk)
     nbytes = 4 * (2 * Bz * H * S * P + Bz * H * S + 2 * Bz * S * N)
     t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def check_forward_kernels(torch, dev, flash_mains, ssd_main) -> list[dict]:
+def ssd_bwd_bound(Bz, H, S, P, N, chunk=64,
+                  recompute: bool = False) -> tuple[float, str]:
+    """Least time for the scan's gradient, in fp32 FMAs: per head and
+    chunk the triangles dy x^T and M^T dy, the reverse pass's (dy
+    exp(cums))^T C, B g^T, (x dec) g and (dy exp(cums)) h_in; per (batch,
+    chunk) C B^T, dG^T C and dG B on the lower triangle.  ``recompute``
+    adds each chunk's own state (x dec)^T B, which a backward that
+    rebuilds h_in instead of reading it from the forward needs (the
+    bound of ``csrc/ssd_scan_bwd.cu``'s design).  Against xdt, loga, B,
+    C, dy read once and dxdt, dloga, dB, dC written once."""
+    nc = -(-S // chunk)
+    tri = chunk * (chunk + 1) // 2
+    states = 5 if recompute else 4
+    flops = 2 * Bz * nc * 3 * tri * N + \
+        2 * Bz * H * nc * (2 * tri * P + states * chunk * P * N)
+    nbytes = 4 * (4 * Bz * H * S * P + 2 * Bz * H * S + 4 * Bz * S * N)
+    t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_forward_kernels(torch, dev, flash_mains, ssd_mains) -> list[dict]:
     """flash_attention and ssd_scan against their plain versions on the
-    reference's sweep shapes and the timed shapes (``flash_mains``: the
-    first the row's own, the others in its ``timed_shapes``; ``ssd_main``),
-    with full times at the timed shapes."""
+    reference's sweep shapes and the timed shapes (``flash_mains`` and
+    ``ssd_mains``: the first the row's own, the others in its
+    ``timed_shapes``), with full times at the timed shapes."""
     from repro_torch.kernels.flash_attention import kernel as fak
     from repro_torch.kernels.ssd_scan import kernel as ssk
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -633,8 +663,8 @@ def check_forward_kernels(torch, dev, flash_mains, ssd_main) -> list[dict]:
                **timed[0], timed_shapes=timed[1:], sweep=sweep)
     rows = [row]
 
-    sweep = []
-    for Bz, H, S, P, N, dtn, decay in SSD_SWEEP + [ssd_main]:
+    sweep, timed = [], []
+    for Bz, H, S, P, N, dtn, decay in SSD_SWEEP + ssd_mains:
         dt = getattr(torch, dtn)
         xdt = randn(Bz, H, S, P, scale=0.1, dt=dt)
         loga = -randn(Bz, H, S, scale=0.1, dt=dt).abs() if decay is None \
@@ -656,16 +686,13 @@ def check_forward_kernels(torch, dev, flash_mains, ssd_main) -> list[dict]:
 
         def run():
             return ssk.ssd_scan(xdt, loga, Bm, Cm)
-        main = (Bz, H, S, P, N, dtn, decay) == ssd_main
+        main = (Bz, H, S, P, N, dtn, decay) in ssd_mains
         ms = graph_ms(torch, run, iters=10 if main else 50)
         if not main:
             sweep.append({"shape": shape, "max_abs_err": err,
                           "rel_err": rel, "ms": ms, "bound_ms": bound})
             continue
-        rows.append({
-            "name": "ssd_scan", "route": "cuda",
-            "source": "src/repro_torch/csrc/ssd_scan.cu",
-            "replaces": "src/repro/kernels/ssd_scan/kernel.py:82",
+        timed.append({
             "max_abs_err": err, "rel_err": rel,
             "tolerance": "1e-4 relative", "ms": ms,
             "eager_ms": event_ms(torch, run, iters=10),
@@ -673,8 +700,12 @@ def check_forward_kernels(torch, dev, flash_mains, ssd_main) -> list[dict]:
                 xdt, loga, Bm, Cm), iters=3, warmup=1),
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "library_call": "none (no single PyTorch call computes the scan)",
-            "shape": shape, "sweep": sweep,
-        })
+            "shape": shape})
+        del xdt, loga, Bm, Cm, want, got
+    rows.append(dict({"name": "ssd_scan", "route": "cuda",
+                      "source": "src/repro_torch/csrc/ssd_scan.cu",
+                      "replaces": "src/repro/kernels/ssd_scan/kernel.py:82"},
+                     **timed[0], timed_shapes=timed[1:], sweep=sweep))
     return rows
 
 
@@ -759,7 +790,8 @@ def check_engine_vs_cpu(torch, dev) -> dict:
 # phase 3: the serve runs at full width
 # ---------------------------------------------------------------------------
 KERNELS = ("kv_update", "rope_kv_append", "paged_attention",
-           "flash_attention", "ssd_scan", "flash_attention_bwd")
+           "flash_attention", "ssd_scan", "flash_attention_bwd",
+           "ssd_scan_bwd")
 
 
 def _counters():
@@ -773,7 +805,8 @@ def _counters():
             "paged_attention": (pak, "launches"),
             "flash_attention": (fak, "launches"),
             "ssd_scan": (ssk, "launches"),
-            "flash_attention_bwd": (fak, "bwd_launches")}
+            "flash_attention_bwd": (fak, "bwd_launches"),
+            "ssd_scan_bwd": (ssk, "bwd_launches")}
 
 
 def zero_counts() -> None:
@@ -1056,6 +1089,10 @@ FLASH_BWD_SWEEP = [  # B, H, K, S, dh, causal, window, dtype
 ]
 TRAIN_ARCH = "starcoder2-3b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 6    # one warm step + 5
+# mamba2-370m at the context of the Mamba-2 paper's Pile runs (arXiv
+# 2405.21060), 8 sequences a step
+SSD_TRAIN_ARCH = "mamba2-370m"
+SSD_TRAIN_BATCH, SSD_TRAIN_SEQ = 8, 2048
 RESUME_STEPS = 2          # steps after the checkpoint's crash and recovery
 
 
@@ -1215,18 +1252,100 @@ def check_flash_bwd(torch, dev) -> dict:
     return row
 
 
-def check_train_vs_cpu(torch, dev) -> dict:
-    """One train step of the starcoder2-3b smoke configuration in fp32 on
-    the card and on the CPU from the same weights and batch: the loss,
-    every gradient leaf and every parameter after the step within 1e-3
-    (the card runs both flash kernels, fp32 variants)."""
+def check_ssd_bwd(torch, dev) -> dict:
+    """The scan's backward kernel against its plain version run on the
+    card on the same inputs, at mamba2-370m's training shape (8 x 2048, 32
+    heads of 64, N 128, fp32), at SSD_SWEEP's fp32 shapes and at the smoke
+    widths: dxdt, dloga, dB and dC each within 1e-4 of max |plain|, and a
+    second call bit-equal (no float atomics).  Times at the training
+    shape; no PyTorch call computes the scan's gradient."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels.ssd_scan import kernel as ssk
+    from repro_torch.layers.ssd import n_heads
+    c, sc = get_config(SSD_TRAIN_ARCH), get_smoke_config(SSD_TRAIN_ARCH)
+    main = (SSD_TRAIN_BATCH, n_heads(c), SSD_TRAIN_SEQ, c.ssm_head_dim,
+            c.ssm_state, None)
+    smoke = (2, n_heads(sc), 64, sc.ssm_head_dim, sc.ssm_state, None)
+    cases = [main] + [(Bz, H, S, P, N, decay)
+                      for Bz, H, S, P, N, dtn, decay in SSD_SWEEP
+                      if dtn == "float32"] + [smoke]
+    g = torch.Generator(device=dev).manual_seed(SEED + 43)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+    sweep, row = [], None
+    for case in cases:
+        Bz, H, S, P, N, decay = case
+        xdt = randn(Bz, H, S, P, scale=0.1)
+        loga = -randn(Bz, H, S, scale=0.1).abs() if decay is None \
+            else torch.full((Bz, H, S), decay, device=dev)
+        Bm, Cm = randn(Bz, S, N, scale=0.3), randn(Bz, S, N, scale=0.3)
+        dy = randn(Bz, H, S, P)
+        want = ssk.ssd_scan_bwd_plain(xdt, loga, Bm, Cm, dy)
+        got = ssk.ssd_scan_bwd(xdt, loga, Bm, Cm, dy)
+        again = ssk.ssd_scan_bwd(xdt, loga, Bm, Cm, dy)
+        torch.cuda.synchronize()
+        errs = {name: float((a - b).abs().max() / b.abs().max())
+                for name, a, b in zip(("dxdt", "dloga", "dB", "dC"), got,
+                                      want)}
+        bad = {k: e for k, e in errs.items() if not e < 1e-4}
+        if bad or not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(
+                f"ssd_scan_bwd {case}: differs from the plain version by "
+                f"{bad} of max |plain| (tolerance 1e-4), or from itself")
+        bound, by = ssd_bwd_bound(Bz, H, S, P, N)
+
+        def run():
+            return ssk.ssd_scan_bwd(xdt, loga, Bm, Cm, dy)
+        shape = {"xdt": [Bz, H, S, P], "BC": [Bz, S, N], "dtype": "float32",
+                 "log_decay": decay}
+        if case != main:
+            sweep.append({"shape": shape, "rel_err": errs,
+                          "ms": graph_ms(torch, run, iters=20),
+                          "bound_ms": bound})
+            print(f"ssd_scan_bwd {case}: {errs}", flush=True)
+            continue
+        row = {
+            "name": "ssd_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+            "replaces": "none: the reference's gradient is XLA's autodiff "
+                        "of src/repro/layers/ssd.py:68 (ssd_chunked); its "
+                        "Pallas kernel (src/repro/kernels/ssd_scan/"
+                        "kernel.py:82) is forward-only",
+            "max_abs_err": max(float((a - b).abs().max())
+                               for a, b in zip(got, want)),
+            "rel_err": errs, "tolerance": "1e-4 of max |plain|",
+            "ms": graph_ms(torch, run, iters=10),
+            "eager_ms": event_ms(torch, run, iters=10),
+            "plain_ms": event_ms(torch, lambda: ssk.ssd_scan_bwd_plain(
+                xdt, loga, Bm, Cm, dy), iters=2, warmup=1),
+            "bound_ms": bound, "bound_by": by,
+            # this design rebuilds h_in: its work adds each chunk's state
+            "design_bound_ms": ssd_bwd_bound(Bz, H, S, P, N,
+                                             recompute=True)[0],
+            "library_ms": None,
+            "library_call": "none: no PyTorch call computes the SSD scan's "
+                            "gradient (autograd through the plain version "
+                            "is not one call)",
+            "shape": shape}
+    del xdt, loga, Bm, Cm, dy, want, got, again
+    torch.cuda.empty_cache()
+    row["sweep"] = sweep
+    return row
+
+
+def check_train_vs_cpu(torch, dev, arch: str = TRAIN_ARCH) -> dict:
+    """One train step of ``arch``'s smoke configuration in fp32 on the card
+    and on the CPU from the same weights and batch: the loss, every
+    gradient leaf and every parameter after the step within 1e-3 (the card
+    runs both flash kernels, fp32 variants, or both ssd_scan kernels; the
+    CPU the plain versions)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.params import init_params
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.step import loss_and_grads, make_train_step
     from repro_torch.tree import tree_leaves
-    cfg = dataclasses.replace(get_smoke_config(TRAIN_ARCH),
-                              dtype=torch.float32)
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
     cpu = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
     gen = torch.Generator().manual_seed(SEED + 42)
     toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen)
@@ -1247,8 +1366,8 @@ def check_train_vs_cpu(torch, dev) -> dict:
             "params": max(float((pc[k] - pg[k]).abs().max()) for k in pc)}
     bad = {k: e for k, e in errs.items() if not e < 1e-3}
     if bad:
-        raise AssertionError(f"the train step on the card differs from the "
-                             f"CPU: {bad}")
+        raise AssertionError(f"{arch}: the train step on the card differs "
+                             f"from the CPU: {bad}")
     return errs
 
 
@@ -1275,19 +1394,23 @@ def learn_fixed_pattern(torch, dev) -> dict:
     return {"first_loss": hist[0], "last_loss": hist[-1], "steps": 30}
 
 
-def train_full_width(torch, dev) -> tuple[dict, dict]:
-    """starcoder2-3b whole (30 layers, published widths, random weights
-    from the seed, bf16, AdamW, remat per unit) through ``Trainer`` on
-    ``TokenStream`` batches of TRAIN_BATCH x TRAIN_SEQ: TRAIN_STEPS steps,
-    the first a warm-up.  Losses and grad norms finite, the parameters
-    moved, and per step 2 forward flash launches a layer (the forward and
-    the unit's recompute) and 1 backward, nothing else.
+def train_full_width(torch, dev, arch: str = TRAIN_ARCH,
+                     batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                     ckpt: bool = True) -> tuple[dict, dict]:
+    """``arch`` whole (every layer, published widths, random weights from
+    the seed, bf16, AdamW, remat per unit) through ``Trainer`` on
+    ``TokenStream`` batches of batch x seq: TRAIN_STEPS steps, the first a
+    warm-up.  Losses and grad norms finite, the parameters moved, and per
+    step 2 forward launches a layer of its mixer's kernel (the forward and
+    the unit's recompute) and 1 backward, nothing else: flash for
+    attention, ssd_scan for Mamba-2.
 
-    The trainer checkpoints to a ``CheckpointManager`` on a fast-mode RAM
-    heap sized for one save of the whole state (plus 5 %) with
-    ``ckpt_every=TRAIN_STEPS``: one save, after the last timed step.  Just
-    before it each leaf's checksum is taken on the card (``leaf_sums``).
-    Returns the run's numbers and what ``resume_full_width`` needs."""
+    With ``ckpt`` the trainer checkpoints to a ``CheckpointManager`` on a
+    fast-mode RAM heap sized for one save of the whole state (plus 5 %)
+    with ``ckpt_every=TRAIN_STEPS``: one save, after the last timed step.
+    Just before it each leaf's checksum is taken on the card
+    (``leaf_sums``).  Returns the run's numbers and what
+    ``resume_full_width`` needs."""
     import math
     import statistics
     from repro_torch.checkpoint.manager import CheckpointManager
@@ -1295,44 +1418,54 @@ def train_full_width(torch, dev) -> tuple[dict, dict]:
     from repro_torch.core.layout import SB_SIZE
     from repro_torch.core.ralloc import Ralloc
     from repro_torch.data.pipeline import TokenStream
+    from repro_torch.layers.ssd import n_heads
     from repro_torch.train.loop import Trainer
     from repro_torch.train.optimizer import AdamWConfig
-    cfg = get_config(TRAIN_ARCH)
-    mem_available_gb = host_mem_available_gb()
+    cfg = get_config(arch)
+    saved = {}
+    if ckpt:
+        saved["mem_available_gb"] = host_mem_available_gb()
     t = time.perf_counter()
     tr = Trainer(cfg, AdamWConfig(), seed=SEED, device=dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t
 
-    state = ckpt_state(tr)
-    state_bytes = sum(x.numel() * x.element_size() for x in _leaves(state))
-    del state
-    heap_size = -(-int(state_bytes * 1.05 + (64 << 20)) // SB_SIZE) * SB_SIZE
-    t = time.perf_counter()
-    heap = Ralloc(None, heap_size)
-    saved = {"heap": heap, "heap_size": heap_size, "state_bytes": state_bytes,
-             "heap_open_s": time.perf_counter() - t,
-             "mem_available_gb": mem_available_gb}
-    ckpt = CheckpointManager(heap)
-    real_save = ckpt.save
-    # the save's parts: block placement (descriptor writes) and the shard
-    # copies into the heap
-    parts = saved["save_parts_s"] = {"malloc": 0.0, "_store": 0.0}
-    for obj, name in ((heap, "malloc"), (ckpt, "_store")):
-        setattr(obj, name, _timed(getattr(obj, name), parts, name))
-
-    def timed_save(tree, step):
-        saved["leaf_sums"] = leaf_sums(torch, tree)
-        saved["step"] = step
+    if ckpt:
+        state = ckpt_state(tr)
+        state_bytes = sum(x.numel() * x.element_size()
+                          for x in _leaves(state))
+        del state
+        heap_size = -(-int(state_bytes * 1.05 + (64 << 20)) // SB_SIZE) * \
+            SB_SIZE
         t = time.perf_counter()
-        real_save(tree, step)
-        saved["save_s"] = time.perf_counter() - t
-    ckpt.save = timed_save
-    tr.ckpt, tr.ckpt_every = ckpt, TRAIN_STEPS
-    stream = TokenStream(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+        heap = Ralloc(None, heap_size)
+        saved.update(heap=heap, heap_size=heap_size, state_bytes=state_bytes,
+                     heap_open_s=time.perf_counter() - t)
+        manager = CheckpointManager(heap)
+        real_save = manager.save
+        # the save's parts: block placement (descriptor writes) and the
+        # shard copies into the heap
+        parts = saved["save_parts_s"] = {"malloc": 0.0, "_store": 0.0}
+        for obj, name in ((heap, "malloc"), (manager, "_store")):
+            setattr(obj, name, _timed(getattr(obj, name), parts, name))
+
+        def timed_save(tree, step):
+            saved["leaf_sums"] = leaf_sums(torch, tree)
+            saved["step"] = step
+            t = time.perf_counter()
+            real_save(tree, step)
+            saved["save_s"] = time.perf_counter() - t
+        manager.save = timed_save
+        tr.ckpt, tr.ckpt_every = manager, TRAIN_STEPS
+    stream = TokenStream(cfg.vocab_size, batch, seq, seed=SEED)
+
+    L = cfg.num_layers
+    n_attn = sum(mx in ("attn", "local_attn") for mx, _ in cfg.layer_specs)
+    n_ssd = sum(mx == "mamba2" for mx, _ in cfg.layer_specs)
+    mixer, leaf = ("attn", "wq") if n_attn else ("ssd", "in_x")
 
     def probe():
-        return {"wq": tr.params["units"]["l0"]["attn"]["wq"][0],
+        return {f"{mixer}.{leaf}": tr.params["units"]["l0"][mixer][leaf][0],
                 "embed": tr.params["embed"][:256]}
     before = {k: t.detach().float().clone() for k, t in probe().items()}
     norms = []
@@ -1351,35 +1484,41 @@ def train_full_width(torch, dev) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
-    L = cfg.num_layers
     want = dict.fromkeys(KERNELS, 0) | {
-        "flash_attention": 2 * L * TRAIN_STEPS,
-        "flash_attention_bwd": L * TRAIN_STEPS}
+        "flash_attention": 2 * n_attn * TRAIN_STEPS,
+        "flash_attention_bwd": n_attn * TRAIN_STEPS,
+        "ssd_scan": 2 * n_ssd * TRAIN_STEPS,
+        "ssd_scan_bwd": n_ssd * TRAIN_STEPS}
     if counts != want:
-        raise AssertionError(f"train launches {counts}, want {want}")
+        raise AssertionError(f"train {arch}: launches {counts}, want {want}")
     if not all(math.isfinite(x) for x in losses + norms):
-        raise AssertionError(f"non-finite loss or grad norm: {losses} "
-                             f"{norms}")
+        raise AssertionError(f"train {arch}: non-finite loss or grad norm: "
+                             f"{losses} {norms}")
     moved = {k: float((t.detach().float() - before[k]).abs().max())
              for k, t in probe().items()}
     if not all(m > 0 for m in moved.values()):
-        raise AssertionError(f"the parameters did not move: {moved}")
+        raise AssertionError(f"train {arch}: the parameters did not move: "
+                             f"{moved}")
     step_ms = [1e3 * x for x in tr.step_times[1:]]
     ms = statistics.median(step_ms)
-    T = TRAIN_BATCH * TRAIN_SEQ
+    T = batch * seq
     n_params = cfg.param_count()
-    attn_fwd = 4 * TRAIN_BATCH * cfg.num_heads * cfg.head_dim * \
-        (TRAIN_SEQ * (TRAIN_SEQ + 1) // 2) * L
-    model_flops = 6 * n_params * T + 3 * attn_fwd
+    attn_fwd = 4 * batch * cfg.num_heads * cfg.head_dim * \
+        (seq * (seq + 1) // 2) * n_attn
+    scan_fwd = ssd_flops(batch, n_heads(cfg), seq, cfg.ssm_head_dim,
+                         cfg.ssm_state) * n_ssd
+    model_flops = 6 * n_params * T + 3 * (attn_fwd + scan_fwd)
     # what the step computes with the unit remat: one more forward
-    remat_flops = model_flops + 2 * n_params * T + attn_fwd
+    remat_flops = model_flops + 2 * n_params * T + attn_fwd + scan_fwd
+    shape = {"heads": [cfg.num_heads, cfg.num_kv_heads],
+             "head_dim": cfg.head_dim, "d_ff": cfg.d_ff} if n_attn else {
+        "ssm_heads": n_heads(cfg), "ssm_head_dim": cfg.ssm_head_dim,
+        "ssm_state": cfg.ssm_state, "expand": cfg.expand}
     return {
-        "model": cfg.name, "layers": L, "d_model": cfg.d_model,
-        "heads": [cfg.num_heads, cfg.num_kv_heads],
-        "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+        "model": cfg.name, "layers": L, "d_model": cfg.d_model, **shape,
         "vocab": cfg.vocab_size, "dtype": str(cfg.dtype),
         "cut": "none: every layer, widths as published",
-        "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "params": n_params, "batch": batch, "seq": seq,
         "steps": TRAIN_STEPS, "setup_s": setup_s, "losses": losses,
         "grad_norms": norms, "moved": moved,
         "ms_per_step_median": ms, "ms_per_step": step_ms,
@@ -1686,6 +1825,16 @@ def report_forward(kind: str, res: dict, card: str) -> None:
     print(f"{kind} {res['model']} detail: " + json.dumps(res), flush=True)
 
 
+def report_train(res: dict, card: str) -> None:
+    print(f"train: {res['model']} whole, {res['layers']} layers, "
+          f"{res['batch']} x {res['seq']} tokens: "
+          f"{res['ms_per_step_median']:.3f} ms/step (median of "
+          f"{res['steps'] - 1}), {res['tokens_per_s']:.1f} tokens/s, "
+          f"model-FLOP share {res['model_flop_share']:.3f}, peak "
+          f"{res['peak_mem_gb']:.2f} GB on {card}", flush=True)
+    print(f"train {res['model']} detail: " + json.dumps(res), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1733,14 +1882,19 @@ def main() -> int:
         # row has SDPA's forward there beside the backward's
         (TRAIN_BATCH, tcfg.num_heads, tcfg.num_kv_heads, TRAIN_SEQ,
          tcfg.head_dim, True, 0, "bfloat16")]
-    ssd_main = (mrun.batch, n_heads(mcfg), mrun.seq, mcfg.ssm_head_dim,
-                mcfg.ssm_state, "float32", None)
+    # the scoring run's shape, then the training run's (its forward, under
+    # grad twice a layer a step)
+    ssd_mains = [(b, n_heads(mcfg), s, mcfg.ssm_head_dim, mcfg.ssm_state,
+                  "float32", None)
+                 for b, s in ((mrun.batch, mrun.seq),
+                              (SSD_TRAIN_BATCH, SSD_TRAIN_SEQ))]
     kernels = check_kernels(torch, cfg, dev) + check_forward_kernels(
-        torch, dev, flash_mains, ssd_main)
+        torch, dev, flash_mains, ssd_mains)
     lse = check_flash_lse(torch, dev)
     print(f"flash_attention lse == plain lse (1e-4 of max(1, |lse|)): "
           f"{lse}", flush=True)
     kernels.append(check_flash_bwd(torch, dev))
+    kernels.append(check_ssd_bwd(torch, dev))
     by_name = {row["name"]: row for row in kernels}
     by_name["flash_attention"]["lse_check"] = lse
     for c in (gcfg, rcfg, gmcfg, mscfg):
@@ -1756,6 +1910,11 @@ def main() -> int:
               f"ms {row['ms']:.5f} eager {row['eager_ms']:.5f} "
               f"plain {row['plain_ms']:.5f} bound {row['bound_ms']:.5f}",
               flush=True)
+        for t in row.get("timed_shapes", []):
+            print(f"kernel {row['name']} at {t['shape']}: max_abs_err "
+                  f"{t['max_abs_err']} ms {t['ms']:.5f} eager "
+                  f"{t['eager_ms']:.5f} plain {t['plain_ms']:.5f} bound "
+                  f"{t['bound_ms']:.5f}", flush=True)
 
     ref = check_engine_vs_cpu(torch, dev)
     print(f"engine on the card == engine on the CPU (fp32 smoke): {ref}",
@@ -1763,9 +1922,10 @@ def main() -> int:
     fwd_ref = check_forward_vs_cpu(torch, dev)
     print(f"forward on the card == forward on the CPU (fp32 smoke, 1e-3): "
           f"{fwd_ref}", flush=True)
-    train_ref = check_train_vs_cpu(torch, dev)
-    print(f"train step on the card == train step on the CPU ({TRAIN_ARCH} "
-          f"fp32 smoke, 1e-3): {train_ref}", flush=True)
+    for arch in (TRAIN_ARCH, SSD_TRAIN_ARCH):
+        train_ref = check_train_vs_cpu(torch, dev, arch)
+        print(f"train step on the card == train step on the CPU ({arch} "
+              f"fp32 smoke, 1e-3): {train_ref}", flush=True)
     ckpt_ref = check_checkpoint_vs_cpu(torch, dev)
     print(f"checkpoint saved from the card == saved from the CPU, word for "
           f"word; a torn save swept ({TRAIN_ARCH} smoke): {ckpt_ref}",
@@ -1859,18 +2019,18 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    # training: learning on the card, then starcoder2-3b whole
+    # training: learning on the card, mamba2-370m whole, then
+    # starcoder2-3b whole (checkpointed)
     learned = learn_fixed_pattern(torch, dev)
     print(f"trainer on the card learns a fixed pattern: {learned}",
           flush=True)
+    mtrain, _ = train_full_width(torch, dev, SSD_TRAIN_ARCH, SSD_TRAIN_BATCH,
+                                 SSD_TRAIN_SEQ, ckpt=False)
+    report_train(mtrain, card)
+    paths[f"train {mtrain['model']}"] = mtrain["launches"]
+    torch.cuda.empty_cache()
     train, saved = train_full_width(torch, dev)
-    print(f"train: {train['model']} whole, {train['layers']} layers, "
-          f"{train['batch']} x {train['seq']} tokens: "
-          f"{train['ms_per_step_median']:.3f} ms/step (median of "
-          f"{train['steps'] - 1}), {train['tokens_per_s']:.1f} tokens/s, "
-          f"model-FLOP share {train['model_flop_share']:.3f}, peak "
-          f"{train['peak_mem_gb']:.2f} GB on {card}", flush=True)
-    print(f"train {train['model']} detail: " + json.dumps(train), flush=True)
+    report_train(train, card)
     paths[f"train {train['model']}"] = train["launches"]
     resumed = resume_full_width(torch, dev, saved, RESUME_STEPS)
     resumed["card"] = card

@@ -117,6 +117,8 @@ def library() -> ctypes.CDLL:
         lib.ssd_scan_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
                                         i, p]
         lib.ssd_scan_launch.restype = i
+        lib.ssd_scan_bwd_launch.argtypes = [p] * 12 + [i] * 5 + [p]
+        lib.ssd_scan_bwd_launch.restype = i
         _lib = lib
     return _lib
 

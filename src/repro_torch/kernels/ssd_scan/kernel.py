@@ -1,8 +1,13 @@
-"""Mamba-2 SSD chunked scan (forward) over pre-discretized inputs.
+"""Mamba-2 SSD chunked scan over pre-discretized inputs, and its gradient.
 
-``ssd_scan`` launches the CUDA kernel ``csrc/ssd_scan.cu`` (the port of
-the Pallas TPU kernel ``kernels/ssd_scan/kernel.py::ssd_scan`` of the
-reference) on CUDA tensors and runs ``ssd_scan_plain`` on CPU tensors.
+``ssd_scan`` is an autograd Function (``SSDScan``).  On CUDA tensors its
+forward launches the CUDA kernel ``csrc/ssd_scan.cu`` (the port of the
+Pallas TPU kernel ``kernels/ssd_scan/kernel.py::ssd_scan`` of the
+reference) and its backward ``csrc/ssd_scan_bwd.cu`` (``ssd_scan_bwd``; the
+reference has no Pallas backward: its gradient is XLA's autodiff of
+``layers/ssd.py::ssd_chunked``).  On CPU tensors the Function runs the
+plain versions, ``ssd_phases`` forward and ``ssd_scan_bwd_plain``
+backward, at the caller's chunk.
 
 xdt: [Bz, H, S, P] (x * dt); loga: [Bz, H, S] (dt * A, the log-decay);
 B/C: [Bz, S, N], shared across the heads.  Returns y [Bz, H, S, P] in
@@ -15,10 +20,12 @@ computed chunk by chunk in the dual (quadratic) form, split the way the
 CUDA kernel splits it (``ssd_phases``): chunk-local quantities for every
 chunk at once (C B^T once per batch and chunk, the intra-chunk outputs,
 each chunk's own state dH), then the state pass over the chunks in order,
-then the outputs from the incoming states.  The chunk is 64, the layer's
-``ssm_chunk`` and the kernel's (the Pallas kernel's is 128 -- the same
-function up to rounding).  Any S is taken: a partial last chunk is
-zero-padded.  The kernel takes P <= 64 and N <= 128, each a multiple of 8.
+then the outputs from the incoming states.  The kernels' chunk is 64, the
+layer's ``ssm_chunk`` (the Pallas kernel's is 128 -- the same function up
+to rounding).  Any S is taken: a partial last chunk is zero-padded.  The
+kernels take P <= 64 and N <= 128, each a multiple of 8; the backward
+takes fp32 only (an input in bf16 that requires grad raises, on the CPU
+too).
 """
 
 from __future__ import annotations
@@ -30,8 +37,10 @@ from .. import build
 
 CHUNK = 64            # the kernel's chunk (kQ in csrc/ssd_scan.cu)
 MAX_P, MAX_N = 64, 128
+BWD_HEADS = 8         # heads a block of the backward's chunk kernels
 
-launches = 0          # kernel launches since the caller last zeroed this
+launches = 0          # forward kernel launches since the caller zeroed this
+bwd_launches = 0      # backward kernel launches, likewise
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -86,6 +95,92 @@ def ssd_scan_plain(xdt, loga, B, C, *, chunk: int = CHUNK):
     return ssd_phases(xdt, loga, B, C, chunk=chunk)[0]
 
 
+def ssd_scan_bwd_plain(xdt, loga, B, C, dy, *, chunk: int = CHUNK):
+    """Plain PyTorch version of the backward kernel: the gradient of
+    ``ssd_phases``' y (from h0 = 0) given dy, in the kernel's three
+    phases, without autograd.  Returns (dxdt [Bz, H, S, P], dloga [Bz, H,
+    S], dB [Bz, S, N], dC [Bz, S, N]), all fp32.
+
+    Per chunk c, with cums the in-chunk cumulative log-decay, L_ij =
+    exp(cums_i - cums_j) for i >= j (0 above), G = C B^T, M = G * L,
+    decay_out = exp(cums_last - cums), h_in the state entering the chunk
+    and g_c the gradient of the state leaving it:
+
+    1. the reverse state pass, last chunk to first: g_{nc-1} = 0,
+       g_{c-1} = (dy_c * exp(cums_c))^T C_c + exp(cums_c[-1]) g_c (and
+       the forward pass for h_in, recomputed from each chunk's dH);
+    2. chunk-parallel, from the chunk's own dy, h_in and g_c:
+       dx = M^T dy + decay_out * (B g^T);
+       dG = sum_h (dy x^T) * L,  dB = dG^T C + (x * decay_out) g,
+       dC = dG B + (dy * exp(cums)) h_in  (B and C sum over the heads);
+       dcums from L (row minus column sums of M * (dy x^T) below the
+       diagonal), from exp(cums) in the inter-chunk output, from
+       decay_out, and at the chunk's last step from decay_out and the
+       chunk decay of the pass;
+    3. dloga, the reverse cumulative sum of dcums within the chunk.
+    """
+    Bz, H, S, P = xdt.shape
+    N = B.shape[-1]
+    Q = chunk
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    x = F.pad(xdt.float(), (0, 0, 0, pad)).reshape(Bz, H, nc, Q, P)
+    la = F.pad(loga.float(), (0, pad)).reshape(Bz, H, nc, Q)
+    Bf = F.pad(B.float(), (0, 0, 0, pad)).reshape(Bz, 1, nc, Q, N)
+    Cf = F.pad(C.float(), (0, 0, 0, pad)).reshape(Bz, 1, nc, Q, N)
+    dyf = F.pad(dy.float(), (0, 0, 0, pad)).reshape(Bz, H, nc, Q, P)
+
+    cums = torch.cumsum(la, dim=-1)                          # [Bz,H,nc,Q]
+    G = torch.matmul(Cf, Bf.transpose(-1, -2))               # [Bz,1,nc,Q,Q]
+    ii = torch.arange(Q, device=x.device)
+    causal = ii[:, None] >= ii[None, :]
+    rel = cums[..., :, None] - cums[..., None, :]
+    L = torch.exp(torch.where(causal, rel, 0.0)) * causal
+    dec = torch.exp(cums[..., -1:] - cums)                   # decay_out
+    ecum = torch.exp(cums)
+    e_last = ecum[..., -1]                                   # [Bz,H,nc]
+    xd = x * dec[..., None]
+    dye = dyf * ecum[..., None]
+    dH = torch.matmul(xd.transpose(-1, -2), Bf)              # [Bz,H,nc,P,N]
+    dS = torch.matmul(dye.transpose(-1, -2), Cf)
+
+    # 1. the state passes: h_in forward, g in reverse
+    h = torch.zeros((Bz, H, P, N), dtype=torch.float32, device=x.device)
+    g = torch.zeros_like(h)
+    h_ins, gs = [], [None] * nc
+    for c in range(nc):
+        h_ins.append(h)
+        h = h * e_last[:, :, c, None, None] + dH[:, :, c]
+    for c in reversed(range(nc)):
+        gs[c] = g
+        g = dS[:, :, c] + e_last[:, :, c, None, None] * g
+    h_in = torch.stack(h_ins, dim=2)
+    g = torch.stack(gs, dim=2)                               # [Bz,H,nc,P,N]
+
+    # 2. chunk-parallel
+    D = torch.matmul(dyf, x.transpose(-1, -2))               # dy_i . x_j
+    LD = L * D
+    # L's diagonal is exp(0): its terms in the row and column sums cancel
+    T = G * LD * (ii[:, None] > ii[None, :])
+    V = torch.matmul(Bf, g.transpose(-1, -2))                # B g^T [Q,P]
+    dx = torch.matmul((G * L).transpose(-1, -2), dyf) + dec[..., None] * V
+    dG = LD.sum(1, keepdim=True)
+    W = torch.matmul(dye, h_in)                              # [Bz,H,nc,Q,N]
+    dB = torch.matmul(dG.transpose(-1, -2), Cf)[:, 0] + \
+        torch.matmul(xd, g).sum(1)
+    dC = torch.matmul(dG, Bf)[:, 0] + W.sum(1)
+    u = dec * (x * V).sum(-1)
+    dcums = T.sum(-1) - T.sum(-2) + (W * Cf).sum(-1) - u
+    dcums[..., -1] += u.sum(-1) + e_last * (g * h_in).sum((-1, -2))
+
+    # 3. dloga: the reverse cumulative sum within each chunk
+    dloga = dcums.flip(-1).cumsum(-1).flip(-1)
+    return (dx.reshape(Bz, H, nc * Q, P)[:, :, :S],
+            dloga.reshape(Bz, H, nc * Q)[:, :, :S],
+            dB.reshape(Bz, nc * Q, N)[:, :S],
+            dC.reshape(Bz, nc * Q, N)[:, :S])
+
+
 def _check(xdt, loga, B, C):
     if xdt.dim() != 4:
         raise ValueError("xdt must be [Bz, H, S, P]")
@@ -98,32 +193,33 @@ def _check(xdt, loga, B, C):
     for t in (loga, B, C):
         if t.device != xdt.device:
             raise ValueError("all tensors must be on one device")
-    if any(t.requires_grad for t in (xdt, loga, B, C)):
-        raise RuntimeError("ssd_scan is forward-only: it has no backward "
-                           "kernel")
-
-
-def ssd_scan(xdt, loga, B, C):
-    """xdt: [Bz, H, S, P]; loga: [Bz, H, S]; B/C: [Bz, S, N].  Returns y
-    [Bz, H, S, P] in fp32."""
-    global launches
-    _check(xdt, loga, B, C)
-    if xdt.device.type == "cpu":
-        return ssd_scan_plain(xdt, loga, B, C)
-    if xdt.device.type != "cuda":
+    if xdt.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ssd_scan runs on cuda or cpu, not {xdt.device}")
-    if xdt.dtype not in _DTYPE_CODE or any(t.dtype != xdt.dtype
-                                           for t in (loga, B, C)):
-        raise TypeError("ssd_scan takes float32 or bfloat16 inputs of one "
-                        "dtype")
-    Bz, H, S, P = xdt.shape
-    N = B.shape[-1]
+
+
+def _check_kernel_inputs(name, tensors, dtypes):
+    """What the CUDA kernels take: one dtype of ``dtypes``, contiguous
+    tensors, P and N multiples of 8 up to MAX_P and MAX_N."""
+    dt = tensors[0].dtype
+    if dt not in dtypes or any(t.dtype != dt for t in tensors):
+        raise TypeError(f"{name} takes "
+                        f"{' or '.join(str(d)[6:] for d in dtypes)} inputs "
+                        f"of one dtype")
+    P, N = tensors[0].shape[-1], tensors[2].shape[-1]
     if P % 8 or N % 8 or P > MAX_P or N > MAX_N:
         raise ValueError(f"the kernel takes P <= {MAX_P} and N <= {MAX_N}, "
                          f"multiples of 8; got P={P}, N={N}")
-    for t in (xdt, loga, B, C):
+    for t in tensors:
         if not t.is_contiguous():
-            raise ValueError("ssd_scan needs contiguous tensors")
+            raise ValueError(f"{name} needs contiguous tensors")
+
+
+def _launch_fwd(xdt, loga, B, C):
+    """The forward kernel on CUDA tensors: y [Bz, H, S, P] fp32."""
+    global launches
+    _check_kernel_inputs("ssd_scan", (xdt, loga, B, C), tuple(_DTYPE_CODE))
+    Bz, H, S, P = xdt.shape
+    N = B.shape[-1]
     nc = -(-S // CHUNK)
     y = torch.empty((Bz, H, S, P), dtype=torch.float32, device=xdt.device)
     # scratch: each chunk's own state and exp(cums), written by the
@@ -139,3 +235,79 @@ def ssd_scan(xdt, loga, B, C):
     build.check(err, "ssd_scan")
     launches += 1
     return y
+
+
+def ssd_scan_bwd(xdt, loga, B, C, dy, *, chunk: int = CHUNK):
+    """(dxdt, dloga, dB, dC) of y = ssd_scan(xdt, loga, B, C) given dy [Bz,
+    H, S, P]: the backward kernel on CUDA tensors (fp32, chunk CHUNK),
+    ``ssd_scan_bwd_plain`` at ``chunk`` on CPU tensors."""
+    global bwd_launches
+    _check(xdt, loga, B, C)
+    if dy.shape != xdt.shape or dy.device != xdt.device:
+        raise ValueError(f"dy {tuple(dy.shape)} must be like xdt "
+                         f"{tuple(xdt.shape)}")
+    if xdt.device.type == "cpu":
+        return ssd_scan_bwd_plain(xdt, loga, B, C, dy, chunk=chunk)
+    _check_kernel_inputs("ssd_scan_bwd", (xdt, loga, B, C, dy),
+                         (torch.float32,))
+    Bz, H, S, P = xdt.shape
+    N = B.shape[-1]
+    nc = -(-S // CHUNK)
+    groups = -(-H // BWD_HEADS)
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=xdt.device)
+    dx, dloga, dB, dC = f32(Bz, H, S, P), f32(Bz, H, S), f32(Bz, S, N), \
+        f32(Bz, S, N)
+    # scratch: each chunk's dH and dS, turned in place by the state passes
+    # into the incoming state h_in and the outgoing state's gradient g;
+    # each chunk's decay exp(cums_last); each head group's dB and dC
+    # partials, added in group order
+    states = f32(2, Bz, H, nc, P, N)
+    e_last = f32(Bz, H, nc)
+    parts = f32(2, Bz, nc, groups, CHUNK, N)
+    err = build.library().ssd_scan_bwd_launch(
+        xdt.data_ptr(), loga.data_ptr(), B.data_ptr(), C.data_ptr(),
+        dy.data_ptr(), dx.data_ptr(), dloga.data_ptr(), dB.data_ptr(),
+        dC.data_ptr(), states.data_ptr(), e_last.data_ptr(),
+        parts.data_ptr(), Bz, H, S, P, N, build.stream_ptr(xdt.device))
+    build.check(err, "ssd_scan_bwd")
+    bwd_launches += 1
+    return dx, dloga, dB, dC
+
+
+class SSDScan(torch.autograd.Function):
+    """The scan with the kernels' gradient: the forward keeps its inputs
+    (the backward recomputes the states from them).  CPU tensors take the
+    plain versions at ``chunk``; the kernels' chunk is CHUNK."""
+
+    @staticmethod
+    def forward(ctx, xdt, loga, B, C, chunk):
+        if xdt.device.type == "cpu":
+            y = ssd_phases(xdt, loga, B, C, chunk=chunk)[0]
+        else:
+            y = _launch_fwd(xdt, loga, B, C)
+        if any(ctx.needs_input_grad[:4]):
+            ctx.save_for_backward(xdt, loga, B, C)
+        ctx.chunk = chunk
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        xdt, loga, B, C = ctx.saved_tensors
+        grads = ssd_scan_bwd(xdt, loga, B, C, dy.contiguous(),
+                             chunk=ctx.chunk)
+        return (*grads, None)
+
+
+def ssd_scan(xdt, loga, B, C, *, chunk: int = CHUNK):
+    """xdt: [Bz, H, S, P]; loga: [Bz, H, S]; B/C: [Bz, S, N].  Returns y
+    [Bz, H, S, P] in fp32, differentiable in all four inputs.  ``chunk`` is
+    the plain version's on CPU tensors; the kernels' is CHUNK."""
+    _check(xdt, loga, B, C)
+    if torch.is_grad_enabled() and \
+            any(t.requires_grad for t in (xdt, loga, B, C)) and \
+            any(t.dtype != torch.float32 for t in (xdt, loga, B, C)):
+        raise TypeError("ssd_scan's backward takes float32 inputs: an input "
+                        "that requires grad must be float32")
+    return SSDScan.apply(xdt, loga, B, C, chunk)

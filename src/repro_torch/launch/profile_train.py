@@ -2,14 +2,16 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         [--arch starcoder2-3b] [--batch 2] [--seq 4096] [--out profile_out]
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \
+        --arch mamba2-370m --batch 8 --seq 2048
 
 Builds the trainer for the architecture's published configuration, whole
 (random weights from a seed, bf16, AdamW), feeds it ``TokenStream``
 batches, runs one warm-up step, then records one step under
 ``torch.profiler``.  Prints the wall time, the device time by kernel (top
-entries), the shares of the flash forward and backward kernels, of
-matmuls and of the rest, and the device's busy share (kernel time over
-wall time).  Writes the Chrome trace and the summary to ``--out``.
+entries), the shares of the flash and ssd_scan forward and backward
+kernels, of matmuls and of the rest, and the device's busy share (kernel
+time over wall time).  Writes the Chrome trace and the summary to ``--out``.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ FLASH_FWD_WORDS = ("flash_wgmma", "flash_bf16", "flash_f32")
 # the backward's kernels: the mma.sync / FMA variants' prep and post, and
 # the wgmma variant's, whose namespace is wgb
 FLASH_BWD_WORDS = ("flash_bwd", "bwd_prep", "bwd_post", "::wgb::")
+SSD_FWD_WORDS = ("ssd_chunk_kernel", "ssd_state_kernel")
+SSD_BWD_WORDS = ("ssd_bwd_",)
 
 
 def profile(arch: str, batch: int, seq: int, out: Path, dev) -> dict:
@@ -73,6 +77,8 @@ def profile(arch: str, batch: int, seq: int, out: Path, dev) -> dict:
         "kernels_per_step": sum(r[2] for r in rows),
         "share_flash_fwd": share(FLASH_FWD_WORDS),
         "share_flash_bwd": share(FLASH_BWD_WORDS),
+        "share_ssd_fwd": share(SSD_FWD_WORDS),
+        "share_ssd_bwd": share(SSD_BWD_WORDS),
         "share_gemm": share(GEMM_WORDS),
         "top": [{"kernel": k[:120], "ms": ms, "calls": n}
                 for k, ms, n in rows[:25]],

@@ -15,8 +15,11 @@ the trainer saves a checkpoint there every ``--ckpt-every`` steps; a run
 over a heap that holds one resumes from its step.  The heap is closed
 cleanly at the end.  1 GiB holds the smoke configurations; a full-width
 state exhausts it (``MemoryError``, in the reference too: ROADMAP C).
-mamba2-370m raises at its first step (no ssd_scan backward yet), as do
-archs with head_dim above 128 on the card (no flash backward there yet).
+Every arch trains on the CPU.  On the card, archs with attention at
+head_dim above 128 raise at their first step (no flash backward there
+yet, ROADMAP B8); mamba2-370m trains through the ssd_scan kernels:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \
+      --steps 6 --batch 8 --seq 2048
 """
 
 from __future__ import annotations

@@ -1,13 +1,17 @@
-"""Mamba-2 (SSD, state-space duality) over a full sequence (forward only).
+"""Mamba-2 (SSD, state-space duality) over a full sequence, and its decode.
 
-Port of the reference's ``layers/ssd.py`` forward half: split input
-projections (z | x | BC | dt), depthwise causal convolutions, the chunked
-SSD scan, the D skip and the gated RMS norm.  On a CUDA tensor the scan
-is the ``ssd_scan`` kernel; on a CPU tensor it is ``ssd_chunked``, the
-reference's chunked form computed in the kernel's phases
-(``ssd_phases``).  ``mamba2_decode`` is the one-token recurrent update of
-the layer (the reference writes it in ``jnp``, no kernel); the decode step
-runs ``serving.tp_layers.mamba2_decode_tp``, which normalizes as the
+Port of the reference's ``layers/ssd.py``: split input projections
+(z | x | BC | dt), depthwise causal convolutions, the chunked SSD scan,
+the D skip and the gated RMS norm.  The scan is ``ssd_scan``, an autograd
+Function: on a CUDA tensor the ``ssd_scan`` kernel forward and the
+``ssd_scan_bwd`` kernel backward (chunk 64); on a CPU tensor the plain
+versions of both at ``cfg.ssm_chunk`` (``ssd_phases``, the reference's
+``ssd_chunked`` computed in the kernel's phases, and
+``ssd_scan_bwd_plain``).  The rest of the layer is plain PyTorch under
+autograd, as the reference computes it outside any Pallas kernel.
+``mamba2_decode`` is the one-token recurrent update of the layer (the
+reference writes it in ``jnp``, no kernel); the decode step runs
+``serving.tp_layers.mamba2_decode_tp``, which normalizes as the
 reference's decode step does.
 """
 
@@ -16,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.ssd_scan.kernel import ssd_phases, ssd_scan
+from ..kernels.ssd_scan.kernel import ssd_scan
 from .common import causal_conv, conv_step
 
 
@@ -39,40 +43,13 @@ def _gated_norm(y, z, w, eps=1e-6):
     return y * w
 
 
-def ssd_chunked(cfg, xdt, loga, Bc, Cc, h0=None):
-    """Chunked SSD over pre-discretized inputs, in the reference layer's
-    layout: a reshape around ``ssd_phases``, the phases the kernel runs.
-
-    xdt:  [B, nc, Q, H, P] (x * dt, fp32)
-    loga: [B, nc, Q, H]    (dt * A, fp32 log-decay)
-    Bc/Cc:[B, nc, Q, N]
-    Returns (y [B, nc, Q, H, P], h_final [B, H, P, N]).
-    """
-    Bsz, nc, Q, H, P = xdt.shape
-    N = Bc.shape[-1]
-    S = nc * Q
-    y, h = ssd_phases(xdt.permute(0, 3, 1, 2, 4).reshape(Bsz, H, S, P),
-                      loga.permute(0, 3, 1, 2).reshape(Bsz, H, S),
-                      Bc.reshape(Bsz, S, N), Cc.reshape(Bsz, S, N),
-                      chunk=Q, h0=h0)
-    return y.reshape(Bsz, H, nc, Q, P).permute(0, 2, 3, 1, 4), h
-
-
 def mamba2_forward(cfg, p, x):
-    """Full-sequence SSD.  x: [B, S, D] -> [B, S, D].  Forward only: with
-    grad enabled and an input that requires it, it raises (on the CPU too,
-    so the card and the CPU train the same archs)."""
-    if torch.is_grad_enabled() and (
-            x.requires_grad or any(t.requires_grad for t in p.values())):
-        raise NotImplementedError(
-            "Mamba-2 has no backward yet: its gradient needs the ssd_scan "
-            "backward kernel (ROADMAP A7b); mamba2 models do not train")
+    """Full-sequence SSD.  x: [B, S, D] -> [B, S, D], differentiable."""
     Bsz, S, D = x.shape
     Di, N, H, P = d_inner(cfg), cfg.ssm_state, n_heads(cfg), cfg.ssm_head_dim
     Q = cfg.ssm_chunk
     if S % Q:
         raise ValueError(f"seq {S} not divisible by chunk {Q}")
-    nc = S // Q
 
     z = torch.matmul(x, p["in_z"])
     xs = torch.matmul(x, p["in_x"])
@@ -87,17 +64,10 @@ def mamba2_forward(cfg, p, x):
     loga = dt * A
     xh = xs.reshape(Bsz, S, H, P).float()
     xdt = xh * dt[..., None]
-    if x.device.type == "cuda":
-        y = ssd_scan(xdt.transpose(1, 2).contiguous(),
-                     loga.transpose(1, 2).contiguous(),
-                     Bm.float().contiguous(), Cm.float().contiguous())
-        y = y.transpose(1, 2)                                 # [B, S, H, P]
-    else:
-        y, _ = ssd_chunked(cfg, xdt.reshape(Bsz, nc, Q, H, P),
-                           loga.reshape(Bsz, nc, Q, H),
-                           Bm.reshape(Bsz, nc, Q, N).float(),
-                           Cm.reshape(Bsz, nc, Q, N).float())
-        y = y.reshape(Bsz, S, H, P)
+    y = ssd_scan(xdt.transpose(1, 2).contiguous(),
+                 loga.transpose(1, 2).contiguous(),
+                 Bm.float().contiguous(), Cm.float().contiguous(), chunk=Q)
+    y = y.transpose(1, 2)                                     # [B, S, H, P]
     y = y + p["D"][None, None, :, None] * xh
     y = _gated_norm(y.reshape(Bsz, S, Di), z.float(), p["norm_w"])
     return torch.matmul(y.to(x.dtype), p["out_proj"])

@@ -13,9 +13,9 @@ pattern unit runs under ``torch.utils.checkpoint.checkpoint`` (the
 reference's ``jax.checkpoint``): only unit inputs are kept, and the
 backward recomputes a unit's forward.  Each CE chunk is checkpointed
 whenever grad is on, whatever ``cfg.remat`` says, as in the reference.
-Attention runs the ``flash_attention`` kernel (forward and backward) and
-Mamba-2 the ``ssd_scan`` kernel (forward only: its gradient raises,
-ROADMAP A7b) on a CUDA tensor; RG-LRU's scan is plain PyTorch
+Attention runs the ``flash_attention`` kernels and Mamba-2 the
+``ssd_scan`` kernels (forward and backward each) on a CUDA tensor;
+RG-LRU's scan is plain PyTorch
 (``layers/rglru.py::linear_scan``), and so is the MoE dispatch
 (``layers/moe.py``), whose load-balancing losses sum into ``aux``.
 """

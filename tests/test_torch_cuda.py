@@ -376,10 +376,64 @@ def test_kernels_refuse_inputs_that_require_grad(dev):
         fak.flash_attention(wide, wide.detach(), wide.detach())
     with torch.no_grad():                 # the forward alone still runs
         fak.flash_attention(wide, wide.detach(), wide.detach())
-    x = torch.randn((1, 1, 64, 16), device=dev, requires_grad=True)
-    bc = torch.randn((1, 64, 16), device=dev)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        ssk.ssd_scan(x, x.detach()[..., 0], bc, bc)
+    # ssd_scan has a backward kernel since it became an autograd Function:
+    # the gradient is the kernel's (one launch), equal to the plain
+    # backward's; a bf16 input that requires grad raises, and the same
+    # input without grad still scans
+    x = (torch.randn((1, 2, 64, 16), device=dev) * 0.1).requires_grad_()
+    la = -torch.rand((1, 2, 64), device=dev) * 0.1
+    bc = torch.randn((1, 64, 16), device=dev) * 0.3
+    n = ssk.bwd_launches
+    y = ssk.ssd_scan(x, la, bc, bc)
+    (dx,) = torch.autograd.grad(y, x, torch.ones_like(y))
+    assert ssk.bwd_launches == n + 1
+    want = ssk.ssd_scan_bwd_plain(x.detach(), la, bc, bc,
+                                  torch.ones_like(y))[0]
+    assert float((dx - want).abs().max()) < 1e-4 * float(want.abs().max())
+    xb = x.detach().to(torch.bfloat16)
+    with pytest.raises(TypeError, match="float32"):
+        ssk.ssd_scan(xb.requires_grad_(), la.to(torch.bfloat16),
+                     bc.to(torch.bfloat16), bc.to(torch.bfloat16))
+    with torch.no_grad():
+        ssk.ssd_scan(xb, la.to(torch.bfloat16), bc.to(torch.bfloat16),
+                     bc.to(torch.bfloat16))
+
+
+# chip_smoke.py's SSD_SWEEP shapes (fp32: the backward takes fp32 only),
+# the smoke widths and mamba2-370m's training shape
+@pytest.mark.parametrize("Bz,H,S,P,N,decay", [
+    (2, 2, 256, 64, 32, None),
+    (1, 4, 128, 32, 64, None),
+    (2, 4, 64, 64, 128, None),            # one chunk
+    (2, 3, 200, 64, 128, None),           # partial chunk; H 3
+    (1, 3, 1024, 64, 128, -5.0),          # strong decay
+    (2, 8, 40, 16, 16, None),             # mamba2-370m smoke widths
+    (2, 9, 130, 16, 24, None),            # two head groups, N / 8 odd
+    (8, 32, 2048, 64, 128, None),         # mamba2-370m training shape
+])
+def test_ssd_scan_bwd_kernel_vs_plain(dev, Bz, H, S, P, N, decay):
+    """dxdt, dloga, dB and dC of the backward kernel against its plain
+    version run on the card, within 1e-4 of each output's max |plain|;
+    one launch; a second call is bit-equal (no float atomics)."""
+    g = torch.Generator(device="cpu").manual_seed(9)
+    xdt = (torch.randn((Bz, H, S, P), generator=g) * 0.1).to(dev)
+    loga = -torch.randn((Bz, H, S), generator=g).abs() * 0.1 \
+        if decay is None else torch.full((Bz, H, S), decay)
+    loga = loga.to(dev)
+    B = (torch.randn((Bz, S, N), generator=g) * 0.3).to(dev)
+    C = (torch.randn((Bz, S, N), generator=g) * 0.3).to(dev)
+    dy = torch.randn((Bz, H, S, P), generator=g).to(dev)
+    want = ssk.ssd_scan_bwd_plain(xdt, loga, B, C, dy)
+    n = ssk.bwd_launches
+    got = ssk.ssd_scan_bwd(xdt, loga, B, C, dy)
+    torch.cuda.synchronize()
+    assert ssk.bwd_launches == n + 1
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) < 1e-4 * float(b.abs().max())
+    again = ssk.ssd_scan_bwd(xdt, loga, B, C, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 # chip_smoke.py's FLASH_BWD_SWEEP, with the training run's heads at S 1024;
@@ -465,10 +519,11 @@ def test_flash_attention_bwd_replays_in_a_cuda_graph(dev):
             fak.BF16_ROW_TOL
 
 
-def test_train_step_matches_cpu(dev):
-    """One train step of the starcoder2-3b smoke config in fp32 on the card
-    (both flash kernels) and on the CPU: loss, grads and the updated
-    parameters within 1e-3; the flash kernels launch 2 forward (the
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "mamba2-370m"])
+def test_train_step_matches_cpu(dev, arch):
+    """One train step of the smoke config in fp32 on the card (both flash
+    kernels, or both ssd_scan kernels) and on the CPU: loss, grads and the
+    updated parameters within 1e-3; the kernels launch 2 forward (the
     forward and the unit's recompute) and 1 backward a layer."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
@@ -476,21 +531,21 @@ def test_train_step_matches_cpu(dev):
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.step import loss_and_grads, make_train_step
     from repro_torch.tree import tree_leaves, tree_map
-    cfg = dataclasses.replace(get_smoke_config("starcoder2-3b"),
-                              dtype=torch.float32)
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
     cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     toks = torch.randint(0, cfg.vocab_size, (2, 64),
                          generator=torch.Generator().manual_seed(1))
+    mod = ssk if arch == "mamba2-370m" else fak
     out = {}
     for d in ("cpu", "cuda"):
         # a copy on either device: the step updates its params in place
         p = tree_map(lambda t: t.to(d, copy=True), cpu)
         b = {"tokens": toks.to(d), "labels": toks.to(d)}
-        n_f, n_b = fak.launches, fak.bwd_launches
+        n_f, n_b = mod.launches, mod.bwd_launches
         loss, grads = loss_and_grads(cfg, p, b)
         if d == "cuda":
-            assert fak.launches - n_f == 2 * cfg.num_layers
-            assert fak.bwd_launches - n_b == cfg.num_layers
+            assert mod.launches - n_f == 2 * cfg.num_layers
+            assert mod.bwd_launches - n_b == cfg.num_layers
         p, _, _ = make_train_step(cfg, AdamWConfig(warmup_steps=1))(
             p, init_opt_state(p), b)
         out[d] = (float(loss), [g.cpu() for _, g in tree_leaves(grads)],

@@ -1,13 +1,17 @@
-"""The port's ``ssd_scan_plain`` and ``ssd_chunked`` against the
+"""The port's ``ssd_scan_plain`` and ``ssd_phases`` against the
 reference's Pallas ``ssd_scan`` (interpret mode), its oracle
 ``ssd_scan_ref`` and the reference layer's ``ssd_chunked``, on the sweep
-of ``tests/test_kernels.py``.  The CUDA kernel itself is held against the
-plain version on the card (``test_torch_cuda.py``, ``chip_smoke.py``)."""
+of ``tests/test_kernels.py``; the plain backward ``ssd_scan_bwd_plain``
+against ``jax.vjp`` of the reference's ``ssd_chunked``, and the ``SSDScan``
+Function's gradient against autograd through ``ssd_phases``.  The CUDA
+kernels themselves are held against the plain versions on the card
+(``test_torch_cuda.py``, ``chip_smoke.py``)."""
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -15,7 +19,6 @@ from repro.kernels.ssd_scan.kernel import ssd_scan as j_ssd  # noqa: E402
 from repro.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro.layers import ssd as jssd  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssk  # noqa: E402
-from repro_torch.layers import ssd as tssd  # noqa: E402
 
 
 def _inputs(seed, Bz, H, S, P, N):
@@ -66,8 +69,10 @@ def test_ssd_plain_partial_chunk_vs_ref(dt):
 
 
 def test_ssd_chunked_vs_reference_layer():
-    """The port's ``ssd_chunked`` (the layer's CPU path) against the
-    reference's: outputs and the final state, from a nonzero state."""
+    """The port's chunked scan (``ssd_phases``, the layer's CPU path, fed
+    through the reference layer's [B, nc, Q, H, P] layout) against the
+    reference's ``ssd_chunked``: outputs and the final state, from a
+    nonzero state."""
     rng = np.random.default_rng(5)
     Bsz, nc, Q, H, P, N = 2, 3, 8, 4, 16, 16
     xdt = rng.standard_normal((Bsz, nc, Q, H, P)).astype(np.float32) * 0.1
@@ -78,8 +83,14 @@ def test_ssd_chunked_vs_reference_layer():
     h0 = rng.standard_normal((Bsz, H, P, N)).astype(np.float32) * 0.1
     jy, jh = jssd.ssd_chunked(None, *map(jnp.asarray,
                                          (xdt, loga, Bc, Cc, h0)))
-    ty, th = tssd.ssd_chunked(None, *map(torch.as_tensor,
-                                         (xdt, loga, Bc, Cc, h0)))
+    S = nc * Q
+    ty, th = ssk.ssd_phases(
+        torch.as_tensor(xdt).permute(0, 3, 1, 2, 4).reshape(Bsz, H, S, P),
+        torch.as_tensor(loga).permute(0, 3, 1, 2).reshape(Bsz, H, S),
+        torch.as_tensor(Bc).reshape(Bsz, S, N),
+        torch.as_tensor(Cc).reshape(Bsz, S, N), chunk=Q,
+        h0=torch.as_tensor(h0))
+    ty = ty.reshape(Bsz, H, nc, Q, P).permute(0, 2, 3, 1, 4)
     assert _rel(ty, jy) < 1e-5
     assert _rel(th, jh) < 1e-5
 
@@ -96,13 +107,23 @@ def test_ssd_chunked_large_decay_is_finite():
 
 
 def test_ssd_wrapper_checks():
+    """Shapes that do not fit raise; the backward takes fp32 only, so a
+    bf16 input that requires grad is refused (on the CPU too, so the card
+    and the CPU refuse alike) while the same input without grad scans."""
     x = torch.zeros((1, 2, 8, 16))
     with pytest.raises(ValueError):
         ssk.ssd_scan(x, torch.zeros((1, 2, 7)), torch.zeros((1, 8, 4)),
                      torch.zeros((1, 8, 4)))
-    with pytest.raises(RuntimeError, match="forward-only"):
-        ssk.ssd_scan(x.requires_grad_(), torch.zeros((1, 2, 8)),
-                     torch.zeros((1, 8, 4)), torch.zeros((1, 8, 4)))
+    bc = torch.zeros((1, 8, 4))
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(TypeError, match="float32"):
+        ssk.ssd_scan(xb.clone().requires_grad_(), torch.zeros((1, 2, 8)),
+                     bc, bc)
+    assert ssk.ssd_scan(xb, torch.zeros((1, 2, 8)).to(torch.bfloat16),
+                        bc.to(torch.bfloat16),
+                        bc.to(torch.bfloat16)).dtype == torch.float32
+    y = ssk.ssd_scan(x.requires_grad_(), torch.zeros((1, 2, 8)), bc, bc)
+    assert y.requires_grad and y.dtype == torch.float32
 
 
 def _pallas_padded(arrs, S):
@@ -155,3 +176,100 @@ def test_ssd_phases_state_matches_sequential_recurrence():
     want_y = torch.stack(ys, dim=2)
     assert float((h.double() - ref).abs().max()) < 1e-5
     assert float((y.double() - want_y).abs().max()) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the backward
+# ---------------------------------------------------------------------------
+def _bwd_inputs(seed, Bz, H, S, P, N, decay):
+    arrs = list(_inputs(seed, Bz, H, S, P, N))
+    if decay is not None:
+        arrs[1] = np.full_like(arrs[1], decay)
+    dy = np.random.default_rng(seed + 100).standard_normal(
+        (Bz, H, S, P)).astype(np.float32)
+    return arrs, dy
+
+
+@pytest.mark.parametrize("S,chunk,ref_chunk", [
+    (64, 64, 16),        # one kernel chunk; the reference at 4 chunks
+    (64, 16, 16),
+    (200, 64, 8),        # a partial last chunk (200 = 3 x 64 + 8)
+    (200, 8, 8),
+])
+@pytest.mark.parametrize("decay", [None, -5.0])
+def test_ssd_bwd_plain_vs_reference_vjp(S, chunk, ref_chunk, decay):
+    """dxdt, dloga, dB and dC of ``ssd_scan_bwd_plain`` (the backward
+    kernel's phases, no autograd) against ``jax.vjp`` of the reference's
+    ``ssd_chunked`` through ``ssd_scan_ref``'s layout, within 1e-4 of each
+    output's max |ref|: Bz 2, H 3, P 16, N 16, random or strong decay."""
+    Bz, H, P, N = 2, 3, 16, 16
+    arrs, dy = _bwd_inputs(20, Bz, H, S, P, N, decay)
+    y, vjp = jax.vjp(lambda *a: ssd_scan_ref(*a, chunk=ref_chunk),
+                     *map(jnp.asarray, arrs))
+    want = vjp(jnp.asarray(dy))
+    got = ssk.ssd_scan_bwd_plain(*map(torch.as_tensor, arrs),
+                                 torch.as_tensor(dy), chunk=chunk)
+    for name, g, w in zip(("dxdt", "dloga", "dB", "dC"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        assert _rel(g, w) < 1e-4, (name, _rel(g, w))
+
+
+@pytest.mark.parametrize("S,chunk", [(64, 8), (200, 64), (37, 8)])
+def test_ssd_scan_function_grad_vs_autograd(S, chunk):
+    """The Function's CPU gradient (``ssd_scan_bwd_plain`` at the caller's
+    chunk) against torch.autograd through ``ssd_phases``, within 1e-5 of
+    each gradient's max; the forward equals ``ssd_phases``' y exactly."""
+    Bz, H, P, N = 2, 3, 16, 16
+    arrs, dy = _bwd_inputs(21, Bz, H, S, P, N, None)
+    dy = torch.as_tensor(dy)
+    ins = [torch.as_tensor(a).requires_grad_() for a in arrs]
+    want_y = ssk.ssd_phases(*ins, chunk=chunk)[0]
+    want = torch.autograd.grad(want_y, ins, dy)
+    ins = [t.detach().clone().requires_grad_() for t in ins]
+    y = ssk.ssd_scan(*ins, chunk=chunk)
+    assert torch.equal(y, want_y.detach())
+    got = torch.autograd.grad(y, ins, dy)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+def test_ssd_bwd_plain_strong_decay_is_finite():
+    """A decay strong enough to underflow exp(cums) to 0 within a chunk
+    (loga about -600 a step): the backward takes exp only below the
+    diagonal, so every gradient stays finite, and it matches autograd
+    through ``ssd_phases`` (the same fp32 algorithm, whose ``where`` keeps
+    exp's argument at 0 above the diagonal) within 1e-4 of each max.
+    ``jax.vjp`` of the reference's ``ssd_chunked`` is NaN here: its
+    ``where`` takes exp's gradient above the diagonal, where exp overflows
+    (ROADMAP C21)."""
+    arrs, dy = _bwd_inputs(22, 1, 2, 128, 16, 16, None)
+    arrs[1] = arrs[1] * 2000.0
+    dy = torch.as_tensor(dy)
+    got = ssk.ssd_scan_bwd_plain(*map(torch.as_tensor, arrs), dy, chunk=64)
+    ins = [torch.as_tensor(a).requires_grad_() for a in arrs]
+    want = torch.autograd.grad(ssk.ssd_phases(*ins, chunk=64)[0], ins, dy)
+    _, vjp = jax.vjp(lambda *a: ssd_scan_ref(*a, chunk=64),
+                     *map(jnp.asarray, arrs))
+    assert not np.isfinite(np.asarray(vjp(jnp.asarray(dy.numpy()))[1])).all()
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert _rel(g, w.numpy()) < 1e-4
+
+
+def test_ssd_scan_bwd_takes_the_plain_version_on_the_cpu():
+    """``ssd_scan_bwd`` on CPU tensors is ``ssd_scan_bwd_plain`` at the
+    caller's chunk, bit for bit, and counts no kernel launch; a dy that is
+    not shaped like xdt raises."""
+    arrs, dy = _bwd_inputs(23, 2, 3, 200, 16, 16, None)
+    ins = [torch.as_tensor(a) for a in arrs]
+    dy = torch.as_tensor(dy)
+    before = ssk.bwd_launches
+    for chunk in (64, 8):
+        got = ssk.ssd_scan_bwd(*ins, dy, chunk=chunk)
+        want = ssk.ssd_scan_bwd_plain(*ins, dy, chunk=chunk)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert ssk.bwd_launches == before
+    with pytest.raises(ValueError):
+        ssk.ssd_scan_bwd(*ins, dy[:, :, :64])

@@ -37,11 +37,11 @@ from repro_torch.train.step import loss_and_grads  # noqa: E402
 from repro_torch.train.step import make_train_step  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
-# every architecture but mamba2-370m (no ssd_scan backward yet)
+# every architecture (mamba2-370m's scan through SSDScan's plain backward)
 TRAIN_ARCHS = ["starcoder2-3b", "qwen2.5-32b", "granite-20b",
                "nemotron-4-340b", "recurrentgemma-9b",
                "granite-moe-3b-a800m", "moonshot-v1-16b-a3b",
-               "hubert-xlarge", "internvl2-26b"]
+               "hubert-xlarge", "internvl2-26b", "mamba2-370m"]
 _DT = {"fp32": (jnp.float32, torch.float32),
        "bf16": (jnp.bfloat16, torch.bfloat16)}
 WARMUP = 2
@@ -199,17 +199,58 @@ def test_microbatches_match_reference():
 
 
 def test_mamba2_raises_on_the_cpu():
-    """No ssd_scan backward yet: a mamba2 train step raises (on the CPU
-    too), naming its ROADMAP item; scoring without grad still runs."""
+    """What mamba2-370m's training still refuses on the CPU, as on the
+    card: the scan's backward takes fp32 only, so the layer's scan inputs
+    in bf16 that require grad raise TypeError before anything runs; the
+    same inputs without grad still scan (the layer itself always passes
+    fp32, so the model trains: ``test_mamba2_trains_on_the_cpu``)."""
+    from repro_torch.kernels.ssd_scan import kernel as ssk
+    from repro_torch.layers.ssd import n_heads
+    cfg = t_smoke("mamba2-370m")
+    Bz, S, H = 2, 64, n_heads(cfg)
+    P, N = cfg.ssm_head_dim, cfg.ssm_state
+    rng = np.random.default_rng(12)
+    ins = [torch.as_tensor(rng.standard_normal(s).astype(np.float32)).to(
+        torch.bfloat16) for s in ((Bz, H, S, P), (Bz, H, S), (Bz, S, N),
+                                  (Bz, S, N))]
+    with pytest.raises(TypeError, match="float32"):
+        ssk.ssd_scan(ins[0].clone().requires_grad_(), *ins[1:],
+                     chunk=cfg.ssm_chunk)
+    y = ssk.ssd_scan(*ins, chunk=cfg.ssm_chunk)
+    assert y.dtype == torch.float32 and y.shape == (Bz, H, S, P)
+
+
+def test_mamba2_trains_on_the_cpu():
+    """mamba2-370m trains on the CPU: a train step through the ``Trainer``
+    runs the scan's Function, whose backward is ``ssd_scan_bwd_plain``
+    (one call a layer, counted here) with finite loss and gradients, and
+    moves every parameter leaf; scoring without grad still runs."""
+    from repro_torch.kernels.ssd_scan import kernel as ssk
     cfg = dataclasses.replace(t_smoke("mamba2-370m"), dtype=torch.float32)
-    tr = Trainer(cfg, AdamWConfig(), device="cpu")
-    toks = np.zeros((2, 64), np.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
-        tr.step_fn(tr.params, tr.opt, {"tokens": torch.as_tensor(toks),
-                                       "labels": torch.as_tensor(toks)})
+    tr = Trainer(cfg, AdamWConfig(warmup_steps=1), device="cpu")
+    rng = np.random.default_rng(11)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 64)).astype(
+        np.int32))
+    batch = {"tokens": toks, "labels": toks}
+    before = tree_map(lambda t: t.detach().clone(), tr.params)
+    calls = []
+    real = ssk.ssd_scan_bwd_plain
+
+    def counted(*args, **kw):
+        calls.append(kw["chunk"])
+        return real(*args, **kw)
+    ssk.ssd_scan_bwd_plain = counted
+    try:
+        params, _, m = tr.step_fn(tr.params, tr.opt, batch)
+    finally:
+        ssk.ssd_scan_bwd_plain = real
+    assert calls == [cfg.ssm_chunk] * cfg.num_layers
+    assert np.isfinite(float(m["loss"])) and np.isfinite(
+        float(m["grad_norm"])) and float(m["grad_norm"]) > 0
+    for path, t in tree_leaves(params):
+        assert not torch.equal(t, _get(before, path)), path
     with torch.no_grad():
-        loss, _ = TT.loss_fn(cfg, tr.params, {
-            "tokens": torch.as_tensor(toks), "labels": torch.as_tensor(toks)})
+        loss, _ = TT.loss_fn(cfg, params, batch)
     assert np.isfinite(float(loss))
 
 

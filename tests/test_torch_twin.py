@@ -7,7 +7,8 @@ Both engines run the qwen2.5 smoke config in fp32 from the same weights
 numpy) and are driven by the scripts of the reference's engine tests.
 After every call the emitted tokens, block tables, ``kv_pos``, every
 ``AllocState`` field, the durable prefix-store words and the lane span
-records must be equal; ``crash_and_recover`` must return equal stats.
+records must be equal, and each active lane's ``kv_pos`` rows must hold
+its positions in order; ``crash_and_recover`` must return equal stats.
 """
 
 import dataclasses
@@ -93,6 +94,23 @@ class Twin:
             np.testing.assert_array_equal(np.asarray(j.dstate[f]),
                                           t.dstate[f].numpy(),
                                           err_msg=f"{where}: {f}")
+        # ROADMAP C9: the port's decode attention takes validity from
+        # lengths = pos + 1 and the block table, which agrees with the
+        # reference's per-slot kv_pos while each active lane's rows fill in
+        # order: positions 0 .. n - 1 slot by slot, then -1, n = pos (or
+        # the table's width, past which positions drop)
+        kv, pos = t.dstate["kv_pos"].numpy(), t.dstate["pos"].numpy()
+        for lane, sess in t.sessions.items():
+            if sess.done:
+                continue
+            flat = kv[lane].reshape(-1)
+            n = int((flat >= 0).sum())
+            np.testing.assert_array_equal(
+                flat[:n], np.arange(n),
+                err_msg=f"{where}: lane {lane}'s kv_pos rows out of order")
+            assert (flat[n:] == -1).all(), (where, lane, flat)
+            assert n == min(int(pos[lane]), flat.size), (where, lane, n,
+                                                         pos[lane])
         for f in ja.AllocState._fields:
             np.testing.assert_array_equal(
                 np.asarray(getattr(j.astate, f)),
@@ -116,7 +134,8 @@ def _prompt(seed, n, vocab=128):
 
 def test_twin_detects_divergence(models):
     """The harness has teeth: a one-field difference between the two
-    engines' allocator states, or in a lane's tokens, fails ``check``."""
+    engines' allocator states, kv_pos rows out of order in both, or a
+    difference in a lane's tokens, fails ``check``."""
     from repro_torch.core import alloc as ta
     tw = Twin(models, lanes=2, max_seq=32)
     lane = tw("add_request", [3, 1, 4])
@@ -126,6 +145,17 @@ def test_twin_detects_divergence(models):
     with pytest.raises(AssertionError):
         tw.check("corrupted root")
     tw.t.astate = saved
+    # kv_pos rows out of order in both engines alike: equal, but not the
+    # in-order fill the port's decode attention relies on (ROADMAP C9)
+    kv = tw.t.dstate["kv_pos"].clone()
+    kv[lane, 0, [0, 1]] = kv[lane, 0, [1, 0]]
+    good_j, good_t = tw.j.dstate, tw.t.dstate
+    tw.j.dstate = dict(good_j, kv_pos=jnp.asarray(kv.numpy()))
+    tw.t.dstate = dict(good_t, kv_pos=kv)
+    with pytest.raises(AssertionError, match="out of order"):
+        tw.check("swapped kv_pos")
+    tw.j.dstate, tw.t.dstate = good_j, good_t
+    tw.check("restored")
     tw.t.sessions[lane].tokens.append(0)
     with pytest.raises(AssertionError):
         tw.check("corrupted tokens")
