@@ -13,10 +13,12 @@ times both), then drives the port's paths:
    moonshot-v1-16b-a3b 16/16 -- for the decode layer's fused bias + RoPE
    + K/V write ``rope_kv_append`` (a lane on the dump page and one past
    its table) and ``paged_attention``; the reference's sweep shapes and
-   the edges of the kernels' tiles, flash_attention at head_dim 192 and
-   256 among them; the prefills of qwen2.5-32b, recurrentgemma-9b and
-   granite-moe-3b-a800m, hubert-xlarge's encode (no causal mask, head_dim
-   80) and mamba2-370m's scan; the flash rows name the variant that ran;
+   the edges of the kernels' tiles, flash_attention at head_dim 144, 192
+   and 256 among them (the ``wgmma`` kernel's 64-key tiles at 192 / 256);
+   the prefills of qwen2.5-32b, recurrentgemma-9b and granite-moe-3b-a800m,
+   nemotron-4-340b's heads (96/8 at head_dim 192, S 4096), hubert-xlarge's
+   encode (no causal mask, head_dim 80) and mamba2-370m's scan; the flash
+   rows name the variant that ran;
    paged_attention also at every head layout of the reference's configs,
    8 x 32768 and 1 x 32768 positions, page and split edges and fp32,
    timed with the L2 cache cold and warm);
@@ -46,19 +48,27 @@ times both), then drives the port's paths:
    and the frame loss on 8 x 2048 frame embeddings;
 7. training: the flash backward kernel ``flash_attention_bwd`` against
    its plain version at starcoder2-3b's training shape (2 x 4096, 24/2
-   heads of 128, causal) and at the other archs' head layouts, a partial
-   tile, a window and fp32 (and the forward's log-sum-exp against the
-   plain version's); the scan's backward kernel ``ssd_scan_bwd`` against
-   its plain version at mamba2-370m's training shape (8 x 2048, 32 heads
-   of 64, N 128, fp32), the scan's sweep shapes and the smoke widths; one
-   fp32 train step of the starcoder2-3b and of the mamba2-370m smoke
-   configs on the card against the CPU; the trainer learning a fixed
-   pattern on the card; starcoder2-3b whole (30 layers, published widths)
-   trained through ``Trainer`` for a warm step and five more at 2 x 4096
-   tokens (bf16, AdamW, remat per unit): 60 forward and 30 backward flash
-   launches a step; and mamba2-370m whole (48 layers) the same way at
-   8 x 2048 tokens: 96 ``ssd_scan`` and 48 ``ssd_scan_bwd`` launches a
-   step;
+   heads of 128, causal), timed there, at nemotron-4-340b's heads (1 x
+   4096, 96/8 at head_dim 192, causal) and at recurrentgemma-9b's training
+   shape (1 x 8192, 16/1 at head_dim 256, window 2048), each beside SDPA's
+   backward; and at the other archs' head layouts, head_dim 144 / 192 /
+   256 in bf16 and fp32, partial tiles, windows (and the forward's
+   log-sum-exp against the plain version's, head_dim 192 and 256 among
+   them); the scan's backward kernel ``ssd_scan_bwd`` against its plain
+   version at mamba2-370m's training shape (8 x 2048, 32 heads of 64, N
+   128, fp32), the scan's sweep shapes and the smoke widths; one fp32
+   train step of the starcoder2-3b and of the mamba2-370m smoke configs,
+   and of the recurrentgemma-9b smoke config widened to head_dim 256 (2
+   heads, 1 KV head, 3 layers), on the card against the CPU; the trainer
+   learning a fixed pattern on the card; starcoder2-3b whole (30 layers,
+   published widths) trained through ``Trainer`` for a warm step and five
+   more at 2 x 4096 tokens (bf16, AdamW, remat per unit): 60 forward and
+   30 backward flash launches a step; mamba2-370m whole (48 layers) the
+   same way at 8 x 2048 tokens: 96 ``ssd_scan`` and 48 ``ssd_scan_bwd``
+   launches a step; and recurrentgemma-9b cut to 3 of its 12 pattern units
+   (9 layers: 6 RG-LRU, 3 local attention; published widths, 3.02 B
+   parameters) the same way at 1 x 8192 tokens: 6 forward and 3 backward
+   flash launches a step (head_dim 256, window 2048);
 8. checkpoints on the host Ralloc heap: the starcoder2-3b smoke state
    (params and AdamW moments after a CPU step) saved from the card and
    from the CPU into two fast-mode heaps, equal word for word, and a save
@@ -510,6 +520,13 @@ FLASH_SWEEP = [  # B, H, K, S, dh, causal, window, dtype
     (1, 4, 1, 300, 256, True, 0, "float32"),
     (1, 24, 8, 1000, 64, True, 0, "bfloat16"),        # granite-moe-3b-a800m
     (2, 16, 16, 1000, 80, False, 0, "bfloat16"),      # hubert-xlarge
+    # above head_dim 128: the wgmma kernel's 64-key tiles at 192 / 256
+    # (S % 64 != 0, a window edge, a partial query tile), mma.sync at 144
+    (1, 4, 2, 333, 192, True, 100, "bfloat16"),
+    (2, 4, 1, 200, 256, False, 0, "bfloat16"),
+    (1, 4, 2, 333, 144, True, 48, "bfloat16"),
+    (1, 4, 2, 200, 192, True, 48, "float32"),
+    (1, 4, 2, 333, 144, False, 0, "float32"),
 ]
 SSD_SWEEP = [  # Bz, H, S, P, N, dtype, log-decay per step (None: random)
     (2, 2, 256, 64, 32, "float32", None),
@@ -522,16 +539,20 @@ SSD_SWEEP = [  # Bz, H, S, P, N, dtype, log-decay per step (None: random)
 ]
 
 
-def flash_bound(B, H, K, S, dh, causal, window, es) -> tuple[float, str]:
-    """Least time for the attention: 4 dh flops per visible (query, key)
-    pair (Q.K and P.V) at the dtype's peak, against q, k, v read once and
-    the output written once."""
+def visible_pairs(S, causal, window) -> int:
+    """(query, key) pairs a head's mask lets through."""
     import numpy as np
     qpos = np.arange(S)
     hi = qpos + 1 if causal else np.full(S, S)
     lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(S, int)
-    pairs = int((hi - lo).sum())
-    flops = 4 * B * H * dh * pairs
+    return int((hi - lo).sum())
+
+
+def flash_bound(B, H, K, S, dh, causal, window, es) -> tuple[float, str]:
+    """Least time for the attention: 4 dh flops per visible (query, key)
+    pair (Q.K and P.V) at the dtype's peak, against q, k, v read once and
+    the output written once."""
+    flops = 4 * B * H * dh * visible_pairs(S, causal, window)
     nbytes = es * (2 * B * H * S * dh + 2 * B * K * S * dh)
     peak = BF16_FLOPS if es == 2 else FP32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
@@ -1086,6 +1107,21 @@ FLASH_BWD_SWEEP = [  # B, H, K, S, dh, causal, window, dtype
     (2, 6, 2, 333, 64, True, 100, "bfloat16"),        # window, dh 64
     (1, 4, 2, 200, 64, True, 0, "float32"),
     (1, 8, 2, 300, 128, False, 48, "float32"),        # fp32, window
+    # above head_dim 128: mma.sync with two warps a 16-key slice, FMA with
+    # 8 keys a block; windows, partial tiles, S % 64 != 0
+    (1, 16, 1, 1000, 256, True, 48, "bfloat16"),      # recurrentgemma-9b
+    (1, 96, 8, 333, 192, True, 0, "bfloat16"),        # nemotron-4-340b
+    (1, 4, 2, 200, 144, False, 100, "bfloat16"),
+    (1, 4, 1, 300, 256, True, 48, "float32"),
+    (1, 8, 2, 333, 192, False, 0, "float32"),
+    (1, 4, 2, 200, 144, True, 100, "float32"),
+]
+# the backward timed beside the training run's shape: nemotron-4-340b's
+# heads (no card holds its training state at any depth, so a kernel check
+# only) and recurrentgemma-9b's training run (1 x 8192, window 2048)
+FLASH_BWD_TIMED = [
+    (1, 96, 8, 4096, 192, True, 0, "bfloat16"),
+    (1, 16, 1, 8192, 256, True, 2048, "bfloat16"),
 ]
 TRAIN_ARCH = "starcoder2-3b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 6    # one warm step + 5
@@ -1093,16 +1129,22 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 6    # one warm step + 5
 # 2405.21060), 8 sequences a step
 SSD_TRAIN_ARCH = "mamba2-370m"
 SSD_TRAIN_BATCH, SSD_TRAIN_SEQ = 8, 2048
+# recurrentgemma-9b cut to 3 of its 12 pattern units (9 of 38 layers: 6
+# RG-LRU, 3 local attention) at full width, 3.02 B parameters (~40 GB of
+# bf16 weights and grads and fp32 AdamW moments; the whole model's ~122 GB
+# fits no card), on 1 x 8192 tokens, its training length
+HYBRID_TRAIN_ARCH = "recurrentgemma-9b"
+HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ = 9, 1, 8192
+# its smoke config widened to the published head_dim (2 heads, 1 KV head,
+# 3 layers): the train step on the card through both flash kernels at 256
+HYBRID_WIDE_SMOKE = {"num_heads": 2, "num_kv_heads": 1, "head_dim": 256,
+                     "num_layers": 3}
 RESUME_STEPS = 2          # steps after the checkpoint's crash and recovery
 
 
 def flash_bwd_flops(B, H, S, dh, causal, window) -> int:
     """Five products (S, dP, dV, dK, dQ) of 2 dh flops a visible pair."""
-    import numpy as np
-    qpos = np.arange(S)
-    hi = qpos + 1 if causal else np.full(S, S)
-    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(S, int)
-    return 10 * B * H * dh * int((hi - lo).sum())
+    return 10 * B * H * dh * visible_pairs(S, causal, window)
 
 
 def check_flash_lse(torch, dev) -> dict:
@@ -1115,8 +1157,11 @@ def check_flash_lse(torch, dev) -> dict:
     out = {}
     for B, H, K, S, dh, causal, win, dtn in [
             (1, 4, 2, 300, 128, True, 0, "bfloat16"),     # wgmma
+            (1, 4, 2, 300, 192, True, 0, "bfloat16"),     # wgmma, 64-key tiles
+            (1, 4, 1, 300, 256, True, 48, "bfloat16"),
             (1, 4, 2, 300, 80, False, 0, "bfloat16"),     # mma.sync
-            (1, 4, 2, 300, 64, True, 48, "float32")]:     # fma
+            (1, 4, 2, 300, 64, True, 48, "float32"),      # fma
+            (1, 4, 1, 300, 256, False, 0, "float32")]:
         dt = getattr(torch, dtn)
         q = torch.randn((B, H, S, dh), generator=g, device=dev)
         q[0, 1, 77] *= 30.0
@@ -1132,8 +1177,8 @@ def check_flash_lse(torch, dev) -> dict:
             raise AssertionError(f"flash_attention's lse ({fak.last_variant}"
                                  f") differs from the plain version's by "
                                  f"{err} of max(1, |lse|)")
-        out[fak.last_variant] = {"rel_err": err,
-                                 "large_row_lse": float(want[0, 1, 77])}
+        out[f"{fak.last_variant} dh {dh}"] = {
+            "rel_err": err, "large_row_lse": float(want[0, 1, 77])}
     return out
 
 
@@ -1144,8 +1189,9 @@ def check_flash_bwd(torch, dev) -> dict:
     row's rms (the rms floored at GRAD_ROW_FLOOR of the tensor's), fp32
     within 1e-4 of max |plain|; the variant ``flash_bwd_variant`` names
     and, on the wgmma variant, ``bwd_split_count``'s split of the heads.
-    Times at the training run's shape; the library call is SDPA's forward
-    + backward less its forward."""
+    Times at the training run's shape and at FLASH_BWD_TIMED; the library
+    call is SDPA's forward + backward less its forward (the window as a
+    mask)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fak
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1153,8 +1199,8 @@ def check_flash_bwd(torch, dev) -> dict:
     main = (TRAIN_BATCH, c.num_heads, c.num_kv_heads, TRAIN_SEQ, c.head_dim,
             True, 0, "bfloat16")
     g = torch.Generator(device=dev).manual_seed(SEED + 41)
-    sweep, row = [], None
-    for case in [main] + FLASH_BWD_SWEEP:
+    sweep, timed = [], []
+    for case in [main] + FLASH_BWD_TIMED + FLASH_BWD_SWEEP:
         B, H, K, S, dh, causal, win, dtn = case
         dt = getattr(torch, dtn)
 
@@ -1205,7 +1251,7 @@ def check_flash_bwd(torch, dev) -> dict:
                  "window": win, "dtype": dtn}
         tol = "1e-4 of max |plain|" if dt == torch.float32 else \
             {"row_scaled": fak.BF16_ROW_TOL, "floor": fak.GRAD_ROW_FLOOR}
-        if case != main:
+        if case != main and case not in FLASH_BWD_TIMED:
             sweep.append({"shape": shape, "variant": variant,
                           "splits": splits, "errors": errs,
                           "tolerance": tol,
@@ -1215,20 +1261,21 @@ def check_flash_bwd(torch, dev) -> dict:
                   f"{errs}", flush=True)
             continue
         qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+        if win:       # the window as a mask: keys (s - win, s]
+            pos = torch.arange(S, device=dev)
+            mask = (pos[None] <= pos[:, None]) & \
+                (pos[None] > pos[:, None] - win)
+            kw = {"attn_mask": mask}
+            call = "attn_mask=<causal window>"
+        else:
+            kw = {"is_causal": True}
+            call = "is_causal=True"
 
         def lib_fwd_bwd():
-            sdpa(qr, kr, vr, is_causal=True, enable_gqa=True).backward(do)
+            sdpa(qr, kr, vr, enable_gqa=True, **kw).backward(do)
         lib = event_ms(torch, lib_fwd_bwd, iters=10) - event_ms(
-            torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
-            iters=10)
-        row = {
-            "name": "flash_attention_bwd", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
-            "replaces": "none: the reference's gradient is XLA's autodiff "
-                        "of src/repro/layers/attention.py:80 "
-                        "(chunked_attention); its Pallas kernel "
-                        "(src/repro/kernels/flash_attention/kernel.py:95) "
-                        "is forward-only",
+            torch, lambda: sdpa(q, k, v, enable_gqa=True, **kw), iters=10)
+        timed.append({
             "variant": variant, "splits": splits,
             "max_abs_err": max(float((a.float() - b.float()).abs().max())
                                for a, b in zip(got, want)),
@@ -1241,15 +1288,24 @@ def check_flash_bwd(torch, dev) -> dict:
             "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": lib,
-            "library_call": "F.scaled_dot_product_attention(is_causal=True, "
+            "library_call": f"F.scaled_dot_product_attention({call}, "
                             "enable_gqa=True) forward + backward, less its "
                             "forward, on the same q, k, v, dO",
-            "shape": shape}
+            "shape": shape})
+        print(f"flash_attention_bwd {case} ({variant}, split {splits}): "
+              f"{errs}, {timed[-1]['ms']:.4f} ms (SDPA {lib:.4f})",
+              flush=True)
         del qr, kr, vr
     del q, k, v, do, o, lse, want, got
     torch.cuda.empty_cache()
-    row["sweep"] = sweep
-    return row
+    return dict({"name": "flash_attention_bwd", "route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+                 "replaces": "none: the reference's gradient is XLA's "
+                             "autodiff of src/repro/layers/attention.py:80 "
+                             "(chunked_attention); its Pallas kernel "
+                             "(src/repro/kernels/flash_attention/kernel.py:"
+                             "95) is forward-only"},
+                **timed[0], timed_shapes=timed[1:], sweep=sweep)
 
 
 def check_ssd_bwd(torch, dev) -> dict:
@@ -1334,18 +1390,21 @@ def check_ssd_bwd(torch, dev) -> dict:
     return row
 
 
-def check_train_vs_cpu(torch, dev, arch: str = TRAIN_ARCH) -> dict:
-    """One train step of ``arch``'s smoke configuration in fp32 on the card
-    and on the CPU from the same weights and batch: the loss, every
-    gradient leaf and every parameter after the step within 1e-3 (the card
-    runs both flash kernels, fp32 variants, or both ssd_scan kernels; the
-    CPU the plain versions)."""
+def check_train_vs_cpu(torch, dev, arch: str = TRAIN_ARCH,
+                       overrides: dict | None = None) -> dict:
+    """One train step of ``arch``'s smoke configuration (with
+    ``overrides`` of its fields) in fp32 on the card and on the CPU from
+    the same weights and batch: the loss, every gradient leaf and every
+    parameter after the step within 1e-3 (the card runs both flash
+    kernels, fp32 variants, or both ssd_scan kernels; the CPU the plain
+    versions)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.params import init_params
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.step import loss_and_grads, make_train_step
     from repro_torch.tree import tree_leaves
-    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32,
+                              **(overrides or {}))
     cpu = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
     gen = torch.Generator().manual_seed(SEED + 42)
     toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen)
@@ -1396,11 +1455,12 @@ def learn_fixed_pattern(torch, dev) -> dict:
 
 def train_full_width(torch, dev, arch: str = TRAIN_ARCH,
                      batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
-                     ckpt: bool = True) -> tuple[dict, dict]:
-    """``arch`` whole (every layer, published widths, random weights from
-    the seed, bf16, AdamW, remat per unit) through ``Trainer`` on
-    ``TokenStream`` batches of batch x seq: TRAIN_STEPS steps, the first a
-    warm-up.  Losses and grad norms finite, the parameters moved, and per
+                     ckpt: bool = True,
+                     layers: int | None = None) -> tuple[dict, dict]:
+    """``arch`` at published widths (every layer, or the first ``layers``;
+    random weights from the seed, bf16, AdamW, remat per unit) through
+    ``Trainer`` on ``TokenStream`` batches of batch x seq: TRAIN_STEPS
+    steps, the first a warm-up.  Losses and grad norms finite, the parameters moved, and per
     step 2 forward launches a layer of its mixer's kernel (the forward and
     the unit's recompute) and 1 backward, nothing else: flash for
     attention, ssd_scan for Mamba-2.
@@ -1422,6 +1482,12 @@ def train_full_width(torch, dev, arch: str = TRAIN_ARCH,
     from repro_torch.train.loop import Trainer
     from repro_torch.train.optimizer import AdamWConfig
     cfg = get_config(arch)
+    cut = "none: every layer, widths as published"
+    if layers is not None and layers < cfg.num_layers:
+        cut = (f"depth: {layers} of {cfg.num_layers} layers (the first "
+               f"{layers // len(cfg.pattern)} pattern units), widths as "
+               f"published")
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     saved = {}
     if ckpt:
         saved["mem_available_gb"] = host_mem_available_gb()
@@ -1463,9 +1529,12 @@ def train_full_width(torch, dev, arch: str = TRAIN_ARCH,
     n_attn = sum(mx in ("attn", "local_attn") for mx, _ in cfg.layer_specs)
     n_ssd = sum(mx == "mamba2" for mx, _ in cfg.layer_specs)
     mixer, leaf = ("attn", "wq") if n_attn else ("ssd", "in_x")
+    # the pattern's first layer with that mixer (a hybrid's is not the first)
+    unit = "l%d" % next(i for i, (mx, _) in enumerate(cfg.pattern)
+                        if mx in ("attn", "local_attn", "mamba2"))
 
     def probe():
-        return {f"{mixer}.{leaf}": tr.params["units"]["l0"][mixer][leaf][0],
+        return {f"{mixer}.{leaf}": tr.params["units"][unit][mixer][leaf][0],
                 "embed": tr.params["embed"][:256]}
     before = {k: t.detach().float().clone() for k, t in probe().items()}
     norms = []
@@ -1503,21 +1572,25 @@ def train_full_width(torch, dev, arch: str = TRAIN_ARCH,
     ms = statistics.median(step_ms)
     T = batch * seq
     n_params = cfg.param_count()
-    attn_fwd = 4 * batch * cfg.num_heads * cfg.head_dim * \
-        (seq * (seq + 1) // 2) * n_attn
+    # the attention's forward over the pairs its mask lets through (a
+    # local-attention layer's window, the causal triangle without one)
+    attn_fwd = sum(4 * batch * cfg.num_heads * cfg.head_dim * visible_pairs(
+        seq, cfg.causal, cfg.window if mx == "local_attn" else 0)
+        for mx, _ in cfg.layer_specs if mx in ("attn", "local_attn"))
     scan_fwd = ssd_flops(batch, n_heads(cfg), seq, cfg.ssm_head_dim,
                          cfg.ssm_state) * n_ssd
     model_flops = 6 * n_params * T + 3 * (attn_fwd + scan_fwd)
     # what the step computes with the unit remat: one more forward
     remat_flops = model_flops + 2 * n_params * T + attn_fwd + scan_fwd
     shape = {"heads": [cfg.num_heads, cfg.num_kv_heads],
-             "head_dim": cfg.head_dim, "d_ff": cfg.d_ff} if n_attn else {
+             "head_dim": cfg.head_dim, "window": cfg.window,
+             "d_ff": cfg.d_ff} if n_attn else {
         "ssm_heads": n_heads(cfg), "ssm_head_dim": cfg.ssm_head_dim,
         "ssm_state": cfg.ssm_state, "expand": cfg.expand}
     return {
         "model": cfg.name, "layers": L, "d_model": cfg.d_model, **shape,
         "vocab": cfg.vocab_size, "dtype": str(cfg.dtype),
-        "cut": "none: every layer, widths as published",
+        "cut": cut,
         "params": n_params, "batch": batch, "seq": seq,
         "steps": TRAIN_STEPS, "setup_s": setup_s, "losses": losses,
         "grad_norms": norms, "moved": moved,
@@ -1826,7 +1899,8 @@ def report_forward(kind: str, res: dict, card: str) -> None:
 
 
 def report_train(res: dict, card: str) -> None:
-    print(f"train: {res['model']} whole, {res['layers']} layers, "
+    whole = "whole" if res["cut"].startswith("none") else "depth cut"
+    print(f"train: {res['model']} {whole}, {res['layers']} layers, "
           f"{res['batch']} x {res['seq']} tokens: "
           f"{res['ms_per_step_median']:.3f} ms/step (median of "
           f"{res['steps'] - 1}), {res['tokens_per_s']:.1f} tokens/s, "
@@ -1922,10 +1996,12 @@ def main() -> int:
     fwd_ref = check_forward_vs_cpu(torch, dev)
     print(f"forward on the card == forward on the CPU (fp32 smoke, 1e-3): "
           f"{fwd_ref}", flush=True)
-    for arch in (TRAIN_ARCH, SSD_TRAIN_ARCH):
-        train_ref = check_train_vs_cpu(torch, dev, arch)
+    for arch, over in ((TRAIN_ARCH, None), (SSD_TRAIN_ARCH, None),
+                       (HYBRID_TRAIN_ARCH, HYBRID_WIDE_SMOKE)):
+        train_ref = check_train_vs_cpu(torch, dev, arch, over)
         print(f"train step on the card == train step on the CPU ({arch} "
-              f"fp32 smoke, 1e-3): {train_ref}", flush=True)
+              f"fp32 smoke{f' with {over}' if over else ''}, 1e-3): "
+              f"{train_ref}", flush=True)
     ckpt_ref = check_checkpoint_vs_cpu(torch, dev)
     print(f"checkpoint saved from the card == saved from the CPU, word for "
           f"word; a torn save swept ({TRAIN_ARCH} smoke): {ckpt_ref}",
@@ -2019,8 +2095,8 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    # training: learning on the card, mamba2-370m whole, then
-    # starcoder2-3b whole (checkpointed)
+    # training: learning on the card, mamba2-370m whole, recurrentgemma-9b
+    # cut to 3 units, then starcoder2-3b whole (checkpointed)
     learned = learn_fixed_pattern(torch, dev)
     print(f"trainer on the card learns a fixed pattern: {learned}",
           flush=True)
@@ -2028,6 +2104,12 @@ def main() -> int:
                                  SSD_TRAIN_SEQ, ckpt=False)
     report_train(mtrain, card)
     paths[f"train {mtrain['model']}"] = mtrain["launches"]
+    torch.cuda.empty_cache()
+    htrain, _ = train_full_width(torch, dev, HYBRID_TRAIN_ARCH,
+                                 HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ,
+                                 ckpt=False, layers=HYBRID_TRAIN_LAYERS)
+    report_train(htrain, card)
+    paths[f"train {htrain['model']}"] = htrain["launches"]
     torch.cuda.empty_cache()
     train, saved = train_full_width(torch, dev)
     report_train(train, card)

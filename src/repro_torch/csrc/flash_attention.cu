@@ -18,34 +18,39 @@
 // bytes.  Three variants, chosen by the wrapper by dtype and head_dim
 // (`kernel.py::flash_variant`; the `variant` argument below):
 //
-// 2 (bf16, dh 64 or 128) -- the main path; Hopper's tensor cores are
-//   reached only through `wgmma`.  A block owns 128 query rows and has
-//   three warpgroups: a producer, whose one thread keeps TMA loads of
-//   128-key K and V tiles in flight (K and V each in a two-slot ring with
-//   full and empty `mbarrier`s), and two consumer warpgroups of 64 rows
-//   each, which run S = Q K^T as `wgmma.m64n128k16` with both operands in
-//   shared memory, the online softmax on the fp32 accumulator in
-//   registers, and O += P V as `wgmma.m64n{dh}k16` with P converted to
-//   bf16 in registers (the A operand) and V read MN-major from shared
-//   memory as it is stored.  A consumer starts S_i and P_{i-1} V_{i-1}
-//   together, so the softmax of one tile overlaps the P.V of the one
-//   before; the weights take one FMA (score * scale - max, in log2 units)
-//   and one `ex2.approx` each.  `setmaxnreg` moves registers from the
-//   producer (24) to the consumers (240).  Tiles are loaded by 3-D tensor
-//   maps over [heads, S, dh] in boxes of 64 columns (128 bytes, the
-//   128-byte swizzle the wgmma descriptors walk); a 3-D box clamps at S,
-//   so a partial last tile reads zeros and never the next head's rows.
-//   The grid is ordered longest query tiles first.
-// 1 (bf16, the other multiples of 16 up to 256) -- the Ampere-style
-//   kernel: `mma.sync.m16n8k16`, 64-row query tiles over four warps, K/V
-//   tiles of 64 keys in two `cp.async` stages, `ldmatrix` fragments.  Up to
-//   dh 128 a warp keeps its Q fragments in registers for the whole key
-//   loop.  Above it (nemotron-4-340b's 192, recurrentgemma-9b's 256) the
-//   fp32 accumulator alone takes dh / 2 registers a thread (128 at 256),
-//   so Q stays in shared memory and each 16-column k-step's fragment is
-//   read there once a key tile, before the eight n-tiles that use it.
-//   Shared memory is (64 + 4 * 64) * (dh + 8) bf16 values: 169 KB at
-//   dh 256, above the 48 KB default, so the launch opts in.
+// 2 (bf16, dh 64, 128, 192 or 256) -- the main path; Hopper's tensor cores
+//   are reached only through `wgmma`.  A block owns 128 query rows and has
+//   three warpgroups: a producer, whose one thread keeps TMA loads of K and
+//   V tiles in flight (K and V each in a two-slot ring with full and empty
+//   `mbarrier`s), and two consumer warpgroups of 64 rows each, which run
+//   S = Q K^T as `wgmma.m64n{keys}k16` with both operands in shared memory,
+//   the online softmax on the fp32 accumulator in registers, and O += P V
+//   as `wgmma.m64n{dh}k16` with P converted to bf16 in registers (the A
+//   operand) and V read MN-major from shared memory as it is stored.  A
+//   consumer starts S_i and P_{i-1} V_{i-1} together, so the softmax of one
+//   tile overlaps the P.V of the one before; the weights take one FMA
+//   (score * scale - max, in log2 units) and one `ex2.approx` each.
+//   `setmaxnreg` moves registers from the producer (24) to the consumers
+//   (240).  Tiles are loaded by 3-D tensor maps over [heads, S, dh] in
+//   boxes of 64 columns (128 bytes, the 128-byte swizzle the wgmma
+//   descriptors walk); a 3-D box clamps at S, so a partial last tile reads
+//   zeros and never the next head's rows.  The grid is ordered longest
+//   query tiles first.  Key tiles are 128 keys up to dh 128 and 64 above
+//   (nemotron-4-340b's 192, recurrentgemma-9b's 256): the wider rows would
+//   take two-slot rings of 128-key tiles past the 227 KB a block can use
+//   (`Smem` counts the bytes).  A consumer thread then holds the O
+//   accumulator (dh / 2 fp32: 96 / 128), a 64-key score tile (32 fp32) and
+//   its bf16 P fragments (16), within the 240 `setmaxnreg` gives it.
+// 1 (bf16, the other multiples of 16 up to 240: 80, the smoke configs' 16,
+//   144 ...) -- the Ampere-style kernel: `mma.sync.m16n8k16`, 64-row query
+//   tiles over four warps, K/V tiles of 64 keys in two `cp.async` stages,
+//   `ldmatrix` fragments.  Up to dh 128 a warp keeps its Q fragments in
+//   registers for the whole key loop.  Above it the fp32 accumulator alone
+//   takes dh / 2 registers a thread (120 at 240), so Q stays in shared
+//   memory and each 16-column k-step's fragment is read there once a key
+//   tile, before the eight n-tiles that use it.  Shared memory is (64 + 4 *
+//   64) * (dh + 8) bf16 values: 159 KB at dh 240, above the 48 KB default,
+//   so the launch opts in.
 // 0 (fp32) -- a plain FMA path (a warp per query row, a lane per key for
 //   Q.K and per head-dim column for P.V) that keeps full fp32 throughout;
 //   a lane holds dh / 32 accumulator columns (4 up to dh 128, else 8).
@@ -85,17 +90,25 @@ namespace wg {
 using namespace hopper;
 
 constexpr int kBQ = 128;           // query rows a block, 64 a consumer group
-constexpr int kBK = 128;           // keys a tile
 constexpr int kThreads = 384;      // producer group + two consumer groups
 constexpr int kStages = 2;         // slots of the K ring and of the V ring
-constexpr int kBox = 128 * 128;    // bytes of a [128 rows][64 bf16] box
+constexpr int kBoxQ = kBQ * 128;   // bytes of a [128 rows][64 bf16] Q box
 constexpr int kAtom = 1024;        // 8 rows of 128 bytes: the swizzle atom
 
+// Shared memory: the Q tile and two-slot K and V rings, in boxes of 64
+// columns.  Keys a tile: 128 up to dh 128; 64 above it, where rings of
+// 128-key tiles would not fit beside Q (at dh 256: Q 64 KB + 4 x 64 KB).
+// Bytes (+ 72 of barriers, + 1024 of alignment slack):
+//   dh 64:  Q 16 KB + 4 x 16 KB ( 80 KB)    dh 192: Q 48 KB + 4 x 24 KB (144 KB)
+//   dh 128: Q 32 KB + 4 x 32 KB (160 KB)    dh 256: Q 64 KB + 4 x 32 KB (192 KB)
 template <int DH>
 struct Smem {
+  static constexpr int kBK = DH <= 128 ? 128 : 64;   // keys a tile
   static constexpr int kBoxes = DH / 64;             // 64-column boxes a row
-  static constexpr int kTile = kBoxes * kBox;        // Q, K or V tile bytes
-  static constexpr int kBar = kTile + 2 * kStages * kTile;
+  static constexpr int kBoxKV = kBK * 128;           // bytes of a K or V box
+  static constexpr int kTileQ = kBoxes * kBoxQ;      // Q tile bytes
+  static constexpr int kTileKV = kBoxes * kBoxKV;    // K or V tile bytes
+  static constexpr int kBar = kTileQ + 2 * kStages * kTileKV;
   // barriers: full and empty for K and V, kStages each, and Q's; then the
   // alignment slack
   static constexpr int kBytes = kBar + 8 * (4 * kStages + 1) + kAtom;
@@ -106,12 +119,14 @@ struct Smem {
 // group holds rows 16 wq + lane / 4 (+ 8); element 4 j + e sits in column
 // 8 j + 2 (lane % 4) + (e & 1), on the second row when e >= 2.
 
-// whether key tile t0 needs a mask for query rows qlo..qhi: only where it
-// reaches past the diagonal, the window's left edge or the sequence's end
+// whether key tile t0 (BK keys) needs a mask for query rows qlo..qhi: only
+// where it reaches past the diagonal, the window's left edge or the
+// sequence's end
+template <int BK>
 __device__ __forceinline__ bool is_edge(int t0, int qlo, int qhi, int S,
                                         int causal, int window) {
-  return (causal && t0 + kBK - 1 > qlo) || (window && t0 <= qhi - window) ||
-         t0 + kBK > S;
+  return (causal && t0 + BK - 1 > qlo) || (window && t0 <= qhi - window) ||
+         t0 + BK > S;
 }
 
 // 2^x on the special-function unit (ftz; 2^-inf = 0)
@@ -121,18 +136,19 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// Online softmax over one tile of raw scores (fp32, in place: the scores
+// Online softmax over one tile of BK raw scores (fp32, in place: the scores
 // become the unnormalised weights).  m is the running max in scaled log2
 // units (score * scale * log2 e); each weight is 2^(s * sl - m), one fused
 // multiply-add and one ex2.  corr is the factor the accumulator and l take
 // for the new running max.
+template <int BK>
 __device__ __forceinline__ void softmax_tile(float* sc, float* m, float* l,
                                              float* corr, const int* qpos,
                                              int t0, int t, int S, int causal,
                                              int window, bool edge, float sl) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int j = 0; j < kBK / 8; ++j)
+  for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float v = sc[4 * j + e];
@@ -160,7 +176,7 @@ __device__ __forceinline__ void softmax_tile(float* sc, float* m, float* l,
     l[r] *= corr[r];
   }
 #pragma unroll
-  for (int j = 0; j < kBK / 8; ++j)
+  for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float p = fast_exp2(fmaf(sc[4 * j + e], sl, neg_m[e / 2]));
@@ -171,36 +187,46 @@ __device__ __forceinline__ void softmax_tile(float* sc, float* m, float* l,
 
 // P as the A fragments of P.V: keys 16 s .. 16 s + 15 are accumulator
 // blocks j = 2 s and 2 s + 1
+template <int BK>
 __device__ __forceinline__ void pack_p(const float* sc, uint32_t (*pf)[4]) {
 #pragma unroll
-  for (int j = 0; j < kBK / 8; ++j) {
+  for (int j = 0; j < BK / 8; ++j) {
     pf[j / 2][(j % 2) * 2 + 0] = pack_bf16(sc[4 * j + 0], sc[4 * j + 1]);
     pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
   }
 }
 
 // S = Q K^T for one consumer group: K-major A (Q) and B (K), 16 columns of
-// dh a step; a step inside a 128-byte row moves the start by 32 bytes
+// dh a step; a step inside a 128-byte row moves the start by 32 bytes, the
+// next 64 columns are the next box (of the Q tile's 128 rows, of the K
+// tile's BK)
 template <int DH>
 __device__ __forceinline__ void mma_qk(float* sc, uint32_t q_g,
                                          uint32_t k_s) {
+  using L = Smem<DH>;
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk) {
-    const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
-    wgmma_ss_m64n128(sc, sdesc(q_g + off, 16, kAtom),
-                     sdesc(k_s + off, 16, kAtom), kk > 0);
+    const uint32_t oq = (kk / 4) * kBoxQ + (kk % 4) * 32;
+    const uint32_t ok = (kk / 4) * L::kBoxKV + (kk % 4) * 32;
+    if constexpr (L::kBK == 128)
+      wgmma_ss_m64n128(sc, sdesc(q_g + oq, 16, kAtom),
+                       sdesc(k_s + ok, 16, kAtom), kk > 0);
+    else
+      wgmma_ss_m64n64<0, 0>(sc, sdesc(q_g + oq, 16, kAtom),
+                            sdesc(k_s + ok, 16, kAtom), kk > 0);
   }
 }
 
 // O += P V: V [keys][dh] is MN-major for this product; 16 keys a step are
-// two swizzle atoms (2048 bytes); the second 64 columns of dh are the next
+// two swizzle atoms (2048 bytes); the next 64 columns of dh are the next
 // box (the leading byte offset)
 template <int DH>
 __device__ __forceinline__ void mma_pv(float* o, const uint32_t (*pf)[4],
                                          uint32_t v_s) {
+  using L = Smem<DH>;
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
-    wgmma_pv<DH>(o, pf[kk], sdesc(v_s + kk * 2 * kAtom, kBox, kAtom));
+  for (int kk = 0; kk < L::kBK / 16; ++kk)
+    wgmma_pv<DH>(o, pf[kk], sdesc(v_s + kk * 2 * kAtom, L::kBoxKV, kAtom));
 }
 
 // The consumer overlaps each tile's softmax with the previous tile's P.V
@@ -218,12 +244,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    int window, float scale) {
   using L = Smem<DH>;
   constexpr int NB = L::kBoxes;
+  constexpr int kBK = L::kBK;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the buffers to it
   const uint32_t base = (smem_u32(smem_raw) + kAtom - 1) & ~(kAtom - 1);
   const uint32_t q_s = base;
-  const uint32_t k_ring = base + L::kTile;           // + kTile * slot
-  const uint32_t v_ring = k_ring + kStages * L::kTile;
+  const uint32_t k_ring = base + L::kTileQ;          // + kTileKV * slot
+  const uint32_t v_ring = k_ring + kStages * L::kTileKV;
   const uint32_t full_k = base + L::kBar;            // + 8 * slot
   const uint32_t full_v = full_k + 8 * kStages;
   const uint32_t empty_k = full_v + 8 * kStages;
@@ -257,23 +284,23 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // ---------------- producer warpgroup: one thread starts every load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(qbar, L::kTile);
+      mbar_expect_tx(qbar, L::kTileQ);
       for (int c = 0; c < NB; ++c)
-        tma_load(q_s + c * kBox, &tm_q, qbar, 64 * c, q0, bh);
+        tma_load(q_s + c * kBoxQ, &tm_q, qbar, 64 * c, q0, bh);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
         const uint32_t parity = (i / kStages - 1) & 1;  // last release
         const int t0 = t_begin + i * kBK;
         if (i >= kStages) mbar_wait(empty_k + 8 * s, parity);
-        mbar_expect_tx(full_k + 8 * s, L::kTile);
+        mbar_expect_tx(full_k + 8 * s, L::kTileKV);
         for (int c = 0; c < NB; ++c)
-          tma_load(k_ring + s * L::kTile + c * kBox, &tm_k, full_k + 8 * s,
-                   64 * c, t0, kvh);
+          tma_load(k_ring + s * L::kTileKV + c * L::kBoxKV, &tm_k,
+                   full_k + 8 * s, 64 * c, t0, kvh);
         if (i >= kStages) mbar_wait(empty_v + 8 * s, parity);
-        mbar_expect_tx(full_v + 8 * s, L::kTile);
+        mbar_expect_tx(full_v + 8 * s, L::kTileKV);
         for (int c = 0; c < NB; ++c)
-          tma_load(v_ring + s * L::kTile + c * kBox, &tm_v, full_v + 8 * s,
-                   64 * c, t0, kvh);
+          tma_load(v_ring + s * L::kTileKV + c * L::kBoxKV, &tm_v,
+                   full_v + 8 * s, 64 * c, t0, kvh);
       }
     }
   } else {
@@ -310,9 +337,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     pin<kBK / 2>(sc);
     __syncwarp();
     if (lane == 0) mbar_arrive(empty_k);
-    softmax_tile(sc, m, l, corr, qpos, t_begin, t, S, causal, window,
-                 is_edge(t_begin, qlo, qhi, S, causal, window), sl);
-    pack_p(sc, pf);
+    softmax_tile<kBK>(sc, m, l, corr, qpos, t_begin, t, S, causal, window,
+                      is_edge<kBK>(t_begin, qlo, qhi, S, causal, window), sl);
+    pack_p<kBK>(sc, pf);
 
     for (int i = 1; i < n_tiles; ++i) {
       const int s = i % kStages, sp = (i - 1) % kStages;
@@ -321,17 +348,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       pin<kBK / 2>(sc);
       pin<DH / 2>(o);
       wgmma_fence();
-      mma_qk<DH>(sc, q_g, k_ring + s * L::kTile);
+      mma_qk<DH>(sc, q_g, k_ring + s * L::kTileKV);
       wgmma_commit();
       mbar_wait(full_v + 8 * sp, ((i - 1) / kStages) & 1);
-      mma_pv<DH>(o, pf, v_ring + sp * L::kTile);
+      mma_pv<DH>(o, pf, v_ring + sp * L::kTileKV);
       wgmma_commit();
       wgmma_wait<1>();                               // S_i is done
       pin<kBK / 2>(sc);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty_k + 8 * s);
-      softmax_tile(sc, m, l, corr, qpos, t0, t, S, causal, window,
-                   is_edge(t0, qlo, qhi, S, causal, window), sl);
+      softmax_tile<kBK>(sc, m, l, corr, qpos, t0, t, S, causal, window,
+                        is_edge<kBK>(t0, qlo, qhi, S, causal, window), sl);
       wgmma_wait<0>();                               // P_{i-1} V_{i-1} too
       pin<DH / 2>(o);
       __syncwarp();
@@ -343,7 +370,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         o[4 * j + 2] *= corr[1];
         o[4 * j + 3] *= corr[1];
       }
-      pack_p(sc, pf);
+      pack_p<kBK>(sc, pf);
     }
 
     // the last tile's P.V
@@ -352,7 +379,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_wait(full_v + 8 * sp, ((n_tiles - 1) / kStages) & 1);
       pin<DH / 2>(o);
       wgmma_fence();
-      mma_pv<DH>(o, pf, v_ring + sp * L::kTile);
+      mma_pv<DH>(o, pf, v_ring + sp * L::kTileKV);
       wgmma_commit();
       wgmma_wait<0>();
       pin<DH / 2>(o);
@@ -388,15 +415,16 @@ template <int DH>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int B, int H, int K, int S, int causal, int window,
            float scale, cudaStream_t stream) {
-  static_assert(kBQ == 128 && kBK == 128, "maps use 128-row boxes");
+  static_assert(kBQ == 128, "Q's map uses 128-row boxes");
+  constexpr int kBK = Smem<DH>::kBK;
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   // maps are built on the host for every call (no device work, so a CUDA
   // graph capture records only the launch, with the maps as parameters)
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, fn, q, B * H, S, DH) ||
-      !make_map(&mk, fn, k, B * K, S, DH) ||
-      !make_map(&mv, fn, v, B * K, S, DH))
+      !make_map(&mk, fn, k, B * K, S, DH, kBK) ||
+      !make_map(&mv, fn, v, B * K, S, DH, kBK))
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = Smem<DH>::kBytes;
   static bool opted_in = false;      // once, before any graph capture
@@ -862,9 +890,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
 // null pointer nothing more is stored.
 // variant (the wrapper's choice, `flash_variant`): 0 = float32 FMA (dh a
 // multiple of 16 up to 256), 1 = bfloat16 mma.sync (dh a multiple of 16 up
-// to 256, not 64 or 128), 2 = bfloat16 wgmma + TMA (dh 64 or 128).  H % K == 0;
-// 16-byte aligned pointers for bf16.  A variant that does not take dh is
-// refused, never replaced.
+// to 240, not 64 or 128), 2 = bfloat16 wgmma + TMA (dh 64, 128, 192 or
+// 256).  H % K == 0; 16-byte aligned pointers for bf16.  A variant that
+// does not take dh is refused, never replaced.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, float* lse,
                                       int B, int H, int K, int S, int dh,
@@ -887,6 +915,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     if (dh == 128)
       return wg::launch<128>(q, k, v, out, lse, B, H, K, S, causal, window,
                              scale, s);
+    if (dh == 192)
+      return wg::launch<192>(q, k, v, out, lse, B, H, K, S, causal, window,
+                             scale, s);
+    if (dh == 256)
+      return wg::launch<256>(q, k, v, out, lse, B, H, K, S, causal, window,
+                             scale, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (variant != 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -900,11 +934,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 144: return launch_mma<144>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
     case 160: return launch_mma<160>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
     case 176: return launch_mma<176>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
-    case 192: return launch_mma<192>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
     case 208: return launch_mma<208>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
     case 224: return launch_mma<224>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
     case 240: return launch_mma<240>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
-    case 256: return launch_mma<256>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

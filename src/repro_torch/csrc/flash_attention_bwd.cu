@@ -57,8 +57,10 @@
 //   On the card (H100, 700 W) the step is a chain of dependent phases in
 //   both groups at once: at the training shape the tensor cores are busy
 //   about half the time (PERF.md).
-// 1 (bf16, the other multiples of 16 up to 128: hubert-xlarge's 80, the
-//   smoke configs' 16) -- the Ampere-style kernel, described below.
+// 1 (bf16, the other multiples of 16 up to 256: hubert-xlarge's 80, the
+//   smoke configs' 16, nemotron-4-340b's 192, recurrentgemma-9b's 256) --
+//   the Ampere-style kernel, described below; above dh 128 with each
+//   16-key slice's dK / dV columns split over two warps (`col_parts`).
 // 0 (fp32) -- an FMA kernel, described below.
 //
 // Launches of one call: (variant 2) memsets of the accumulators, prep (lse
@@ -71,16 +73,22 @@
 //      owns 16 keys: S^T = K Q^T and dP^T = V dO^T as `mma.sync.m16n8k16`
 //      (bf16 in, fp32 sums), P^T and dS^T in registers, dV += P^T dO and
 //      dK += dS^T Q accumulated in registers over the whole loop -- no
-//      atomics for dk and dv.  dS goes to shared memory as [query][key]
-//      (bf16), and after a barrier each warp takes 16 query rows of
-//      dQ += dS K, added into the fp32 accumulator with atomics, two
-//      columns an atomic (`atomicAdd` on a float2, sm_90; the key tiles'
-//      sums meet there in no fixed order);
+//      atomics for dk and dv.  Above dh 128 the block has 8 warps: two a
+//      16-key slice, each with the dK / dV of half the head_dim columns
+//      (the registers a thread can have; the slice's S^T and dP^T are
+//      computed by both).  Shared memory is (6 * 64 * (dh + 8) + 64 * 72)
+//      bf16 + 256 fp32: 208 KB at dh 256, one block an SM.  dS goes to
+//      shared memory as [query][key] (bf16), and after a barrier each warp
+//      takes 16 query rows (of its columns) of dQ += dS K, added into the
+//      fp32 accumulator with atomics, two columns an atomic (`atomicAdd` on
+//      a float2, sm_90; the key tiles' sums meet there in no fixed order);
 //   3. post: dq = scale * accumulator, cast to q's dtype.
 // The bf16 kernels round P and dS to bf16 for the products (fp32 sums), as
-// the forward rounds P.  fp32 runs an FMA kernel: a warp a block, a lane
-// pair a key for the two dots (half of head_dim each), a lane a head_dim
-// column for the sums.  head_dim: a multiple of 16 up to 128; any S.
+// the forward rounds P.  fp32 runs an FMA kernel: a warp a block of 16
+// keys, a lane pair a key for the two dots (half of head_dim each), a lane
+// a head_dim column (of 4) for the sums; above dh 128 8 keys a block, four
+// lanes a key, 8 columns a lane.  head_dim: a multiple of 16 up to 256;
+// any S.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -207,10 +215,22 @@ constexpr size_t bwd_smem_bytes() {
          sizeof(float) * 4 * kBr;
 }
 
+// Column parts: up to dh 128 a warp keeps dK and dV of its 16 keys for
+// every head_dim column in registers (2 * dh / 2 fp32 a thread).  Above
+// it that would pass the 255 registers a thread can have (256 fp32 at dh
+// 256 before anything else), so two warps share each 16-key slice, each
+// owning the dK / dV columns of one part (16-column blocks 0 .. KP - 1 or
+// KP .. dh / 16 - 1): 8 warps a block, 128 accumulator registers a thread
+// at dh 256.  Both warps of a slice compute its S^T and dP^T over all of
+// head_dim (those two of the five products are done twice), and the dQ
+// rows of a warp are split by the same columns.
+template <int DH>
+__host__ __device__ constexpr int col_parts() { return DH > 128 ? 2 : 1; }
+
 // Thread layout of an m16n8 accumulator: element e of a thread sits at row
 // lane / 4 + 8 (e / 2), column 2 (lane % 4) + e % 2.
 template <int DH>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kWarps * 32 * col_parts<DH>())
 flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
@@ -223,7 +243,8 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       int causal, int window, float scale) {
   constexpr int LD = DH + kPad;
   constexpr int KS = DH / 16;      // k-steps over head_dim
-  constexpr int NT = DH / 8;       // n-tiles over head_dim
+  constexpr int CP = col_parts<DH>();
+  constexpr int KP = (KS + CP - 1) / CP;   // 16-column blocks a part, at most
   constexpr int TILE = 64 * LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -240,7 +261,10 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane / 4, tig = lane % 4;
   const int mat = lane / 8, mrow = lane % 8;
-  const int kr = warp * 16;            // this warp's keys in the tile
+  const int slice = warp % kWarps;     // 16 keys (and 16 dQ rows) a slice
+  const int part = warp / kWarps;      // the column part this warp owns
+  const int c0 = CP > 1 ? part * KP : 0;   // its first 16-column block
+  const int kr = slice * 16;           // this warp's keys in the tile
 
   // the query rows that see a key of this tile: [q_begin, q_end)
   const int q_begin = causal ? t0 : 0;
@@ -272,9 +296,10 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   if (n_it > 0) prefetch(0, 0);
   cp_async_commit();
 
-  float dk_acc[NT][4], dv_acc[NT][4];
+  // this warp's columns: n-tiles 2 (c0 + b) and 2 (c0 + b) + 1, b < KP
+  float dk_acc[2 * KP][4], dv_acc[2 * KP][4];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+  for (int n = 0; n < 2 * KP; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
   const float sl = scale * kLog2e;
@@ -338,7 +363,7 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         if (window) ok = ok && key > query - window;
         p[e] = ok ? exp2f(fmaf(st[n][e], sl, -lse2[qq])) : 0.f;
         ds[e] = p[e] * (dpt[n][e] - dl[qq]);
-        dss[qq * kLdS + kk] = __float2bfloat16(ds[e]);
+        if (part == 0) dss[qq * kLdS + kk] = __float2bfloat16(ds[e]);
       }
       pf[n / 2][(n % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
       pf[n / 2][(n % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
@@ -346,30 +371,36 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       df[n / 2][(n % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
     }
 
-    // dV += P^T dO, dK += dS^T Q: B[k = query][n = d] from the row-major
-    // tiles, transposed by ldmatrix; one ldmatrix gives two n-tiles
+    // dV += P^T dO, dK += dS^T Q over this warp's columns: B[k = query]
+    // [n = d] from the row-major tiles, transposed by ldmatrix; one
+    // ldmatrix gives the two n-tiles of a 16-column block
 #pragma unroll
     for (int s = 0; s < kBr / 16; ++s) {
       const int off = (s * 16 + (mat % 2) * 8 + mrow) * LD + (mat / 2) * 8;
 #pragma unroll
-      for (int n = 0; n < NT; n += 2) {
+      for (int b = 0; b < KP; ++b) {
+        if (c0 + b >= KS) break;               // a part with one block less
+        const int col = (c0 + b) * 16;
         uint32_t bf[4];
-        ldsm_x4_trans(bf, dost + off + n * 8);
-        mma_bf16(dv_acc[n], pf[s], bf[0], bf[1]);
-        mma_bf16(dv_acc[n + 1], pf[s], bf[2], bf[3]);
-        ldsm_x4_trans(bf, qst + off + n * 8);
-        mma_bf16(dk_acc[n], df[s], bf[0], bf[1]);
-        mma_bf16(dk_acc[n + 1], df[s], bf[2], bf[3]);
+        ldsm_x4_trans(bf, dost + off + col);
+        mma_bf16(dv_acc[2 * b], pf[s], bf[0], bf[1]);
+        mma_bf16(dv_acc[2 * b + 1], pf[s], bf[2], bf[3]);
+        ldsm_x4_trans(bf, qst + off + col);
+        mma_bf16(dk_acc[2 * b], df[s], bf[0], bf[1]);
+        mma_bf16(dk_acc[2 * b + 1], df[s], bf[2], bf[3]);
       }
     }
     __syncthreads();                           // dS complete
 
-    // dQ += dS K: warp w takes query rows 16 w .. 16 w + 15, two n-tiles
-    // of head_dim at a time, added into the fp32 accumulator
-    const int qr = warp * 16;
+    // dQ += dS K: a warp takes query rows 16 slice .. 16 slice + 15 and
+    // its part's columns, a 16-column block at a time, added into the fp32
+    // accumulator
+    const int qr = slice * 16;
     float* dqh = dq_acc + (size_t)bh * S * DH;
 #pragma unroll
-    for (int n = 0; n < NT; n += 2) {
+    for (int b = 0; b < KP; ++b) {
+      if (c0 + b >= KS) break;
+      const int n = 2 * (c0 + b);
       float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
       for (int s = 0; s < kBc / 16; ++s) {
@@ -394,7 +425,7 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();                           // stage and dS consumed
   }
 
-  // dK = scale * dS^T Q and dV = P^T dO for this warp's keys
+  // dK = scale * dS^T Q and dV = P^T dO for this warp's keys and columns
   __nv_bfloat16* dkh = dk + (size_t)bk * S * DH;
   __nv_bfloat16* dvh = dv + (size_t)bk * S * DH;
 #pragma unroll
@@ -402,8 +433,9 @@ flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const int key = t0 + kr + grp + 8 * r;
     if (key >= S) continue;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const size_t off = (size_t)key * DH + n * 8 + tig * 2;
+    for (int n = 0; n < 2 * KP; ++n) {
+      if (c0 + n / 2 >= KS) break;
+      const size_t off = (size_t)key * DH + (2 * c0 + n) * 8 + tig * 2;
       *reinterpret_cast<__nv_bfloat162*>(dkh + off) = __floats2bfloat162_rn(
           dk_acc[n][2 * r] * scale, dk_acc[n][2 * r + 1] * scale);
       *reinterpret_cast<__nv_bfloat162*>(dvh + off) = __floats2bfloat162_rn(
@@ -427,7 +459,8 @@ int launch_bf16(const void* q, const void* k, const void* v,
     opted_in = true;
   }
   dim3 grid((S + kBc - 1) / kBc, B * K);
-  flash_bwd_bf16_kernel<DH><<<grid, kWarps * 32, smem, stream>>>(
+  flash_bwd_bf16_kernel<DH><<<grid, kWarps * 32 * col_parts<DH>(), smem,
+                              stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
@@ -440,9 +473,11 @@ int launch_bf16(const void* q, const void* k, const void* v,
 // ---------------------------------------------------------------------------
 // fp32: FMA path (full fp32, for the fp32 configurations and tests)
 // ---------------------------------------------------------------------------
-constexpr int kKeys32 = 16;        // keys a block (a warp)
-constexpr int kCols32 = 4;         // head_dim columns a lane: dh <= 128
-
+// kKeys keys a block (a warp), 32 / kKeys lanes a key for the two dots
+// (a share of head_dim each); kCols head_dim columns a lane for the sums
+// (dh <= 32 kCols).  dK and dV take 2 kKeys kCols registers a lane: 128
+// at <16, 4> (dh <= 128) and at <8, 8> (dh <= 256).
+template <int kKeys, int kCols>
 __global__ void __launch_bounds__(32)
 flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
@@ -454,34 +489,36 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      int causal, int window, float scale) {
   extern __shared__ __align__(16) float sm32[];
   const int ld = dh + 1;                       // odd stride: no conflicts
-  float* ks = sm32;                            // [16][dh + 1]
-  float* vs = ks + kKeys32 * ld;               // [16][dh + 1]
-  float* qrow = vs + kKeys32 * ld;             // [dh]
+  float* ks = sm32;                            // [kKeys][dh + 1]
+  float* vs = ks + kKeys * ld;                 // [kKeys][dh + 1]
+  float* qrow = vs + kKeys * ld;               // [dh]
   float* drow = qrow + dh;                     // [dh]
 
-  const int t0 = blockIdx.x * kKeys32;
+  const int t0 = blockIdx.x * kKeys;
   const int bk = blockIdx.y;
   const int b = bk / K, kvh = bk % K, g = H / K;
   const int lane = threadIdx.x;
   const float* kh = k + (size_t)bk * S * dh;
   const float* vh = v + (size_t)bk * S * dh;
-  for (int i = lane; i < kKeys32 * dh; i += 32) {
+  for (int i = lane; i < kKeys * dh; i += 32) {
     const int r = i / dh, c = i % dh;
     const bool in = t0 + r < S;
     ks[r * ld + c] = in ? kh[(size_t)(t0 + r) * dh + c] : 0.f;
     vs[r * ld + c] = in ? vh[(size_t)(t0 + r) * dh + c] : 0.f;
   }
-  float dk_acc[kKeys32][kCols32], dv_acc[kKeys32][kCols32];
+  float dk_acc[kKeys][kCols], dv_acc[kKeys][kCols];
 #pragma unroll
-  for (int j = 0; j < kKeys32; ++j)
+  for (int j = 0; j < kKeys; ++j)
 #pragma unroll
-    for (int c = 0; c < kCols32; ++c) dk_acc[j][c] = dv_acc[j][c] = 0.f;
+    for (int c = 0; c < kCols; ++c) dk_acc[j][c] = dv_acc[j][c] = 0.f;
 
-  // lane j and j + 16 share key t0 + j, each half of head_dim of its dots
-  const int key = t0 + lane % 16;
-  const int d0 = (lane / 16) * (dh / 2), d1 = d0 + dh / 2;
+  // lanes j, j + kKeys, ... share key t0 + j, each a share of head_dim of
+  // its dots
+  constexpr int kShare = 32 / kKeys;
+  const int key = t0 + lane % kKeys;
+  const int d0 = (lane / kKeys) * (dh / kShare), d1 = d0 + dh / kShare;
   const int q_begin = causal ? t0 : 0;
-  const int q_end = window ? min(S, t0 + kKeys32 - 1 + window) : S;
+  const int q_end = window ? min(S, t0 + kKeys - 1 + window) : S;
   for (int hh = 0; hh < g; ++hh) {
     const size_t bh = (size_t)b * H + kvh * g + hh;
     for (int i = q_begin; i < q_end; ++i) {
@@ -494,23 +531,28 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncwarp();
       float s = 0.f, dp = 0.f;
       for (int d = d0; d < d1; ++d) {
-        s = fmaf(qrow[d], ks[(lane % 16) * ld + d], s);
-        dp = fmaf(drow[d], vs[(lane % 16) * ld + d], dp);
+        s = fmaf(qrow[d], ks[(lane % kKeys) * ld + d], s);
+        dp = fmaf(drow[d], vs[(lane % kKeys) * ld + d], dp);
       }
-      s += __shfl_xor_sync(0xffffffffu, s, 16);
-      dp += __shfl_xor_sync(0xffffffffu, dp, 16);
+#pragma unroll
+      for (int off = 16; off >= kKeys; off >>= 1) {
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+        dp += __shfl_xor_sync(0xffffffffu, dp, off);
+      }
       bool ok = key < S;
       if (causal) ok = ok && key <= i;
       if (window) ok = ok && key > i - window;
       const float p = ok ? expf(s - lse[row]) : 0.f;
       const float ds = p * (dp - delta[row]);
-      float dq[kCols32] = {0.f, 0.f, 0.f, 0.f};
+      float dq[kCols];
 #pragma unroll
-      for (int j = 0; j < kKeys32; ++j) {
+      for (int c = 0; c < kCols; ++c) dq[c] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j);
         const float dsj = __shfl_sync(0xffffffffu, ds, j);
 #pragma unroll
-        for (int c = 0; c < kCols32; ++c) {
+        for (int c = 0; c < kCols; ++c) {
           const int d = lane + 32 * c;
           if (d < dh) {
             dv_acc[j][c] = fmaf(pj, drow[d], dv_acc[j][c]);
@@ -520,7 +562,7 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
       }
 #pragma unroll
-      for (int c = 0; c < kCols32; ++c) {
+      for (int c = 0; c < kCols; ++c) {
         const int d = lane + 32 * c;
         if (d < dh) atomicAdd(dq_acc + row * dh + d, dq[c]);
       }
@@ -528,11 +570,11 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   // dk sums dS^T (q * scale): the scale is already in
 #pragma unroll
-  for (int j = 0; j < kKeys32; ++j) {
+  for (int j = 0; j < kKeys; ++j) {
     if (t0 + j >= S) break;
     const size_t off = ((size_t)bk * S + t0 + j) * dh;
 #pragma unroll
-    for (int c = 0; c < kCols32; ++c) {
+    for (int c = 0; c < kCols; ++c) {
       const int d = lane + 32 * c;
       if (d < dh) {
         dk[off + d] = dk_acc[j][c];
@@ -540,6 +582,25 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
   }
+}
+
+template <int kKeys, int kCols>
+int launch_f32(const void* q, const void* k, const void* v,
+               const void* dout, const float* lse, const float* delta,
+               float* dq_acc, void* dk, void* dv, int B, int H, int K, int S,
+               int dh, int causal, int window, float scale,
+               cudaStream_t stream) {
+  // 2 kKeys (dh + 1) + 2 dh floats: 18.5 KB at <8, 8> and dh 256, below
+  // the 48 KB default
+  const size_t smem = sizeof(float) * ((size_t)2 * kKeys * (dh + 1) +
+                                       2 * (size_t)dh);
+  dim3 grid((S + kKeys - 1) / kKeys, B * K);
+  flash_bwd_f32_kernel<kKeys, kCols><<<grid, 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, dq_acc, static_cast<float*>(dk), static_cast<float*>(dv), H, K,
+      S, dh, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -1128,9 +1189,10 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 //   variants 0 and 1: delta [B, H, S] and dq_acc [B, H, S, dh]; lse2 and
 //     dkv_acc unused, splits 1.
 // variant (the wrapper's choice, `flash_bwd_variant`): 0 = float32 FMA,
-// 1 = bfloat16 mma.sync (dh a multiple of 16 up to 128), 2 = bfloat16
-// wgmma + TMA (dh 64 or 128).  splits (variant 2, `bwd_split_count`)
-// divides H / K.  What a variant does not take is refused, never replaced.
+// 1 = bfloat16 mma.sync (dh a multiple of 16 up to 256, not 64 or 128),
+// 2 = bfloat16 wgmma + TMA (dh 64 or 128).  splits (variant 2,
+// `bwd_split_count`) divides H / K.  What a variant does not take is
+// refused, never replaced.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* lse2, float* delta,
@@ -1138,7 +1200,7 @@ extern "C" int flash_attention_bwd_launch(
     int H, int K, int S, int dh, int causal, int window, int splits,
     float scale, int variant, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (K <= 0 || H % K != 0 || dh % 16 != 0 || dh > 128 || dh <= 0 ||
+  if (K <= 0 || H % K != 0 || dh % 16 != 0 || dh > 256 || dh <= 0 ||
       splits < 1 || (H / K) % splits != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (variant == 2) {
@@ -1165,15 +1227,11 @@ extern "C" int flash_attention_bwd_launch(
                                      dh, scale, s);
   if (err != 0) return err;
   if (dtype == 0) {
-    const size_t smem = sizeof(float) * ((size_t)2 * kKeys32 * (dh + 1) +
-                                         2 * (size_t)dh);
-    dim3 grid((S + kKeys32 - 1) / kKeys32, B * K);
-    flash_bwd_f32_kernel<<<grid, 32, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, dq_acc, static_cast<float*>(dk), static_cast<float*>(dv), H, K,
-        S, dh, causal, window, scale);
-    err = static_cast<int>(cudaGetLastError());
+    err = dh <= 128
+        ? launch_f32<16, 4>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H,
+                            K, S, dh, causal, window, scale, s)
+        : launch_f32<8, 8>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H,
+                           K, S, dh, causal, window, scale, s);
   } else {
     switch (dh) {
       case 16: err = launch_bf16<16>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
@@ -1182,6 +1240,14 @@ extern "C" int flash_attention_bwd_launch(
       case 80: err = launch_bf16<80>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
       case 96: err = launch_bf16<96>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
       case 112: err = launch_bf16<112>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
+      case 144: err = launch_bf16<144>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
+      case 160: err = launch_bf16<160>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
+      case 176: err = launch_bf16<176>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
+      case 192: err = launch_bf16<192>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
+      case 208: err = launch_bf16<208>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
+      case 224: err = launch_bf16<224>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
+      case 240: err = launch_bf16<240>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
+      case 256: err = launch_bf16<256>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

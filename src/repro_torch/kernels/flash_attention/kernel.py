@@ -16,17 +16,17 @@ KV head h // (H // K)).  Scores and softmax in fp32 with q scaled in fp32;
 key t is visible to query s iff t <= s (causal) and t > s - window (with
 a window); the output is acc / max(l, 1e-20) in q's dtype.  Any S is
 taken: the kernel masks a partial last tile.  Three kernel variants, chosen
-by dtype and head_dim only (``flash_variant``): bf16 at head_dim 64 or 128
-runs the Hopper kernel (``wgmma`` + TMA, warp-specialised), bf16 at the
-other multiples of 16 up to 256 the ``mma.sync`` kernel (above 128 with Q
-kept in shared memory: nemotron-4-340b's 192, recurrentgemma-9b's 256),
-fp32 an FMA kernel (multiples of 16 up to 256); other head dims raise.  The
-backward kernel takes head_dim up to 128, in three variants chosen the same
-way (``flash_bwd_variant``): bf16 at 64 or 128 the Hopper kernel (``wgmma``
-+ TMA, dq by bulk reduce, the KV group's heads split over blocks where the
-grid is small: ``bwd_split_count``), bf16 at the other multiples of 16 the
-``mma.sync`` kernel, fp32 the FMA kernel; above 128, a gradient on the card
-raises (ROADMAP B8).
+by dtype and head_dim only (``flash_variant``): bf16 at head_dim 64, 128,
+192 or 256 runs the Hopper kernel (``wgmma`` + TMA, warp-specialised; 64-key
+tiles above 128: nemotron-4-340b's 192, recurrentgemma-9b's 256), bf16 at
+the other multiples of 16 up to 240 the ``mma.sync`` kernel, fp32 an FMA
+kernel (multiples of 16 up to 256); other head dims raise.  The backward
+kernel takes the same head dims, in three variants chosen the same way
+(``flash_bwd_variant``): bf16 at 64 or 128 the Hopper kernel (``wgmma`` +
+TMA, dq by bulk reduce, the KV group's heads split over blocks where the
+grid is small: ``bwd_split_count``), bf16 at the other multiples of 16 up
+to 256 the ``mma.sync`` kernel (above 128 with each warp's dK / dV columns
+split over two warps), fp32 the FMA kernel.
 """
 
 from __future__ import annotations
@@ -38,8 +38,6 @@ from .. import build
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 
-BWD_MAX_HEAD_DIM = 128
-
 launches = 0          # forward kernel launches since the caller zeroed this
 bwd_launches = 0      # backward kernel launches, likewise
 last_variant = None   # the variant the last forward launch ran
@@ -48,7 +46,9 @@ last_bwd_splits = None    # and its split of the KV group's heads
 
 # the C entry points' ``variant`` codes (forward and backward alike)
 VARIANTS = {"fma": 0, "mma_sync": 1, "wgmma": 2}
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 128, 192, 256)
+# the backward's wgmma variant; other head dims run its mma.sync kernel
+BWD_WGMMA_HEAD_DIMS = (64, 128)
 
 # the backward's wgmma variant: a block per 128-key tile, 64 query rows a
 # step (scratch rows padded to it), one block an SM (~194 KB of shared
@@ -65,17 +65,21 @@ BWD_SPLIT_BLOCKS = 4 * BWD_SM_COUNT
 
 def flash_variant(dtype, head_dim: int) -> str:
     """The kernel variant for a dtype and head_dim: ``"wgmma"`` (bf16,
-    head_dim 64 or 128), ``"mma_sync"`` (bf16, another multiple of 16 up
-    to 256) or ``"fma"`` (fp32, a multiple of 16 up to 256).  Raises for what no variant takes."""
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_attention takes float32 or bfloat16, got "
-                        f"{dtype}")
-    if head_dim % 16 or not 0 < head_dim <= MAX_HEAD_DIM:
-        raise ValueError(f"the kernel takes a head_dim that is a multiple "
-                         f"of 16 up to {MAX_HEAD_DIM}, not {head_dim}")
+    head_dim 64, 128, 192 or 256), ``"mma_sync"`` (bf16, another multiple
+    of 16 up to 240) or ``"fma"`` (fp32, a multiple of 16 up to 256).
+    Raises for what no variant takes."""
+    _check_head_dim("flash_attention", dtype, head_dim)
     if dtype == torch.float32:
         return "fma"
     return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
+
+
+def _check_head_dim(name, dtype, head_dim: int) -> None:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} takes float32 or bfloat16, got {dtype}")
+    if head_dim % 16 or not 0 < head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"{name} takes a head_dim that is a multiple of 16 "
+                         f"up to {MAX_HEAD_DIM}, not {head_dim}")
 
 
 def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
@@ -236,12 +240,12 @@ def _launch_fwd(q, k, v, causal, window, with_lse):
 def flash_bwd_variant(dtype, head_dim: int) -> str:
     """The backward kernel's variant for a dtype and head_dim: ``"wgmma"``
     (bf16, head_dim 64 or 128), ``"mma_sync"`` (bf16, another multiple of
-    16 up to 128) or ``"fma"`` (fp32, a multiple of 16 up to 128).  Raises
-    for what no variant takes (above 128: ROADMAP B8)."""
-    _check_bwd_head_dim(dtype, head_dim)
+    16 up to 256) or ``"fma"`` (fp32, a multiple of 16 up to 256).  Raises
+    for what no variant takes."""
+    _check_head_dim("flash_attention_bwd", dtype, head_dim)
     if dtype == torch.float32:
         return "fma"
-    return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
+    return "wgmma" if head_dim in BWD_WGMMA_HEAD_DIMS else "mma_sync"
 
 
 def bwd_split_count(B: int, H: int, K: int, S: int) -> int:
@@ -312,17 +316,6 @@ def flash_attention_bwd_split_plain(q, k, v, o, lse, do, *, causal=True,
                         ds, kf[:, :, t0:t1]) * scale
     return (dq.to(q.dtype), dk_parts.sum(0).to(k.dtype),
             dv_parts.sum(0).to(v.dtype))
-
-
-def _check_bwd_head_dim(dtype, head_dim: int) -> None:
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_attention_bwd takes float32 or bfloat16, "
-                        f"got {dtype}")
-    if head_dim % 16 or not 0 < head_dim <= BWD_MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"flash_attention's backward kernel takes a head_dim that is a "
-            f"multiple of 16 up to {BWD_MAX_HEAD_DIM}, not {head_dim}: a "
-            f"gradient above it on the card waits for ROADMAP B8")
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
@@ -404,7 +397,4 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: [B, H, S, dh]; k/v: [B, K, S, dh].  Returns [B, H, S, dh] in
     q's dtype, differentiable in q, k and v."""
     _check(q, k, v)
-    if q.device.type == "cuda" and torch.is_grad_enabled() and \
-            any(t.requires_grad for t in (q, k, v)):
-        flash_bwd_variant(q.dtype, q.shape[-1])
     return FlashAttention.apply(q, k, v, causal, window)

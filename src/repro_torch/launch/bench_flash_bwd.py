@@ -1,15 +1,21 @@
-"""Time the flash attention backward on the card, one tree or several in
+"""Time the flash attention kernels on the card, one tree or several in
 turns.
 
     PYTHONPATH=src python -m repro_torch.launch.bench_flash_bwd \
         [--trees DIR [DIR ...]] [--splits 2,6] [--profile] [--out compare_out]
 
 Times ``flash_attention_bwd`` at starcoder2-3b's training shape (2 x 4096,
-24/2 heads of 128, causal) and at granite-20b's heads (1 x 1024, 48/1),
-bf16, on the forward kernel's output and log-sum-exp: device ms per call,
-CUDA events around 20 calls after 3 warm-up calls.  Beside it, in the same
+24/2 heads of 128, causal), at granite-20b's heads (1 x 1024, 48/1), at
+nemotron-4-340b's (1 x 4096, 96/8 at head_dim 192, causal) and at
+recurrentgemma-9b's training shape (1 x 8192, 16/1 at head_dim 256, window
+2048), bf16, on the forward kernel's output and log-sum-exp: device ms per
+call, CUDA events around 20 calls after 3 warm-up calls (a tree whose
+backward refuses a head_dim shows "refused").  Beside it, in the same
 process and on the same inputs, SDPA's backward (its forward + backward
-less its forward, ``enable_gqa=True``).  ``--splits`` also times the
+less its forward, ``enable_gqa=True``, a window as a mask).  Then the
+forward kernel (``flash_attention`` without the LSE) at the four shapes
+and at qwen2.5-32b's prefill (1 x 8192, 40/8 at head_dim 128), beside
+SDPA's forward.  ``--splits`` also times the
 kernel at those splits of the KV group's heads where the tree has
 ``bwd_split_count`` (the wgmma variant); ``--profile`` adds the device
 time of each kernel one call launches (``torch.profiler``).
@@ -31,14 +37,26 @@ from pathlib import Path
 
 BF16_FLOPS = 989e12           # H100 SXM dense bf16, NVIDIA data sheet
 SEED = 0
-# name: B, H, K, S, head_dim (causal, no window, bf16)
-SHAPES = {"train": (2, 24, 2, 4096, 128), "granite": (1, 48, 1, 1024, 128)}
+# name: B, H, K, S, head_dim, window (causal, bf16)
+SHAPES = {"train": (2, 24, 2, 4096, 128, 0),
+          "granite": (1, 48, 1, 1024, 128, 0),
+          "nemotron": (1, 96, 8, 4096, 192, 0),
+          "recurrentgemma": (1, 16, 1, 8192, 256, 2048)}
+FWD_SHAPES = dict(SHAPES, qwen_prefill=(1, 40, 8, 8192, 128, 0))
 
 
-def bound_ms(B, H, S, dh) -> float:
-    """Five products of 2 dh flops over the causal (query, key) pairs at
-    the bf16 peak (the kernel is bound by operations at these shapes)."""
-    return 10 * B * H * dh * (S * (S + 1) // 2) / BF16_FLOPS * 1e3
+def pairs(S, window) -> int:
+    """Causal (query, key) pairs, within the window where there is one."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def bound_ms(B, H, S, dh, window=0, products=5) -> float:
+    """``products`` products of 2 dh flops over the visible (query, key)
+    pairs at the bf16 peak (both kernels are bound by operations at these
+    shapes): five for the backward, two for the forward."""
+    return 2 * products * B * H * dh * pairs(S, window) / BF16_FLOPS * 1e3
 
 
 def event_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -75,8 +93,8 @@ def kernel_ms(torch, fn, calls: int = 10) -> dict:
 def bench(torch, dev, splits, with_profile) -> dict:
     from repro_torch.kernels.flash_attention import kernel as fak
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    res = {}
-    for name, (B, H, K, S, dh) in SHAPES.items():
+    res, fwd = {}, {}
+    for name, (B, H, K, S, dh, win) in FWD_SHAPES.items():
         g = torch.Generator(device=dev).manual_seed(SEED)
 
         def randn(*shape):
@@ -84,15 +102,38 @@ def bench(torch, dev, splits, with_profile) -> dict:
                 torch.bfloat16)
         q, k, v, do = randn(B, H, S, dh), randn(B, K, S, dh), \
             randn(B, K, S, dh), randn(B, H, S, dh)
-        o, lse = fak._launch_fwd(q, k, v, True, 0, with_lse=True)
+        if win:       # the window as a mask: keys (s - win, s]
+            pos = torch.arange(S, device=dev)
+            kw = {"attn_mask": (pos[None] <= pos[:, None]) &
+                  (pos[None] > pos[:, None] - win)}
+        else:
+            kw = {"is_causal": True}
+        fwd[name] = {
+            "shape": [B, H, K, S, dh, win],
+            "bound_ms": bound_ms(B, H, S, dh, win, products=2),
+            "ms": event_ms(torch, lambda: fak._launch_fwd(
+                q, k, v, True, win, with_lse=False)),
+            "variant": fak.last_variant,
+            "sdpa_ms": event_ms(torch, lambda: sdpa(q, k, v, enable_gqa=True,
+                                                    **kw))}
+        if name not in SHAPES:
+            continue
+        o, lse = fak._launch_fwd(q, k, v, True, win, with_lse=True)
 
         def run():
-            return fak.flash_attention_bwd(q, k, v, o, lse, do)
-        row = {"shape": [B, H, K, S, dh], "bound_ms": bound_ms(B, H, S, dh),
-               "ms": event_ms(torch, run),
-               "variant": getattr(fak, "last_bwd_variant", None),
-               "splits": getattr(fak, "last_bwd_splits", None)}
-        if splits and hasattr(fak, "bwd_split_count"):
+            return fak.flash_attention_bwd(q, k, v, o, lse, do, window=win)
+        row = {"shape": [B, H, K, S, dh, win],
+               "bound_ms": bound_ms(B, H, S, dh, win)}
+        try:
+            run()
+        except NotImplementedError as e:     # a tree without the head_dim
+            row["ms"] = "refused"
+            row["error"] = str(e)
+        else:
+            row["ms"] = event_ms(torch, run)
+            row["variant"] = getattr(fak, "last_bwd_variant", None)
+            row["splits"] = getattr(fak, "last_bwd_splits", None)
+        if splits and row.get("variant") == "wgmma":
             rule = fak.bwd_split_count
             try:
                 for sp in splits:
@@ -101,17 +142,17 @@ def bench(torch, dev, splits, with_profile) -> dict:
                         row[f"ms_split{sp}"] = event_ms(torch, run)
             finally:
                 fak.bwd_split_count = rule
-        if with_profile:
+        if with_profile and row["ms"] != "refused":
             row["kernels"] = kernel_ms(torch, run)
         qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
         row["sdpa_backward_ms"] = event_ms(torch, lambda: sdpa(
-            qr, kr, vr, is_causal=True, enable_gqa=True).backward(do)) - \
-            event_ms(torch, lambda: sdpa(q, k, v, is_causal=True,
-                                         enable_gqa=True))
+            qr, kr, vr, enable_gqa=True, **kw).backward(do)) - \
+            event_ms(torch, lambda: sdpa(q, k, v, enable_gqa=True, **kw))
         res[name] = row
-        del q, k, v, do, o, lse, qr, kr, vr
+        del o, lse, qr, kr, vr
+        del q, k, v, do
         torch.cuda.empty_cache()
-    return res
+    return {"backward": res, "forward": fwd}
 
 
 def run_one(splits, with_profile) -> int:
@@ -120,7 +161,7 @@ def run_one(splits, with_profile) -> int:
         raise SystemExit("bench_flash_bwd needs a CUDA device")
     from repro_torch.launch.bench_paged import card_line
     res = bench(torch, torch.device("cuda", 0), splits, with_profile)
-    print(json.dumps({"card": card_line(), "shapes": res}))
+    print(json.dumps({"card": card_line(), **res}))
     return 0
 
 
@@ -154,11 +195,18 @@ def main(argv=None) -> int:
         res["tree"] = str(tree)
         runs.append(res)
         print(json.dumps(res), flush=True)
+    def ms(x):
+        return x if isinstance(x, str) else f"{x:.4f}"
     print("flash_attention_bwd ms (SDPA backward ms), trees in order:")
     for name in SHAPES:
-        cells = [f"{r['shapes'][name]['ms']:.4f} "
-                 f"({r['shapes'][name]['sdpa_backward_ms']:.4f})"
+        cells = [f"{ms(r['backward'][name]['ms'])} "
+                 f"({ms(r['backward'][name]['sdpa_backward_ms'])})"
                  for r in runs]
+        print(f"  {name}: " + ", ".join(cells))
+    print("flash_attention ms (SDPA ms), trees in order:")
+    for name in FWD_SHAPES:
+        cells = [f"{ms(r['forward'][name]['ms'])} "
+                 f"({ms(r['forward'][name]['sdpa_ms'])})" for r in runs]
         print(f"  {name}: " + ", ".join(cells))
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "bench_flash_bwd.json").write_text(json.dumps(runs, indent=1))

@@ -4,9 +4,12 @@
         [--arch starcoder2-3b] [--batch 2] [--seq 4096] [--out profile_out]
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         --arch mamba2-370m --batch 8 --seq 2048
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \
+        --arch recurrentgemma-9b --layers 9 --batch 1 --seq 8192
 
 Builds the trainer for the architecture's published configuration, whole
-(random weights from a seed, bf16, AdamW), feeds it ``TokenStream``
+or cut to its first ``--layers`` layers (random weights from a seed, bf16,
+AdamW), feeds it ``TokenStream``
 batches, runs one warm-up step, then records one step under
 ``torch.profiler``.  Prints the wall time, the device time by kernel (top
 entries), the shares of the flash and ssd_scan forward and backward
@@ -17,6 +20,7 @@ time over wall time).  Writes the Chrome trace and the summary to ``--out``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from pathlib import Path
@@ -38,8 +42,11 @@ SSD_FWD_WORDS = ("ssd_chunk_kernel", "ssd_state_kernel")
 SSD_BWD_WORDS = ("ssd_bwd_",)
 
 
-def profile(arch: str, batch: int, seq: int, out: Path, dev) -> dict:
+def profile(arch: str, batch: int, seq: int, out: Path, dev,
+            layers: int | None = None) -> dict:
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     trainer = Trainer(cfg, AdamWConfig(), device=dev)
     stream = TokenStream(cfg.vocab_size, batch, seq, seed=0,
                          frontend_dim=cfg.d_model if cfg.frontend else 0)
@@ -95,13 +102,15 @@ def main(argv=None):
     ap.add_argument("--arch", default="starcoder2-3b")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seq", type=int, default=4096)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="the first N layers only (default: all)")
     ap.add_argument("--out", default="profile_out")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    print(json.dumps(profile(args.arch, args.batch, args.seq, out, dev),
-                     indent=1), flush=True)
+    print(json.dumps(profile(args.arch, args.batch, args.seq, out, dev,
+                             args.layers), indent=1), flush=True)
 
 
 if __name__ == "__main__":

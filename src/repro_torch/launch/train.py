@@ -15,9 +15,10 @@ the trainer saves a checkpoint there every ``--ckpt-every`` steps; a run
 over a heap that holds one resumes from its step.  The heap is closed
 cleanly at the end.  1 GiB holds the smoke configurations; a full-width
 state exhausts it (``MemoryError``, in the reference too: ROADMAP C).
-Every arch trains on the CPU.  On the card, archs with attention at
-head_dim above 128 raise at their first step (no flash backward there
-yet, ROADMAP B8); mamba2-370m trains through the ssd_scan kernels:
+Every arch trains on the CPU and, where its training state fits the
+card's memory, on the card (recurrentgemma-9b whole needs ~122 GB;
+``chip_smoke.py`` trains its first 9 layers); mamba2-370m trains through
+the ssd_scan kernels:
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \
       --steps 6 --batch 8 --seq 2048
 """

@@ -74,12 +74,25 @@ def test_profile_decode_counts_copies_apart_from_kernels():
 
 def test_bench_flash_bwd_bound_counts_the_causal_pairs():
     """``bench_flash_bwd``'s bound: five products of 2 dh flops over the
-    causal pairs at the bf16 peak, 0.521 ms at starcoder2-3b's training
-    shape; its shapes are the training run's and granite-20b's heads."""
+    causal pairs (within the window where there is one) at the bf16 peak,
+    0.521 ms at starcoder2-3b's training shape, 1.564 at nemotron-4-340b's
+    heads, 0.608 at recurrentgemma-9b's training shape (window 2048); the
+    forward's two products; its shapes are the training run's, granite-20b's
+    and those two, and for the forward also qwen2.5-32b's prefill."""
     from repro_torch.launch import bench_flash_bwd as bfb
     pairs = sum(i + 1 for i in range(4096))
     want = 10 * 2 * 24 * 128 * pairs / 989e12 * 1e3
     assert abs(bfb.bound_ms(2, 24, 4096, 128) - want) < 1e-12
     assert round(bfb.bound_ms(2, 24, 4096, 128), 3) == 0.521
-    assert bfb.SHAPES == {"train": (2, 24, 2, 4096, 128),
-                          "granite": (1, 48, 1, 1024, 128)}
+    assert round(bfb.bound_ms(1, 96, 4096, 192), 3) == 1.564
+    windowed = sum(min(i + 1, 2048) for i in range(8192))
+    assert bfb.pairs(8192, 2048) == windowed
+    assert round(bfb.bound_ms(1, 16, 8192, 256, 2048), 3) == 0.608
+    assert abs(bfb.bound_ms(1, 16, 8192, 256, 2048, products=2) -
+               0.4 * bfb.bound_ms(1, 16, 8192, 256, 2048)) < 1e-12
+    assert bfb.SHAPES == {"train": (2, 24, 2, 4096, 128, 0),
+                          "granite": (1, 48, 1, 1024, 128, 0),
+                          "nemotron": (1, 96, 8, 4096, 192, 0),
+                          "recurrentgemma": (1, 16, 1, 8192, 256, 2048)}
+    assert bfb.FWD_SHAPES == dict(bfb.SHAPES,
+                                  qwen_prefill=(1, 40, 8, 8192, 128, 0))

@@ -280,12 +280,19 @@ def test_decode_tokens_match_cpu(dev):
     (1, 4, 2, 1000, 128, False, 0, torch.bfloat16),
     (1, 4, 2, 512, 128, True, 48, torch.bfloat16),    # window edge tiles
     (2, 40, 8, 1000, 128, True, 0, torch.bfloat16),   # a tile at a head's end
-    # head_dim above 128: the mma.sync kernel with Q in shared memory
+    # head_dim above 128: the wgmma kernel's 64-key tiles at 192 / 256,
+    # the mma.sync kernel with Q in shared memory at 144
     (1, 96, 8, 1000, 192, True, 0, torch.bfloat16),   # nemotron-4-340b
     (1, 16, 1, 1000, 256, True, 48, torch.bfloat16),  # recurrentgemma-9b
     (1, 4, 1, 300, 256, True, 0, torch.float32),
     (1, 24, 8, 1000, 64, True, 0, torch.bfloat16),    # granite-moe-3b-a800m
     (2, 16, 16, 1000, 80, False, 0, torch.bfloat16),  # hubert-xlarge
+    (1, 4, 2, 333, 192, True, 100, torch.bfloat16),   # S % 64, window edge
+    (2, 4, 1, 200, 256, False, 0, torch.bfloat16),    # partial query tile
+    (1, 4, 2, 333, 144, True, 48, torch.bfloat16),
+    (1, 4, 2, 200, 192, True, 48, torch.float32),
+    (1, 4, 2, 333, 144, False, 0, torch.float32),
+    (1, 4, 1, 200, 256, True, 100, torch.float32),
 ])
 def test_flash_attention_kernel_vs_plain(dev, B, H, K, S, dh, causal, win,
                                          dt):
@@ -304,6 +311,33 @@ def test_flash_attention_kernel_vs_plain(dev, B, H, K, S, dh, causal, win,
     assert float((got.float() - want.float()).abs().max()) < tol
     if dt == torch.bfloat16:      # late rows are far smaller than 3e-2
         assert fak.row_scaled_error(got, want) < fak.BF16_ROW_TOL
+
+
+@pytest.mark.parametrize("B,H,K,S,dh,causal,win", [
+    (1, 96, 8, 1000, 192, True, 0),                   # nemotron-4-340b
+    (1, 16, 1, 1000, 256, True, 48),                  # recurrentgemma-9b
+    (1, 4, 2, 333, 256, False, 0),
+])
+def test_flash_attention_wgmma_above_128_run_to_run(dev, B, H, K, S, dh,
+                                                    causal, win):
+    """bf16 at head_dim 192 and 256 runs the wgmma kernel (64-key
+    tiles): two calls bit-equal (no atomics), each within 3e-2 and
+    BF16_ROW_TOL of the plain version, the LSE within 1e-4 of max(1,
+    |lse|)."""
+    g = torch.Generator(device="cpu").manual_seed(8)
+    q, k, v = (torch.randn(shape, generator=g).to(torch.bfloat16).to(dev)
+               for shape in ((B, H, S, dh), (B, K, S, dh), (B, K, S, dh)))
+    want, want_lse = fak.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                                   window=win)
+    got, lse = fak._launch_fwd(q, k, v, causal, win, with_lse=True)
+    assert fak.last_variant == "wgmma"
+    again, lse2 = fak._launch_fwd(q, k, v, causal, win, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(lse, lse2)
+    assert float((got.float() - want.float()).abs().max()) < 3e-2
+    assert fak.row_scaled_error(got, want) < fak.BF16_ROW_TOL
+    assert float(((lse - want_lse).abs() /
+                  want_lse.abs().clamp(min=1.0)).max()) < 1e-4
 
 
 @pytest.mark.parametrize("Bz,H,S,P,N,dt", [
@@ -360,7 +394,7 @@ def test_ssd_scan_kernel_edges(dev, Bz, H, S, P, N, dt, decay):
 def test_kernels_refuse_inputs_that_require_grad(dev):
     # flash_attention has a backward kernel since it became an autograd
     # Function: the gradient is the kernel's (one launch), equal to the
-    # plain backward's on the same o and lse; above head_dim 128 it raises
+    # plain backward's on the same o and lse, above head_dim 128 too
     q = torch.randn((1, 2, 64, 64), device=dev, requires_grad=True)
     n = fak.bwd_launches
     out = fak.flash_attention(q, q.detach(), q.detach())
@@ -371,11 +405,27 @@ def test_kernels_refuse_inputs_that_require_grad(dev):
     want = fak.flash_attention_bwd_plain(q.detach(), q.detach(), q.detach(),
                                          o, lse, torch.ones_like(o))[0]
     assert float((dq - want).abs().max()) < 1e-4 * float(want.abs().max())
-    wide = torch.randn((1, 2, 64, 192), device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-        fak.flash_attention(wide, wide.detach(), wide.detach())
-    with torch.no_grad():                 # the forward alone still runs
-        fak.flash_attention(wide, wide.detach(), wide.detach())
+    # head_dim 192 on independent q, k, v and dO (with q = k = v and dO of
+    # ones dq is a cancellation: each row's rounding noise)
+    g = torch.Generator(device="cpu").manual_seed(4)
+    for dt in (torch.float32, torch.bfloat16):
+        wide, kw, vw, dow = (torch.randn((1, 2, 64, 192), generator=g).to(
+            dt).to(dev) for _ in range(4))
+        wide.requires_grad_()
+        n = fak.bwd_launches
+        out = fak.flash_attention(wide, kw, vw)
+        (dq,) = torch.autograd.grad(out, wide, dow)
+        assert fak.bwd_launches == n + 1
+        o, lse = fak._launch_fwd(wide.detach(), kw, vw, True, 0,
+                                 with_lse=True)
+        want = fak.flash_attention_bwd_plain(wide.detach(), kw, vw, o, lse,
+                                             dow)[0]
+        if dt == torch.float32:
+            assert float((dq - want).abs().max()) < \
+                1e-4 * float(want.abs().max())
+        else:
+            assert fak.row_scaled_error(dq, want, floor=fak.GRAD_ROW_FLOOR) \
+                < fak.BF16_ROW_TOL
     # ssd_scan has a backward kernel since it became an autograd Function:
     # the gradient is the kernel's (one launch), equal to the plain
     # backward's; a bf16 input that requires grad raises, and the same
@@ -452,6 +502,14 @@ def test_ssd_scan_bwd_kernel_vs_plain(dev, Bz, H, S, P, N, decay):
     (1, 4, 2, 100, 16, True, 0, torch.bfloat16, "mma_sync"),  # smoke dh
     (1, 4, 2, 200, 64, True, 0, torch.float32, "fma"),
     (1, 8, 2, 300, 128, False, 48, torch.float32, "fma"),
+    # above head_dim 128: mma.sync with two warps a 16-key slice, FMA with
+    # 8 keys a block
+    (1, 16, 1, 1000, 256, True, 48, torch.bfloat16, "mma_sync"),  # rg-9b
+    (1, 96, 8, 333, 192, True, 0, torch.bfloat16, "mma_sync"),   # nemotron
+    (1, 4, 2, 200, 144, False, 100, torch.bfloat16, "mma_sync"),
+    (1, 4, 1, 300, 256, True, 48, torch.float32, "fma"),
+    (1, 8, 2, 333, 192, False, 0, torch.float32, "fma"),
+    (1, 4, 2, 200, 144, True, 100, torch.float32, "fma"),
 ])
 def test_flash_attention_bwd_kernel_vs_plain(dev, B, H, K, S, dh, causal,
                                              win, dt, variant):
@@ -519,23 +577,34 @@ def test_flash_attention_bwd_replays_in_a_cuda_graph(dev):
             fak.BF16_ROW_TOL
 
 
-@pytest.mark.parametrize("arch", ["starcoder2-3b", "mamba2-370m"])
+# recurrentgemma-9b's smoke config widened to its published head_dim 256
+# (2 heads, 1 KV head, 3 layers: two RG-LRU, one local attention)
+_WIDE = {"recurrentgemma-9b": {"num_heads": 2, "num_kv_heads": 1,
+                               "head_dim": 256, "num_layers": 3}}
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "mamba2-370m",
+                                  "recurrentgemma-9b"])
 def test_train_step_matches_cpu(dev, arch):
     """One train step of the smoke config in fp32 on the card (both flash
     kernels, or both ssd_scan kernels) and on the CPU: loss, grads and the
     updated parameters within 1e-3; the kernels launch 2 forward (the
-    forward and the unit's recompute) and 1 backward a layer."""
+    forward and the unit's recompute) and 1 backward a layer of their
+    mixer."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.params import init_params
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.step import loss_and_grads, make_train_step
     from repro_torch.tree import tree_leaves, tree_map
-    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32,
+                              **_WIDE.get(arch, {}))
     cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     toks = torch.randint(0, cfg.vocab_size, (2, 64),
                          generator=torch.Generator().manual_seed(1))
     mod = ssk if arch == "mamba2-370m" else fak
+    layers = sum(mx in ("mamba2",) if mod is ssk else
+                 mx in ("attn", "local_attn") for mx, _ in cfg.layer_specs)
     out = {}
     for d in ("cpu", "cuda"):
         # a copy on either device: the step updates its params in place
@@ -544,8 +613,8 @@ def test_train_step_matches_cpu(dev, arch):
         n_f, n_b = mod.launches, mod.bwd_launches
         loss, grads = loss_and_grads(cfg, p, b)
         if d == "cuda":
-            assert mod.launches - n_f == 2 * cfg.num_layers
-            assert mod.bwd_launches - n_b == cfg.num_layers
+            assert mod.launches - n_f == 2 * layers
+            assert mod.bwd_launches - n_b == layers
         p, _, _ = make_train_step(cfg, AdamWConfig(warmup_steps=1))(
             p, init_opt_state(p), b)
         out[d] = (float(loss), [g.cpu() for _, g in tree_leaves(grads)],

@@ -117,8 +117,9 @@ def test_flash_wrapper_checks():
     (torch.bfloat16, 16, "mma_sync"),
     (torch.bfloat16, 112, "mma_sync"),
     (torch.bfloat16, 144, "mma_sync"),  # Q in shared memory from here
-    (torch.bfloat16, 192, "mma_sync"),  # nemotron-4-340b
-    (torch.bfloat16, 256, "mma_sync"),  # recurrentgemma-9b
+    (torch.bfloat16, 192, "wgmma"),     # nemotron-4-340b: 64-key tiles
+    (torch.bfloat16, 256, "wgmma"),     # recurrentgemma-9b
+    (torch.bfloat16, 240, "mma_sync"),
     (torch.float32, 128, "fma"),
     (torch.float32, 64, "fma"),
     (torch.float32, 192, "fma"),

@@ -62,7 +62,8 @@ def _ref_vjp(q, k, v, do, causal, window, dt):
             for g in vjp(jnp.asarray(do, jdt))]
 
 
-# g 1 / 3 / 12, S 13 / 64 / 200, causal / window 16 / none, dh 16 / 80 / 128
+# g 1 / 3 / 12, S 13 / 64 / 200, causal / window 16 / none, dh 16 / 80 /
+# 128, and above 128 (nemotron-4-340b's 192, recurrentgemma-9b's 256)
 @pytest.mark.parametrize("B,H,K,S,dh,causal,win,dt", [
     (2, 4, 4, 13, 16, True, 0, "fp32"),       # g 1, S below a tile
     (1, 6, 2, 64, 80, True, 16, "fp32"),      # g 3, window
@@ -70,6 +71,10 @@ def _ref_vjp(q, k, v, do, causal, window, dt):
     (1, 3, 1, 200, 128, True, 0, "fp32"),
     (1, 3, 1, 64, 128, True, 16, "bf16"),
     (1, 12, 1, 200, 16, True, 0, "bf16"),
+    (1, 4, 2, 100, 192, True, 24, "fp32"),    # causal with a window
+    (1, 2, 1, 70, 192, False, 0, "fp32"),     # no mask
+    (1, 2, 1, 100, 256, True, 24, "fp32"),
+    (2, 3, 1, 70, 256, False, 0, "fp32"),
 ])
 def test_flash_bwd_plain_vs_reference_vjp(B, H, K, S, dh, causal, win, dt):
     q, k, v, do = _inputs(0, B, H, K, S, dh)
@@ -128,17 +133,17 @@ def test_flash_plain_lse_is_the_rows_logsumexp():
 
 
 def test_flash_grad_refusals():
-    """The backward kernel's limits: head_dim a multiple of 16 up to 128;
-    above it a gradient on the card raises, naming its ROADMAP item (a
-    CPU tensor takes the plain backward at any head_dim)."""
-    for dh in (144, 192, 256, 72):
-        with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-            fak._check_bwd_head_dim(torch.bfloat16, dh)
-    for dh in (16, 64, 80, 128):
-        fak._check_bwd_head_dim(torch.bfloat16, dh)
-        fak._check_bwd_head_dim(torch.float32, dh)
+    """The backward kernel's limits: head_dim a multiple of 16 up to 256,
+    as the forward's (192 and 256 are taken); 72 and 272 raise (a CPU
+    tensor takes the plain backward at any head_dim)."""
+    for dh in (72, 272):
+        with pytest.raises(ValueError, match="multiple of 16 up to 256"):
+            fak.flash_bwd_variant(torch.bfloat16, dh)
+    for dh in (16, 64, 80, 128, 192, 256):
+        fak.flash_bwd_variant(torch.bfloat16, dh)
+        fak.flash_bwd_variant(torch.float32, dh)
     with pytest.raises(TypeError):
-        fak._check_bwd_head_dim(torch.float16, 64)
+        fak.flash_bwd_variant(torch.float16, 64)
     q = torch.zeros((1, 2, 8, 192), requires_grad=True)
     out = fak.flash_attention(q, q.detach(), q.detach())
     out.sum().backward()
@@ -152,20 +157,22 @@ def test_flash_grad_refusals():
 # the variants, the wgmma kernel's split of the KV group's heads, and its
 # decomposition
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("dh", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 80, 96, 112, 128,
+                                144, 160, 192, 240, 256])
 def test_flash_bwd_variant_takes(dh):
     """bf16 at 64 and 128 runs the wgmma kernel, at the other multiples of
-    16 up to 128 the mma.sync kernel; fp32 runs the FMA kernel."""
+    16 up to 256 the mma.sync kernel; fp32 runs the FMA kernel."""
     want = "wgmma" if dh in (64, 128) else "mma_sync"
     assert fak.flash_bwd_variant(torch.bfloat16, dh) == want
     assert fak.flash_bwd_variant(torch.float32, dh) == "fma"
     assert fak.VARIANTS[want] in (1, 2)
 
 
-@pytest.mark.parametrize("dh", [8, 72, 144, 192, 256, 0])
+@pytest.mark.parametrize("dh", [8, 72, 264, 272, 320, 0])
 def test_flash_bwd_variant_refuses(dh):
+    """Not a multiple of 16 (8, 72, 264), above 256 (272, 320), or 0."""
     for dt in (torch.bfloat16, torch.float32):
-        with pytest.raises(NotImplementedError, match="ROADMAP B8"):
+        with pytest.raises(ValueError, match="multiple of 16 up to 256"):
             fak.flash_bwd_variant(dt, dh)
     with pytest.raises(TypeError):
         fak.flash_bwd_variant(torch.float16, 64)

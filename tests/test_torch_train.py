@@ -61,10 +61,10 @@ def _get(tree, path):
     return tree
 
 
-def _setup(arch, dt, B=2, S=32, seed=1):
+def _setup(arch, dt, B=2, S=32, seed=1, **overrides):
     jdt, tdt = _DT[dt]
-    jcfg = dataclasses.replace(j_smoke(arch), dtype=jdt)
-    tcfg = dataclasses.replace(t_smoke(arch), dtype=tdt)
+    jcfg = dataclasses.replace(j_smoke(arch), dtype=jdt, **overrides)
+    tcfg = dataclasses.replace(t_smoke(arch), dtype=tdt, **overrides)
     jp = jax.tree.map(np.asarray, JT.init_params(jcfg,
                                                  jax.random.PRNGKey(0)))
     rng = np.random.default_rng(seed)
@@ -128,7 +128,22 @@ def test_train_step_matches_reference(arch):
     is +-lr whatever the noise, so those elements are held to 2 x the
     summed learning rates (measured: one element each in qwen2.5-32b and
     recurrentgemma-9b, 2.0e-5 and 2.2e-5 off)."""
-    jcfg, tcfg, jp, jb, tb = _setup(arch, "fp32")
+    _check_train_steps(*_setup(arch, "fp32"))
+
+
+def test_train_step_matches_reference_at_head_dim_256():
+    """recurrentgemma-9b's smoke config widened to its published head_dim
+    (256; 2 heads on 1 KV head, 3 layers: two RG-LRU and one local
+    attention): the same bounds as ``test_train_step_matches_reference``.
+    On the card this step runs both flash kernels at head_dim 256."""
+    _check_train_steps(*_setup("recurrentgemma-9b", "fp32", num_heads=2,
+                                num_kv_heads=1, head_dim=256, num_layers=3))
+
+
+def _check_train_steps(jcfg, tcfg, jp, jb, tb):
+    """The first step's gradients and metrics and the parameters after
+    three steps against ``jax.jit(make_train_step)`` (the bounds of
+    ``test_train_step_matches_reference``)."""
     jgrad = jax.jit(jax.grad(lambda p, b: JT.loss_fn(jcfg, p, b)[0]))
     gref = jgrad(jax.tree.map(jnp.asarray, jp), jb)
     tp = from_numpy_tree(jp)
