@@ -13,12 +13,13 @@ times both), then drives the port's paths:
    moonshot-v1-16b-a3b 16/16 -- for the decode layer's fused bias + RoPE
    + K/V write ``rope_kv_append`` (a lane on the dump page and one past
    its table) and ``paged_attention``; the reference's sweep shapes and
-   the edges of the kernels' tiles, flash_attention at head_dim 144, 192
-   and 256 among them (the ``wgmma`` kernel's 64-key tiles at 192 / 256);
-   the prefills of qwen2.5-32b, recurrentgemma-9b and granite-moe-3b-a800m,
-   nemotron-4-340b's heads (96/8 at head_dim 192, S 4096), hubert-xlarge's
-   encode (no causal mask, head_dim 80) and mamba2-370m's scan; the flash
-   rows name the variant that ran;
+   the edges of the kernels' tiles, flash_attention at head_dim 80, 144,
+   192 and 256 among them (the ``wgmma`` kernel's 64-key tiles at 192 /
+   256, dh 128's layout at 80); the prefills of qwen2.5-32b,
+   recurrentgemma-9b and granite-moe-3b-a800m, nemotron-4-340b's heads
+   (96/8 at head_dim 192, S 4096), hubert-xlarge's encode (no causal mask,
+   head_dim 80) and mamba2-370m's scan; the flash rows name the variant
+   that ran, ``wgmma`` at every timed shape;
    paged_attention also at every head layout of the reference's configs,
    8 x 32768 and 1 x 32768 positions, page and split edges and fp32,
    timed with the L2 cache cold and warm);
@@ -51,8 +52,9 @@ times both), then drives the port's paths:
    heads of 128, causal), timed there, at nemotron-4-340b's heads (1 x
    4096, 96/8 at head_dim 192, causal) and at recurrentgemma-9b's training
    shape (1 x 8192, 16/1 at head_dim 256, window 2048), each beside SDPA's
-   backward; and at the other archs' head layouts, head_dim 144 / 192 /
-   256 in bf16 and fp32, partial tiles, windows (and the forward's
+   backward, all three on the ``wgmma`` kernel (64-key tiles above head_dim
+   128); and at the other archs' head layouts, head_dim 144 / 192 / 256
+   in bf16 and fp32, partial tiles, windows (and the forward's
    log-sum-exp against the plain version's, head_dim 192 and 256 among
    them); the scan's backward kernel ``ssd_scan_bwd`` against its plain
    version at mamba2-370m's training shape (8 x 2048, 32 heads of 64, N
@@ -509,7 +511,7 @@ FLASH_SWEEP = [  # B, H, K, S, dh, causal, window, dtype
     (2, 4, 1, 256, 128, True, 0, "bfloat16"),
     (1, 8, 8, 128, 64, False, 0, "float32"),
     (1, 4, 2, 512, 64, True, 128, "float32"),
-    (1, 16, 16, 128, 80, False, 0, "bfloat16"),       # mma.sync variant
+    (1, 16, 16, 128, 80, False, 0, "bfloat16"),       # wgmma, dh 80
     (1, 4, 2, 1000, 64, True, 0, "bfloat16"),         # partial 128-row tiles
     (1, 4, 2, 200, 128, True, 0, "bfloat16"),
     (1, 4, 2, 1000, 128, False, 0, "bfloat16"),
@@ -647,6 +649,9 @@ def check_forward_kernels(torch, dev, flash_mains, ssd_mains) -> list[dict]:
         def run():
             return fak.flash_attention(q, k, v, causal=causal, window=win)
         main = (B, H, K, S, dh, causal, win, dtn) in flash_mains
+        if main and variant != "wgmma":
+            raise AssertionError(f"flash_attention at the timed shape "
+                                 f"{shape} ran {variant}, not wgmma")
         ms = graph_ms(torch, run, iters=20 if main else 50)
         if not main:
             sweep.append({"shape": shape, "variant": variant,
@@ -1093,8 +1098,8 @@ def run_forward(torch, cfg, params, dev, run, kernel, collect_kv) -> dict:
 # phase 7: training -- the flash backward kernel, a step against the CPU,
 # learning on the card, and starcoder2-3b whole
 # ---------------------------------------------------------------------------
-# the backward kernel's shapes: the training run's, the other archs' head
-# layouts the kernel takes (dh <= 128), a partial tile, a window, fp32
+# the backward kernel's shapes: the other archs' head layouts, a partial
+# tile, a window, fp32
 FLASH_BWD_SWEEP = [  # B, H, K, S, dh, causal, window, dtype
     (1, 40, 8, 2048, 128, True, 0, "bfloat16"),       # qwen2.5-32b
     (1, 24, 8, 2048, 64, True, 0, "bfloat16"),        # granite-moe-3b-a800m
@@ -1107,8 +1112,9 @@ FLASH_BWD_SWEEP = [  # B, H, K, S, dh, causal, window, dtype
     (2, 6, 2, 333, 64, True, 100, "bfloat16"),        # window, dh 64
     (1, 4, 2, 200, 64, True, 0, "float32"),
     (1, 8, 2, 300, 128, False, 48, "float32"),        # fp32, window
-    # above head_dim 128: mma.sync with two warps a 16-key slice, FMA with
-    # 8 keys a block; windows, partial tiles, S % 64 != 0
+    # above head_dim 128: wgmma with 64-key tiles at 192 / 256 (split here),
+    # mma.sync with two warps a 16-key slice at 144, FMA with 8 keys a
+    # block; windows, partial tiles, S % 64 != 0
     (1, 16, 1, 1000, 256, True, 48, "bfloat16"),      # recurrentgemma-9b
     (1, 96, 8, 333, 192, True, 0, "bfloat16"),        # nemotron-4-340b
     (1, 4, 2, 200, 144, False, 100, "bfloat16"),
@@ -1118,7 +1124,8 @@ FLASH_BWD_SWEEP = [  # B, H, K, S, dh, causal, window, dtype
 ]
 # the backward timed beside the training run's shape: nemotron-4-340b's
 # heads (no card holds its training state at any depth, so a kernel check
-# only) and recurrentgemma-9b's training run (1 x 8192, window 2048)
+# only) and recurrentgemma-9b's training run (1 x 8192, window 2048); both
+# run the wgmma kernel's 64-key tiles
 FLASH_BWD_TIMED = [
     (1, 96, 8, 4096, 192, True, 0, "bfloat16"),
     (1, 16, 1, 8192, 256, True, 2048, "bfloat16"),
@@ -1159,7 +1166,8 @@ def check_flash_lse(torch, dev) -> dict:
             (1, 4, 2, 300, 128, True, 0, "bfloat16"),     # wgmma
             (1, 4, 2, 300, 192, True, 0, "bfloat16"),     # wgmma, 64-key tiles
             (1, 4, 1, 300, 256, True, 48, "bfloat16"),
-            (1, 4, 2, 300, 80, False, 0, "bfloat16"),     # mma.sync
+            (1, 4, 2, 300, 80, False, 0, "bfloat16"),     # wgmma, dh 80
+            (1, 4, 2, 300, 144, True, 0, "bfloat16"),     # mma.sync
             (1, 4, 2, 300, 64, True, 48, "float32"),      # fma
             (1, 4, 1, 300, 256, False, 0, "float32")]:
         dt = getattr(torch, dtn)
@@ -1215,9 +1223,12 @@ def check_flash_bwd(torch, dev) -> dict:
                                       window=win)
         torch.cuda.synchronize()
         variant, splits = fak.last_bwd_variant, fak.last_bwd_splits
-        want_split = fak.bwd_split_count(B, H, K, S) \
+        pair = fak.last_bwd_pair
+        want_split = fak.bwd_split_count(B, H, K, S, dh) \
             if variant == "wgmma" else 1
-        if variant != fak.flash_bwd_variant(dt, dh) or splits != want_split:
+        timed_case = case == main or case in FLASH_BWD_TIMED
+        if variant != fak.flash_bwd_variant(dt, dh) or \
+                splits != want_split or (timed_case and variant != "wgmma"):
             raise AssertionError(
                 f"flash_attention_bwd {case} ran {variant} split {splits}, "
                 f"not {fak.flash_bwd_variant(dt, dh)} split {want_split}")
@@ -1253,7 +1264,7 @@ def check_flash_bwd(torch, dev) -> dict:
             {"row_scaled": fak.BF16_ROW_TOL, "floor": fak.GRAD_ROW_FLOOR}
         if case != main and case not in FLASH_BWD_TIMED:
             sweep.append({"shape": shape, "variant": variant,
-                          "splits": splits, "errors": errs,
+                          "splits": splits, "pair": pair, "errors": errs,
                           "tolerance": tol,
                           "ms": graph_ms(torch, run, iters=10),
                           "bound_ms": bound})
@@ -1276,7 +1287,7 @@ def check_flash_bwd(torch, dev) -> dict:
         lib = event_ms(torch, lib_fwd_bwd, iters=10) - event_ms(
             torch, lambda: sdpa(q, k, v, enable_gqa=True, **kw), iters=10)
         timed.append({
-            "variant": variant, "splits": splits,
+            "variant": variant, "splits": splits, "pair": pair,
             "max_abs_err": max(float((a.float() - b.float()).abs().max())
                                for a, b in zip(got, want)),
             "row_scaled_err": errs, "tolerance": tol,
@@ -1292,8 +1303,9 @@ def check_flash_bwd(torch, dev) -> dict:
                             "enable_gqa=True) forward + backward, less its "
                             "forward, on the same q, k, v, dO",
             "shape": shape})
-        print(f"flash_attention_bwd {case} ({variant}, split {splits}): "
-              f"{errs}, {timed[-1]['ms']:.4f} ms (SDPA {lib:.4f})",
+        print(f"flash_attention_bwd {case} ({variant}, split {splits}, "
+              f"pair {pair}): {errs}, {timed[-1]['ms']:.4f} ms (SDPA "
+              f"{lib:.4f})",
               flush=True)
         del qr, kr, vr
     del q, k, v, do, o, lse, want, got
@@ -1980,12 +1992,14 @@ def main() -> int:
                   f"{res['eager_ms']:.5f} plain {res['plain_ms']:.5f} bound "
                   f"{res['bound_ms']:.5f}", flush=True)
     for row in kernels:
-        print(f"kernel {row['name']}: max_abs_err {row['max_abs_err']} "
+        print(f"kernel {row['name']} ({row.get('variant', '-')}): "
+              f"max_abs_err {row['max_abs_err']} "
               f"ms {row['ms']:.5f} eager {row['eager_ms']:.5f} "
               f"plain {row['plain_ms']:.5f} bound {row['bound_ms']:.5f}",
               flush=True)
         for t in row.get("timed_shapes", []):
-            print(f"kernel {row['name']} at {t['shape']}: max_abs_err "
+            print(f"kernel {row['name']} at {t['shape']} "
+                  f"({t.get('variant', '-')}): max_abs_err "
                   f"{t['max_abs_err']} ms {t['ms']:.5f} eager "
                   f"{t['eager_ms']:.5f} plain {t['plain_ms']:.5f} bound "
                   f"{t['bound_ms']:.5f}", flush=True)

@@ -18,7 +18,7 @@
 // bytes.  Three variants, chosen by the wrapper by dtype and head_dim
 // (`kernel.py::flash_variant`; the `variant` argument below):
 //
-// 2 (bf16, dh 64, 128, 192 or 256) -- the main path; Hopper's tensor cores
+// 2 (bf16, dh 64, 80, 128, 192 or 256) -- the main path; Hopper's tensor cores
 //   are reached only through `wgmma`.  A block owns 128 query rows and has
 //   three warpgroups: a producer, whose one thread keeps TMA loads of K and
 //   V tiles in flight (K and V each in a two-slot ring with full and empty
@@ -41,7 +41,18 @@
 //   (`Smem` counts the bytes).  A consumer thread then holds the O
 //   accumulator (dh / 2 fp32: 96 / 128), a 64-key score tile (32 fp32) and
 //   its bf16 P fragments (16), within the 240 `setmaxnreg` gives it.
-// 1 (bf16, the other multiples of 16 up to 240: 80, the smoke configs' 16,
+//   hubert-xlarge's dh 80 is not a multiple of the 64-column box: it keeps
+//   dh 128's layout (128-key tiles, two boxes a row) with the second box
+//   read at columns 64 .. 127 of an 80-column tensor map, so TMA fills
+//   columns 80 .. 127 with zeros and reads no bytes of device memory for
+//   them.  S = Q K^T takes 5 k-steps of 16 columns (the fifth the second
+//   box's first 32 bytes), O += P V is `wgmma.m64n80k16` (the 80 columns
+//   span the first box and, by the leading byte offset, 16 columns of the
+//   second), and 80 columns are stored: dh 80's work, not dh 128's.  Chosen
+//   over a 64-column box beside a 16-column one (two maps, a second
+//   swizzle mode in the descriptors): the zeros cost shared memory (160 KB,
+//   one block an SM, as at dh 128) and TMA writes, never a product's reads.
+// 1 (bf16, the other multiples of 16 up to 240: the smoke configs' 16,
 //   144 ...) -- the Ampere-style kernel: `mma.sync.m16n8k16`, 64-row query
 //   tiles over four warps, K/V tiles of 64 keys in two `cp.async` stages,
 //   `ldmatrix` fragments.  Up to dh 128 a warp keeps its Q fragments in
@@ -83,7 +94,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16, dh 64 / 128: wgmma + TMA, warp-specialised
+// bf16, dh 64, 80, 128, 192 and 256: wgmma + TMA, warp-specialised
 // ---------------------------------------------------------------------------
 namespace wg {
 
@@ -96,15 +107,17 @@ constexpr int kBoxQ = kBQ * 128;   // bytes of a [128 rows][64 bf16] Q box
 constexpr int kAtom = 1024;        // 8 rows of 128 bytes: the swizzle atom
 
 // Shared memory: the Q tile and two-slot K and V rings, in boxes of 64
-// columns.  Keys a tile: 128 up to dh 128; 64 above it, where rings of
-// 128-key tiles would not fit beside Q (at dh 256: Q 64 KB + 4 x 64 KB).
-// Bytes (+ 72 of barriers, + 1024 of alignment slack):
+// columns (dh 80: two, the second zero past column 80).  Keys a tile: 128
+// up to dh 128; 64 above it, where rings of 128-key tiles would not fit
+// beside Q (at dh 256: Q 64 KB + 4 x 64 KB).  Bytes (+ 72 of barriers, +
+// 1024 of alignment slack):
 //   dh 64:  Q 16 KB + 4 x 16 KB ( 80 KB)    dh 192: Q 48 KB + 4 x 24 KB (144 KB)
-//   dh 128: Q 32 KB + 4 x 32 KB (160 KB)    dh 256: Q 64 KB + 4 x 32 KB (192 KB)
+//   dh 80 and 128: Q 32 KB + 4 x 32 KB (160 KB)
+//                                           dh 256: Q 64 KB + 4 x 32 KB (192 KB)
 template <int DH>
 struct Smem {
   static constexpr int kBK = DH <= 128 ? 128 : 64;   // keys a tile
-  static constexpr int kBoxes = DH / 64;             // 64-column boxes a row
+  static constexpr int kBoxes = (DH + 63) / 64;      // 64-column boxes a row
   static constexpr int kBoxKV = kBK * 128;           // bytes of a K or V box
   static constexpr int kTileQ = kBoxes * kBoxQ;      // Q tile bytes
   static constexpr int kTileKV = kBoxes * kBoxKV;    // K or V tile bytes
@@ -199,7 +212,7 @@ __device__ __forceinline__ void pack_p(const float* sc, uint32_t (*pf)[4]) {
 // S = Q K^T for one consumer group: K-major A (Q) and B (K), 16 columns of
 // dh a step; a step inside a 128-byte row moves the start by 32 bytes, the
 // next 64 columns are the next box (of the Q tile's 128 rows, of the K
-// tile's BK)
+// tile's BK); dh 80's fifth step reads the second box's first 16 columns
 template <int DH>
 __device__ __forceinline__ void mma_qk(float* sc, uint32_t q_g,
                                          uint32_t k_s) {
@@ -219,7 +232,7 @@ __device__ __forceinline__ void mma_qk(float* sc, uint32_t q_g,
 
 // O += P V: V [keys][dh] is MN-major for this product; 16 keys a step are
 // two swizzle atoms (2048 bytes); the next 64 columns of dh are the next
-// box (the leading byte offset)
+// box (the leading byte offset; dh 80 reads 16 columns of it)
 template <int DH>
 __device__ __forceinline__ void mma_pv(float* o, const uint32_t (*pf)[4],
                                          uint32_t v_s) {
@@ -241,7 +254,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_v,
                    __nv_bfloat16* __restrict__ out,
                    float* __restrict__ lse, int H, int K, int S, int causal,
-                   int window, float scale) {
+                   int window, float scale, int q_major) {
   using L = Smem<DH>;
   constexpr int NB = L::kBoxes;
   constexpr int kBK = L::kBK;
@@ -257,11 +270,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t empty_v = empty_k + 8 * kStages;
   const uint32_t qbar = empty_v + 8 * kStages;
 
-  const int bh = blockIdx.x;                         // b * H + h
+  // the grid is (head, query tile) with heads fastest, so the longest
+  // tiles (the last ones, under a causal mask) of every head run first, or
+  // with query tiles fastest (`q_major`, without a mask: every tile is as
+  // long), which keeps a head's K and V in L2 while its tiles run
+  const int bh = q_major ? blockIdx.y : blockIdx.x;  // b * H + h
   const int b = bh / H, h = bh % H;
   const int kvh = b * K + h / (H / K);
   const int nq = (S + kBQ - 1) / kBQ;
-  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kBQ;
+  const int q0 =
+      (nq - 1 - static_cast<int>(q_major ? blockIdx.x : blockIdx.y)) * kBQ;
   const int k_end = causal ? min(S, q0 + kBQ) : S;
   const int k_begin = window ? max(0, q0 - window + 1) : 0;
   const int t_begin = (k_begin / kBK) * kBK;
@@ -435,10 +453,18 @@ int launch(const void* q, const void* k, const void* v, void* out,
     if (e != cudaSuccess) return static_cast<int>(e);
     opted_in = true;
   }
-  dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  // query tiles fastest without a causal mask: hubert-xlarge's 8 x 2048,
+  // 16/16 heads of 80 have 41 MB of K and V, which do not stay in L2 when
+  // every head's tile runs at once (on an H100 80GB HBM3 at 700 W, heads
+  // fastest read 0.55 ms against 0.46 to 0.50: `launch/ablate_flash.py`,
+  // PERF.md); heads fastest under one, so the longest tiles run first.
+  // gridDim.y holds at most 65535
+  const int nq = (S + kBQ - 1) / kBQ;
+  const int q_major = !causal && B * H <= 65535;
+  dim3 grid(q_major ? nq : B * H, q_major ? B * H : nq);
   flash_wgmma_kernel<DH><<<grid, kThreads, smem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, H, K, S, causal,
-      window, scale);
+      window, scale, q_major);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -890,9 +916,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
 // null pointer nothing more is stored.
 // variant (the wrapper's choice, `flash_variant`): 0 = float32 FMA (dh a
 // multiple of 16 up to 256), 1 = bfloat16 mma.sync (dh a multiple of 16 up
-// to 240, not 64 or 128), 2 = bfloat16 wgmma + TMA (dh 64, 128, 192 or
-// 256).  H % K == 0; 16-byte aligned pointers for bf16.  A variant that
-// does not take dh is refused, never replaced.
+// to 240, not 64, 80, 128 or 192), 2 = bfloat16 wgmma + TMA (dh 64, 80,
+// 128, 192 or 256).  H % K == 0; 16-byte aligned pointers for bf16.  A
+// variant that does not take dh is refused, never replaced.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, float* lse,
                                       int B, int H, int K, int S, int dh,
@@ -912,6 +938,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     if (dh == 64)
       return wg::launch<64>(q, k, v, out, lse, B, H, K, S, causal, window,
                             scale, s);
+    if (dh == 80)
+      return wg::launch<80>(q, k, v, out, lse, B, H, K, S, causal, window,
+                            scale, s);
     if (dh == 128)
       return wg::launch<128>(q, k, v, out, lse, B, H, K, S, causal, window,
                              scale, s);
@@ -928,7 +957,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 16: return launch_mma<16>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
     case 32: return launch_mma<32>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
     case 48: return launch_mma<48>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
-    case 80: return launch_mma<80>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
     case 96: return launch_mma<96>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
     case 112: return launch_mma<112>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);
     case 144: return launch_mma<144>(q, k, v, out, lse, B, H, K, S, causal, window, scale, s);

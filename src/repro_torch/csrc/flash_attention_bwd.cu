@@ -18,13 +18,15 @@
 // Bound: operations.  Five products over the visible (query, key) pairs
 // (S^T, dP^T, dV, dK, dQ), 10 * dh flops a pair, against q, k, v, o, dO read
 // once and dq, dk, dv written once: at starcoder2-3b's training shape (2 x
-// 4096, 24/2 heads of 128, causal) 5.15e11 flops, 0.521 ms at the bf16 peak.
-// Three variants, chosen by the wrapper by dtype and head_dim
-// (`kernel.py::flash_bwd_variant`; the `variant` argument below):
+// 4096, 24/2 heads of 128, causal) 5.15e11 flops, 0.521 ms at the bf16 peak
+// (989 TFLOP/s, an H100 SXM's at 700 W).  Three variants, chosen by the
+// wrapper by dtype and head_dim (`kernel.py::flash_bwd_variant`; the
+// `variant` argument below):
 //
-// 2 (bf16, dh 64 or 128) -- the main path; only `wgmma` reaches the tensor
-//   cores' full rate.  A block owns a 128-key tile of one KV head and
-//   `splits` parts of its g query heads, and has three warpgroups.  The
+// 2 (bf16, dh 64, 128, 192 or 256) -- the main path; only `wgmma` reaches
+//   the tensor cores' full rate.  At dh 64 / 128 a block owns a 128-key
+//   tile of one KV head and `splits` parts of its g query heads, and has
+//   three warpgroups.  The
 //   producer's one thread loads K and V once (TMA, 3-D tensor maps, 128-byte
 //   swizzle) and streams (head, 64-row query tile) steps of Q and dO (TMA)
 //   and the rows' lse (log2 units, from the prep pass) and D (bulk copies)
@@ -57,10 +59,46 @@
 //   On the card (H100, 700 W) the step is a chain of dependent phases in
 //   both groups at once: at the training shape the tensor cores are busy
 //   about half the time (PERF.md).
-// 1 (bf16, the other multiples of 16 up to 256: hubert-xlarge's 80, the
-//   smoke configs' 16, nemotron-4-340b's 192, recurrentgemma-9b's 256) --
-//   the Ampere-style kernel, described below; above dh 128 with each
-//   16-key slice's dK / dV columns split over two warps (`col_parts`).
+//   At dh 192 / 256 (nemotron-4-340b's, recurrentgemma-9b's) a block owns
+//   64 keys (`flash_bwd_wide_kernel`; `WideSmem` counts the bytes: 162 /
+//   210 KB).  Each consumer group keeping dK and dV of its own 64 keys
+//   over all of head_dim would take dh + dh fp32 a thread, past the 240
+//   registers `setmaxnreg` gives; so both groups own the same 64 keys and
+//   split head_dim: group 0 the first 128 columns, group 1 the rest (128 at
+//   dh 256, 64 at dh 192: a group's columns must be whole 64-column boxes
+//   for the MN-major operands; the uneven split at 192 costs little, as
+//   the tensor cores are shared).  A thread keeps 64 + 64 fp32 of dK and
+//   dV at most, as at dh 128.  S^T and dP^T are computed by both groups
+//   over all of head_dim (7 of the 5 products' work), so P^T and dS^T stay
+//   in each group's registers as the A operands of dV += P^T dO and dK +=
+//   dS^T Q (RS `wgmma.m64n{128,64}k16`), and the groups exchange nothing
+//   but the slot; chosen over splitting S^T / dP^T by query columns (5
+//   products' work, but m64n32 products, P^T and dS^T through shared
+//   memory and a second barrier of the two groups a step).  dQ = dS K is
+//   an SS `wgmma` over the group's columns, from the group's own dS^T
+//   buffer.  The fp32 dQ partial (64 x dh: 64 KB at dh 256) has no room of
+//   its own; it is staged in the step's ring slot (a slot is the Q tile
+//   then the dO tile, 64 x dh bf16 twice: the same bytes) once both groups
+//   are past their products, and added into the accumulator by one bulk
+//   reduce a group; the slot goes back to the producer in the next step,
+//   once the reduce has read it.
+//   With 64-key tiles the dq partials are twice dh 128's bytes for the same
+//   work, and those adds, not the products, set the time: on the card
+//   (H100, 700 W) at nemotron-4-340b's heads the reduces are 9.8 GB, and
+//   with one causal key tile a block they missed L2 (blocks of different
+//   lengths drift apart in query tiles).  So under a causal mask without a
+//   window or a split a block takes two key tiles, j and n - 1 - j
+//   (`WidePhase`, `kernel.py::bwd_pair_key_tiles`), which makes every
+//   block as long and keeps the blocks in flight on the same two query
+//   tiles; with a window the query tiles are walked upward, so the blocks
+//   that start as others finish go on where those left off.  Keys are 64 a
+//   block, so `bwd_split_count` counts 64-key tiles here.  Registers and
+//   spills (ptxas, sm_90a), and the times of these choices
+//   (`launch/ablate_flash.py`): PERF.md.
+// 1 (bf16, the other multiples of 16 up to 240: hubert-xlarge's 80, the
+//   smoke configs' 16, 144 ...) -- the Ampere-style kernel, described
+//   below; above dh 128 with each 16-key slice's dK / dV columns split over
+//   two warps (`col_parts`).
 // 0 (fp32) -- an FMA kernel, described below.
 //
 // Launches of one call: (variant 2) memsets of the accumulators, prep (lse
@@ -77,7 +115,7 @@
 //      16-key slice, each with the dK / dV of half the head_dim columns
 //      (the registers a thread can have; the slice's S^T and dP^T are
 //      computed by both).  Shared memory is (6 * 64 * (dh + 8) + 64 * 72)
-//      bf16 + 256 fp32: 208 KB at dh 256, one block an SM.  dS goes to
+//      bf16 + 256 fp32: 196 KB at dh 240, one block an SM.  dS goes to
 //      shared memory as [query][key] (bf16), and after a barrier each warp
 //      takes 16 query rows (of its columns) of dQ += dS K, added into the
 //      fp32 accumulator with atomics, two columns an atomic (`atomicAdd` on
@@ -217,11 +255,11 @@ constexpr size_t bwd_smem_bytes() {
 
 // Column parts: up to dh 128 a warp keeps dK and dV of its 16 keys for
 // every head_dim column in registers (2 * dh / 2 fp32 a thread).  Above
-// it that would pass the 255 registers a thread can have (256 fp32 at dh
-// 256 before anything else), so two warps share each 16-key slice, each
+// it that would pass the 255 registers a thread can have (240 fp32 at dh
+// 240 before anything else), so two warps share each 16-key slice, each
 // owning the dK / dV columns of one part (16-column blocks 0 .. KP - 1 or
 // KP .. dh / 16 - 1): 8 warps a block, 128 accumulator registers a thread
-// at dh 256.  Both warps of a slice compute its S^T and dP^T over all of
+// at dh 240.  Both warps of a slice compute its S^T and dP^T over all of
 // head_dim (those two of the five products are done twice), and the dQ
 // rows of a warp are split by the same columns.
 template <int DH>
@@ -624,7 +662,7 @@ int run_prep_post(bool post, const void* o, const void* dout, float* delta,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, dh 64 / 128: wgmma + TMA, warp-specialised
+// bf16, dh 64 / 128 (and 192 / 256 below): wgmma + TMA, warp-specialised
 // ---------------------------------------------------------------------------
 namespace wgb {
 
@@ -694,7 +732,12 @@ __device__ __forceinline__ float fast_exp2(float x) {
 
 // D = rowsum(dO * O) in fp32 and lse in log2 units, rows padded to Sp;
 // rows past S: lse and D 0 (their weights are masked).  A row is DH / 8
-// lanes, 16 bytes each.
+// lanes of 16 bytes each, rounded up to a power of two for the shuffles
+// (dh 192: 32 lanes, 24 of them reading).
+template <int DH>
+__host__ __device__ constexpr int prep_lanes() {
+  return DH <= 64 ? 8 : DH <= 128 ? 16 : 32;
+}
 template <int DH>
 __global__ void prep_kernel(const __nv_bfloat16* __restrict__ o,
                             const __nv_bfloat16* __restrict__ dout,
@@ -702,11 +745,11 @@ __global__ void prep_kernel(const __nv_bfloat16* __restrict__ o,
                             float* __restrict__ lse2,
                             float* __restrict__ delta, int rows, int S,
                             int Sp) {
-  constexpr int kLanes = DH / 8;                     // lanes a row
+  constexpr int kLanes = prep_lanes<DH>();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = i / kLanes, c = (i % kLanes) * 8;
   const int bh = row / Sp, s = row % Sp;
-  const bool in = row < rows && s < S;
+  const bool in = row < rows && s < S && c < DH;
   float sum = 0.f;
   if (in) {
     const size_t off = (static_cast<size_t>(bh) * S + s) * DH + c;
@@ -724,7 +767,7 @@ __global__ void prep_kernel(const __nv_bfloat16* __restrict__ o,
     sum += __shfl_xor_sync(0xffffffffu, sum, off);
   if (row < rows && c == 0) {
     delta[row] = sum;
-    lse2[row] = in ? lse[static_cast<size_t>(bh) * S + s] * kLog2e : 0.f;
+    lse2[row] = s < S ? lse[static_cast<size_t>(bh) * S + s] * kLog2e : 0.f;
   }
 }
 
@@ -764,22 +807,24 @@ post_dq_kernel(const float* __restrict__ acc, __nv_bfloat16* __restrict__ dq,
 }
 
 // dk = scale * dk accumulator, dv = dv accumulator (the split's parts
-// summed), cast.  A thread reads one float4 of each: rows r and r + 8 of a
-// consumer group's 64 keys, columns c and c + 1.
+// summed), cast.  The accumulators hold n64 chunks of 64 keys a KV head,
+// each as an m64n{DH} accumulator lies (the two consumer groups' halves of
+// it one after the other).  A thread reads one float4 of each: rows r and
+// r + 8 of a chunk, columns c and c + 1.
 template <int DH>
 __global__ void post_dkv_kernel(const float* __restrict__ acc,
                                 __nv_bfloat16* __restrict__ dk,
                                 __nv_bfloat16* __restrict__ dv, int BK, int S,
-                                int nkt, float scale) {
-  const size_t n = static_cast<size_t>(BK) * nkt * kBN * DH / 4;
+                                int n64, float scale) {
+  const size_t n = static_cast<size_t>(BK) * n64 * 64 * DH / 4;
   for (size_t f = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
        f < n; f += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const size_t part = f / (16 * DH);               // (bk, kt, group)
+    const size_t part = f / (16 * DH);               // (bk, 64-key chunk)
     const int w = static_cast<int>(f % (16 * DH)), tid = w % 128;
     const int r = 16 * (tid / 32) + (tid % 32) / 4;
     const int d = 8 * (w / 128) + 2 * (tid % 4);
-    const int bk = static_cast<int>(part / (2 * nkt));
-    const int k0 = static_cast<int>(part % (2 * nkt)) * 64 + r;
+    const int bk = static_cast<int>(part / n64);
+    const int k0 = static_cast<int>(part % n64) * 64 + r;
     const float4 a = reinterpret_cast<const float4*>(acc)[f];
     const float4 b = reinterpret_cast<const float4*>(acc)[f + n];
     const size_t base = static_cast<size_t>(bk) * S * DH + d;
@@ -1144,7 +1189,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
                             kBN * DH, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int rows = B * H * Sp;
-  prep_kernel<DH><<<(rows * (DH / 8) + 255) / 256, 256, 0, stream>>>(
+  prep_kernel<DH><<<(rows * prep_lanes<DH>() + 255) / 256, 256, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), lse, lse2, delta, rows, S, Sp);
   const int smem = Smem<DH>::kBytes;
@@ -1171,6 +1216,517 @@ int launch(const void* q, const void* k, const void* v, const void* o,
         (kquads + 255) / 256 < 4096 ? (kquads + 255) / 256 : 4096);
     post_dkv_kernel<DH><<<kblocks, 256, 0, stream>>>(
         dkv_acc, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), B * K, S, 2 * nkt, scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// bf16, dh 192 / 256: wgmma + TMA, 64-key tiles, head_dim split over the
+// two consumer groups
+// ---------------------------------------------------------------------------
+// Shared memory: K and V of the block's 64 keys; a two-slot ring whose slot
+// is a step's Q tile then its dO tile; a dS^T buffer a consumer group;
+// lse / D a slot; the barriers.  Bytes (+ 1024 of alignment slack):
+//   dh 192: K + V 48 KB, ring 2 x 48 KB, dS^T 2 x 8 KB, lse / D 1 KB: 162 KB
+//   dh 256: K + V 64 KB, ring 2 x 64 KB, dS^T 2 x 8 KB, lse / D 1 KB: 210 KB
+// A slot holds 64 x dh bf16 twice, which is the step's whole fp32 dQ
+// partial (64 x dh): it is staged there once both groups are done with the
+// slot's Q and dO (dedicated staging, 64 KB at dh 256, would pass 227 KB).
+template <int DH>
+struct WideSmem {
+  static constexpr int kBoxes = DH / 64;             // 64-column boxes a row
+  static constexpr int kTile = kBoxes * kBoxQ;       // K, V, Q or dO: 64 rows
+  static constexpr int kSlot = 2 * kTile;            // Q, then dO
+  static constexpr int kV = kTile;
+  static constexpr int kRing = 2 * kTile;            // + kSlot * slot
+  static constexpr int kDSg = 64 * kBM * 2;          // dS^T [64 keys][64 q]
+  static constexpr int kDSb = kRing + kStages * kSlot;  // + kDSg * group
+  static constexpr int kLDs = kDSb + 2 * kDSg;       // + kLD * slot
+  static constexpr int kBar = kLDs + kStages * kLD;
+  // barriers: full and empty a slot, K/V's full and empty; then the
+  // alignment slack
+  static constexpr int kBytes = kBar + 8 * (2 * kStages + 2) + kAtom;
+  static_assert(kBytes <= 232448, "over the 227 KB a block can use");
+  static_assert(kSlot == kBM * DH * 4, "a slot holds the fp32 dQ partial");
+  // head_dim columns: group 0 the first 128 (boxes 0 and 1), group 1 the
+  // rest (boxes 2 and 3 at dh 256, box 2 at dh 192); a group's staged fp32
+  // partials start 64 x 128 floats apart
+  static constexpr int kN0 = 128, kN1 = DH - 128;
+  static constexpr int kStage1 = kBM * kN0 * 4;
+};
+
+// d += A B with A from registers, B MN-major: m64n{N}k16
+template <int N>
+__device__ __forceinline__ void wgmma_rs_n(float* d, const uint32_t* a,
+                                           uint64_t db) {
+  static_assert(N == 64 || N == 128, "a group owns one or two boxes");
+  if constexpr (N == 128)
+    wgmma_rs_m64n128(d, a, db);
+  else
+    wgmma_rs_m64n64(d, a, db);
+}
+// d = A B (+ d if scale_d) with A and B in shared memory, both MN-major
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tt_n(float* d, uint64_t da,
+                                              uint64_t db, int scale_d) {
+  static_assert(N == 64 || N == 128, "a group owns one or two boxes");
+  if constexpr (N == 128)
+    wgmma_ss_m64n128<1, 1>(d, da, db, scale_d);
+  else
+    wgmma_ss_m64n64<1, 1>(d, da, db, scale_d);
+}
+
+// A block's work is one 64-key tile, or, under a causal mask without a
+// window and without a split (`pair`), two: tiles j and nkt - 1 - j, one
+// after the other, which have nkt + 1 query tiles between them whatever j
+// is.  A phase walks its key tile's query tiles in turn, heads inner:
+// unpaired from the last down, or with a window from the first up; paired,
+// tile j down and then tile nkt - 1 - j up from its diagonal.  So every
+// block of a pair grid is as long, and at any moment the blocks in flight
+// all add into (and read Q and dO of) the same two query tiles, which stay
+// in L2: with one causal key tile a block, blocks of different lengths
+// start as others finish and drift apart, and the query tiles they touch
+// spread over the whole sequence (on an H100 80GB HBM3 at 700 W,
+// nemotron-4-340b's heads: PERF.md).  With a window each key tile's query
+// range slides with it, so the blocks that start as others finish go on
+// from where those left off, walking up.
+struct WidePhase {
+  int kt;                // the key tile
+  int first, step;       // its first query tile, and +1 or -1
+  int n;                 // its steps (head, query tile)
+};
+__device__ __forceinline__ WidePhase wide_phase(int p, int pair, int nkt,
+                                                int S, int causal,
+                                                int window, int gs) {
+  const int j = static_cast<int>(blockIdx.y);
+  const int kt = p == 0 ? j : nkt - 1 - j;
+  const bool up = pair ? p == 1 : window != 0;
+  const int t0 = kt * kBM;
+  const int q_begin = causal ? t0 : 0;
+  const int q_end = window ? min(S, t0 + kBM - 1 + window) : S;
+  const int qt_begin = q_begin / kBM;
+  const int qt_last = (q_end + kBM - 1) / kBM - 1;
+  return {kt, up ? qt_begin : qt_last, up ? 1 : -1,
+          gs * (qt_last - qt_begin + 1)};
+}
+__device__ __forceinline__ int wide_phases(int pair, int nkt) {
+  return pair && nkt - 1 - static_cast<int>(blockIdx.y) !=
+                     static_cast<int>(blockIdx.y) ? 2 : 1;
+}
+
+// One consumer group of the wide kernel: all 64 keys of the block, head_dim
+// columns c0 .. c0 + N - 1 (c0 = 128 grp) of dK, dV and dQ; N / 2 fp32 of
+// dK and of dV a thread (64 + 64 at most, as at dh 128).  A step (a head's
+// 64-row query tile): S^T = K Q^T and dP^T = V dO^T over all of head_dim
+// (SS m64n64; both groups compute both, 7 of the 5 products' work, so no
+// weights cross between the groups); P^T in registers and dV += P^T dO as
+// RS m64n{N} while dP^T finishes; dS^T in registers and, by `stmatrix`, in
+// the group's own buffer (swizzled as TMA lays a tile); dK += dS^T Q (RS)
+// and dQ = dS K (SS, both operands MN-major) over the group's columns.
+// Once both groups are past their products (a barrier of the two), each
+// stages its fp32 dQ partial, as its registers lie, in its part of the
+// step's slot and its first thread adds it into the accumulator with one
+// `cp.reduce.async.bulk .add.f32`; that thread hands the slot back to the
+// producer in the next step, after the reduce has read it.  A phase ends
+// with dK and dV of its key tile written out.
+template <int DH, int N>
+__device__ __forceinline__ void wide_consumer(
+    int grp, uint32_t base, unsigned char* gbase, int S, int causal,
+    int window, float scale, int gs, int h0, int nqt, int bk, int nkt,
+    int splits, int pair, float* __restrict__ dq_acc,
+    float* __restrict__ dkv_acc, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv) {
+  using L = WideSmem<DH>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wq = warp % 4, t = lane % 4;
+  const int tid = threadIdx.x % 128;                 // thread of the group
+  const int c0 = 128 * grp;                          // this group's columns
+  const uint32_t cb = (c0 / 64) * kBoxQ;             // its first box
+  const float sl = scale * kLog2e;
+  const uint32_t k_s = base, v_s = base + L::kV;
+  const uint32_t ds_g = base + L::kDSb + grp * L::kDSg;
+  const uint32_t full = base + L::kBar, empty = full + 8 * kStages;
+  const uint32_t kvbar = empty + 8 * kStages, kv_empty = kvbar + 8;
+  const int np = wide_phases(pair, nkt);
+  int it = 0;                                        // the ring's step
+  for (int p = 0; p < np; ++p) {
+    const WidePhase f = wide_phase(p, pair, nkt, S, causal, window, gs);
+    const int t0 = f.kt * kBM;
+    const int kpos[2] = {t0 + 16 * wq + lane / 4, t0 + 16 * wq + lane / 4 + 8};
+    float dk_acc[N / 2], dv_acc[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    mbar_wait(kvbar, p);
+
+    for (int done = 0, hh = 0, qt = f.first; done < f.n; ++done, ++it) {
+      const int s = it % kStages;
+      const int bh = h0 + hh, q0 = qt * kBM;
+      const uint32_t q_slot = base + L::kRing + s * L::kSlot;
+      const uint32_t do_slot = q_slot + L::kTile;
+      const float* lse_s =
+          reinterpret_cast<const float*>(gbase + L::kLDs + s * kLD);
+      const float* d_s = lse_s + kBM;
+      mbar_wait(full + 8 * s, (it / kStages) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, K-major
+      // operands, 16 columns of dh a step
+      float st[32], dpt[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+      pin<32>(st);
+      pin<32>(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint32_t o = (kk / 4) * kBoxQ + (kk % 4) * 32;
+        wgmma_ss_m64n64<0, 0>(st, sdesc(k_s + o, 16, kAtom),
+                              sdesc(q_slot + o, 16, kAtom), kk > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint32_t o = (kk / 4) * kBoxQ + (kk % 4) * 32;
+        wgmma_ss_m64n64<0, 0>(dpt, sdesc(v_s + o, 16, kAtom),
+                              sdesc(do_slot + o, 16, kAtom), kk > 0);
+      }
+      wgmma_commit();
+      // the last step's dQ reduce read its slot while these were issued:
+      // this group's last share of that slot goes back to the producer
+      if (it > 0 && tid == 0) {
+        bulk_wait_read<0>();
+        mbar_arrive(empty + 8 * ((it - 1) % kStages));
+      }
+      wgmma_wait<1>();                                 // S^T is done
+      pin<32>(st);
+
+      // P^T = 2^(s sl - lse2), masked where the tiles cross an edge, and as
+      // the A fragments of dV += P^T dO (16 queries a k-step: accumulator
+      // blocks 2 kk and 2 kk + 1)
+      const bool edge = is_edge(t0, q0, S, causal, window);
+      uint32_t pf[4][4], df[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = fast_exp2(fmaf(st[4 * j + e], sl, (e & 1) ? -l2.y : -l2.x));
+          if (edge) {
+            const int kp = kpos[e / 2], qp = q0 + 8 * j + 2 * t + (e & 1);
+            bool ok = kp < S && qp < S;
+            if (causal) ok = ok && kp <= qp;
+            if (window) ok = ok && kp > qp - window;
+            if (!ok) p = 0.f;
+          }
+          st[4 * j + e] = p;
+        }
+        pf[j / 2][(j % 2) * 2 + 0] = pack_bf16(st[4 * j + 0], st[4 * j + 1]);
+        pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(st[4 * j + 2], st[4 * j + 3]);
+      }
+      // dO's columns of this group, MN-major; 16 queries a k-step are two
+      // swizzle atoms, the group's second box the leading byte offset away
+      pin<N / 2>(dv_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBM / 16; ++kk)
+        wgmma_rs_n<N>(dv_acc, pf[kk],
+                      sdesc(do_slot + cb + kk * 2 * kAtom, kBoxQ, kAtom));
+      wgmma_commit();
+      wgmma_wait<1>();                                 // dP^T is done
+      pin<32>(dpt);
+
+      // dS^T = P^T (dP^T - D), as the A fragments of dK += dS^T Q, while dV
+      // runs on
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dd = *reinterpret_cast<const float2*>(d_s + 8 * j + 2 * t);
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[e] = st[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? dd.y : dd.x));
+        df[j / 2][(j % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+        df[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      // dS^T to the group's buffer as [key][query] bf16, 128-byte rows in the
+      // 128-byte swizzle (16-byte chunk j of row r at chunk j ^ (r % 8)), read
+      // MN-major by dQ = dS K; one `stmatrix` a k-step (lane l names row l % 8
+      // of 8 x 8 block l / 8).  Only this group reads it, after its own
+      // barrier, and it writes it again only after its last step's dQ is done
+      {
+        const int row = 16 * wq + ((lane / 8) % 2) * 8 + lane % 8;
+#pragma unroll
+        for (int kk = 0; kk < kBM / 16; ++kk) {
+          const int chunk = 2 * kk + lane / 16;
+          stmatrix_x4(ds_g + row * 128 + ((chunk ^ (row & 7)) << 4), df[kk]);
+        }
+      }
+      fence_proxy_async();
+      wgmma_wait<0>();                                 // dV: P^T is free
+      pin<N / 2>(dv_acc);
+      named_bar_sync(2 + grp, 128);                    // the dS^T tile whole
+
+      // dK += dS^T Q (Q read MN-major as dO), then dQ = dS K (dS^T and K
+      // both MN-major: 16 keys a k-step).  dQ is issued once dK is done, so
+      // dS^T's fragments are free before dQ's accumulator is live: dK, dV
+      // and dQ of a 128-column group fill 192 of the 240 registers (ptxas
+      // spills 48 bytes at dh 256 so)
+      pin<N / 2>(dk_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBM / 16; ++kk)
+        wgmma_rs_n<N>(dk_acc, df[kk],
+                      sdesc(q_slot + cb + kk * 2 * kAtom, kBoxQ, kAtom));
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin<N / 2>(dk_acc);
+      float dq[N / 2];
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) dq[i] = 0.f;
+      pin<N / 2>(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 64 / 16; ++kk)
+        wgmma_ss_tt_n<N>(dq, sdesc(ds_g + kk * 2 * kAtom, kBoxQ, kAtom),
+                         sdesc(k_s + cb + kk * 2 * kAtom, kBoxQ, kAtom), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin<N / 2>(dq);
+
+      // the dQ partial, staged as the registers lie in this group's part of
+      // the slot once neither group reads the slot's Q or dO; one bulk reduce
+      // a group into its columns' chunks of the query tile
+      named_bar_sync(1, 256);
+      stage_acc<N / 2>(reinterpret_cast<float4*>(gbase + L::kRing + s * L::kSlot +
+                                                 grp * L::kStage1),
+                       dq, tid);
+      fence_proxy_async();
+      named_bar_sync(2 + grp, 128);
+      if (tid == 0) {
+        bulk_reduce_add(
+            dq_acc + ((static_cast<size_t>(bh) * nqt + qt) * (DH / 64) + 2 * grp) *
+                         (kBM * 64),
+            q_slot + grp * L::kStage1, kBM * N * 4);
+        bulk_commit();
+      }
+      __syncwarp();
+      // the slot is consumed; the group's first thread releases its share
+      // once the reduce has read it (next step, or never after the last)
+      if (lane == 0 && tid != 0) mbar_arrive(empty + 8 * s);
+      if (++hh == gs) {                                // the next step's tile
+        hh = 0;
+        qt += f.step;
+      }
+    }
+    if (p + 1 < np) {                                  // K and V consumed
+      __syncwarp();
+      if (lane == 0) mbar_arrive(kv_empty);
+    }
+    if (tid == 0) bulk_wait_read<0>();                 // the ring is free
+
+    if (splits == 1) {
+      // dK = scale * dS^T Q and dV = P^T dO, straight from the registers
+      __nv_bfloat16* dkh = dk + static_cast<size_t>(bk) * S * DH + c0;
+      __nv_bfloat16* dvh = dv + static_cast<size_t>(bk) * S * DH + c0;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (kpos[r] >= S) continue;
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          const size_t off = static_cast<size_t>(kpos[r]) * DH + 8 * j + 2 * t;
+          *reinterpret_cast<__nv_bfloat162*>(dkh + off) = __floats2bfloat162_rn(
+              dk_acc[4 * j + 2 * r] * scale, dk_acc[4 * j + 2 * r + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dvh + off) = __floats2bfloat162_rn(
+              dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+        }
+      }
+    } else {
+      // the split's partials meet in fp32 scratch by bulk reduce, staged in
+      // the ring (both groups are past their last reduce's reads), laid out
+      // as one m64n{DH} accumulator: group 1's columns after group 0's
+      named_bar_sync(1, 256);
+      const uint32_t stage = base + L::kRing + grp * L::kStage1;
+      float4* stg = reinterpret_cast<float4*>(gbase + L::kRing + grp * L::kStage1);
+      const size_t part_off =
+          (static_cast<size_t>(bk) * nkt + f.kt) * (64 * DH) + grp * (64 * 128);
+      const size_t half =
+          static_cast<size_t>(gridDim.x / splits) * nkt * 64 * DH;
+      stage_acc<N / 2>(stg, dk_acc, tid);
+      fence_proxy_async();
+      named_bar_sync(2 + grp, 128);
+      if (tid == 0) {
+        bulk_reduce_add(dkv_acc + part_off, stage, 64 * N * 4);
+        bulk_commit();
+        bulk_wait_read<0>();
+      }
+      named_bar_sync(2 + grp, 128);
+      stage_acc<N / 2>(stg, dv_acc, tid);
+      fence_proxy_async();
+      named_bar_sync(2 + grp, 128);
+      if (tid == 0) {
+        bulk_reduce_add(dkv_acc + half + part_off, stage, 64 * N * 4);
+        bulk_commit();
+      }
+    }
+  }
+  if (tid == 0) bulk_wait<0>();                      // every reduce landed
+}
+
+// One block: a 64-key tile of one KV head and one part of its group's
+// query heads.  The producer's one thread loads K and V once, then streams
+// (head, 64-row query tile) steps of Q, dO, lse and D through the ring;
+// the two consumer groups own the same keys and split head_dim.
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const float* __restrict__ lse2,
+                      const float* __restrict__ delta,
+                      float* __restrict__ dq_acc,
+                      float* __restrict__ dkv_acc,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int H, int K, int S,
+                      int splits, int pair, int causal, int window,
+                      float scale) {
+  using L = WideSmem<DH>;
+  constexpr int NB = L::kBoxes;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the buffers to it
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + kAtom - 1) & ~(kAtom - 1);
+  unsigned char* gbase = smem_raw + (base - raw);    // generic address
+  const uint32_t full = base + L::kBar;              // + 8 * slot
+  const uint32_t empty = full + 8 * kStages;
+  const uint32_t kvbar = empty + 8 * kStages, kv_empty = kvbar + 8;
+
+  const int g = H / K, gs = g / splits;
+  const int bk = blockIdx.x / splits, part = blockIdx.x % splits;
+  const int b = bk / K, kvh = bk % K;
+  const int nkt = (S + kBM - 1) / kBM;               // key tiles (64 keys)
+  const int Sp = (S + kBM - 1) / kBM * kBM, nqt = Sp / kBM;
+  const int h0 = b * H + kvh * g + part * gs;        // first b * H + head
+  const int warp = threadIdx.x / 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);                   // one per consumer warp
+    }
+    mbar_init(kvbar, 1);
+    mbar_init(kv_empty, 8);                          // one per consumer warp
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // ---------------- producer warpgroup: one thread starts every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      const int np = wide_phases(pair, nkt);
+      for (int p = 0, it = 0; p < np; ++p) {
+        const WidePhase f = wide_phase(p, pair, nkt, S, causal, window, gs);
+        if (p > 0) mbar_wait(kv_empty, 0);             // the last tile's K, V
+        mbar_expect_tx(kvbar, 2 * L::kTile);
+        for (int c = 0; c < NB; ++c) {
+          tma_load(base + c * kBoxQ, &tm_k, kvbar, 64 * c, f.kt * kBM, bk);
+          tma_load(base + L::kV + c * kBoxQ, &tm_v, kvbar, 64 * c, f.kt * kBM,
+                   bk);
+        }
+        for (int done = 0, hh = 0, qt = f.first; done < f.n; ++done, ++it) {
+          const int s = it % kStages;
+          const int bh = h0 + hh, q0 = qt * kBM;
+          if (++hh == gs) {
+            hh = 0;
+            qt += f.step;
+          }
+          if (it >= kStages) mbar_wait(empty + 8 * s, (it / kStages - 1) & 1);
+          mbar_expect_tx(full + 8 * s, L::kSlot + kLD);
+          const uint32_t slot = base + L::kRing + s * L::kSlot;
+          for (int c = 0; c < NB; ++c) {
+            tma_load(slot + c * kBoxQ, &tm_q, full + 8 * s, 64 * c, q0, bh);
+            tma_load(slot + L::kTile + c * kBoxQ, &tm_do, full + 8 * s, 64 * c,
+                     q0, bh);
+          }
+          const size_t row = static_cast<size_t>(bh) * Sp + q0;
+          bulk_load(base + L::kLDs + s * kLD, lse2 + row, kBM * 4,
+                    full + 8 * s);
+          bulk_load(base + L::kLDs + s * kLD + kBM * 4, delta + row, kBM * 4,
+                    full + 8 * s);
+        }
+      }
+    }
+  } else {
+    // ---------------- consumer warpgroups: the same 64 keys, half of dh
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int grp = warp / 4 - 1;                    // 0 or 1
+    if (grp == 0)
+      wide_consumer<DH, L::kN0>(0, base, gbase, S, causal, window, scale, gs,
+                                h0, nqt, bk, nkt, splits, pair, dq_acc,
+                                dkv_acc, dk, dv);
+    else
+      wide_consumer<DH, L::kN1>(1, base, gbase, S, causal, window, scale, gs,
+                                h0, nqt, bk, nkt, splits, pair, dq_acc,
+                                dkv_acc, dk, dv);
+  }
+}
+
+template <int DH>
+int launch_wide(const void* q, const void* k, const void* v, const void* o,
+                const void* dout, const float* lse, float* lse2,
+                float* delta, float* dq_acc, float* dkv_acc, void* dq,
+                void* dk, void* dv, int B, int H, int K, int S, int splits,
+                int pair, int causal, int window, float scale,
+                cudaStream_t stream) {
+  if (pair && (splits != 1 || !causal || window))
+    return static_cast<int>(cudaErrorInvalidValue);
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  // maps are built on the host for every call (no device work, so a CUDA
+  // graph capture records only the launches, with the maps as parameters)
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map(&mq, fn, q, B * H, S, DH, kBM) ||
+      !make_map(&mdo, fn, dout, B * H, S, DH, kBM) ||
+      !make_map(&mk, fn, k, B * K, S, DH, kBM) ||
+      !make_map(&mv, fn, v, B * K, S, DH, kBM))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int Sp = (S + kBM - 1) / kBM * kBM, nqt = Sp / kBM;
+  const int nkt = (S + kBM - 1) / kBM;               // 64-key tiles
+  cudaError_t e = cudaMemsetAsync(
+      dq_acc, 0, sizeof(float) * static_cast<size_t>(B) * H * Sp * DH, stream);
+  if (e == cudaSuccess && splits > 1)
+    e = cudaMemsetAsync(dkv_acc, 0,
+                        sizeof(float) * 2 * static_cast<size_t>(B) * K * nkt *
+                            64 * DH, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int rows = B * H * Sp;
+  prep_kernel<DH><<<(rows * prep_lanes<DH>() + 255) / 256, 256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, lse2, delta, rows, S, Sp);
+  const int smem = WideSmem<DH>::kBytes;
+  static bool opted_in = false;      // once, before any graph capture
+  if (!opted_in) {
+    e = cudaFuncSetAttribute(flash_bwd_wide_kernel<DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted_in = true;
+  }
+  dim3 grid(B * K * splits, pair ? (nkt + 1) / 2 : nkt);
+  flash_bwd_wide_kernel<DH><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, mdo, lse2, delta, dq_acc, dkv_acc,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H, K,
+      S, splits, pair, causal, window, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  post_dq_kernel<DH><<<B * H * nqt * (DH / 64), 256, 0, stream>>>(
+      dq_acc, static_cast<__nv_bfloat16*>(dq), S, nqt, scale);
+  if (splits > 1) {
+    const size_t kquads = static_cast<size_t>(B) * K * nkt * 64 * DH / 4;
+    const int kblocks = static_cast<int>(
+        (kquads + 255) / 256 < 4096 ? (kquads + 255) / 256 : 4096);
+    post_dkv_kernel<DH><<<kblocks, 256, 0, stream>>>(
+        dkv_acc, static_cast<__nv_bfloat16*>(dk),
         static_cast<__nv_bfloat16*>(dv), B * K, S, nkt, scale);
   }
   return static_cast<int>(cudaGetLastError());
@@ -1185,23 +1741,26 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // 16-byte aligned.  fp32 scratch from the wrapper:
 //   variant 2: lse2 and delta [B, H, Sp] (Sp = S rounded up to 64), dq_acc
 //     B * H * Sp * dh, and with splits > 1 dkv_acc 2 * B * K * ceil(S /
-//     128) * 128 * dh;
+//     T) * T * dh, T the key tile (128 up to dh 128, 64 above);
 //   variants 0 and 1: delta [B, H, S] and dq_acc [B, H, S, dh]; lse2 and
 //     dkv_acc unused, splits 1.
 // variant (the wrapper's choice, `flash_bwd_variant`): 0 = float32 FMA,
-// 1 = bfloat16 mma.sync (dh a multiple of 16 up to 256, not 64 or 128),
-// 2 = bfloat16 wgmma + TMA (dh 64 or 128).  splits (variant 2,
-// `bwd_split_count`) divides H / K.  What a variant does not take is
-// refused, never replaced.
+// 1 = bfloat16 mma.sync (dh a multiple of 16 up to 240, not 64, 128 or
+// 192), 2 = bfloat16 wgmma + TMA (dh 64, 128, 192 or 256).  splits
+// (variant 2, `bwd_split_count`) divides H / K.  pair (variant 2 above dh
+// 128, causal, no window, splits 1; `bwd_pair_key_tiles`): a block takes
+// key tiles j and nkt - 1 - j.  What a variant does not take is refused,
+// never replaced.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* lse2, float* delta,
     float* dq_acc, float* dkv_acc, void* dq, void* dk, void* dv, int B,
     int H, int K, int S, int dh, int causal, int window, int splits,
-    float scale, int variant, void* stream) {
+    int pair, float scale, int variant, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (K <= 0 || H % K != 0 || dh % 16 != 0 || dh > 256 || dh <= 0 ||
-      splits < 1 || (H / K) % splits != 0)
+      splits < 1 || (H / K) % splits != 0 ||
+      (pair && (variant != 2 || dh <= 128)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (variant == 2) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1213,6 +1772,14 @@ extern "C" int flash_attention_bwd_launch(
       return wgb::launch<128>(q, k, v, o, dout, lse, lse2, delta, dq_acc,
                               dkv_acc, dq, dk, dv, B, H, K, S, splits, causal,
                               window, scale, st);
+    if (dh == 192)
+      return wgb::launch_wide<192>(q, k, v, o, dout, lse, lse2, delta,
+                                   dq_acc, dkv_acc, dq, dk, dv, B, H, K, S,
+                                   splits, pair, causal, window, scale, st);
+    if (dh == 256)
+      return wgb::launch_wide<256>(q, k, v, o, dout, lse, lse2, delta,
+                                   dq_acc, dkv_acc, dq, dk, dv, B, H, K, S,
+                                   splits, pair, causal, window, scale, st);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if ((variant != 0 && variant != 1) || splits != 1)
@@ -1243,11 +1810,9 @@ extern "C" int flash_attention_bwd_launch(
       case 144: err = launch_bf16<144>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
       case 160: err = launch_bf16<160>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
       case 176: err = launch_bf16<176>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
-      case 192: err = launch_bf16<192>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
       case 208: err = launch_bf16<208>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
       case 224: err = launch_bf16<224>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
       case 240: err = launch_bf16<240>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
-      case 256: err = launch_bf16<256>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, K, S, causal, window, scale, s); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

@@ -78,9 +78,11 @@ __device__ __forceinline__ void pin(float* r) {
 }
 
 // d[0:64] = A * B (+ d if scale_d), m64n128k16: A and B in shared memory,
-// both K-major, 128-byte swizzle (descriptors da, db)
+// 128-byte swizzle (descriptors da, db); TA / TB 0 for K-major (the
+// default), 1 for MN-major (transposed)
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss_m64n128(float* d, uint64_t da,
-                                               uint64_t db, int scale_d) {
+                                                 uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -88,7 +90,7 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float* d, uint64_t da,
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -101,7 +103,31 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float* d, uint64_t da,
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d[0:40] += A * B, m64n80k16: A from registers (bf16 pairs, the
+// mma.sync A-fragment layout per warp), B in shared memory MN-major (the
+// transpose flag), 128-byte swizzle; the 80 columns span a 64-column atom
+// and the first 16 columns of the next (the leading byte offset)
+__device__ __forceinline__ void wgmma_rs_m64n80(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // d[0:64] += A * B, m64n128k16: A from registers (bf16 pairs, the
@@ -238,6 +264,11 @@ template <>
 __device__ __forceinline__ void wgmma_pv<64>(float* o, const uint32_t* a,
                                              uint64_t db) {
   wgmma_rs_m64n64(o, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<80>(float* o, const uint32_t* a,
+                                             uint64_t db) {
+  wgmma_rs_m64n80(o, a, db);
 }
 template <>
 __device__ __forceinline__ void wgmma_pv<128>(float* o, const uint32_t* a,

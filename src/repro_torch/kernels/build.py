@@ -111,7 +111,7 @@ def library() -> ctypes.CDLL:
         lib.flash_attention_launch.argtypes = [
             p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]
         lib.flash_attention_launch.restype = i
-        lib.flash_attention_bwd_launch.argtypes = [p] * 13 + [i] * 8 + [
+        lib.flash_attention_bwd_launch.argtypes = [p] * 13 + [i] * 9 + [
             ctypes.c_float, i, p]
         lib.flash_attention_bwd_launch.restype = i
         lib.ssd_scan_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,

@@ -16,17 +16,20 @@ KV head h // (H // K)).  Scores and softmax in fp32 with q scaled in fp32;
 key t is visible to query s iff t <= s (causal) and t > s - window (with
 a window); the output is acc / max(l, 1e-20) in q's dtype.  Any S is
 taken: the kernel masks a partial last tile.  Three kernel variants, chosen
-by dtype and head_dim only (``flash_variant``): bf16 at head_dim 64, 128,
-192 or 256 runs the Hopper kernel (``wgmma`` + TMA, warp-specialised; 64-key
-tiles above 128: nemotron-4-340b's 192, recurrentgemma-9b's 256), bf16 at
-the other multiples of 16 up to 240 the ``mma.sync`` kernel, fp32 an FMA
-kernel (multiples of 16 up to 256); other head dims raise.  The backward
-kernel takes the same head dims, in three variants chosen the same way
-(``flash_bwd_variant``): bf16 at 64 or 128 the Hopper kernel (``wgmma`` +
-TMA, dq by bulk reduce, the KV group's heads split over blocks where the
-grid is small: ``bwd_split_count``), bf16 at the other multiples of 16 up
-to 256 the ``mma.sync`` kernel (above 128 with each warp's dK / dV columns
-split over two warps), fp32 the FMA kernel.
+by dtype and head_dim only (``flash_variant``): bf16 at head_dim 64, 80,
+128, 192 or 256 runs the Hopper kernel (``wgmma`` + TMA, warp-specialised;
+hubert-xlarge's 80 in dh 128's layout with the columns past 80 read as
+zeros; 64-key tiles above 128: nemotron-4-340b's 192, recurrentgemma-9b's
+256), bf16 at the other multiples of 16 up to 240 the ``mma.sync`` kernel,
+fp32 an FMA kernel (multiples of 16 up to 256); other head dims raise.  The
+backward kernel takes the same head dims, in three variants chosen the same
+way (``flash_bwd_variant``): bf16 at 64, 128, 192 or 256 the Hopper kernel
+(``wgmma`` + TMA, dq by bulk reduce, the KV group's heads split over blocks
+where the grid is small: ``bwd_split_count``; 128-key tiles up to 128, 64
+above, where the two consumer groups split head_dim and a causal block
+takes two key tiles: ``bwd_pair_key_tiles``), bf16 at the other
+multiples of 16 up to 240 the ``mma.sync`` kernel (above 128 with each
+warp's dK / dV columns split over two warps), fp32 the FMA kernel.
 """
 
 from __future__ import annotations
@@ -43,21 +46,25 @@ bwd_launches = 0      # backward kernel launches, likewise
 last_variant = None   # the variant the last forward launch ran
 last_bwd_variant = None   # the variant the last backward launch ran
 last_bwd_splits = None    # and its split of the KV group's heads
+last_bwd_pair = None      # and whether its blocks paired causal key tiles
 
 # the C entry points' ``variant`` codes (forward and backward alike)
 VARIANTS = {"fma": 0, "mma_sync": 1, "wgmma": 2}
-WGMMA_HEAD_DIMS = (64, 128, 192, 256)
+WGMMA_HEAD_DIMS = (64, 80, 128, 192, 256)
 # the backward's wgmma variant; other head dims run its mma.sync kernel
-BWD_WGMMA_HEAD_DIMS = (64, 128)
+BWD_WGMMA_HEAD_DIMS = (64, 128, 192, 256)
 
-# the backward's wgmma variant: a block per 128-key tile, 64 query rows a
-# step (scratch rows padded to it), one block an SM (~194 KB of shared
-# memory).  A grid below the SM count splits each KV group's heads until it
-# has BWD_SPLIT_BLOCKS blocks: causal key tiles differ in work up to S / 64
-# fold, and four blocks an SM let the longest-first order even out the tail
-# (on an H100 at starcoder2-3b's 2 x 4096: split 6, 768 blocks, ran ~3 %
-# faster than split 2, 256 blocks)
+# the backward's wgmma variant: a block per 128-key tile up to head_dim 128
+# (BWD_KEY_TILE; ~194 KB of shared memory), per 64-key tile above it
+# (BWD_WIDE_KEY_TILE; 162 / 210 KB at 192 / 256), 64 query rows a step
+# (scratch rows padded to it), one block an SM.  A grid below the SM count
+# splits each KV group's heads until it has BWD_SPLIT_BLOCKS blocks: causal
+# key tiles differ in work up to S / 64 fold, and four blocks an SM let the
+# longest-first order even out the tail (on an H100 80GB HBM3 at 700 W, at
+# starcoder2-3b's 2 x 4096: split 6, 768 blocks, ran ~3 % faster than
+# split 2, 256 blocks)
 BWD_KEY_TILE = 128
+BWD_WIDE_KEY_TILE = 64
 BWD_QUERY_TILE = 64
 BWD_SM_COUNT = 132        # an H100's SMs
 BWD_SPLIT_BLOCKS = 4 * BWD_SM_COUNT
@@ -65,9 +72,9 @@ BWD_SPLIT_BLOCKS = 4 * BWD_SM_COUNT
 
 def flash_variant(dtype, head_dim: int) -> str:
     """The kernel variant for a dtype and head_dim: ``"wgmma"`` (bf16,
-    head_dim 64, 128, 192 or 256), ``"mma_sync"`` (bf16, another multiple
-    of 16 up to 240) or ``"fma"`` (fp32, a multiple of 16 up to 256).
-    Raises for what no variant takes."""
+    head_dim 64, 80, 128, 192 or 256), ``"mma_sync"`` (bf16, another
+    multiple of 16 up to 240) or ``"fma"`` (fp32, a multiple of 16 up to
+    256).  Raises for what no variant takes."""
     _check_head_dim("flash_attention", dtype, head_dim)
     if dtype == torch.float32:
         return "fma"
@@ -239,30 +246,52 @@ def _launch_fwd(q, k, v, causal, window, with_lse):
 
 def flash_bwd_variant(dtype, head_dim: int) -> str:
     """The backward kernel's variant for a dtype and head_dim: ``"wgmma"``
-    (bf16, head_dim 64 or 128), ``"mma_sync"`` (bf16, another multiple of
-    16 up to 256) or ``"fma"`` (fp32, a multiple of 16 up to 256).  Raises
-    for what no variant takes."""
+    (bf16, head_dim 64, 128, 192 or 256), ``"mma_sync"`` (bf16, another
+    multiple of 16 up to 240) or ``"fma"`` (fp32, a multiple of 16 up to
+    256).  Raises for what no variant takes."""
     _check_head_dim("flash_attention_bwd", dtype, head_dim)
     if dtype == torch.float32:
         return "fma"
     return "wgmma" if head_dim in BWD_WGMMA_HEAD_DIMS else "mma_sync"
 
 
-def bwd_split_count(B: int, H: int, K: int, S: int) -> int:
+def bwd_key_tile(head_dim: int) -> int:
+    """Keys a block of the wgmma backward: BWD_KEY_TILE up to head_dim
+    128, BWD_WIDE_KEY_TILE above it."""
+    return BWD_KEY_TILE if head_dim <= 128 else BWD_WIDE_KEY_TILE
+
+
+def bwd_split_count(B: int, H: int, K: int, S: int,
+                    head_dim: int = 128) -> int:
     """Parts into which the wgmma backward splits each KV group's g = H / K
-    query heads: 1 where B * K * ceil(S / BWD_KEY_TILE) blocks already
-    reach BWD_SM_COUNT, else the least divisor of g that brings the grid to
-    BWD_SPLIT_BLOCKS (g if none does).  A function of the shapes alone, so
-    a call makes no device-to-host sync and stays capturable in a CUDA
-    graph."""
+    query heads: 1 where B * K * ceil(S / bwd_key_tile(head_dim)) blocks
+    already reach BWD_SM_COUNT, else the least divisor of g that brings the
+    grid to BWD_SPLIT_BLOCKS (g if none does).  A function of the shapes
+    alone, so a call makes no device-to-host sync and stays capturable in a
+    CUDA graph."""
     if K <= 0 or H % K:
         raise ValueError(f"H {H} is not a multiple of K {K}")
     g = H // K
-    blocks = B * K * -(-S // BWD_KEY_TILE)
+    blocks = B * K * -(-S // bwd_key_tile(head_dim))
     if blocks >= BWD_SM_COUNT:
         return 1
     return next((d for d in range(1, g + 1)
                  if g % d == 0 and blocks * d >= BWD_SPLIT_BLOCKS), g)
+
+
+def bwd_pair_key_tiles(B: int, H: int, K: int, S: int, head_dim: int,
+                       causal: bool, window: int) -> bool:
+    """Whether the wgmma backward above head_dim 128 gives each block two
+    key tiles, j and n - 1 - j of n, one after the other: under a causal
+    mask without a window, where the heads are not split
+    (``bwd_split_count``) and the pairs still fill the card.  Every block
+    is then as long, and the blocks in flight add into the same query
+    tiles' dq, which stay in L2.  A function of the shapes alone, as the
+    split is."""
+    if head_dim <= 128 or not causal or window or \
+            bwd_split_count(B, H, K, S, head_dim) > 1:
+        return False
+    return B * K * -(-S // (2 * BWD_WIDE_KEY_TILE)) >= BWD_SM_COUNT
 
 
 def flash_attention_bwd_split_plain(q, k, v, o, lse, do, *, causal=True,
@@ -323,7 +352,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     """The backward kernel on CUDA tensors: (dq, dk, dv) in the inputs'
     dtypes from the forward's output ``o`` and log-sum-exp ``lse`` (fp32
     [B, H, S]) and the output's gradient ``do``."""
-    global bwd_launches, last_bwd_variant, last_bwd_splits
+    global bwd_launches, last_bwd_variant, last_bwd_splits, last_bwd_pair
     _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cuda, not {q.device}")
@@ -341,27 +370,28 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     # variant pads rows to its query tile, keeps lse in log2 units beside D,
     # and with a split sums the parts' dk / dv in an accumulator of their own
     wg = variant == "wgmma"
-    splits = bwd_split_count(B, H, K, S) if wg else 1
+    splits = bwd_split_count(B, H, K, S, dh) if wg else 1
+    pair = wg and bwd_pair_key_tiles(B, H, K, S, dh, causal, window)
     rows = -(-S // BWD_QUERY_TILE) * BWD_QUERY_TILE if wg else S
+    keys = -(-S // bwd_key_tile(dh)) * bwd_key_tile(dh)
 
     def scratch(*shape):
         return torch.empty(shape, dtype=torch.float32, device=q.device)
     delta = scratch(B, H, rows)
     lse2 = scratch(B, H, rows) if wg else None
     dq_acc = scratch(B, H, rows, dh)
-    dkv_acc = scratch(2, B, K, -(-S // BWD_KEY_TILE) * BWD_KEY_TILE, dh) \
-        if splits > 1 else None
+    dkv_acc = scratch(2, B, K, keys, dh) if splits > 1 else None
     err = build.library().flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(),
         lse2.data_ptr() if wg else None, delta.data_ptr(),
         dq_acc.data_ptr(), dkv_acc.data_ptr() if splits > 1 else None,
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, K, S, dh,
-        int(causal), int(window), splits, float(dh ** -0.5),
+        int(causal), int(window), splits, int(pair), float(dh ** -0.5),
         VARIANTS[variant], build.stream_ptr(q.device))
     build.check(err, f"flash_attention_bwd ({variant})")
     bwd_launches += 1
-    last_bwd_variant, last_bwd_splits = variant, splits
+    last_bwd_variant, last_bwd_splits, last_bwd_pair = variant, splits, pair
     return dq, dk, dv
 
 

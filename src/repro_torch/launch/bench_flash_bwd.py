@@ -5,17 +5,19 @@ turns.
         [--trees DIR [DIR ...]] [--splits 2,6] [--profile] [--out compare_out]
 
 Times ``flash_attention_bwd`` at starcoder2-3b's training shape (2 x 4096,
-24/2 heads of 128, causal), at granite-20b's heads (1 x 1024, 48/1), at
-nemotron-4-340b's (1 x 4096, 96/8 at head_dim 192, causal) and at
-recurrentgemma-9b's training shape (1 x 8192, 16/1 at head_dim 256, window
-2048), bf16, on the forward kernel's output and log-sum-exp: device ms per
-call, CUDA events around 20 calls after 3 warm-up calls (a tree whose
-backward refuses a head_dim shows "refused").  Beside it, in the same
-process and on the same inputs, SDPA's backward (its forward + backward
-less its forward, ``enable_gqa=True``, a window as a mask).  Then the
-forward kernel (``flash_attention`` without the LSE) at the four shapes
-and at qwen2.5-32b's prefill (1 x 8192, 40/8 at head_dim 128), beside
-SDPA's forward.  ``--splits`` also times the
+24/2 heads of 128, causal), at granite-20b's heads (1 x 1024, 48/1,
+causal), at nemotron-4-340b's (1 x 4096, 96/8 at head_dim 192, causal) and
+at recurrentgemma-9b's training shape (1 x 8192, 16/1 at head_dim 256,
+causal, window 2048), bf16, on the forward kernel's output and
+log-sum-exp: device ms per call, CUDA events around 20 calls after 3
+warm-up calls (a tree whose backward refuses a head_dim shows "refused").
+Beside it, in the same process and on the same inputs, SDPA's backward
+(its forward + backward less its forward, ``enable_gqa=True``, a window as
+a mask).  Then the forward kernel (``flash_attention`` without the LSE) at
+the four shapes, at qwen2.5-32b's prefill (1 x 8192, 40/8 at head_dim 128,
+causal) and at hubert-xlarge's encode (8 x 2048, 16/16 at head_dim 80, no
+mask), beside SDPA's forward (no mask where the shape has none); each
+row names the variant that ran.  ``--splits`` also times the
 kernel at those splits of the KV group's heads where the tree has
 ``bwd_split_count`` (the wgmma variant); ``--profile`` adds the device
 time of each kernel one call launches (``torch.profiler``).
@@ -37,26 +39,32 @@ from pathlib import Path
 
 BF16_FLOPS = 989e12           # H100 SXM dense bf16, NVIDIA data sheet
 SEED = 0
-# name: B, H, K, S, head_dim, window (causal, bf16)
-SHAPES = {"train": (2, 24, 2, 4096, 128, 0),
-          "granite": (1, 48, 1, 1024, 128, 0),
-          "nemotron": (1, 96, 8, 4096, 192, 0),
-          "recurrentgemma": (1, 16, 1, 8192, 256, 2048)}
-FWD_SHAPES = dict(SHAPES, qwen_prefill=(1, 40, 8, 8192, 128, 0))
+# name: B, H, K, S, head_dim, causal, window (bf16)
+SHAPES = {"train": (2, 24, 2, 4096, 128, True, 0),
+          "granite": (1, 48, 1, 1024, 128, True, 0),
+          "nemotron": (1, 96, 8, 4096, 192, True, 0),
+          "recurrentgemma": (1, 16, 1, 8192, 256, True, 2048)}
+FWD_SHAPES = dict(SHAPES, qwen_prefill=(1, 40, 8, 8192, 128, True, 0),
+                  hubert=(8, 16, 16, 2048, 80, False, 0))
 
 
-def pairs(S, window) -> int:
-    """Causal (query, key) pairs, within the window where there is one."""
+def pairs(S, window, causal=True) -> int:
+    """The (query, key) pairs the mask lets through: keys up to the query
+    (causal) or all S, within the window where there is one."""
+    if not causal:
+        return S * S if not window else sum(
+            S - max(0, s - window + 1) for s in range(S))
     if not window or window >= S:
         return S * (S + 1) // 2
     return window * (window + 1) // 2 + (S - window) * window
 
 
-def bound_ms(B, H, S, dh, window=0, products=5) -> float:
+def bound_ms(B, H, S, dh, window=0, products=5, causal=True) -> float:
     """``products`` products of 2 dh flops over the visible (query, key)
     pairs at the bf16 peak (both kernels are bound by operations at these
     shapes): five for the backward, two for the forward."""
-    return 2 * products * B * H * dh * pairs(S, window) / BF16_FLOPS * 1e3
+    return 2 * products * B * H * dh * pairs(S, window, causal) \
+        / BF16_FLOPS * 1e3
 
 
 def event_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -94,7 +102,7 @@ def bench(torch, dev, splits, with_profile) -> dict:
     from repro_torch.kernels.flash_attention import kernel as fak
     sdpa = torch.nn.functional.scaled_dot_product_attention
     res, fwd = {}, {}
-    for name, (B, H, K, S, dh, win) in FWD_SHAPES.items():
+    for name, (B, H, K, S, dh, causal, win) in FWD_SHAPES.items():
         g = torch.Generator(device=dev).manual_seed(SEED)
 
         def randn(*shape):
@@ -104,26 +112,30 @@ def bench(torch, dev, splits, with_profile) -> dict:
             randn(B, K, S, dh), randn(B, H, S, dh)
         if win:       # the window as a mask: keys (s - win, s]
             pos = torch.arange(S, device=dev)
-            kw = {"attn_mask": (pos[None] <= pos[:, None]) &
-                  (pos[None] > pos[:, None] - win)}
+            mask = pos[None] > pos[:, None] - win
+            if causal:
+                mask &= pos[None] <= pos[:, None]
+            kw = {"attn_mask": mask}
         else:
-            kw = {"is_causal": True}
+            kw = {"is_causal": causal}
         fwd[name] = {
-            "shape": [B, H, K, S, dh, win],
-            "bound_ms": bound_ms(B, H, S, dh, win, products=2),
+            "shape": [B, H, K, S, dh, causal, win],
+            "bound_ms": bound_ms(B, H, S, dh, win, products=2,
+                                 causal=causal),
             "ms": event_ms(torch, lambda: fak._launch_fwd(
-                q, k, v, True, win, with_lse=False)),
+                q, k, v, causal, win, with_lse=False)),
             "variant": fak.last_variant,
             "sdpa_ms": event_ms(torch, lambda: sdpa(q, k, v, enable_gqa=True,
                                                     **kw))}
         if name not in SHAPES:
             continue
-        o, lse = fak._launch_fwd(q, k, v, True, win, with_lse=True)
+        o, lse = fak._launch_fwd(q, k, v, causal, win, with_lse=True)
 
         def run():
-            return fak.flash_attention_bwd(q, k, v, o, lse, do, window=win)
-        row = {"shape": [B, H, K, S, dh, win],
-               "bound_ms": bound_ms(B, H, S, dh, win)}
+            return fak.flash_attention_bwd(q, k, v, o, lse, do,
+                                           causal=causal, window=win)
+        row = {"shape": [B, H, K, S, dh, causal, win],
+               "bound_ms": bound_ms(B, H, S, dh, win, causal=causal)}
         try:
             run()
         except NotImplementedError as e:     # a tree without the head_dim
@@ -133,6 +145,7 @@ def bench(torch, dev, splits, with_profile) -> dict:
             row["ms"] = event_ms(torch, run)
             row["variant"] = getattr(fak, "last_bwd_variant", None)
             row["splits"] = getattr(fak, "last_bwd_splits", None)
+            row["pair"] = getattr(fak, "last_bwd_pair", None)
         if splits and row.get("variant") == "wgmma":
             rule = fak.bwd_split_count
             try:
@@ -197,15 +210,18 @@ def main(argv=None) -> int:
         print(json.dumps(res), flush=True)
     def ms(x):
         return x if isinstance(x, str) else f"{x:.4f}"
-    print("flash_attention_bwd ms (SDPA backward ms), trees in order:")
+    print("flash_attention_bwd ms [variant] (SDPA backward ms), trees in "
+          "order:")
     for name in SHAPES:
         cells = [f"{ms(r['backward'][name]['ms'])} "
+                 f"[{r['backward'][name].get('variant')}] "
                  f"({ms(r['backward'][name]['sdpa_backward_ms'])})"
                  for r in runs]
         print(f"  {name}: " + ", ".join(cells))
-    print("flash_attention ms (SDPA ms), trees in order:")
+    print("flash_attention ms [variant] (SDPA ms), trees in order:")
     for name in FWD_SHAPES:
         cells = [f"{ms(r['forward'][name]['ms'])} "
+                 f"[{r['forward'][name]['variant']}] "
                  f"({ms(r['forward'][name]['sdpa_ms'])})" for r in runs]
         print(f"  {name}: " + ", ".join(cells))
     args.out.mkdir(parents=True, exist_ok=True)

@@ -77,8 +77,10 @@ def test_bench_flash_bwd_bound_counts_the_causal_pairs():
     causal pairs (within the window where there is one) at the bf16 peak,
     0.521 ms at starcoder2-3b's training shape, 1.564 at nemotron-4-340b's
     heads, 0.608 at recurrentgemma-9b's training shape (window 2048); the
-    forward's two products; its shapes are the training run's, granite-20b's
-    and those two, and for the forward also qwen2.5-32b's prefill."""
+    forward's two products, over S^2 pairs without a mask (0.174 ms at
+    hubert-xlarge's encode); its shapes are the training run's,
+    granite-20b's and those two, all causal, and for the forward also
+    qwen2.5-32b's prefill and hubert-xlarge's encode, not causal."""
     from repro_torch.launch import bench_flash_bwd as bfb
     pairs = sum(i + 1 for i in range(4096))
     want = 10 * 2 * 24 * 128 * pairs / 989e12 * 1e3
@@ -90,9 +92,32 @@ def test_bench_flash_bwd_bound_counts_the_causal_pairs():
     assert round(bfb.bound_ms(1, 16, 8192, 256, 2048), 3) == 0.608
     assert abs(bfb.bound_ms(1, 16, 8192, 256, 2048, products=2) -
                0.4 * bfb.bound_ms(1, 16, 8192, 256, 2048)) < 1e-12
-    assert bfb.SHAPES == {"train": (2, 24, 2, 4096, 128, 0),
-                          "granite": (1, 48, 1, 1024, 128, 0),
-                          "nemotron": (1, 96, 8, 4096, 192, 0),
-                          "recurrentgemma": (1, 16, 1, 8192, 256, 2048)}
-    assert bfb.FWD_SHAPES == dict(bfb.SHAPES,
-                                  qwen_prefill=(1, 40, 8, 8192, 128, 0))
+    assert bfb.SHAPES == {"train": (2, 24, 2, 4096, 128, True, 0),
+                          "granite": (1, 48, 1, 1024, 128, True, 0),
+                          "nemotron": (1, 96, 8, 4096, 192, True, 0),
+                          "recurrentgemma": (1, 16, 1, 8192, 256, True,
+                                             2048)}
+    assert bfb.FWD_SHAPES == dict(
+        bfb.SHAPES, qwen_prefill=(1, 40, 8, 8192, 128, True, 0),
+        hubert=(8, 16, 16, 2048, 80, False, 0))
+    assert bfb.pairs(2048, 0, causal=False) == 2048 * 2048
+    assert bfb.pairs(10, 3, causal=False) == sum(
+        10 - max(0, s - 2) for s in range(10))
+    hubert = bfb.bound_ms(8, 16, 2048, 80, products=2, causal=False)
+    assert abs(hubert - 4 * 8 * 16 * 80 * 2048 ** 2 / 989e12 * 1e3) < 1e-12
+    assert round(hubert, 3) == 0.174
+
+
+def test_ablate_flash_variants_apply_to_the_sources():
+    """Each of ``ablate_flash``'s variants changes the text it names, once,
+    in the flash sources as they are (an edit that moves that text makes
+    the tool refuse, not time the sources unchanged)."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import ablate_flash as af
+    for name, (src, edits) in af.VARIANTS.items():
+        got_src, text = af.patched(build.CSRC, name)
+        assert got_src == src
+        before = (build.CSRC / src).read_text()
+        assert text != before
+        for old, new in edits:
+            assert before.count(old) == 1 and new in text

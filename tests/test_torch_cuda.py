@@ -340,6 +340,34 @@ def test_flash_attention_wgmma_above_128_run_to_run(dev, B, H, K, S, dh,
                   want_lse.abs().clamp(min=1.0)).max()) < 1e-4
 
 
+@pytest.mark.parametrize("B,H,K,S,dh,causal,win", [
+    (2, 16, 16, 1000, 80, False, 0),                  # hubert-xlarge, no mask
+    (1, 4, 2, 333, 80, True, 48),                     # causal, a window
+    (2, 4, 1, 200, 80, False, 0),                     # a partial query tile
+])
+def test_flash_attention_wgmma_at_80(dev, B, H, K, S, dh, causal, win):
+    """bf16 at head_dim 80 runs the wgmma kernel (dh 128's layout, the
+    columns past 80 read as zeros): two calls bit-equal, each within 3e-2
+    and BF16_ROW_TOL of the plain version, the LSE within 1e-4 of max(1,
+    |lse|)."""
+    g = torch.Generator(device="cpu").manual_seed(9)
+    q, k, v = (torch.randn(shape, generator=g).to(torch.bfloat16).to(dev)
+               for shape in ((B, H, S, dh), (B, K, S, dh), (B, K, S, dh)))
+    want, want_lse = fak.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                                   window=win)
+    n = fak.launches
+    got, lse = fak._launch_fwd(q, k, v, causal, win, with_lse=True)
+    assert fak.last_variant == "wgmma"
+    again, lse2 = fak._launch_fwd(q, k, v, causal, win, with_lse=True)
+    torch.cuda.synchronize()
+    assert fak.launches == n + 2
+    assert torch.equal(got, again) and torch.equal(lse, lse2)
+    assert float((got.float() - want.float()).abs().max()) < 3e-2
+    assert fak.row_scaled_error(got, want) < fak.BF16_ROW_TOL
+    assert float(((lse - want_lse).abs() /
+                  want_lse.abs().clamp(min=1.0)).max()) < 1e-4
+
+
 @pytest.mark.parametrize("Bz,H,S,P,N,dt", [
     (2, 2, 256, 64, 32, torch.float32),
     (1, 4, 128, 32, 64, torch.float32),
@@ -487,7 +515,7 @@ def test_ssd_scan_bwd_kernel_vs_plain(dev, Bz, H, S, P, N, decay):
 
 
 # chip_smoke.py's FLASH_BWD_SWEEP, with the training run's heads at S 1024;
-# the variant each case runs (wgmma: bf16 at 64 / 128)
+# the variant each case runs (wgmma: bf16 at 64, 128, 192 and 256)
 @pytest.mark.parametrize("B,H,K,S,dh,causal,win,dt,variant", [
     (2, 24, 2, 1024, 128, True, 0, torch.bfloat16, "wgmma"),  # starcoder2
     (1, 40, 8, 1024, 128, True, 0, torch.bfloat16, "wgmma"),  # qwen2.5-32b
@@ -502,10 +530,10 @@ def test_ssd_scan_bwd_kernel_vs_plain(dev, Bz, H, S, P, N, decay):
     (1, 4, 2, 100, 16, True, 0, torch.bfloat16, "mma_sync"),  # smoke dh
     (1, 4, 2, 200, 64, True, 0, torch.float32, "fma"),
     (1, 8, 2, 300, 128, False, 48, torch.float32, "fma"),
-    # above head_dim 128: mma.sync with two warps a 16-key slice, FMA with
-    # 8 keys a block
-    (1, 16, 1, 1000, 256, True, 48, torch.bfloat16, "mma_sync"),  # rg-9b
-    (1, 96, 8, 333, 192, True, 0, torch.bfloat16, "mma_sync"),   # nemotron
+    # above head_dim 128: wgmma with 64-key tiles at 192 / 256, mma.sync
+    # with two warps a 16-key slice at 144, FMA with 8 keys a block
+    (1, 16, 1, 1000, 256, True, 48, torch.bfloat16, "wgmma"),  # rg-9b
+    (1, 96, 8, 333, 192, True, 0, torch.bfloat16, "wgmma"),   # nemotron
     (1, 4, 2, 200, 144, False, 100, torch.bfloat16, "mma_sync"),
     (1, 4, 1, 300, 256, True, 48, torch.float32, "fma"),
     (1, 8, 2, 333, 192, False, 0, torch.float32, "fma"),
@@ -535,7 +563,7 @@ def test_flash_attention_bwd_kernel_vs_plain(dev, B, H, K, S, dh, causal,
     torch.cuda.synchronize()
     assert fak.bwd_launches == n + 1
     assert fak.last_bwd_variant == variant == fak.flash_bwd_variant(dt, dh)
-    assert fak.last_bwd_splits == (fak.bwd_split_count(B, H, K, S)
+    assert fak.last_bwd_splits == (fak.bwd_split_count(B, H, K, S, dh)
                                    if variant == "wgmma" else 1)
     for a, b in zip(got, want):
         assert a.dtype == dt and a.shape == b.shape
@@ -544,6 +572,64 @@ def test_flash_attention_bwd_kernel_vs_plain(dev, B, H, K, S, dh, causal,
         else:
             assert fak.row_scaled_error(a, b, floor=fak.GRAD_ROW_FLOOR) < \
                 fak.BF16_ROW_TOL
+
+
+# the wide wgmma backward (64-key tiles, head_dim split over the two
+# consumer groups): a window, a partial tile, S % 64 != 0, a split, causal
+# key tiles paired in a block
+@pytest.mark.parametrize("B,H,K,S,dh,causal,win", [
+    (1, 16, 1, 1000, 256, True, 2048),    # rg-9b's heads, window past S
+    (1, 16, 1, 8192, 256, True, 2048),    # rg-9b's training shape: split 8
+    (1, 96, 8, 1000, 192, True, 0),       # nemotron's heads, S % 64 = 40
+    (2, 8, 2, 333, 192, True, 100),       # a window edge, partial tiles
+    (1, 4, 1, 200, 256, False, 0),        # no mask: split 2
+    (3, 8, 8, 130, 192, False, 48),       # MHA, a window without causality
+    (1, 96, 8, 4096, 192, True, 0),       # nemotron's timed shape: paired
+    (2, 16, 16, 522, 256, True, 0),       # paired, 9 key tiles: a lone one
+])
+def test_flash_attention_bwd_wgmma_wide(dev, B, H, K, S, dh, causal, win):
+    """The wgmma backward at head_dim 192 / 256 against its plain version
+    on the forward kernel's o and lse (BF16_ROW_TOL of a row's rms, floored
+    at GRAD_ROW_FLOOR), run twice: without a split dk and dv are written
+    from registers and are bit-equal run to run; with one the parts meet
+    in fp32 by bulk reduce in no fixed order, so the second call is held
+    to the first within the same tolerance.  dq's partials meet so always."""
+    g = torch.Generator(device="cpu").manual_seed(10)
+    q, k, v, do = (torch.randn(shape, generator=g).to(torch.bfloat16).to(dev)
+                   for shape in ((B, H, S, dh), (B, K, S, dh), (B, K, S, dh),
+                                 (B, H, S, dh)))
+    o, lse = fak._launch_fwd(q, k, v, causal, win, with_lse=True)
+    want = fak.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         window=win)
+    n = fak.bwd_launches
+    got = fak.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                  window=win)
+    again = fak.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                    window=win)
+    torch.cuda.synchronize()
+    assert fak.bwd_launches == n + 2
+    assert fak.last_bwd_variant == "wgmma"
+    splits = fak.bwd_split_count(B, H, K, S, dh)
+    assert fak.last_bwd_splits == splits
+    assert fak.last_bwd_pair == fak.bwd_pair_key_tiles(B, H, K, S, dh,
+                                                       causal, win)
+    if (B, H, K, S) in ((1, 16, 1, 8192), (1, 4, 1, 200)):
+        assert splits > 1
+    if S in (4096, 522):
+        assert fak.last_bwd_pair
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert bool(torch.isfinite(a).all())
+        assert fak.row_scaled_error(a, b, floor=fak.GRAD_ROW_FLOOR) < \
+            fak.BF16_ROW_TOL
+    for a, b in zip(got[1:], again[1:]):
+        if splits == 1:
+            assert torch.equal(a, b)
+        else:
+            assert fak.row_scaled_error(b, a, floor=fak.GRAD_ROW_FLOOR) < \
+                fak.BF16_ROW_TOL
+    assert fak.row_scaled_error(again[0], got[0],
+                                floor=fak.GRAD_ROW_FLOOR) < fak.BF16_ROW_TOL
 
 
 def test_flash_attention_bwd_replays_in_a_cuda_graph(dev):

@@ -113,7 +113,7 @@ def test_flash_wrapper_checks():
 @pytest.mark.parametrize("dt,dh,variant", [
     (torch.bfloat16, 128, "wgmma"),     # qwen2.5-32b: the main path
     (torch.bfloat16, 64, "wgmma"),
-    (torch.bfloat16, 80, "mma_sync"),   # the hubert sweep
+    (torch.bfloat16, 80, "wgmma"),      # hubert-xlarge: dh 128's layout
     (torch.bfloat16, 16, "mma_sync"),
     (torch.bfloat16, 112, "mma_sync"),
     (torch.bfloat16, 144, "mma_sync"),  # Q in shared memory from here

@@ -160,9 +160,10 @@ def test_flash_grad_refusals():
 @pytest.mark.parametrize("dh", [16, 32, 48, 64, 80, 96, 112, 128,
                                 144, 160, 192, 240, 256])
 def test_flash_bwd_variant_takes(dh):
-    """bf16 at 64 and 128 runs the wgmma kernel, at the other multiples of
-    16 up to 256 the mma.sync kernel; fp32 runs the FMA kernel."""
-    want = "wgmma" if dh in (64, 128) else "mma_sync"
+    """bf16 at 64, 128, 192 and 256 runs the wgmma kernel, at the other
+    multiples of 16 up to 240 the mma.sync kernel; fp32 runs the FMA
+    kernel."""
+    want = "wgmma" if dh in (64, 128, 192, 256) else "mma_sync"
     assert fak.flash_bwd_variant(torch.bfloat16, dh) == want
     assert fak.flash_bwd_variant(torch.float32, dh) == "fma"
     assert fak.VARIANTS[want] in (1, 2)
@@ -207,6 +208,57 @@ def test_bwd_split_count(B, H, K, S, want):
         d for d in range(1, got) if g % d == 0) < fak.BWD_SPLIT_BLOCKS
 
 
+@pytest.mark.parametrize("dh,tile", [(64, 128), (128, 128), (192, 64),
+                                     (256, 64)])
+def test_bwd_key_tile(dh, tile):
+    """128 keys a block up to head_dim 128, 64 above it."""
+    assert fak.bwd_key_tile(dh) == tile
+
+
+@pytest.mark.parametrize("B,H,K,S,dh,want", [
+    # recurrentgemma-9b's training: 128 64-key blocks < 132 SMs -> split 8
+    # (1024 blocks; 4 would give 512 < 528); at 128-key tiles it would have
+    # been 64 blocks -> 16
+    (1, 16, 1, 8192, 256, 8),
+    (1, 16, 1, 8192, 128, 16),
+    # nemotron-4-340b's heads: 8 x 64 = 512 blocks fill the card
+    (1, 96, 8, 4096, 192, 1),
+    (1, 96, 8, 1024, 192, 6),      # 128 64-key blocks: 4 gives 512 < 528
+    (2, 16, 1, 8192, 256, 1),      # 256 blocks
+    (1, 2, 1, 100, 256, 2),        # 2 blocks: only g reaches 528
+])
+def test_bwd_split_count_counts_the_head_dims_key_tile(B, H, K, S, dh, want):
+    """The split rule counts blocks of the key tile the head_dim gets: 64
+    keys above 128.  Without a head_dim it counts 128-key tiles, as the
+    callers before the wide kernel did."""
+    got = fak.bwd_split_count(B, H, K, S, dh)
+    assert got == want
+    blocks = B * K * -(-S // fak.bwd_key_tile(dh))
+    assert (got == 1) == (blocks >= fak.BWD_SM_COUNT)
+    assert fak.bwd_split_count(B, H, K, S) == \
+        fak.bwd_split_count(B, H, K, S, 128)
+
+
+@pytest.mark.parametrize("B,H,K,S,dh,causal,win,want", [
+    (1, 96, 8, 4096, 192, True, 0, True),     # nemotron: 256 pairs
+    (1, 16, 1, 8192, 256, True, 2048, False),  # a window: no pairs
+    (1, 16, 1, 8192, 256, True, 0, False),    # split 8: no pairs
+    (2, 24, 2, 4096, 128, True, 0, False),    # dh 128: another kernel
+    (1, 96, 8, 4096, 192, False, 0, False),   # no causal mask
+    (1, 48, 4, 4480, 256, True, 0, True),     # 280 blocks, 140 pairs
+    (1, 48, 1, 8448, 256, True, 0, False),    # 132 blocks but 66 pairs
+    (2, 16, 16, 522, 192, True, 0, True),     # 9 key tiles: a lone middle
+])
+def test_bwd_pair_key_tiles(B, H, K, S, dh, causal, win, want):
+    """The wgmma backward above head_dim 128 pairs key tiles j and n - 1 -
+    j in a block under a causal mask without a window or a split, where
+    the pairs still fill the card."""
+    assert fak.bwd_pair_key_tiles(B, H, K, S, dh, causal, win) is want
+    if want:
+        assert fak.bwd_split_count(B, H, K, S, dh) == 1
+        assert B * K * -(-S // 128) >= fak.BWD_SM_COUNT
+
+
 def test_bwd_split_count_is_a_function_of_shapes():
     """Ints in, an int out, the same each call: nothing to read from the
     device, so the backward stays capturable."""
@@ -227,6 +279,10 @@ _SPLIT_CASES = [
     (2, 8, 2, 37, 32, True, 9, 16, 8),
     (1, 8, 2, 50, 16, False, 0, 32, 16),
     (1, 4, 1, 200, 64, True, 0, 128, 64),        # the kernel's own tiles
+    # the wide kernel's 64-key tiles (head_dim above 128): a window, S %
+    # 64 != 0, no mask
+    (1, 4, 1, 200, 256, True, 48, 64, 64),
+    (1, 8, 2, 150, 192, False, 0, 64, 64),
 ]
 
 
