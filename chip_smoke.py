@@ -107,6 +107,7 @@ LONG_PROMPT = 300          # > pages_per_sb pages of 128: the span path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, same source
 FP32_FLOPS = 67e12         # fp32 outside the tensor cores, same source
+TF32_FLOPS = 495e12        # dense TF32 tensor-core peak, same source
 
 
 def fail(msg: str) -> int:
@@ -599,6 +600,29 @@ def ssd_bwd_bound(Bz, H, S, P, N, chunk=64,
     nbytes = 4 * (4 * Bz * H * S * P + 2 * Bz * H * S + 4 * Bz * S * N)
     t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def ssd_bwd_grads_bound(Bz, H, S, P, N, chunk=64, heads=8) -> dict:
+    """The chunk-gradient kernel's own bound (kernel 3 of
+    ``csrc/ssd_scan_bwd.cu``): per head and chunk the triangles dy x^T and
+    M^T dy, B g^T, (x dec) g and (dy exp(cums)) h_in; per (batch, chunk,
+    group of ``heads`` heads) C B^T, dG^T C and dG B on the lower
+    triangle; against x, dy, loga, h_in, g, B, C read once and dx, dloga
+    and the groups' dB / dC partials written once.  Its time at the fp32
+    FMA peak and in 3xTF32 (three TF32 products a product, 495 / 3
+    TFLOP/s), each the larger of the operations' and the bytes' time."""
+    nc, groups = -(-S // chunk), -(-H // heads)
+    tri = chunk * (chunk + 1) // 2
+    flops = 2 * Bz * nc * (groups * 3 * tri * N +
+                           H * (2 * tri * P + 3 * chunk * P * N))
+    nbytes = 4 * (3 * Bz * H * S * P + 2 * Bz * H * S + 2 * Bz * S * N +
+                  2 * Bz * H * nc * P * N + 2 * Bz * nc * groups * chunk * N)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_fma, t_tf32x3 = flops / FP32_FLOPS * 1e3, flops / TF32_FLOPS * 3e3
+    return {"gflop": flops / 1e9, "gbytes": nbytes / 1e9,
+            "bytes_ms": t_bytes, "fma_ops_ms": t_fma,
+            "tf32x3_ops_ms": t_tf32x3, "fma_ms": max(t_fma, t_bytes),
+            "tf32x3_ms": max(t_tf32x3, t_bytes)}
 
 
 def check_forward_kernels(torch, dev, flash_mains, ssd_mains) -> list[dict]:
@@ -1326,9 +1350,13 @@ def check_ssd_bwd(torch, dev) -> dict:
     heads of 64, N 128, fp32), at SSD_SWEEP's fp32 shapes and at the smoke
     widths: dxdt, dloga, dB and dC each within 1e-4 of max |plain|, and a
     second call bit-equal (no float atomics).  Times at the training
-    shape; no PyTorch call computes the scan's gradient."""
+    shape, the whole call and each of its four kernels (``parts_ms``),
+    beside the chunk-gradient kernel's own bound; no PyTorch call computes
+    the scan's gradient."""
     from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import build
     from repro_torch.kernels.ssd_scan import kernel as ssk
+    from repro_torch.launch.bench_ssd_bwd import kernel_parts_ms, ptxas_lines
     from repro_torch.layers.ssd import n_heads
     c, sc = get_config(SSD_TRAIN_ARCH), get_smoke_config(SSD_TRAIN_ARCH)
     main = (SSD_TRAIN_BATCH, n_heads(c), SSD_TRAIN_SEQ, c.ssm_head_dim,
@@ -1373,6 +1401,13 @@ def check_ssd_bwd(torch, dev) -> dict:
                           "bound_ms": bound})
             print(f"ssd_scan_bwd {case}: {errs}", flush=True)
             continue
+        parts = kernel_parts_ms(torch, run)
+        grads = ssd_bwd_grads_bound(Bz, H, S, P, N)
+        ptxas = ptxas_lines(build.build_info.get("log", ""),
+                            "ssd_bwd_chunk_grads")
+        print(f"ssd_scan_bwd parts at {case}: {parts} ms; the "
+              f"chunk-gradient kernel's bound {grads}; ptxas {ptxas}",
+              flush=True)
         row = {
             "name": "ssd_scan_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
@@ -1391,6 +1426,9 @@ def check_ssd_bwd(torch, dev) -> dict:
             # this design rebuilds h_in: its work adds each chunk's state
             "design_bound_ms": ssd_bwd_bound(Bz, H, S, P, N,
                                              recompute=True)[0],
+            # each of the four kernels' device ms (torch.profiler), and the
+            # chunk-gradient kernel's own bound and ptxas report
+            "parts_ms": parts, "grads_bound": grads, "grads_ptxas": ptxas,
             "library_ms": None,
             "library_call": "none: no PyTorch call computes the SSD scan's "
                             "gradient (autograd through the plain version "

@@ -45,7 +45,8 @@ def parse(stdout: str) -> dict:
                     k: row.get(k) for k in ("ms", "ms_l2_warm", "eager_ms",
                                             "bound_ms", "plain_ms",
                                             "library_ms", "launches",
-                                            "variant", "splits")}
+                                            "variant", "splits",
+                                            "parts_ms")}
         elif " detail: " in line and line.split(" ")[0] in DETAILS:
             # "<run> detail: {...}" or "<run> <model> detail: {...}"
             key, _, js = line.partition(" detail: ")
@@ -92,6 +93,15 @@ def main(argv=None) -> int:
         cells = [r["kernels"].get(name, {}).get("ms") for r in runs]
         print(f"  {name}: " + ", ".join("-" if c is None else f"{c:.5f}"
                                         for c in cells))
+    for name in names:
+        parts = sorted({p for r in runs
+                        for p in (r["kernels"].get(name, {}).get("parts_ms")
+                                  or {})})
+        for p in parts:
+            cells = [(r["kernels"].get(name, {}).get("parts_ms") or {}).get(p)
+                     for r in runs]
+            print(f"  {name} {p}: " + ", ".join(
+                "-" if c is None else f"{c:.5f}" for c in cells))
     details = sorted({k for r in runs for k in r
                       if k.split(" ")[0] in DETAILS})
     for name in details:

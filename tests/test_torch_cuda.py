@@ -478,28 +478,32 @@ def test_kernels_refuse_inputs_that_require_grad(dev):
 
 
 # chip_smoke.py's SSD_SWEEP shapes (fp32: the backward takes fp32 only),
-# the smoke widths and mamba2-370m's training shape
-@pytest.mark.parametrize("Bz,H,S,P,N,decay", [
-    (2, 2, 256, 64, 32, None),
-    (1, 4, 128, 32, 64, None),
-    (2, 4, 64, 64, 128, None),            # one chunk
-    (2, 3, 200, 64, 128, None),           # partial chunk; H 3
-    (1, 3, 1024, 64, 128, -5.0),          # strong decay
-    (2, 8, 40, 16, 16, None),             # mamba2-370m smoke widths
-    (2, 9, 130, 16, 24, None),            # two head groups, N / 8 odd
-    (8, 32, 2048, 64, 128, None),         # mamba2-370m training shape
+# the smoke widths and mamba2-370m's training shape; the training widths
+# with a partial last chunk and a head-group tail, and inputs at 10x the
+# sweep's scales (the 3xTF32 split away from one magnitude)
+@pytest.mark.parametrize("Bz,H,S,P,N,decay,scale", [
+    (2, 2, 256, 64, 32, None, 1.0),
+    (1, 4, 128, 32, 64, None, 1.0),
+    (2, 4, 64, 64, 128, None, 1.0),            # one chunk
+    (2, 3, 200, 64, 128, None, 1.0),           # partial chunk; H 3
+    (1, 3, 1024, 64, 128, -5.0, 1.0),          # strong decay
+    (2, 8, 40, 16, 16, None, 1.0),             # mamba2-370m smoke widths
+    (2, 9, 130, 16, 24, None, 1.0),            # two head groups, N / 8 odd
+    (8, 32, 2048, 64, 128, None, 1.0),         # mamba2-370m training shape
+    (1, 12, 1000, 64, 128, None, 1.0),         # partial chunk; 8 + 4 heads
+    (2, 8, 512, 64, 128, None, 10.0),          # xdt 1.0, B and C 3.0
 ])
-def test_ssd_scan_bwd_kernel_vs_plain(dev, Bz, H, S, P, N, decay):
+def test_ssd_scan_bwd_kernel_vs_plain(dev, Bz, H, S, P, N, decay, scale):
     """dxdt, dloga, dB and dC of the backward kernel against its plain
     version run on the card, within 1e-4 of each output's max |plain|;
     one launch; a second call is bit-equal (no float atomics)."""
     g = torch.Generator(device="cpu").manual_seed(9)
-    xdt = (torch.randn((Bz, H, S, P), generator=g) * 0.1).to(dev)
+    xdt = (torch.randn((Bz, H, S, P), generator=g) * 0.1 * scale).to(dev)
     loga = -torch.randn((Bz, H, S), generator=g).abs() * 0.1 \
         if decay is None else torch.full((Bz, H, S), decay)
     loga = loga.to(dev)
-    B = (torch.randn((Bz, S, N), generator=g) * 0.3).to(dev)
-    C = (torch.randn((Bz, S, N), generator=g) * 0.3).to(dev)
+    B = (torch.randn((Bz, S, N), generator=g) * 0.3 * scale).to(dev)
+    C = (torch.randn((Bz, S, N), generator=g) * 0.3 * scale).to(dev)
     dy = torch.randn((Bz, H, S, P), generator=g).to(dev)
     want = ssk.ssd_scan_bwd_plain(xdt, loga, B, C, dy)
     n = ssk.bwd_launches

@@ -273,3 +273,87 @@ def test_ssd_scan_bwd_takes_the_plain_version_on_the_cpu():
     assert ssk.bwd_launches == before
     with pytest.raises(ValueError):
         ssk.ssd_scan_bwd(*ins, dy[:, :, :64])
+
+
+# ---------------------------------------------------------------------------
+# the backward's products in 3xTF32 (the chunk-gradient kernel's precision)
+# ---------------------------------------------------------------------------
+def _round_tf32(a: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 as ``cvt.rna.tf32.f32`` rounds: to nearest, ties away
+    from zero, on the fp32 bits (the low 13 mantissa bits cleared)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_tf32(a: torch.Tensor):
+    hi = _round_tf32(a)
+    return hi, _round_tf32(a - hi)
+
+
+# ssd_scan_bwd_plain's torch.matmul calls, in order: C B^T; the chunk
+# states dH and dS (the chunk-state kernel's, fp32 FMA on the card); then
+# the chunk-gradient kernel's dy x^T, B g^T, M^T dy, (dy e^cums) h_in,
+# dG^T C, (x dec) g and dG B
+_BWD_MATMULS = 10
+_FP32_MATMULS = (1, 2)
+
+
+def _bwd_with_tf32_products(arrs, dy, passes: int):
+    """``ssd_scan_bwd_plain`` with the chunk-gradient kernel's products in
+    ``passes`` TF32 products (1: hi hi; 3: hi hi + hi lo + lo hi, each
+    summed in fp32) and the chunk states in fp32, as on the card."""
+    matmul = torch.matmul
+    calls = []
+
+    def emulated(a, b):
+        calls.append(None)
+        if len(calls) - 1 in _FP32_MATMULS:
+            return matmul(a, b)
+        (ah, al), (bh, bl) = _split_tf32(a), _split_tf32(b)
+        out = matmul(ah, bh)
+        if passes == 3:
+            out = out + matmul(ah, bl) + matmul(al, bh)
+        return out
+    torch.matmul = emulated
+    try:
+        got = ssk.ssd_scan_bwd_plain(*map(torch.as_tensor, arrs),
+                                     torch.as_tensor(dy))
+    finally:
+        torch.matmul = matmul
+    assert len(calls) == _BWD_MATMULS
+    return got
+
+
+def _tf32_rel_errors(case, passes: int) -> dict:
+    """Each gradient's max |emulated - fp32 plain| over its max |plain|."""
+    arrs, dy = _bwd_inputs(24, *case)
+    want = ssk.ssd_scan_bwd_plain(*map(torch.as_tensor, arrs),
+                                  torch.as_tensor(dy))
+    got = _bwd_with_tf32_products(arrs, dy, passes)
+    return {name: float((g - w).abs().max() / w.abs().max())
+            for name, g, w in zip(("dxdt", "dloga", "dB", "dC"), got, want)}
+
+
+TF32_CASES = [  # Bz, H, S, P, N, log-decay per step (None: random)
+    (2, 8, 40, 16, 16, None),          # mamba2-370m smoke widths
+    (2, 8, 40, 16, 16, -5.0),
+    (2, 8, 512, 64, 128, None),        # mamba2-370m's P and N
+    (2, 8, 512, 64, 128, -5.0),        # strong decay
+]
+
+
+@pytest.mark.parametrize("case", TF32_CASES)
+def test_ssd_bwd_products_in_3xtf32_keep_half_the_tolerance(case):
+    """The chunk-gradient kernel runs its products on tensor cores in
+    3xTF32.  Emulated on the plain backward (round to TF32 as cvt.rna does,
+    hi hi + hi lo + lo hi in fp32), every gradient stays within 5e-5 of its
+    max |fp32 plain|: half the 1e-4 the card holds the kernel to."""
+    errs = _tf32_rel_errors(case, passes=3)
+    assert all(e < 5e-5 for e in errs.values()), errs
+
+
+if __name__ == "__main__":
+    # the figures behind the 3xTF32 choice: one TF32 pass and three
+    for case in TF32_CASES:
+        for passes in (1, 3):
+            print(case, f"{passes} pass(es):", _tf32_rel_errors(case, passes))
