@@ -3,16 +3,21 @@
 
     python3 chip_smoke.py
 
-Builds the port's seven CUDA kernels from ``src/repro_torch/csrc``, holds
-each kernel against its plain PyTorch version at its paths' shapes (and
-times both), then drives the port's paths:
+Builds the port's seven CUDA kernels and the int8 variants of two of them
+from ``src/repro_torch/csrc``, holds each kernel against its plain
+PyTorch version at its paths' shapes (and times both), then drives the
+port's paths:
 
 1. the kernels against their plain versions (the serve runs' shapes --
    qwen2.5-32b 40/8, granite-20b 48/1, recurrentgemma-9b 16/1 at head_dim
    256 with its window, granite-moe-3b-a800m 24/8 at head_dim 64,
    moonshot-v1-16b-a3b 16/16 -- for the decode layer's fused bias + RoPE
    + K/V write ``rope_kv_append`` (a lane on the dump page and one past
-   its table) and ``paged_attention``; the reference's sweep shapes and
+   its table) and ``paged_attention``, and for their int8 variants
+   (``rope_kv_append_int8`` quantizing on write, ``paged_attention_int8``
+   reading int8 rows and their fp32 scales; also at the sweep's 8 x
+   32768, page-edge, windowed and fp32 cases); the reference's sweep
+   shapes and
    the edges of the kernels' tiles, flash_attention at head_dim 80, 144,
    192 and 256 among them (the ``wgmma`` kernel's 64-key tiles at 192 /
    256, dh 128's layout at 80); the prefills of qwen2.5-32b,
@@ -24,17 +29,20 @@ times both), then drives the port's paths:
    8 x 32768 and 1 x 32768 positions, page and split edges and fp32,
    timed with the L2 cache cold and warm);
 2. the serving engine on the card against the same engine on the CPU, on
-   the qwen2.5-32b, mamba2-370m, recurrentgemma-9b and granite-moe-3b-a800m
-   smoke configs, a lane reused at the end;
+   the qwen2.5-32b (also with the int8 KV cache), mamba2-370m,
+   recurrentgemma-9b and granite-moe-3b-a800m smoke configs, a lane
+   reused at the end;
 3. serve runs at full width through the paged engine (random weights from
-   a seed): qwen2.5-32b cut to 8 layers, granite-20b (all 52 layers),
+   a seed): qwen2.5-32b cut to 8 layers (with bf16 and with int8 KV
+   arenas, the same weights and script), granite-20b (all 52 layers),
    recurrentgemma-9b (all 38), mamba2-370m (all 48), granite-moe-3b-a800m
    (all 32) and moonshot-v1-16b-a3b (all 48, ~56 GB): short prompts, and
    where the model has attention a 300-token prompt on the span path and
    a published prefix with an exact and a partial hit; a
    crash-and-recover mid-run and a finished lane reused; every attention
    layer of every step launches ``rope_kv_append`` and
-   ``paged_attention`` once, the standalone ``kv_update`` never;
+   ``paged_attention`` once (the int8 run their int8 variants), the
+   standalone ``kv_update`` never;
 4. the full-sequence forward (logits, collected K/V, aux, loss) of every
    architecture's smoke configuration on the card against the CPU (the
    front-end stubs fed frame / patch embeddings);
@@ -203,6 +211,7 @@ def check_kernels(torch, cfg, dev) -> list[dict]:
     }
 
     rope_row = check_rope_kv_append(torch, cfg, dev, pages)
+    rope8_row = check_rope_kv_append(torch, cfg, dev, pages, int8=True)
 
     # paged_attention: within 3e-2 and BF16_ROW_TOL of a row's rms, window
     # off and on; lengths up to the serve run's longest sequence
@@ -217,8 +226,10 @@ def check_kernels(torch, cfg, dev) -> list[dict]:
         need = -(-int(lens[b]) // page)
         bt[b, :need] = pool[cursor:cursor + need]
         cursor += need
-    rows = {}
+    rows, rows8 = {}, {}
     for window in (0, 256):
+        rows8[window] = check_paged_int8(torch, (q, ak, av, bt, lens),
+                                         window)
         want = pak.paged_attention_plain(q, ak, av, bt, lens, window=window)
         got = pak.paged_attention(q, ak, av, bt, lens, window=window)
         torch.cuda.synchronize()
@@ -281,15 +292,86 @@ def check_kernels(torch, cfg, dev) -> list[dict]:
     pa_row["window256"] = {k: rows[256][k] for k in (
         "max_abs_err", "row_scaled_err", "splits", "ms", "ms_l2_warm",
         "eager_ms", "plain_ms", "bound_ms", "sdpa_pregathered_ms", "shape")}
-    pa_row["sweep"] = check_paged_sweep(torch, dev)
-    return [kv_row, rope_row, pa_row]
+    pa8_row = dict(PAGED_INT8_ROW, **rows8[0], window256=rows8[256])
+    for r8, r in ((pa8_row, pa_row), (pa8_row["window256"],
+                                      pa_row["window256"])):
+        r8["unquantized_ms"] = r["ms"]
+        r8["unquantized_bound_ms"] = r["bound_ms"]
+    pa_row["sweep"], pa8_row["sweep"] = check_paged_sweep(torch, dev)
+    return [kv_row, rope_row, pa_row, rope8_row, pa8_row]
 
 
-def check_rope_kv_append(torch, cfg, dev, pages) -> dict:
+PAGED_INT8_ROW = {
+    "name": "paged_attention_int8", "route": "cuda",
+    "source": "src/repro_torch/csrc/paged_attention.cu",
+    "replaces": "src/repro/kernels/paged_attention/kernel.py:87",
+    "library_ms": None,
+    "library_call": "none (no PyTorch call reads int8 rows through a "
+                    "block table)"}
+
+
+def check_paged_int8(torch, inputs, window: int, masked=None,
+                     iters: int = 60) -> dict:
+    """paged_attention's int8 variant against its plain version over
+    ``inputs`` (``make_inputs``' tuple) with the arenas quantized as the
+    int8 cache stores them: bf16 within 3e-2 and BF16_ROW_TOL of a row's
+    rms, fp32 within 1e-5; a masked lane exactly 0.  Timed with the L2
+    cache cold and warm, eagerly and in its plain version, beside its
+    bound (bytes: int8 rows and their fp32 scales)."""
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.paged_attention import kernel as pak
+    from repro_torch.launch import bench_paged as bp
+    inp = bp.int8_inputs(inputs)
+    q, ak, _, bt, _ = inp[:5]
+    B, H, dh = q.shape
+    _, page, K, _ = ak.shape
+    want = bp.paged_int8_plain(*inp, window=window)
+    got = bp.paged_int8(*inp, window=window)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    live = [b for b in range(B) if b != masked]
+    row_err = fak.row_scaled_error(got[live], want[live])
+    bf16 = q.dtype == torch.bfloat16
+    tol = 3e-2 if bf16 else 1e-5
+    if not err < tol or (bf16 and not row_err < fak.BF16_ROW_TOL) or (
+            masked is not None and bool(got[masked].any())):
+        raise AssertionError(
+            f"paged_attention (int8) differs from its plain version by "
+            f"{err} (tolerance {tol}), {row_err} of a row's rms, or its "
+            f"masked lane is not 0")
+    t_bytes, tokens = bp.bytes_bound_ms(inp, window)
+    # the products at the tensor-core (bf16) or FMA (fp32) peak, the
+    # dequantization (a product an element) at the fp32 peak
+    t_ops = 1e3 * (4 * H * dh * tokens / (BF16_FLOPS if bf16 else FP32_FLOPS)
+                   + 2 * K * dh * tokens / FP32_FLOPS)
+    return {
+        "max_abs_err": err, "row_scaled_err": row_err,
+        "tolerance": {"abs": tol, "row_scaled": fak.BF16_ROW_TOL if bf16
+                      else None},
+        "splits": pak.split_count(B, K, bt.shape[1], page)[0],
+        **bp.time_cold_warm(torch, bp.paged_int8, inp, window=window,
+                            iters=iters),
+        "eager_ms": event_ms(torch, lambda: bp.paged_int8(*inp,
+                                                          window=window)),
+        "plain_ms": event_ms(torch, lambda: bp.paged_int8_plain(
+            *inp, window=window)),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "shape": {"q": [B, H, dh], "arena": list(ak.shape),
+                  "block_table": list(bt.shape), "valid_tokens": tokens,
+                  "window": window, "dtype": str(q.dtype),
+                  "arena_dtype": "int8 + fp32 scales"}}
+
+
+def check_rope_kv_append(torch, cfg, dev, pages,
+                         int8: bool = False) -> dict:
     """rope_kv_append at a serve run's shape (8 lanes, the config's heads,
     head_dim and biases, bf16, RoPE on, the engine's arena), bit-equal to
     its plain version over q_rot and the whole arena; a lane on a -1 table
-    column and a lane past the table write the dump page."""
+    column and a lane past the table write the dump page.  With ``int8``
+    the int8 variant (int8 arenas and their fp32 scale arenas, the rows
+    quantized on write), bit-equal over the arenas and scales too."""
     from repro_torch.kernels.kv_update import kernel as kvk
     from repro_torch.layers.rope import rope_freqs
 
@@ -316,46 +398,63 @@ def check_rope_kv_append(torch, cfg, dev, pages) -> dict:
             randn(K * dh, scale=0.5)) if cfg.qkv_bias else (None,) * 3
     args = (randn(B, H * dh), randn(B, K * dh), randn(B, K * dh), *bias,
             rope_freqs(dh, cfg.rope_theta, dev), pos, table)
-    ak, av = randn(pages, page, K, dh), randn(pages, page, K, dh)
-    rk, rv = ak.clone(), av.clone()
-    want = kvk.rope_kv_append_plain(*args, rk, rv)
-    got = kvk.rope_kv_append(*args, ak, av)
+    if int8:    # arenas as earlier writes leave them: quantized rows
+        ak, ks = kvk.quantize_rows(randn(pages, page, K, dh))
+        av, vs = kvk.quantize_rows(randn(pages, page, K, dh))
+        flat = [ak, av, ks, vs]
+    else:
+        flat = [randn(pages, page, K, dh), randn(pages, page, K, dh)]
+    arenas = _nest(flat)
+    ref = [t.clone() for t in flat]
+    want = kvk.rope_kv_append_plain(*args, *_nest(ref))
+    got = kvk.rope_kv_append(*args, *arenas)
     torch.cuda.synchronize()
-    if not (torch.equal(got, want) and torch.equal(ak, rk)
-            and torch.equal(av, rv)):
-        raise AssertionError("rope_kv_append kernel differs from its plain "
-                             "version")
-    err = max(float((got.float() - want.float()).abs().max()),
-              float((ak.float() - rk.float()).abs().max()),
-              float((av.float() - rv.float()).abs().max()))
+    if not (torch.equal(got, want)
+            and all(torch.equal(a, b) for a, b in zip(flat, ref))):
+        raise AssertionError(f"rope_kv_append{' (int8)' * int8} kernel "
+                             f"differs from its plain version")
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip([got] + flat, [want] + ref))
     # bytes: q, k, v, the biases, freqs, pos and one table entry a lane
-    # read; q_rot and the K and V rows written.  Operations: the angle, per
-    # (lane, head, pair) four products and two sums, a bias add an element
+    # read; q_rot and the K and V rows written (int8: a byte an element and
+    # an fp32 scale a row).  Operations: the angle, per (lane, head, pair)
+    # four products and two sums, a bias add an element (int8: per K / V
+    # element its |x|, max, division and rounding)
     nb = (H + 2 * K) * dh if cfg.qkv_bias else 0     # bias elements
-    nbytes = (2 * B * H * dh + 4 * B * K * dh + nb) * es \
+    rows = 2 * B * K * (dh + 4) if int8 else 2 * B * K * dh * es
+    nbytes = (2 * B * H * dh + 2 * B * K * dh + nb) * es + rows \
         + dh // 2 * 4 + 2 * B * 4
-    ops = B * (dh // 2 + 3 * (H + K) * dh + nb)
+    ops = B * (dh // 2 + 3 * (H + K) * dh + nb) + 8 * B * K * dh * int8
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_FLOPS * 1e3
     return {
-        "name": "rope_kv_append", "route": "cuda",
+        "name": "rope_kv_append_int8" if int8 else "rope_kv_append",
+        "route": "cuda",
         "source": "src/repro_torch/csrc/kv_update.cu",
         "replaces": "src/repro/kernels/kv_update/kernel.py:47",
         "max_abs_err": err, "tolerance": 0.0,
-        "ms": graph_ms(torch, lambda: kvk.rope_kv_append(*args, ak, av)),
-        "eager_ms": event_ms(torch, lambda: kvk.rope_kv_append(*args, ak,
-                                                              av)),
+        "ms": graph_ms(torch, lambda: kvk.rope_kv_append(*args, *arenas)),
+        "eager_ms": event_ms(torch, lambda: kvk.rope_kv_append(*args,
+                                                              *arenas)),
         "plain_ms": event_ms(torch, lambda: kvk.rope_kv_append_plain(
-            *args, ak, av)),
+            *args, *arenas)),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
         "library_call": "none (no single PyTorch call adds the biases, "
-                        "rotates q and k and writes the paged K/V rows)",
+                        "rotates q and k and writes the paged K/V rows"
+                        + (", quantized" if int8 else "") + ")",
         "shape": {"q": [B, H * dh], "kv": [B, K * dh],
                   "arena": [pages, page, K, dh], "table": [B, P],
-                  "dtype": str(dt)},
+                  "dtype": str(dt),
+                  "arena_dtype": "int8 + fp32 scales" if int8 else str(dt)},
     }
+
+
+def _nest(flat):
+    """The arena arguments of rope_kv_append from [k, v] or [k, v, ks, vs]:
+    (k, v) or (k, v, (ks, vs))."""
+    return tuple(flat[:2]) + ((tuple(flat[2:]),) if len(flat) > 2 else ())
 
 
 def engine_shape(cfg) -> tuple[int, int]:
@@ -375,8 +474,8 @@ def check_serve_shape(torch, cfg, dev) -> dict:
     """rope_kv_append (bit-equal) and paged_attention (3e-2 and
     BF16_ROW_TOL of a row's rms, with the config's window) against their
     plain versions at a serve run's shape: its heads, head_dim, arena and
-    table, lengths up to the run's longest sequence.  Times, bounds and
-    plain times of both."""
+    table, lengths up to the run's longest sequence; their int8 variants
+    alike.  Times, bounds and plain times of all four."""
     from repro_torch.kernels.flash_attention import kernel as fak
     from repro_torch.kernels.paged_attention import kernel as pak
     from repro_torch.launch import bench_paged as bp
@@ -416,8 +515,13 @@ def check_serve_shape(torch, cfg, dev) -> dict:
                   "window": window, "dtype": str(cfg.dtype)}}
     keep = ("max_abs_err", "ms", "eager_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "shape")
+    rope8 = check_rope_kv_append(torch, cfg, dev, pages, int8=True)
+    paged8 = check_paged_int8(torch, inputs, window)
+    paged8["unquantized_ms"] = paged["ms"]
+    paged8["unquantized_bound_ms"] = paged["bound_ms"]
     return {"rope_kv_append": {k: rope[k] for k in keep}, "paged_attention":
-            paged}
+            paged, "rope_kv_append_int8": {k: rope8[k] for k in keep},
+            "paged_attention_int8": paged8}
 
 
 # paged_attention beyond the serve run: the reference's head layouts, the
@@ -451,16 +555,21 @@ PAGED_SWEEP = [
     ("fp32 window, a masked lane", 4, 8, 2, 64, 16, 64, [1000, 33, 700, 9],
      100, "float32", 1),
 ]
+# the sweep cases the int8 variant runs too
+PAGED_INT8_SWEEP = ("long 8 x 32768", "page edges, a masked lane",
+                    "window 256 across a split", "fp32")
 
 
-def check_paged_sweep(torch, dev) -> list[dict]:
+def check_paged_sweep(torch, dev) -> tuple[list[dict], list[dict]]:
     """Each case of PAGED_SWEEP against the plain version (bf16: 3e-2 and
     BF16_ROW_TOL of a row's rms; fp32: 1e-5; a masked lane exactly 0),
-    timed with the L2 cache cold and warm."""
+    timed with the L2 cache cold and warm; the cases of PAGED_INT8_SWEEP
+    through the int8 variant too (``check_paged_int8``).  Returns both
+    lists of rows."""
     from repro_torch.kernels.flash_attention import kernel as fak
     from repro_torch.kernels.paged_attention import kernel as pak
     from repro_torch.launch import bench_paged as bp
-    out = []
+    out, out8 = [], []
     for i, (name, B, H, K, dh, page, P, lens, window, dtn, masked) in \
             enumerate(PAGED_SWEEP):
         dt = getattr(torch, dtn)
@@ -499,9 +608,22 @@ def check_paged_sweep(torch, dev) -> list[dict]:
         print(f"paged_attention {name}: splits {row['splits']}, err {err:.3g}"
               f" (row {row_err:.3g}), ms {row['ms']:.5f} cold, "
               f"{row['ms_l2_warm']:.5f} warm, bound {bound:.5f}", flush=True)
-        del inputs, want, got
+        del want, got
+        if name in PAGED_INT8_SWEEP:
+            r8 = dict(case=name, **check_paged_int8(torch, inputs, window,
+                                                    masked, iters=20))
+            r8["unquantized_ms"], r8["unquantized_bound_ms"] = row["ms"], \
+                bound
+            out8.append(r8)
+            print(f"paged_attention int8 {name}: err "
+                  f"{r8['max_abs_err']:.3g} (row "
+                  f"{r8['row_scaled_err']:.3g}), ms {r8['ms']:.5f} cold, "
+                  f"{r8['ms_l2_warm']:.5f} warm, bound "
+                  f"{r8['bound_ms']:.5f} (unquantized {row['ms']:.5f}, "
+                  f"bound {bound:.5f})", flush=True)
+        del inputs
         torch.cuda.empty_cache()
-    return out
+    return out, out8
 
 
 # the reference's sweeps (tests/test_kernels.py) and the edges of the
@@ -799,9 +921,9 @@ def engine_script(eng, vocab: int) -> list:
 
 
 # (arch, config overrides): the MoE runs at capacity_factor 100, as the
-# reference's MoE decode tests
-ENGINE_ARCHS = (("qwen2.5-32b", {}), ("mamba2-370m", {}),
-                ("recurrentgemma-9b", {}),
+# reference's MoE decode tests; qwen2.5-32b also with the int8 KV cache
+ENGINE_ARCHS = (("qwen2.5-32b", {}), ("qwen2.5-32b", {"kv_dtype": "int8"}),
+                ("mamba2-370m", {}), ("recurrentgemma-9b", {}),
                 ("granite-moe-3b-a800m", {"capacity_factor": 100.0}))
 
 
@@ -824,15 +946,16 @@ def check_engine_vs_cpu(torch, dev) -> dict:
                                 max_seq=64, pages_per_sb=2, device=d)
             runs[str(d)] = engine_script(eng, cfg.vocab_size)
         cpu, gpu = runs["cpu"], runs[str(dev)]
+        name = f"{arch} int8" if cfg.kv_dtype == "int8" else arch
         if cpu != gpu:
             bad = next(i for i, (x, y) in enumerate(zip(cpu, gpu))
                        if x != y)
-            raise AssertionError(f"{arch}: engine on the card differs from "
+            raise AssertionError(f"{name}: engine on the card differs from "
                                  f"the CPU at call {bad}: {gpu[bad]} vs "
                                  f"{cpu[bad]}")
         emitted = sum(len(s) for s in cpu if isinstance(s, dict)
                       and all(isinstance(k, int) for k in s))
-        out[arch] = {"calls_compared": len(cpu), "tokens_emitted": emitted}
+        out[name] = {"calls_compared": len(cpu), "tokens_emitted": emitted}
     return out
 
 
@@ -841,7 +964,7 @@ def check_engine_vs_cpu(torch, dev) -> dict:
 # ---------------------------------------------------------------------------
 KERNELS = ("kv_update", "rope_kv_append", "paged_attention",
            "flash_attention", "ssd_scan", "flash_attention_bwd",
-           "ssd_scan_bwd")
+           "ssd_scan_bwd", "rope_kv_append_int8", "paged_attention_int8")
 
 
 def _counters():
@@ -856,7 +979,9 @@ def _counters():
             "flash_attention": (fak, "launches"),
             "ssd_scan": (ssk, "launches"),
             "flash_attention_bwd": (fak, "bwd_launches"),
-            "ssd_scan_bwd": (ssk, "bwd_launches")}
+            "ssd_scan_bwd": (ssk, "bwd_launches"),
+            "rope_kv_append_int8": (kvk, "rope_kv_append_int8_launches"),
+            "paged_attention_int8": (pak, "int8_launches")}
 
 
 def zero_counts() -> None:
@@ -874,7 +999,8 @@ def serve_full_width(torch, cfg, params, dev) -> dict:
     path, published, with an exact and a partial hit; a crash-and-recover
     mid-run after which every lane resumes; a finished lane reused.
     Every attention layer of every step launches rope_kv_append and
-    paged_attention once, nothing else launches a kernel."""
+    paged_attention once (their int8 variants with ``cfg.kv_dtype ==
+    "int8"``), nothing else launches a kernel."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.serving.engine import ServingEngine
@@ -949,15 +1075,20 @@ def serve_full_width(torch, cfg, params, dev) -> dict:
     run_s = time.perf_counter() - t_run
     counts = read_counts()
     want = cfg.attn_layers * steps
-    if counts != dict.fromkeys(KERNELS, 0) | {"rope_kv_append": want,
-                                              "paged_attention": want}:
+    pair = ("rope_kv_append_int8", "paged_attention_int8") \
+        if cfg.kv_dtype == "int8" else ("rope_kv_append", "paged_attention")
+    if counts != dict.fromkeys(KERNELS, 0) | dict.fromkeys(pair, want):
         raise AssertionError(f"launch counts {counts}: want attention "
-                             f"layers x steps = {want} of rope_kv_append "
-                             f"and paged_attention, 0 of the others")
+                             f"layers x steps = {want} of {pair[0]} and "
+                             f"{pair[1]}, 0 of the others")
     steady = sorted(step_s[5:])
     published = get_config(cfg.name).num_layers
     arena = next((st["k"] for st in engine.dstate["units"].values()
                   if "k" in st), None)
+    arena_bytes = sum(t.numel() * t.element_size()
+                      for part in ("units", "tail")
+                      for st in engine.dstate[part].values()
+                      for k, t in st.items() if k in ("k", "v", "ks", "vs"))
     return {
         "model": cfg.name, "layers": cfg.num_layers,
         "cut": (f"depth {published} -> {cfg.num_layers} layers; widths as "
@@ -967,6 +1098,7 @@ def serve_full_width(torch, cfg, params, dev) -> dict:
         "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": V,
         "pattern": [list(x) for x in cfg.pattern], "window": cfg.window,
         "dtype": str(cfg.dtype), "weight_gb": nbytes / 1e9,
+        "kv_dtype": cfg.kv_dtype, "arena_gb": arena_bytes / 1e9,
         "lanes": LANES, "max_seq": MAX_SEQ, "pages_per_sb": PAGES_PER_SB,
         "arena_pages": int(arena.shape[1]) if arena is not None else 0,
         "setup_s": setup_s, "run_s": run_s, "steps": steps,
@@ -1928,7 +2060,7 @@ def weight_bytes(params) -> int:
 
 
 def report_serve(serve: dict, card: str) -> None:
-    name = serve["model"]
+    name = serve["model"] + (" int8" if serve["kv_dtype"] == "int8" else "")
     print(f"serve: {name} at full width, {serve['layers']} layers "
           f"({serve['cut']}); {serve['steps']} steps, "
           f"{serve['ms_per_step_median']:.3f} ms/step (median), "
@@ -2070,11 +2202,24 @@ def main() -> int:
               f"{time.perf_counter() - t:.2f} s", flush=True)
         return p
 
-    # qwen2.5-32b: serve, then the prefill with the same weights
+    # qwen2.5-32b: serve, with the int8 KV cache, then the prefill with
+    # the same weights
     params = weights(cfg)
     serve = serve_full_width(torch, cfg, params, dev)
     report_serve(serve, card)
     paths[f"serve {cfg.name}"] = serve["launches"]
+    torch.cuda.empty_cache()
+    serve8 = serve_full_width(torch, dataclasses.replace(
+        cfg, kv_dtype="int8"), params, dev)
+    report_serve(serve8, card)
+    print(f"serve {cfg.name}: int8 KV {serve8['ms_per_step_median']:.3f} "
+          f"ms/step, {serve8['tokens_per_s']:.1f} tokens/s, arena "
+          f"{serve8['arena_gb']:.3f} GB; bf16 KV "
+          f"{serve['ms_per_step_median']:.3f} ms/step, "
+          f"{serve['tokens_per_s']:.1f} tokens/s, arena "
+          f"{serve['arena_gb']:.3f} GB", flush=True)
+    paths[f"serve {cfg.name} int8"] = serve8["launches"]
+    torch.cuda.empty_cache()
     prefill = run_forward(torch, cfg, params, dev, qrun, "flash_attention",
                           collect_kv=True)
     report_forward("prefill", prefill, card)

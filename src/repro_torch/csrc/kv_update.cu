@@ -22,9 +22,22 @@
 // arena slot and the rotated q to q_out.  It reads pos and the table on
 // the device, so the decode step needs no host sync and can be captured
 // in a CUDA graph.
+//
+// Its int8 variant (rope_kv_append_int8_launch) is the reference's int8 KV
+// branch (serving/tp_layers.py attn_decode_tp, `scales is not None`:
+// KIVI-style, one fp32 scale per slot and KV head).  The same block per
+// lane rotates and adds as above, then stages the lane's K and V rows,
+// rounded to the model dtype, in shared memory; a warp per row takes
+// max|x|, the scale s = max|x| * fp32(1/127) + 1e-9 rounded once (the
+// FMA that XLA makes of the reference's `max / 127.0 + 1e-9`), and stores
+// round_half_even(x / s) (a true division) clamped to +-127, four int8 at
+// a time, and s.  Bound as above: bytes, i.e. the launch; it writes half
+// the arena bytes of the bf16 kernel (plus 8 bytes of scales a KV head).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -111,6 +124,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 
 constexpr int MAX_HALF = 128;      // head_dim <= 256
 constexpr int MAX_THREADS = 1024;
+constexpr float kInv127 = 0x1.020408p-7f;     // fp32(1 / 127)
+constexpr float kScaleEps = 0x1.12e0bep-30f;  // fp32(1e-9)
 
 // Rotation item w of lane b: chunk c of head `head` (q heads first, then
 // the K heads), elements c..c+VEC paired with half+c..half+c+VEC.
@@ -155,6 +170,43 @@ __device__ __forceinline__ void add(Pack<T, VEC>& x, const Pack<T, VEC>& b) {
     x.v[j] = from_f<T>(__fadd_rn(to_f(x.v[j]), to_f(b.v[j])));
 }
 
+// x / s rounded half to even (x / s is a true division) and clamped to
+// +-127, as the reference's jnp.clip(jnp.round(x / s), -127, 127)
+__device__ __forceinline__ int8_t quantize(float x, float s) {
+  const int r = __float2int_rn(__fdiv_rn(x, s));
+  return static_cast<int8_t>(max(-127, min(127, r)));
+}
+
+// The int8 variant's last step: the lane's 2K staged rows (K rows, then V
+// rows, dh floats each) quantized, a warp per row, into the arena rows
+// k_row / v_row with their scales at k_scale / v_scale.  pack: dh % 4 == 0
+// and the arenas 4-byte aligned, so a lane stores four int8 at once.
+__device__ __forceinline__ void quantize_rows(
+    const float* stage, int8_t* k_row, int8_t* v_row, float* k_scale,
+    float* v_scale, int K, int dh, bool pack) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < 2 * K; r += blockDim.x >> 5) {
+    const float* x = stage + (size_t)r * dh;
+    float m = 0.f;
+    for (int i = lane; i < dh; i += 32) m = fmaxf(m, fabsf(x[i]));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    const float s = __fmaf_rn(m, kInv127, kScaleEps);
+    const int kh = r < K ? r : r - K;
+    int8_t* dst = (r < K ? k_row : v_row) + (size_t)kh * dh;
+    if (pack) {
+      for (int i = 4 * lane; i < dh; i += 128)
+        *reinterpret_cast<char4*>(dst + i) =
+            make_char4(quantize(x[i], s), quantize(x[i + 1], s),
+                       quantize(x[i + 2], s), quantize(x[i + 3], s));
+    } else {
+      for (int i = lane; i < dh; i += 32) dst[i] = quantize(x[i], s);
+    }
+    if (lane == 0) (r < K ? k_scale : v_scale)[kh] = s;
+  }
+}
+
 // One block per lane b, a thread per rotation item where the block allows
 // ((H + K) * half / VEC items).  The kernel is a latency chain: pos, then
 // the table entry; freqs, then cos/sin.  So every thread first issues all
@@ -164,16 +216,23 @@ __device__ __forceinline__ void add(Pack<T, VEC>& x, const Pack<T, VEC>& b) {
 // its own (__fmul_rn / __fadd_rn / __fsub_rn: nvcc may not contract them
 // into FMAs), as the eager x1 * cos - x2 * sin of layers/rope.py rounds
 // them; cosf / sinf are the precise ones (no --use_fast_math).
-template <typename T, int VEC>
+// A, the arena's element: T, or int8_t for the int8 variant, which writes
+// the K and V rows (rounded to T) to `stage` in dynamic shared memory
+// (2 * K * dh floats) and quantizes them at the end into the arenas and
+// the scale arenas ks / vs [npages, page, K].
+template <typename T, typename A, int VEC>
 __global__ void __launch_bounds__(MAX_THREADS) rope_kv_append_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ bq,
     const T* __restrict__ bk, const T* __restrict__ bv,
     const float* __restrict__ freqs, const int* __restrict__ pos,
-    const int* __restrict__ block_table, T* __restrict__ ak,
-    T* __restrict__ av, T* __restrict__ q_out, int H, int K, int dh, int P,
-    int npages, int page) {
+    const int* __restrict__ block_table, A* __restrict__ ak,
+    A* __restrict__ av, float* __restrict__ ks, float* __restrict__ vs,
+    T* __restrict__ q_out, int H, int K, int dh, int P, int npages,
+    int page, bool pack) {
+  constexpr bool Q8 = std::is_same<A, int8_t>::value;
   __shared__ float cs[2 * MAX_HALF];           // cos, then sin
+  extern __shared__ float stage[];             // Q8: [K rows, V rows][dh]
   using V = Pack<T, VEC>;
   const int b = blockIdx.x;
   const int t = threadIdx.x;
@@ -214,8 +273,8 @@ __global__ void __launch_bounds__(MAX_THREADS) rope_kv_append_kernel(
 
   if (pid < 0) pid = npages - 1;
   const size_t row = ((size_t)pid * page + slot) * K * dh;
-  T* k_row = pid < npages ? ak + row : nullptr;
-  T* v_row = pid < npages ? av + row : nullptr;
+  A* k_row = pid < npages ? ak + row : nullptr;
+  A* v_row = pid < npages ? av + row : nullptr;
 
   // the V row
   if (v_row != nullptr) {
@@ -225,7 +284,13 @@ __global__ void __launch_bounds__(MAX_THREADS) rope_kv_append_kernel(
         if (bv != nullptr) bvv = *reinterpret_cast<const V*>(bv + i * VEC);
       }
       if (bv != nullptr) add(xv, bvv);
-      *reinterpret_cast<V*>(v_row + i * VEC) = xv;
+      if constexpr (Q8) {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j)
+          stage[(size_t)K * dh + i * VEC + j] = to_f(xv.v[j]);
+      } else {
+        *reinterpret_cast<V*>(v_row + i * VEC) = xv;
+      }
     }
   }
   if (freqs != nullptr) __syncthreads();
@@ -247,47 +312,100 @@ __global__ void __launch_bounds__(MAX_THREADS) rope_kv_append_kernel(
             from_f<T>(__fadd_rn(__fmul_rn(a, si), __fmul_rn(e, co)));
       }
     }
-    // q_out, or the K row (none when the write drops)
+    // q_out, or the K row (none when the write drops; staged with Q8)
+    if constexpr (Q8) {
+      if (it.head >= H) {
+        float* dst = stage + (size_t)(it.head - H) * dh;
+        if (k_row != nullptr) {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            dst[it.c + j] = to_f(it.x1.v[j]);
+            dst[half + it.c + j] = to_f(it.x2.v[j]);
+          }
+        }
+        continue;
+      }
+    }
     T* dst = it.head < H ? q_out + ((size_t)b * H + it.head) * dh
-             : k_row     ? k_row + (size_t)(it.head - H) * dh
+             : k_row     ? reinterpret_cast<T*>(k_row) +
+                           (size_t)(it.head - H) * dh
                          : nullptr;
     if (dst != nullptr) {
       *reinterpret_cast<V*>(dst + it.c) = it.x1;
       *reinterpret_cast<V*>(dst + half + it.c) = it.x2;
     }
   }
+  if constexpr (Q8) {
+    if (k_row == nullptr) return;              // the write drops: the block
+    __syncthreads();                           // the K and V rows staged
+    const size_t srow = ((size_t)pid * page + slot) * K;
+    quantize_rows(stage, k_row, v_row, ks + srow, vs + srow, K, dh, pack);
+  }
 }
 
-template <typename T, int VEC>
-void launch_rope(const void* q, const void* k, const void* v,
-                 const void* bq, const void* bk, const void* bv,
-                 const float* freqs, const int* pos, const int* table,
-                 void* ak, void* av, void* q_out, int B, int H, int K,
-                 int dh, int P, int npages, int page, cudaStream_t s) {
-  const int items = (H + K) * (dh / 2 / VEC);
+// The arguments of a launch: q, k, v, the biases, freqs, pos and the table
+// in; the arenas (and, int8, the scale arenas) and q_out written.
+struct RopeArgs {
+  const void *q, *k, *v, *bq, *bk, *bv;
+  const float* freqs;
+  const int *pos, *table;
+  void *ak, *av;
+  float *ks, *vs;
+  void* q_out;
+  int B, H, K, dh, P, npages, page;
+  bool pack;
+};
+
+template <typename T, typename A, int VEC>
+void launch_rope(const RopeArgs& a, cudaStream_t s) {
+  const int items = (a.H + a.K) * (a.dh / 2 / VEC);
   const int threads = items >= MAX_THREADS ? MAX_THREADS
                                            : ((items + 31) / 32) * 32;
-  rope_kv_append_kernel<T, VEC><<<B, threads, 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(bq),
-      static_cast<const T*>(bk), static_cast<const T*>(bv), freqs, pos,
-      table, static_cast<T*>(ak), static_cast<T*>(av),
-      static_cast<T*>(q_out), H, K, dh, P, npages, page);
+  const size_t smem = std::is_same<A, int8_t>::value
+                          ? sizeof(float) * 2 * a.K * a.dh : 0;
+  rope_kv_append_kernel<T, A, VEC><<<a.B, threads, smem, s>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.bq),
+      static_cast<const T*>(a.bk), static_cast<const T*>(a.bv), a.freqs,
+      a.pos, a.table, static_cast<A*>(a.ak), static_cast<A*>(a.av), a.ks,
+      a.vs, static_cast<T*>(a.q_out), a.H, a.K, a.dh, a.P, a.npages, a.page,
+      a.pack);
 }
 
-template <typename T>
-void dispatch_rope(bool wide, const void* q, const void* k, const void* v,
-                   const void* bq, const void* bk, const void* bv,
-                   const float* freqs, const int* pos, const int* table,
-                   void* ak, void* av, void* q_out, int B, int H, int K,
-                   int dh, int P, int npages, int page, cudaStream_t s) {
-  if (wide)
-    launch_rope<T, 16 / sizeof(T)>(q, k, v, bq, bk, bv, freqs, pos, table,
-                                   ak, av, q_out, B, H, K, dh, P, npages,
-                                   page, s);
+// q, k, v, the biases and q_out in dtype (0 fp32, 1 bf16); arenas of
+// that dtype, or int8 with fp32 scale arenas.  Rows move in 16-byte units
+// when half a head row and every pointer of the dtype allow.
+int dispatch_rope(const RopeArgs& a, int dtype, bool int8,
+                  cudaStream_t s) {
+  if (a.B <= 0) return 0;
+  if (a.dh <= 0 || a.dh % 2 || a.dh / 2 > MAX_HALF || a.K <= 0 ||
+      a.H % a.K || a.P <= 0 || a.page <= 0 || a.npages <= 0 ||
+      (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t es = dtype == 0 ? 4 : 2;
+  uintptr_t align =
+      reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+      reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.bq) |
+      reinterpret_cast<uintptr_t>(a.bk) | reinterpret_cast<uintptr_t>(a.bv) |
+      reinterpret_cast<uintptr_t>(a.q_out) |
+      static_cast<uintptr_t>(a.dh / 2 * es);
+  if (!int8)
+    align |= reinterpret_cast<uintptr_t>(a.ak) |
+             reinterpret_cast<uintptr_t>(a.av);
+  const bool wide = align % 16 == 0;
+  using bf16 = __nv_bfloat16;
+  if (int8 && dtype == 0)
+    wide ? launch_rope<float, int8_t, 4>(a, s)
+         : launch_rope<float, int8_t, 1>(a, s);
+  else if (int8)
+    wide ? launch_rope<bf16, int8_t, 8>(a, s)
+         : launch_rope<bf16, int8_t, 1>(a, s);
+  else if (dtype == 0)
+    wide ? launch_rope<float, float, 4>(a, s)
+         : launch_rope<float, float, 1>(a, s);
   else
-    launch_rope<T, 1>(q, k, v, bq, bk, bv, freqs, pos, table, ak, av,
-                      q_out, B, H, K, dh, P, npages, page, s);
+    wide ? launch_rope<bf16, bf16, 8>(a, s) : launch_rope<bf16, bf16, 1>(a, s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -296,32 +414,29 @@ void dispatch_rope(bool wide, const void* q, const void* k, const void* v,
 // biases [H*dh], [K*dh] or all null; freqs fp32 [dh/2] or null (no RoPE);
 // pos int32 [B]; block_table int32 [B, P]; arenas [npages, page, K, dh];
 // q_out [B, H, dh].  H % K == 0, dh even and <= 256 (the wrapper checks).
-// Rows move in 16-byte units when half a head row and every pointer allow.
 extern "C" int rope_kv_append_launch(
     const void* q, const void* k, const void* v, const void* bq,
     const void* bk, const void* bv, const float* freqs, const int* pos,
     const int* block_table, void* ak, void* av, void* q_out, int B, int H,
     int K, int dh, int P, int npages, int page, int dtype, void* stream) {
-  if (B <= 0) return 0;
-  if (dh <= 0 || dh % 2 || dh / 2 > MAX_HALF || K <= 0 || H % K || P <= 0 ||
-      page <= 0 || npages <= 0 || (dtype != 0 && dtype != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t es = dtype == 0 ? 4 : 2;
-  const uintptr_t align =
-      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(bq) |
-      reinterpret_cast<uintptr_t>(bk) | reinterpret_cast<uintptr_t>(bv) |
-      reinterpret_cast<uintptr_t>(ak) | reinterpret_cast<uintptr_t>(av) |
-      reinterpret_cast<uintptr_t>(q_out) |
-      static_cast<uintptr_t>(dh / 2 * es);
-  const bool wide = align % 16 == 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    dispatch_rope<float>(wide, q, k, v, bq, bk, bv, freqs, pos, block_table,
-                         ak, av, q_out, B, H, K, dh, P, npages, page, s);
-  else
-    dispatch_rope<__nv_bfloat16>(wide, q, k, v, bq, bk, bv, freqs, pos,
-                                 block_table, ak, av, q_out, B, H, K, dh, P,
-                                 npages, page, s);
-  return static_cast<int>(cudaGetLastError());
+  const RopeArgs a{q,  k,  v,  bq,      bk, bv, freqs, pos,
+                   block_table, ak, av, nullptr, nullptr, q_out, B, H, K,
+                   dh, P, npages, page, false};
+  return dispatch_rope(a, dtype, false, static_cast<cudaStream_t>(stream));
+}
+
+// The int8 variant: arenas int8 [npages, page, K, dh], their scales fp32
+// [npages, page, K]; the rest as above.  The wrapper keeps 2 * K * dh
+// floats within the default 48 KB of shared memory.
+extern "C" int rope_kv_append_int8_launch(
+    const void* q, const void* k, const void* v, const void* bq,
+    const void* bk, const void* bv, const float* freqs, const int* pos,
+    const int* block_table, void* ak, void* av, float* ks, float* vs,
+    void* q_out, int B, int H, int K, int dh, int P, int npages, int page,
+    int dtype, void* stream) {
+  const bool pack = dh % 4 == 0 && (reinterpret_cast<uintptr_t>(ak) |
+                                    reinterpret_cast<uintptr_t>(av)) % 4 == 0;
+  const RopeArgs a{q,  k,  v,  bq, bk, bv, freqs, pos, block_table, ak, av,
+                   ks, vs, q_out, B, H, K, dh, P, npages, page, pack};
+  return dispatch_rope(a, dtype, true, static_cast<cudaStream_t>(stream));
 }

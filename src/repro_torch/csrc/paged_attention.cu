@@ -54,9 +54,22 @@
 // window, > lengths[b] - 1 - window.  Scores and softmax in fp32; the
 // result is acc / max(l, 1e-20) in q's dtype (0 for a sequence with no
 // valid position).
+//
+// int8 arenas (paged_attention_int8_launch; the reference's int8 KV
+// branch, serving/tp_layers.py attn_decode_tp, dequantizes on gather):
+// the same kernels with Q8 set.  A tile's int8 rows (dh bytes each, half
+// the bf16 bytes) and their fp32 scales (one a slot and KV head, 4-byte
+// cp.async: a row's scale is one float, K floats from the next slot's)
+// land in int8 stages, double-buffered as above; once a tile has landed,
+// one pass turns it into the tile layout the fragment code reads, each
+// value (int8 * scale) in fp32 rounded to q's dtype, as the reference
+// rounds it.  The bf16 kernel keeps one dequantized tile (the int8 stages
+// take the second stage's room), the fp32 kernel one sub-tile.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -82,6 +95,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                "l"(src), "r"(src_bytes));
+}
+// 4- or 8-byte global -> shared copy (through L1: .cg takes 16 only);
+// src_bytes 0 fills with zeros
+template <int N>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src,
+                                            int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+               "l"(src), "n"(N), "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -169,6 +191,72 @@ __device__ __forceinline__ void gather_tile(
   __syncthreads();
   copy_tile<T, ROWS, SWZ>(ks, vs, row, ak, av, row_stride, dh_chunks,
                           ld_chunks, ld);
+}
+
+// Four int8 (a word, little-endian) as fp32, exactly, on the integer and
+// fp32 pipes rather than the conversion unit (an I2F a value runs at a
+// sixteenth of the FMA rate): each byte, biased by 128, becomes the low
+// mantissa byte of 2^23 (one byte permute), and 2^23 + 128 comes off.
+__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __fsub_rn(
+        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)),
+        8388736.f);                                  // 2^23 + 128
+}
+
+// Q8: rows [0, ROWS) of the lane's int8 K and V (one KV head) into the
+// int8 stages k8 / v8 (row stride ld_chunks * CH bytes, not swizzled), CH
+// bytes a copy, and their scales into ksc / vsc, asynchronously; rows
+// with row[r] = -1 and chunks past dh are zero-filled without a read.
+// ak / av and ks / vs point at the KV head's first element and scale.
+template <int ROWS, int CH>
+__device__ __forceinline__ void copy_tile_q8(
+    int8_t* k8, int8_t* v8, float* ksc, float* vsc, const int* row,
+    const int8_t* __restrict__ ak, const int8_t* __restrict__ av,
+    const float* __restrict__ ks, const float* __restrict__ vs, int K,
+    size_t row_stride, int dh_chunks, int ld_chunks) {
+  for (int i = threadIdx.x; i < ROWS * ld_chunks; i += blockDim.x) {
+    const int r = i / ld_chunks, c = i % ld_chunks;
+    const int idx = row[r];
+    const bool copy = idx >= 0 && c < dh_chunks;
+    const size_t off = copy ? (size_t)idx * row_stride + c * CH : 0;
+    const int at = (r * ld_chunks + c) * CH;
+    if constexpr (CH == 16) {
+      cp_async16(k8 + at, ak + off, copy ? 16 : 0);
+      cp_async16(v8 + at, av + off, copy ? 16 : 0);
+    } else {
+      cp_async_ca<CH>(k8 + at, ak + off, copy ? CH : 0);
+      cp_async_ca<CH>(v8 + at, av + off, copy ? CH : 0);
+    }
+  }
+  for (int r = threadIdx.x; r < ROWS; r += blockDim.x) {
+    const int idx = row[r];
+    const size_t off = idx >= 0 ? (size_t)idx * K : 0;
+    cp_async_ca<4>(ksc + r, ks + off, idx >= 0 ? 4 : 0);
+    cp_async_ca<4>(vsc + r, vs + off, idx >= 0 ? 4 : 0);
+  }
+}
+
+// The page ids of rows [t0, t0 + ROWS) into row[] (a thread a row), a
+// barrier, then copy_tile_q8: gather_tile for int8 rows.
+template <int ROWS, int CH>
+__device__ __forceinline__ void gather_tile_q8(
+    int8_t* k8, int8_t* v8, float* ksc, float* vsc, int* row,
+    const int8_t* __restrict__ ak, const int8_t* __restrict__ av,
+    const float* __restrict__ ks, const float* __restrict__ vs,
+    const int* __restrict__ bt_row, int t0, int first, int last, int page,
+    int K, size_t row_stride, int dh_chunks, int ld_chunks) {
+  for (int r = threadIdx.x; r < ROWS; r += blockDim.x) {
+    const int pos = t0 + r;
+    const bool in = pos >= first && pos < last;
+    row[r] = arena_row(in ? __ldg(bt_row + pos / page) : -1, pos, first,
+                       last, page);
+  }
+  __syncthreads();
+  copy_tile_q8<ROWS, CH>(k8, v8, ksc, vsc, row, ak, av, ks, vs, K,
+                         row_stride, dh_chunks, ld_chunks);
 }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
@@ -366,21 +454,65 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
 // Shared memory of the bf16 kernel, in bytes: Q [MT*16][DHP+8], two
 // stages of K and V tiles [kTile][DHP] (swizzled, not padded, so that
 // three blocks fit an SM at DHP 128), P [MT*16][kTile+8] (bf16), the
-// cross-warp row maxima / sums and the tiles' row indices.
-template <int DHP, int MT>
+// cross-warp row maxima / sums and the tiles' row indices.  Q8: one stage
+// of bf16 K and V tiles, two int8 stages [kTile][DHP] bytes in the second
+// one's room, the int8 stages' scales [2][K, V][kTile] and the row
+// indices of the dequantized tile.
+template <int DHP, int MT, bool Q8>
 constexpr size_t bf16_smem() {
   return sizeof(bf16) * ((size_t)MT * 16 * (DHP + 8) +
                          4 * (size_t)kTile * DHP +
                          (size_t)MT * 16 * (kTile + 8)) +
-         sizeof(float) * kWarps * MT * 16 + sizeof(int) * 2 * kTile;
+         sizeof(float) * kWarps * MT * 16 + sizeof(int) * 2 * kTile +
+         (Q8 ? sizeof(float) * 4 * kTile + sizeof(int) * kTile : 0);
+}
+
+// Q8: a landed int8 tile (K and V rows [kTile][DHP] bytes, scales
+// [kTile]) into the bf16 K and V tiles, laid out as copy_tile<bf16, kTile,
+// true> lays them (16-byte chunk c of row r at chunk c ^ (r % 8)): each
+// value int8 * scale in fp32, rounded to bf16 (zeros stay zeros).
+template <int DHP>
+__device__ __forceinline__ void dequant_tile(bf16* kd, bf16* vd,
+                                             const int8_t* k8,
+                                             const int8_t* v8,
+                                             const float* ksc,
+                                             const float* vsc) {
+  constexpr int C8 = DHP / 16;               // 16-byte int8 chunks a row
+  for (int i = threadIdx.x; i < 2 * kTile * C8; i += blockDim.x) {
+    const bool is_v = i >= kTile * C8;
+    const int j = is_v ? i - kTile * C8 : i;
+    const int r = j / C8, c = j % C8;
+    const uint4 raw = *reinterpret_cast<const uint4*>(
+        (is_v ? v8 : k8) + r * DHP + c * 16);
+    const float sc = (is_v ? vsc : ksc)[r];
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+    uint32_t out[8];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x[4];
+      i8x4_to_f32(w[e], x);
+      out[2 * e] = pack_bf16(__fmul_rn(x[0], sc), __fmul_rn(x[1], sc));
+      out[2 * e + 1] = pack_bf16(__fmul_rn(x[2], sc), __fmul_rn(x[3], sc));
+    }
+    bf16* dst = (is_v ? vd : kd) + r * DHP;
+    const int sw = r & 7;
+    *reinterpret_cast<uint4*>(dst + ((2 * c) ^ sw) * 8) =
+        make_uint4(out[0], out[1], out[2], out[3]);
+    *reinterpret_cast<uint4*>(dst + ((2 * c + 1) ^ sw) * 8) =
+        make_uint4(out[4], out[5], out[6], out[7]);
+  }
 }
 
 // DHP: the head dim padded to 64, 128, 192 or 256 (columns past dh are
-// zero); MT: m-tiles of 16 query heads (g <= 16 * MT).
-template <int DHP, int MT>
+// zero); MT: m-tiles of 16 query heads (g <= 16 * MT); Q8: int8 arenas
+// with fp32 scales ks / vs [pages, page, K] (null otherwise).
+template <int DHP, int MT, bool Q8>
 __global__ void __launch_bounds__(kThreads)
-paged_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ak,
-                  const bf16* __restrict__ av,
+paged_bf16_kernel(const bf16* __restrict__ q,
+                  const std::conditional_t<Q8, int8_t, bf16>* __restrict__ ak,
+                  const std::conditional_t<Q8, int8_t, bf16>* __restrict__ av,
+                  const float* __restrict__ kscale,
+                  const float* __restrict__ vscale,
                   const int* __restrict__ block_table,
                   const int* __restrict__ lengths, bf16* __restrict__ out,
                   float* __restrict__ part_acc, float* __restrict__ part_ml,
@@ -399,6 +531,12 @@ paged_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ak,
   bf16* ps = kv + 4 * TILE;
   float* red = reinterpret_cast<float*>(ps + MT * 16 * LDP);
   int* rows = reinterpret_cast<int*>(red + kWarps * MT * 16);
+  // Q8: kv holds one stage of bf16 tiles, then the int8 stages
+  // [2][K, V][kTile][DHP] bytes; their scales [2][K, V][kTile]
+  int8_t* q8 = reinterpret_cast<int8_t*>(kv + 2 * TILE);
+  float* scl = reinterpret_cast<float*>(rows + 2 * kTile);
+  int* vrow = reinterpret_cast<int*>(scl + 4 * kTile);  // Q8: rows in hand
+  constexpr int STAGE8 = 2 * kTile * DHP;    // bytes of an int8 stage
 
   const int b = blockIdx.x, kh = blockIdx.y, s = blockIdx.z;
   const int splits = gridDim.z;
@@ -435,8 +573,10 @@ paged_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ak,
   }
   if (s < wk.s_lo || s >= wk.s_lo + wk.n) return;   // an empty split
 
-  const bf16* ak_h = ak + (size_t)kh * dh;
-  const bf16* av_h = av + (size_t)kh * dh;
+  const auto* ak_h = ak + (size_t)kh * dh;
+  const auto* av_h = av + (size_t)kh * dh;
+  const float* ks_h = kscale + kh;
+  const float* vs_h = vscale + kh;
   const size_t row_stride = (size_t)K * dh;
   // the first two tiles in flight; tile i + 2 is issued into tile i's
   // stage once tile i is consumed
@@ -446,15 +586,31 @@ paged_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ak,
     __syncthreads();
   }
   for (int st = 0; st < 2 && t0 + st * kTile < wk.last; ++st) {
-    bf16* kst = kv + st * 2 * TILE;
-    if (t0 == wk.lo)
-      copy_tile<bf16, kTile, true>(kst, kst + TILE, rows + st * kTile, ak_h,
-                                   av_h, row_stride, dh / 8, DHP / 8, LD);
-    else
-      gather_tile<bf16, kTile, true>(kst, kst + TILE, rows + st * kTile,
-                                     ak_h, av_h, bt_row, t0 + st * kTile,
-                                     wk.first, wk.last, page, row_stride,
-                                     dh / 8, DHP / 8, LD);
+    if constexpr (Q8) {
+      int8_t* k8 = q8 + st * STAGE8;
+      float* ksc = scl + st * 2 * kTile;
+      if (t0 == wk.lo)
+        copy_tile_q8<kTile, 16>(k8, k8 + kTile * DHP, ksc, ksc + kTile,
+                                rows + st * kTile, ak_h, av_h, ks_h, vs_h,
+                                K, row_stride, dh / 16, DHP / 16);
+      else
+        gather_tile_q8<kTile, 16>(k8, k8 + kTile * DHP, ksc, ksc + kTile,
+                                  rows + st * kTile, ak_h, av_h, ks_h, vs_h,
+                                  bt_row, t0 + st * kTile, wk.first,
+                                  wk.last, page, K, row_stride, dh / 16,
+                                  DHP / 16);
+    } else {
+      bf16* kst = kv + st * 2 * TILE;
+      if (t0 == wk.lo)
+        copy_tile<bf16, kTile, true>(kst, kst + TILE, rows + st * kTile,
+                                     ak_h, av_h, row_stride, dh / 8,
+                                     DHP / 8, LD);
+      else
+        gather_tile<bf16, kTile, true>(kst, kst + TILE, rows + st * kTile,
+                                       ak_h, av_h, bt_row, t0 + st * kTile,
+                                       wk.first, wk.last, page, row_stride,
+                                       dh / 8, DHP / 8, LD);
+    }
     cp_async_commit();
   }
   // Q into shared memory while the tiles land
@@ -487,6 +643,26 @@ paged_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ak,
     else
       cp_async_wait<0>();
     __syncthreads();                           // (1) tile `stage` landed
+    if constexpr (Q8) {
+      dequant_tile<DHP>(kv, kv + TILE, q8 + stage * STAGE8,
+                        q8 + stage * STAGE8 + kTile * DHP,
+                        scl + stage * 2 * kTile,
+                        scl + stage * 2 * kTile + kTile);
+      if (tid < kTile) vrow[tid] = rows[stage * kTile + tid];
+      __syncthreads();                         // (1b) the bf16 tiles
+      // the int8 stage is free: tile i + 2 goes in flight now, not after
+      // this tile's products
+      if (t0 + 2 * kTile < wk.last) {
+        int8_t* k8 = q8 + stage * STAGE8;
+        float* ksc = scl + stage * 2 * kTile;
+        gather_tile_q8<kTile, 16>(k8, k8 + kTile * DHP, ksc, ksc + kTile,
+                                  rows + stage * kTile, ak_h, av_h, ks_h,
+                                  vs_h, bt_row, t0 + 2 * kTile, wk.first,
+                                  wk.last, page, K, row_stride, dh / 16,
+                                  DHP / 16);
+        cp_async_commit();
+      }
+    }
     if (kQReg && first_tile) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -496,9 +672,9 @@ paged_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ak,
                                  (lane / 16) * 8);
     }
     first_tile = false;
-    const bf16* ks = kv + stage * 2 * TILE;
+    const bf16* ks = Q8 ? kv : kv + stage * 2 * TILE;
     const bf16* vs = ks + TILE;
-    const int* rowc = rows + stage * kTile;
+    const int* rowc = Q8 ? vrow : rows + stage * kTile;
 
     // S = Q K^T: this warp's 16 keys (two n-tiles) for every m-tile
     float sc[MT][2][4];
@@ -617,13 +793,16 @@ paged_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ak,
       }
     }
     __syncthreads();                           // (4) stage and P consumed
-    if (t0 + 2 * kTile < wk.last) {
-      gather_tile<bf16, kTile, true>(kv + stage * 2 * TILE,
-                                     kv + stage * 2 * TILE + TILE,
-                                     rows + stage * kTile, ak_h, av_h, bt_row,
-                                     t0 + 2 * kTile, wk.first, wk.last, page,
-                                     row_stride, dh / 8, DHP / 8, LD);
-      cp_async_commit();
+    if constexpr (!Q8) {
+      if (t0 + 2 * kTile < wk.last) {
+        gather_tile<bf16, kTile, true>(kv + stage * 2 * TILE,
+                                       kv + stage * 2 * TILE + TILE,
+                                       rows + stage * kTile, ak_h, av_h,
+                                       bt_row, t0 + 2 * kTile, wk.first,
+                                       wk.last, page, row_stride, dh / 8,
+                                       DHP / 8, LD);
+        cp_async_commit();
+      }
     }
   }
 
@@ -703,18 +882,53 @@ paged_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ ak,
 // sub-tiles [kTile32][dh + 4], Q [g][dh] (scaled), acc [g][dh], scores
 // [g][kTile32], m / l / rescale [g] and the row indices; the merge's
 // scratch (2 * kChunk * g) reuses it from the start once the partial is
-// written.
-__host__ __device__ inline size_t f32_smem_floats(int g, int dh,
-                                                  int splits) {
+// written.  Q8 adds the int8 stages [2][K, V][kTile32][dh] bytes after
+// the sub-tiles (of which the first stage holds the dequantized rows) and
+// their scales [2][K, V][kTile32] at the end.
+__host__ __device__ inline size_t f32_smem_floats(int g, int dh, int splits,
+                                                  bool q8) {
   const size_t main = 4 * (size_t)kTile32 * (dh + 4) + 2 * (size_t)g * dh +
-                      (size_t)g * kTile32 + 3 * (size_t)g + 2 * kTile32;
+                      (size_t)g * kTile32 + 3 * (size_t)g + 2 * kTile32 +
+                      (q8 ? (size_t)kTile32 * dh + 4 * kTile32 : 0);
   const size_t merge = 2 * (size_t)kChunk * g;
   return main > merge ? main : merge;
 }
 
+// Q8: a landed int8 sub-tile (K and V rows [kTile32][dh] bytes, scales
+// [kTile32]) into the fp32 sub-tiles [kTile32][ld]: int8 * scale in fp32.
+__device__ __forceinline__ void dequant_sub(float* kd, float* vd,
+                                            const int8_t* k8,
+                                            const int8_t* v8,
+                                            const float* ksc,
+                                            const float* vsc, int dh,
+                                            int ld) {
+  const int c8 = dh / 8;                     // 8-byte int8 chunks a row
+  for (int i = threadIdx.x; i < 2 * kTile32 * c8; i += blockDim.x) {
+    const bool is_v = i >= kTile32 * c8;
+    const int j = is_v ? i - kTile32 * c8 : i;
+    const int r = j / c8, c = j % c8;
+    const uint2 raw = *reinterpret_cast<const uint2*>(
+        (is_v ? v8 : k8) + r * dh + c * 8);
+    const float sc = (is_v ? vsc : ksc)[r];
+    float x[8];
+    i8x4_to_f32(raw.x, x);
+    i8x4_to_f32(raw.y, x + 4);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = __fmul_rn(x[e], sc);
+    float4* dst = reinterpret_cast<float4*>((is_v ? vd : kd) + r * ld +
+                                            c * 8);
+    dst[0] = make_float4(x[0], x[1], x[2], x[3]);
+    dst[1] = make_float4(x[4], x[5], x[6], x[7]);
+  }
+}
+
+template <bool Q8>
 __global__ void __launch_bounds__(kThreads)
-paged_f32_kernel(const float* __restrict__ q, const float* __restrict__ ak,
-                 const float* __restrict__ av,
+paged_f32_kernel(const float* __restrict__ q,
+                 const std::conditional_t<Q8, int8_t, float>* __restrict__ ak,
+                 const std::conditional_t<Q8, int8_t, float>* __restrict__ av,
+                 const float* __restrict__ kscale,
+                 const float* __restrict__ vscale,
                  const int* __restrict__ block_table,
                  const int* __restrict__ lengths, float* __restrict__ out,
                  float* __restrict__ part_acc, float* __restrict__ part_ml,
@@ -727,13 +941,16 @@ paged_f32_kernel(const float* __restrict__ q, const float* __restrict__ ak,
   const int bk = b * K + kh;
   const int ld = dh + 4;                     // 16-byte aligned rows
   float* kv = smem32;                        // [2 stages][K, V sub-tile]
-  float* qs = kv + 4 * kTile32 * ld;
+  // Q8: the int8 stages [2][K, V][kTile32][dh] bytes
+  int8_t* q8 = reinterpret_cast<int8_t*>(kv + 4 * kTile32 * ld);
+  float* qs = kv + 4 * kTile32 * ld + (Q8 ? kTile32 * dh : 0);
   float* accs = qs + g * dh;
   float* ss = accs + g * dh;
   float* mrow = ss + g * kTile32;
   float* lrow = mrow + g;
   float* crow = lrow + g;
   int* rows = reinterpret_cast<int*>(crow + g);
+  float* scl = reinterpret_cast<float*>(rows + 2 * kTile32);  // Q8 scales
   float* wmerge = smem32;                    // once the partial is written
 
   const Work wk = split_work(s, tiles_per_split, P, page, lengths[b],
@@ -757,28 +974,45 @@ paged_f32_kernel(const float* __restrict__ q, const float* __restrict__ ak,
     lrow[j] = 0.f;
   }
   const int* bt_row = block_table + (size_t)b * P;
-  const float* ak_h = ak + (size_t)kh * dh;
-  const float* av_h = av + (size_t)kh * dh;
+  const auto* ak_h = ak + (size_t)kh * dh;
+  const auto* av_h = av + (size_t)kh * dh;
+  const float* ks_h = kscale + kh;
+  const float* vs_h = vscale + kh;
   const size_t row_stride = (size_t)K * dh;
   const int sub = kTile32 * ld;
+  const int stage8 = 2 * kTile32 * dh;       // bytes of an int8 stage
+  // sub-tile t0 into stage st (Q8: its int8 stage)
+  auto gather = [&](int st, int t) {
+    if constexpr (Q8) {
+      int8_t* k8 = q8 + st * stage8;
+      float* ksc = scl + st * 2 * kTile32;
+      gather_tile_q8<kTile32, 8>(k8, k8 + kTile32 * dh, ksc, ksc + kTile32,
+                                 rows + st * kTile32, ak_h, av_h, ks_h, vs_h,
+                                 bt_row, t, wk.first, wk.last, page, K,
+                                 row_stride, dh / 8, dh / 8);
+    } else {
+      float* nxt = kv + st * 2 * sub;
+      gather_tile<float, kTile32>(nxt, nxt + sub, rows + st * kTile32, ak_h,
+                                  av_h, bt_row, t, wk.first, wk.last, page,
+                                  row_stride, dh / 4, dh / 4, ld);
+    }
+    cp_async_commit();
+  };
   int t0 = wk.lo + ((wk.first - wk.lo) / kTile32) * kTile32;
-  gather_tile<float, kTile32>(kv, kv + sub, rows, ak_h, av_h, bt_row, t0,
-                              wk.first, wk.last, page, row_stride, dh / 4,
-                              dh / 4, ld);
-  cp_async_commit();
+  gather(0, t0);
 
   for (int stage = 0; t0 < wk.last; t0 += kTile32, stage ^= 1) {
     cp_async_wait<0>();
     __syncthreads();                         // sub-tile `stage` landed
-    if (t0 + kTile32 < wk.last) {
-      float* nxt = kv + (stage ^ 1) * 2 * sub;
-      gather_tile<float, kTile32>(nxt, nxt + sub, rows + (stage ^ 1) * kTile32,
-                                  ak_h, av_h, bt_row, t0 + kTile32, wk.first,
-                                  wk.last, page, row_stride, dh / 4, dh / 4,
-                                  ld);
-      cp_async_commit();
+    if constexpr (Q8) {
+      const int8_t* k8 = q8 + stage * stage8;
+      const float* ksc = scl + stage * 2 * kTile32;
+      dequant_sub(kv, kv + sub, k8, k8 + kTile32 * dh, ksc, ksc + kTile32,
+                  dh, ld);
+      __syncthreads();                       // the fp32 sub-tiles
     }
-    const float* ks = kv + stage * 2 * sub;
+    if (t0 + kTile32 < wk.last) gather(stage ^ 1, t0 + kTile32);
+    const float* ks = Q8 ? kv : kv + stage * 2 * sub;
     const float* vs = ks + sub;
     const int* rowc = rows + stage * kTile32;
     for (int i = tid; i < g * kTile32; i += kThreads) {
@@ -847,6 +1081,7 @@ paged_f32_kernel(const float* __restrict__ q, const float* __restrict__ ak,
 // ---------------------------------------------------------------------------
 struct Args {
   const void *q, *ak, *av;
+  const float *ks, *vs;                  // int8 arenas' scales (or null)
   const int *bt, *lengths;
   void* out;
   float *part_acc, *part_ml;
@@ -871,40 +1106,67 @@ int opt_in(F kernel, size_t bytes, size_t* done) {
   return 0;
 }
 
-template <int DHP, int MT>
+template <int DHP, int MT, bool Q8>
 int launch_bf16(const Args& a, dim3 grid, cudaStream_t stream) {
-  constexpr size_t smem = bf16_smem<DHP, MT>();
+  using A = std::conditional_t<Q8, int8_t, bf16>;
+  constexpr size_t smem = bf16_smem<DHP, MT, Q8>();
   static size_t done = 0;
-  if (int e = opt_in(paged_bf16_kernel<DHP, MT>, smem, &done)) return e;
-  paged_bf16_kernel<DHP, MT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.ak),
-      static_cast<const bf16*>(a.av), a.bt, a.lengths,
+  if (int e = opt_in(paged_bf16_kernel<DHP, MT, Q8>, smem, &done)) return e;
+  paged_bf16_kernel<DHP, MT, Q8><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const A*>(a.ak),
+      static_cast<const A*>(a.av), a.ks, a.vs, a.bt, a.lengths,
       static_cast<bf16*>(a.out), a.part_acc, a.part_ml, a.counters, a.H, a.K,
       a.dh, a.page, a.P, a.window, a.sl, a.tiles_per_split);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DHP>
+template <int DHP, bool Q8>
 int launch_bf16_mt(const Args& a, int g, dim3 grid, cudaStream_t stream) {
   switch ((g + 15) / 16) {
-    case 1: return launch_bf16<DHP, 1>(a, grid, stream);
-    case 2: return launch_bf16<DHP, 2>(a, grid, stream);
-    case 3: return launch_bf16<DHP, 3>(a, grid, stream);
-    case 4: return launch_bf16<DHP, 4>(a, grid, stream);
+    case 1: return launch_bf16<DHP, 1, Q8>(a, grid, stream);
+    case 2: return launch_bf16<DHP, 2, Q8>(a, grid, stream);
+    case 3: return launch_bf16<DHP, 3, Q8>(a, grid, stream);
+    case 4: return launch_bf16<DHP, 4, Q8>(a, grid, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <bool Q8>
 int launch_f32(const Args& a, int g, dim3 grid, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * f32_smem_floats(g, a.dh, grid.z);
+  using A = std::conditional_t<Q8, int8_t, float>;
+  const size_t smem = sizeof(float) * f32_smem_floats(g, a.dh, grid.z, Q8);
   static size_t done = 0;
-  if (int e = opt_in(paged_f32_kernel, smem, &done)) return e;
-  paged_f32_kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.ak),
-      static_cast<const float*>(a.av), a.bt, a.lengths,
+  if (int e = opt_in(paged_f32_kernel<Q8>, smem, &done)) return e;
+  paged_f32_kernel<Q8><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const A*>(a.ak),
+      static_cast<const A*>(a.av), a.ks, a.vs, a.bt, a.lengths,
       static_cast<float*>(a.out), a.part_acc, a.part_ml, a.counters, a.H,
       a.K, a.dh, a.page, a.P, a.window, a.sl, a.tiles_per_split);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The grid and the kernel for a call (the checks of the launches below)
+template <bool Q8>
+int dispatch(const Args& a, int B, int splits, int dtype,
+             cudaStream_t stream) {
+  if (B <= 0) return 0;
+  if (a.K <= 0 || a.H % a.K != 0 || a.H / a.K > kMaxG || a.dh <= 0 ||
+      a.dh > 256 || a.dh % 8 || a.page <= 0 || a.P <= 0 || splits < 1 ||
+      splits > kMaxSplits || a.tiles_per_split < 1 ||
+      (long long)splits * a.tiles_per_split * kTile <
+          (long long)a.P * a.page ||
+      (splits > 1 && (!a.part_acc || !a.part_ml || !a.counters)) ||
+      (Q8 && (!a.ks || !a.vs)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int g = a.H / a.K;
+  dim3 grid(B, a.K, splits);
+  if (dtype == 0) return launch_f32<Q8>(a, g, grid, stream);
+  if (dtype != 1 || a.dh % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.dh <= 64) return launch_bf16_mt<64, Q8>(a, g, grid, stream);
+  if (a.dh <= 128) return launch_bf16_mt<128, Q8>(a, g, grid, stream);
+  if (a.dh <= 192) return launch_bf16_mt<192, Q8>(a, g, grid, stream);
+  return launch_bf16_mt<256, Q8>(a, g, grid, stream);
 }
 
 }  // namespace
@@ -924,24 +1186,26 @@ extern "C" int paged_attention_launch(
     const int* lengths, void* out, void* part_acc, void* part_ml,
     void* counters, int B, int H, int K, int dh, int page, int P, int window,
     float scale, int splits, int tiles_per_split, int dtype, void* stream) {
-  if (B <= 0) return 0;
-  if (K <= 0 || H % K != 0 || H / K > kMaxG || dh <= 0 || dh > 256 ||
-      dh % 8 || page <= 0 || P <= 0 || splits < 1 || splits > kMaxSplits ||
-      tiles_per_split < 1 ||
-      (long long)splits * tiles_per_split * kTile < (long long)P * page ||
-      (splits > 1 && (!part_acc || !part_ml || !counters)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  Args a{q, ak, av, block_table, lengths, out,
-         static_cast<float*>(part_acc), static_cast<float*>(part_ml),
-         static_cast<int*>(counters), H, K, dh, page, P, window,
-         tiles_per_split, scale * kLog2e};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int g = H / K;
-  dim3 grid(B, K, splits);
-  if (dtype == 0) return launch_f32(a, g, grid, s);
-  if (dtype != 1 || dh % 16) return static_cast<int>(cudaErrorInvalidValue);
-  if (dh <= 64) return launch_bf16_mt<64>(a, g, grid, s);
-  if (dh <= 128) return launch_bf16_mt<128>(a, g, grid, s);
-  if (dh <= 192) return launch_bf16_mt<192>(a, g, grid, s);
-  return launch_bf16_mt<256>(a, g, grid, s);
+  const Args a{q, ak, av, nullptr, nullptr, block_table, lengths, out,
+               static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+               static_cast<int*>(counters), H, K, dh, page, P, window,
+               tiles_per_split, scale * kLog2e};
+  return dispatch<false>(a, B, splits, dtype,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The int8 variant: arenas int8 [pages, page, K, dh] with fp32 scales ks,
+// vs [pages, page, K]; q and out in dtype; the rest as above.
+extern "C" int paged_attention_int8_launch(
+    const void* q, const void* ak, const void* av, const float* ks,
+    const float* vs, const int* block_table, const int* lengths, void* out,
+    void* part_acc, void* part_ml, void* counters, int B, int H, int K,
+    int dh, int page, int P, int window, float scale, int splits,
+    int tiles_per_split, int dtype, void* stream) {
+  const Args a{q, ak, av, ks, vs, block_table, lengths, out,
+               static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+               static_cast<int*>(counters), H, K, dh, page, P, window,
+               tiles_per_split, scale * kLog2e};
+  return dispatch<true>(a, B, splits, dtype,
+                        static_cast<cudaStream_t>(stream));
 }

@@ -14,6 +14,14 @@ layer does between its QKV matmuls and its paged attention (bias, RoPE on
 q and k, the page/slot lookup of ``pos`` in the block table, the K/V
 write) and returns the rotated q.  ``rope_kv_append_plain`` is that chain
 in plain PyTorch, as the decode layer ran it before.
+
+With ``scales=(ks, vs)`` the arenas are int8 and the K/V rows are
+quantized on write, as the reference's int8 KV branch does (KIVI-style, a
+scale per slot and KV head): each row, rounded to the model dtype, gets
+``s = max|x| / 127 + 1e-9`` in fp32 and is stored as ``clamp(round(x /
+s), -127, 127)`` (half to even) beside ``s`` in the fp32 scale arenas
+[pages, page, K].  The CUDA side is ``rope_kv_append_kernel``'s int8
+variant in ``csrc/kv_update.cu``.
 """
 
 from __future__ import annotations
@@ -25,9 +33,18 @@ from ...layers.rope import apply_rope
 
 launches = 0          # kv_update launches since the caller last zeroed this
 rope_kv_append_launches = 0   # rope_kv_append launches, likewise
+rope_kv_append_int8_launches = 0   # its int8 variant's launches, likewise
 
 MAX_HEAD_DIM = 256
+# the int8 variant stages a lane's rotated K and V rows (2 * K * dh fp32)
+# in shared memory (32 KB at most) before it quantizes them
+MAX_INT8_ROW = 4096
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the int8 scale is max|x| * (1 / 127) + 1e-9 rounded once: XLA turns the
+# reference's ``/ 127.0`` into a multiply by the fp32 reciprocal and
+# contracts the add into an FMA, and the kernel's ``__fmaf_rn`` does the same
+INV_127 = float.fromhex("0x1.020408p-7")     # fp32(1 / 127)
+SCALE_EPS = float.fromhex("0x1.12e0bep-30")  # fp32(1e-9)
 
 
 def kv_update_plain(arena_k, arena_v, k_new, v_new, page_ids, slots):
@@ -39,6 +56,33 @@ def kv_update_plain(arena_k, arena_v, k_new, v_new, page_ids, slots):
     arena_k[pid, sl] = k_new[ok].to(arena_k.dtype)
     arena_v[pid, sl] = v_new[ok].to(arena_v.dtype)
     return arena_k, arena_v
+
+
+def _fma_f32(a: torch.Tensor, b: float, c: float) -> torch.Tensor:
+    """fp32 ``a * b + c`` rounded once (an FMA), for fp32 ``a`` and fp32
+    values ``b``, ``c``: the product is exact in fp64 and the sum's fp64
+    rounding error is kept (TwoSum), so where the fp64 sum lies exactly
+    half-way between two floats the exact sum picks the side."""
+    p = a.double() * b
+    d = p + c
+    z = d - p
+    err = (p - (d - z)) + (c - z)                  # d + err == p + c exactly
+    f = d.float()
+    up = torch.nextafter(f, torch.full_like(f, float("inf")))
+    dn = torch.nextafter(f, torch.full_like(f, float("-inf")))
+    f = torch.where(((f.double() + up.double()) / 2 == d) & (err > 0), up, f)
+    return torch.where(((f.double() + dn.double()) / 2 == d) & (err < 0),
+                       dn, f)
+
+
+def quantize_rows(x: torch.Tensor):
+    """int8 rows and their fp32 scales, as the reference's int8 KV branch
+    makes them: ``s = max|x| / 127 + 1e-9`` over the last axis, then
+    ``clamp(round(x / s), -127, 127)`` (half to even, a true division)."""
+    xf = x.float()
+    s = _fma_f32(xf.abs().amax(dim=-1), INV_127, SCALE_EPS)
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+    return q.to(torch.int8), s
 
 
 def _check(arena_k, arena_v, k_new, v_new, page_ids, slots):
@@ -87,10 +131,12 @@ def kv_update(arena_k, arena_v, k_new, v_new, page_ids, slots):
 
 
 def rope_kv_append_plain(q, k, v, bq, bk, bv, freqs, pos, block_table,
-                         arena_k, arena_v):
+                         arena_k, arena_v, scales=None):
     """Plain PyTorch version of ``rope_kv_append`` (same arguments): the
     bias add, ``apply_rope`` on q and k, the page/slot lookup and
-    ``kv_update_plain``, op by op.  Returns q_rot [B, H, dh]."""
+    ``kv_update_plain`` (with ``scales``, the rows quantized by
+    ``quantize_rows`` and their scales written alike), op by op.  Returns
+    q_rot [B, H, dh]."""
     B = q.shape[0]
     _, page, K, dh = arena_k.shape
     H = q.shape[1] // dh
@@ -109,16 +155,22 @@ def rope_kv_append_plain(q, k, v, bq, bk, bv, freqs, pos, block_table,
     pid = torch.gather(block_table, 1,
                        torch.clamp(lpage, max=P - 1)[:, None])[:, 0]
     pid = torch.where(in_table, pid, -1).to(torch.int32)
-    kv_update_plain(arena_k, arena_v, k.to(arena_k.dtype).contiguous(),
-                    v.to(arena_v.dtype).contiguous(), pid, slot)
+    if scales is None:
+        kv_update_plain(arena_k, arena_v, k.to(arena_k.dtype).contiguous(),
+                        v.to(arena_v.dtype).contiguous(), pid, slot)
+        return q
+    (kq, k_s), (vq, v_s) = quantize_rows(k), quantize_rows(v)
+    kv_update_plain(arena_k, arena_v, kq, vq, pid, slot)
+    kv_update_plain(*scales, k_s, v_s, pid, slot)
     return q
 
 
 def _check_rope(q, k, v, bq, bk, bv, freqs, pos, block_table, arena_k,
-                arena_v):
+                arena_v, scales):
     if arena_k.dim() != 4 or arena_v.shape != arena_k.shape:
         raise ValueError("arenas must both be [pages, page, K, dh]")
     _, _, K, dh = arena_k.shape
+    check_scales(arena_k, arena_v, scales)
     if dh % 2 or not 0 < dh <= MAX_HEAD_DIM:
         raise ValueError(f"rope_kv_append takes an even head_dim <= "
                          f"{MAX_HEAD_DIM}, not {dh}")
@@ -147,13 +199,34 @@ def _check_rope(q, k, v, bq, bk, bv, freqs, pos, block_table, arena_k,
     # (is_cuda, device index): far cheaper than comparing torch.device
     # objects, on a path that runs once a layer a decode step
     where = (arena_k.is_cuda, arena_k.get_device())
-    for t in (q, k, v, *biases, freqs, pos, block_table, arena_v):
+    for t in (q, k, v, *biases, freqs, pos, block_table, arena_v,
+              *(scales or ())):
         if t is not None and (t.is_cuda, t.get_device()) != where:
             raise ValueError("all tensors must be on one device")
 
 
+def check_scales(arena_k, arena_v, scales) -> None:
+    """int8 arenas come with fp32 scale arenas [pages, page, K] and other
+    arenas without; anything else raises."""
+    int8 = arena_k.dtype == torch.int8 or arena_v.dtype == torch.int8
+    if scales is None:
+        if int8:
+            raise TypeError("int8 arenas need their scales (ks, vs)")
+        return
+    if not (arena_k.dtype == arena_v.dtype == torch.int8):
+        raise TypeError(f"scales go with int8 arenas, not "
+                        f"{arena_k.dtype} / {arena_v.dtype}")
+    if len(scales) != 2:
+        raise ValueError("scales must be the pair (ks, vs)")
+    for t in scales:
+        if t.dtype != torch.float32 or t.shape != arena_k.shape[:3]:
+            raise ValueError(f"scales must be float32 "
+                             f"{list(arena_k.shape[:3])}, got {t.dtype} "
+                             f"{list(t.shape)}")
+
+
 def rope_kv_append(q, k, v, bq, bk, bv, freqs, pos, block_table, arena_k,
-                   arena_v):
+                   arena_v, scales=None):
     """The decode layer's step between its QKV matmuls and its attention.
 
     q: [B, H * dh], k, v: [B, K * dh] (the matmul outputs); bq, bk, bv:
@@ -163,27 +236,31 @@ def rope_kv_append(q, k, v, bq, bk, bv, freqs, pos, block_table, arena_k,
     dh], updated IN PLACE: the rotated K row and the V row of lane b land
     in page ``block_table[b, pos // page]`` (-1 when ``pos // page >= P``;
     an id < 0 → the dump page, the last), slot ``pos % page``.  Returns
-    the rotated q [B, H, dh].  Refuses an odd head_dim, one above 256 and
-    H % K != 0."""
-    global rope_kv_append_launches
+    the rotated q [B, H, dh].  With ``scales=(ks, vs)`` (fp32 [pages, page,
+    K]) the arenas are int8, and the rows are quantized on write
+    (``quantize_rows``) beside their scales.  Refuses an odd head_dim, one
+    above 256 and H % K != 0."""
+    global rope_kv_append_launches, rope_kv_append_int8_launches
     _check_rope(q, k, v, bq, bk, bv, freqs, pos, block_table, arena_k,
-                arena_v)
+                arena_v, scales)
     dev = arena_k.device
     if dev.type == "cpu":
         return rope_kv_append_plain(q, k, v, bq, bk, bv, freqs, pos,
-                                    block_table, arena_k, arena_v)
+                                    block_table, arena_k, arena_v, scales)
     if dev.type != "cuda":
         raise ValueError(f"rope_kv_append runs on cuda or cpu, not {dev}")
-    dt = arena_k.dtype
+    dt = q.dtype if scales is not None else arena_k.dtype
     if dt not in _DTYPE_CODE:
         raise TypeError(f"rope_kv_append takes float32 or bfloat16, not "
                         f"{dt}")
     biases = (bq, bk, bv)
-    for t in (q, k, v, arena_v, *biases):
+    for t in (q, k, v, *((arena_k, arena_v) if scales is None else ()),
+              *biases):
         if t is not None and t.dtype != dt:
             raise TypeError("q, k, v, the biases and the arenas must share "
                             "one dtype")
-    for t in (q, k, v, *biases, freqs, pos, block_table, arena_k, arena_v):
+    for t in (q, k, v, *biases, freqs, pos, block_table, arena_k, arena_v,
+              *(scales or ())):
         if t is not None and not t.is_contiguous():
             raise ValueError("rope_kv_append needs contiguous tensors")
     npages, page, K, dh = arena_k.shape
@@ -193,6 +270,20 @@ def rope_kv_append(q, k, v, bq, bk, bv, freqs, pos, block_table, arena_k,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    if scales is not None:
+        if K * dh > MAX_INT8_ROW:
+            raise ValueError(f"the int8 kernel stages K * head_dim <= "
+                             f"{MAX_INT8_ROW} elements, not {K * dh}")
+        err = build.library().rope_kv_append_int8_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(bq), ptr(bk),
+            ptr(bv), ptr(freqs), pos.data_ptr(), block_table.data_ptr(),
+            arena_k.data_ptr(), arena_v.data_ptr(), scales[0].data_ptr(),
+            scales[1].data_ptr(), q_out.data_ptr(), B, H, K, dh,
+            block_table.shape[1], npages, page, _DTYPE_CODE[dt],
+            build.stream_ptr(dev))
+        build.check(err, "rope_kv_append (int8)")
+        rope_kv_append_int8_launches += 1
+        return q_out
     err = build.library().rope_kv_append_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(bq), ptr(bk), ptr(bv),
         ptr(freqs), pos.data_ptr(), block_table.data_ptr(),

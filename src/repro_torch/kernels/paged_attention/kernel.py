@@ -16,6 +16,13 @@ ranges of whole ``TILE``-position tiles, chosen by ``split_count`` from
 (B, K, P, page) alone, so no call reads the device to decide.  The splits'
 partials are merged in split order inside the same launch;
 ``paged_attention_split_plain`` is that decomposition in plain PyTorch.
+
+With ``scales=(ks, vs)`` (fp32 [pages, page, K]) the arenas are int8 (the
+reference's int8 KV branch): each gathered row is dequantized as
+``(row.float() * scale).to(q.dtype)`` before the products.  On the card
+that is the int8 variant of each kernel in ``csrc/paged_attention.cu``,
+which gathers the int8 rows and their scales and dequantizes a tile in
+shared memory; nothing dequantizes the arena in PyTorch.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from .. import build
+from ..kv_update.kernel import check_scales
 
 NEG_INF = -1e30
 TILE = 64              # positions per tile of the kernel
@@ -39,22 +47,36 @@ MIN_TILES_PER_SPLIT = 2
 MAX_TILES_PER_SPLIT = 16
 
 launches = 0           # kernel launches since the caller last zeroed this
+int8_launches = 0      # the int8 variant's launches, likewise
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _counters: dict = {}   # device index -> int32 zeros, one per (b, kh)
 
 
+def gather_rows(arena, scale, bt, dtype):
+    """The arena rows of table ``bt`` (page ids >= 0) as [B, P * page, K,
+    dh] fp32; int8 rows dequantized as the reference does it,
+    ``(row.float() * scale).to(dtype)``."""
+    B, P = bt.shape
+    _, page, K, dh = arena.shape
+    rows = arena[bt].reshape(B, P * page, K, dh)
+    if scale is None:
+        return rows.float()
+    s = scale[bt].reshape(B, P * page, K, 1)
+    return (rows.float() * s).to(dtype).float()
+
+
 def paged_attention_plain(q, arena_k, arena_v, block_table, lengths, *,
-                          window: int = 0):
-    """Plain PyTorch version of the kernel: gather every table page, mask,
-    fp32 softmax, fp32 P.V."""
+                          window: int = 0, scales=None):
+    """Plain PyTorch version of the kernel: gather every table page
+    (dequantized with ``scales``), mask, fp32 softmax, fp32 P.V."""
     B, H, dh = q.shape
     _, page, K, _ = arena_k.shape
-    P = block_table.shape[1]
     g = H // K
     bt = torch.clamp(block_table, min=0).long()
-    k = arena_k[bt].reshape(B, P * page, K, dh).float()
-    v = arena_v[bt].reshape(B, P * page, K, dh).float()
+    ks, vs = scales if scales is not None else (None, None)
+    k = gather_rows(arena_k, ks, bt, q.dtype)
+    v = gather_rows(arena_v, vs, bt, q.dtype)
     qg = q.reshape(B, K, g, dh).float() * (dh ** -0.5)
     s = torch.einsum("bkgd,btkd->bkgt", qg, k)
     valid = valid_positions(block_table, lengths, page, window)
@@ -90,7 +112,7 @@ def split_count(B: int, K: int, P: int, page: int) -> tuple[int, int]:
 
 def paged_attention_split_plain(q, arena_k, arena_v, block_table, lengths,
                                 *, window: int = 0, splits: int | None = None,
-                                tile: int = TILE):
+                                tile: int = TILE, scales=None):
     """The kernel's decomposition in plain PyTorch: per split (a range of
     whole ``tile``-position tiles) the partial max m, sum l and unnormalised
     acc; an empty split gives (m = -1e30, l = 0); the partials merge in
@@ -112,8 +134,9 @@ def paged_attention_split_plain(q, arena_k, arena_v, block_table, lengths,
         per = -(-tiles // max(1, min(splits, tiles)))
         splits = -(-tiles // per)
     bt = torch.clamp(block_table, min=0).long()
-    k = arena_k[bt].reshape(B, P * page, K, dh).float()
-    v = arena_v[bt].reshape(B, P * page, K, dh).float()
+    ks, vs = scales if scales is not None else (None, None)
+    k = gather_rows(arena_k, ks, bt, q.dtype)
+    v = gather_rows(arena_v, vs, bt, q.dtype)
     qg = q.reshape(B, K, g, dh).float() * (dh ** -0.5)
     s_all = torch.einsum("bkgd,btkd->bkgt", qg, k)
     valid = valid_positions(block_table, lengths, page, window)[:, None, None, :]
@@ -190,26 +213,31 @@ def _counter_buffer(device, n: int):
 
 
 def paged_attention(q, arena_k, arena_v, block_table, lengths, *,
-                    window: int = 0):
+                    window: int = 0, scales=None):
     """q: [B, H, dh]; arena_k/v: [pages, page, K, dh]; block_table: int32
-    [B, P] page ids (-1 unused); lengths: int32 [B].  Returns [B, H, dh]
+    [B, P] page ids (-1 unused); lengths: int32 [B].  With ``scales=(ks,
+    vs)`` (fp32 [pages, page, K]) the arenas are int8.  Returns [B, H, dh]
     in q's dtype."""
-    global launches
+    global launches, int8_launches
     _check(q, arena_k, arena_v, block_table, lengths)
+    check_scales(arena_k, arena_v, scales)
+    if scales is not None and any(s.device != q.device for s in scales):
+        raise ValueError("all tensors must be on one device")
     if q.device.type == "cpu":
         return paged_attention_plain(q, arena_k, arena_v, block_table,
-                                     lengths, window=window)
+                                     lengths, window=window, scales=scales)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu, not "
                          f"{q.device}")
-    if arena_k.dtype != q.dtype or arena_v.dtype != q.dtype:
-        raise TypeError(f"paged_attention takes arenas of q's dtype, got "
-                        f"{q.dtype}/{arena_k.dtype}")
+    if scales is None and (arena_k.dtype != q.dtype
+                           or arena_v.dtype != q.dtype):
+        raise TypeError(f"paged_attention takes arenas of q's dtype or int8 "
+                        f"arenas with scales, got {q.dtype}/{arena_k.dtype}")
     B, H, dh = q.shape
     _, page, K, _ = arena_k.shape
     P = block_table.shape[1]
     check_kernel_shape(q.dtype, H, K, dh)
-    for t in (q, arena_k, arena_v, block_table, lengths):
+    for t in (q, arena_k, arena_v, block_table, lengths, *(scales or ())):
         if not t.is_contiguous():
             raise ValueError("paged_attention needs contiguous tensors")
     if q.data_ptr() % 16 or arena_k.data_ptr() % 16 \
@@ -229,12 +257,20 @@ def paged_attention(q, arena_k, arena_v, block_table, lengths, *,
         part_ml = part_acc + 4 * slots * dh
         counters = _counter_buffer(
             q.device, B * K * (1 + MAX_SPLITS // MERGE_CHUNK)).data_ptr()
-    err = build.library().paged_attention_launch(
-        q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr(),
-        block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        part_acc, part_ml, counters, B, H, K, dh, page, P, int(window),
-        float(dh ** -0.5), splits, per, _DTYPE_CODE[q.dtype],
-        build.stream_ptr(q.device))
+    lib = build.library()
+    args = (block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            part_acc, part_ml, counters, B, H, K, dh, page, P, int(window),
+            float(dh ** -0.5), splits, per, _DTYPE_CODE[q.dtype],
+            build.stream_ptr(q.device))
+    if scales is not None:
+        err = lib.paged_attention_int8_launch(
+            q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr(),
+            scales[0].data_ptr(), scales[1].data_ptr(), *args)
+        build.check(err, "paged_attention (int8)")
+        int8_launches += 1
+        return out
+    err = lib.paged_attention_launch(q.data_ptr(), arena_k.data_ptr(),
+                                     arena_v.data_ptr(), *args)
     build.check(err, "paged_attention")
     launches += 1
     return out

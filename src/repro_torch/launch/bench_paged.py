@@ -68,6 +68,30 @@ def make_inputs(torch, dev, B, H, K, dh, page, P, lengths, dtype, seed,
             torch.as_tensor(lens.astype(np.int32), device=dev))
 
 
+def int8_inputs(inputs):
+    """``make_inputs``'s tuple with its arenas quantized as the int8 KV
+    cache stores them: (q, int8 K, int8 V, table, lengths, K scales, V
+    scales)."""
+    from ..kernels.kv_update.kernel import quantize_rows
+    q, ak, av, bt, lens = inputs
+    (k8, ks), (v8, vs) = quantize_rows(ak), quantize_rows(av)
+    return (q, k8, v8, bt, lens, ks, vs)
+
+
+def paged_int8(q, ak, av, bt, lens, ks, vs, window: int = 0):
+    """``paged_attention`` over ``int8_inputs``' tuple."""
+    from ..kernels.paged_attention.kernel import paged_attention
+    return paged_attention(q, ak, av, bt, lens, window=window,
+                           scales=(ks, vs))
+
+
+def paged_int8_plain(q, ak, av, bt, lens, ks, vs, window: int = 0):
+    """``paged_attention_plain`` over ``int8_inputs``' tuple."""
+    from ..kernels.paged_attention.kernel import paged_attention_plain
+    return paged_attention_plain(q, ak, av, bt, lens, window=window,
+                                 scales=(ks, vs))
+
+
 def serve_lengths(B: int = 8):
     """Lengths up to the serve run's longest sequence (300-token prompt +
     63 steps), one lane at that longest."""
@@ -79,11 +103,13 @@ def serve_lengths(B: int = 8):
 
 def bytes_bound_ms(inputs, window: int = 0) -> tuple[float, int]:
     """(ms, valid tokens): q read and the output written once, the table
-    and lengths read once, each valid K and V row read once, over the
-    card's memory rate."""
-    q, ak, _, bt, lens = inputs
+    and lengths read once, each valid K and V row read once (int8 rows
+    with their fp32 scales: ``int8_inputs``' tuple), over the card's
+    memory rate."""
+    q, ak, _, bt, lens = inputs[:5]
     B, H, dh = q.shape
     K, es = ak.shape[2], q.element_size()
+    row = dh * ak.element_size() + (4 if len(inputs) > 5 else 0)
     valid = (bt >= 0).repeat_interleave(ak.shape[1], dim=1)
     pos = valid.new_ones(valid.shape).cumsum(1) - 1
     valid &= pos < lens[:, None].long()
@@ -91,7 +117,7 @@ def bytes_bound_ms(inputs, window: int = 0) -> tuple[float, int]:
         valid &= pos > lens[:, None].long() - 1 - window
     tokens = int(valid.sum())
     nbytes = (2 * B * H * dh * es + bt.numel() * 4 + B * 4
-              + 2 * tokens * K * dh * es)
+              + 2 * tokens * K * row)
     return nbytes / HBM_BYTES_PER_S * 1e3, tokens
 
 

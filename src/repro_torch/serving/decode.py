@@ -11,7 +11,8 @@ The decode state is a dict of tensors on one device:
    "units": {"l<i>": mixer state stacked over units}, "tail": {"t<i>": ...}}
 
 An attention mixer's state is its KV arenas {"k", "v"} [U, pages, page,
-K, dh]; a Mamba-2 mixer's {"h", "conv_x", "conv_bc"} and an RG-LRU
+K, dh] (with ``cfg.kv_dtype == "int8"``: int8, plus fp32 scale arenas
+{"ks", "vs"} [U, pages, page, K]); a Mamba-2 mixer's {"h", "conv_x", "conv_bc"} and an RG-LRU
 mixer's {"h", "conv"}, fp32 with the lanes second ([U, B, ...]).
 ``decode_step`` updates the state IN PLACE — the KV arenas and recurrent
 states (the reference donates them to its jitted step instead),
@@ -33,13 +34,11 @@ from . import tp_layers as tpl
 
 def make_dstate(cfg: ModelConfig, *, batch: int, max_seq: int,
                 pages_per_shard: int | None = None, device=None) -> dict:
-    """Zero decode state (KV arenas in ``cfg.dtype``, recurrent states in
+    """Zero decode state (KV arenas in ``cfg.dtype``, or int8 with fp32
+    scale arenas when ``cfg.kv_dtype == "int8"``; recurrent states in
     fp32); the engine fills the block tables."""
     dev = resolve_device(device)
     page = cfg.page_size
-    if cfg.kv_dtype == "int8":
-        raise NotImplementedError("int8 KV decode is not ported yet "
-                                  "(ROADMAP A2)")
     if cfg.attn_layers == 0:
         Pn = 1                            # attention-free: vestigial table
     else:
@@ -50,7 +49,15 @@ def make_dstate(cfg: ModelConfig, *, batch: int, max_seq: int,
 
     def mixer_state(mixer, lead: tuple):
         if mixer in ("attn", "local_attn"):
-            shape = lead + (pages, page, cfg.num_kv_heads, cfg.head_dim)
+            sshape = lead + (pages, page, cfg.num_kv_heads)
+            shape = sshape + (cfg.head_dim,)
+            if cfg.kv_dtype == "int8":
+                return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                        "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                        "ks": torch.zeros(sshape, dtype=torch.float32,
+                                          device=dev),
+                        "vs": torch.zeros(sshape, dtype=torch.float32,
+                                          device=dev)}
             return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
                     "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
         init = {"mamba2": ssd.mamba2_init_state,
@@ -93,9 +100,10 @@ def _apply_layer(cfg: ModelConfig, spec, p, x, pos, block_table, state,
     h = apply_norm(cfg.norm, p["norm1"], x)
     if mixer in ("attn", "local_attn"):
         win = cfg.window if mixer == "local_attn" else 0
+        scales = (state["ks"], state["vs"]) if "ks" in state else None
         y = tpl.attn_decode_tp(cfg, p["attn"], h, pos, state["k"],
                                state["v"], block_table, window=win,
-                               **step_in)
+                               scales=scales, **step_in)
     elif mixer == "mamba2":
         y = tpl.mamba2_decode_tp(cfg, p["ssd"], h, state)
     elif mixer == "rglru":

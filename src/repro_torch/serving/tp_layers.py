@@ -50,12 +50,17 @@ def greedy_sample_tp(logits: torch.Tensor) -> torch.Tensor:
 def attn_decode_tp(cfg, p: dict, x: torch.Tensor, pos: torch.Tensor,
                    arena_k: torch.Tensor, arena_v: torch.Tensor,
                    block_table: torch.Tensor, *, freqs, lengths,
-                   window: int = 0):
-    """One-token paged attention (bf16/fp32 KV).
+                   window: int = 0, scales=None):
+    """One-token paged attention (KV in the model dtype, or int8).
 
     x:           [B, D]
     arena_k/v:   [pages, page, K, dh], the last page the dump page;
                  updated IN PLACE with this token's K/V
+    scales:      None, or for int8 arenas (``cfg.kv_dtype == "int8"``)
+                 the fp32 scale arenas (ks, vs) [pages, page, K], updated
+                 IN PLACE with the new rows' scales (KIVI-style: a scale
+                 per slot and KV head, quantized on write, dequantized on
+                 gather inside the kernels)
     block_table: int32 [B, P] page ids (-1 unused)
     freqs:       ``rope_freqs(dh, theta)`` on x's device; None without
                  RoPE
@@ -71,9 +76,6 @@ def attn_decode_tp(cfg, p: dict, x: torch.Tensor, pos: torch.Tensor,
     no valid position gets the mean of the V rows, as the reference's
     layer gives it (``windowed_empty_lanes``).  Returns y [B, D].
     """
-    if cfg.kv_dtype == "int8":
-        raise NotImplementedError("int8 KV decode is not ported yet "
-                                  "(ROADMAP A2)")
     B, _ = x.shape
     h, dh = cfg.num_heads, cfg.head_dim
 
@@ -82,30 +84,38 @@ def attn_decode_tp(cfg, p: dict, x: torch.Tensor, pos: torch.Tensor,
     v_new = torch.matmul(x, p["wv"])
     bias = (p["bq"], p["bk"], p["bv"]) if cfg.qkv_bias else (None,) * 3
     q = rope_kv_append(q, k_new, v_new, *bias, freqs, pos, block_table,
-                       arena_k, arena_v)
+                       arena_k, arena_v, scales)
     out = paged_attention(q, arena_k, arena_v, block_table, lengths,
-                          window=window)
+                          window=window, scales=scales)
     if window:
         out = windowed_empty_lanes(out, arena_v, block_table, lengths,
-                                   window)
+                                   window, None if scales is None
+                                   else scales[1])
     return torch.matmul(out.reshape(B, h * dh).to(x.dtype), p["wo"])
 
 
-def windowed_empty_lanes(out, arena_v, block_table, lengths, window: int):
+def windowed_empty_lanes(out, arena_v, block_table, lengths, window: int,
+                         v_scale=None):
     """A windowed decode past its table (``pos >= P * page + window - 1``)
     leaves a lane no valid position.  The reference's layer then weighs
     every gathered row alike (its masked scores are all -1e30, so
     ``exp(s - max) = 1``): its output is the mean of the ``P * page`` V
     rows of the lane's table, a -1 page read as the dump page, summed in
     V's dtype and divided in fp32.  Gives such lanes that mean (the
-    kernel gives them 0) and leaves the others' ``out`` as it is."""
+    kernel gives them 0) and leaves the others' ``out`` as it is.  int8
+    rows (``v_scale`` their fp32 scales) are dequantized first, as the
+    reference dequantizes what it gathers: ``(v.float() * s)`` in the
+    model dtype (``out``'s), which then is V's dtype."""
     B, H, dh = out.shape
     npages, page, K, _ = arena_v.shape
     P = block_table.shape[1]
     empty = ~valid_positions(block_table, lengths, page, window).any(dim=1)
     bt = torch.where(block_table < 0, npages - 1, block_table).long()
     rows = arena_v[bt].reshape(B, P * page, K, dh)
-    acc = rows.float().sum(dim=1).to(arena_v.dtype)
+    if v_scale is not None:
+        rows = (rows.float() * v_scale[bt].reshape(B, P * page, K, 1)).to(
+            out.dtype)
+    acc = rows.float().sum(dim=1).to(rows.dtype)
     mean = (acc.float() / (P * page)).to(out.dtype)
     mean = mean.repeat_interleave(H // K, dim=1)            # [B, H, dh]
     return torch.where(empty[:, None, None], mean, out)

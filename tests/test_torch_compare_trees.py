@@ -121,3 +121,18 @@ def test_ablate_flash_variants_apply_to_the_sources():
         assert text != before
         for old, new in edits:
             assert before.count(old) == 1 and new in text
+
+
+def test_ablate_paged_int8_variants_apply_to_the_source():
+    """Each of ``ablate_paged_int8``'s variants changes the text it names,
+    once, in ``csrc/paged_attention.cu`` as it is."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import ablate_paged_int8 as ap
+    before = (build.CSRC / ap.SRC).read_text()
+    assert ap.patched(build.CSRC, "as_is") == before
+    for name, edits in ap.VARIANTS.items():
+        text = ap.patched(build.CSRC, name)
+        assert text != before
+        for old, new in edits:
+            assert before.count(old) == 1 and new in text
+    assert set(ap.ORDER) == {"as_is", *ap.VARIANTS}

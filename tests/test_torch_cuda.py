@@ -117,6 +117,98 @@ def test_rope_kv_append_survives_graph_capture(dev):
     assert torch.equal(ak, ek) and torch.equal(av, ev)
 
 
+def _int8_arenas(dev, pages, page, K, dh, seed):
+    """int8 arenas and fp32 scale arenas as the int8 cache stores random
+    normal rows (``quantize_rows``): the values the bf16 tests' arenas
+    hold, quantized."""
+    g = torch.Generator().manual_seed(seed)
+    ak, ks = kvk.quantize_rows(torch.randn((pages, page, K, dh), generator=g))
+    av, vs = kvk.quantize_rows(torch.randn((pages, page, K, dh), generator=g))
+    return ak.to(dev), av.to(dev), ks.to(dev), vs.to(dev)
+
+
+def _rope_int8_inputs(dev, H, K, dh, dt, bias=True, rope=True, edges=False):
+    """``_rope_inputs`` (a dump-page lane, a lane past the table) with int8
+    arenas and their scales.  With ``edges`` (no bias or RoPE, fp32): lane
+    0's K and V rows all zeros, lane 1's rows with elements where x / s is
+    exactly k + 1/2 (round half to even decides)."""
+    args = list(_rope_inputs(dev, H, K, dh, dt, bias, rope))
+    pages, page = args[-1].shape[:2]
+    if edges:
+        k = args[1].view(-1, K, dh)
+        v = args[2].view(-1, K, dh)
+        k[0] = 0
+        v[0] = 0
+        for x in (k[1], v[1]):
+            x[:, -1] = x.abs().amax(dim=-1) + 1          # the rows' max
+            s = kvk.quantize_rows(x)[1]
+            half = torch.arange(dh - 1, device=dev) % 200 - 99.5
+            cand = (half[None] * s[:, None]).float()
+            ok = cand / s[:, None] == half[None]         # exactly half-way
+            x[:, :-1] = torch.where(ok, cand, x[:, :-1])
+            assert int(ok.sum()) > dh // 2
+    return args[:-2] + list(_int8_arenas(dev, pages, page, K, dh, H + dh))
+
+
+@pytest.mark.parametrize("H,K,dh,dt,bias,rope,edges", [
+    (40, 8, 128, torch.bfloat16, True, True, False),      # qwen2.5-32b
+    (40, 8, 128, torch.float32, True, True, False),
+    (40, 8, 128, torch.float32, False, False, True),      # half-way, zeros
+    (16, 1, 256, torch.float32, False, False, True),
+    (48, 1, 128, torch.bfloat16, True, True, False),      # granite-20b
+    (96, 8, 192, torch.bfloat16, True, True, False),      # nemotron-4-340b
+    (16, 1, 256, torch.bfloat16, True, True, False),      # recurrentgemma-9b
+    (24, 8, 64, torch.bfloat16, False, True, False),      # granite-moe
+    (16, 16, 128, torch.bfloat16, False, True, False),    # moonshot
+    (8, 2, 6, torch.bfloat16, True, True, False),         # int8 rows unpacked
+])
+def test_rope_kv_append_int8_bit_equal(dev, H, K, dh, dt, bias, rope,
+                                       edges):
+    """The int8 write: q, the int8 arenas and the scale arenas bit-equal
+    to the plain version's (the dump-page lane and the lane past the table
+    among them; with ``edges`` the all-zero rows (scale 1e-9, zeros) and
+    the half-way elements); the bf16 counter untouched."""
+    *args, ak, av, ks, vs = _rope_int8_inputs(dev, H, K, dh, dt, bias, rope,
+                                              edges)
+    ref = [t.clone() for t in (ak, av, ks, vs)]
+    want = kvk.rope_kv_append_plain(*args, ref[0], ref[1], (ref[2], ref[3]))
+    n, n_bf = kvk.rope_kv_append_int8_launches, kvk.rope_kv_append_launches
+    got = kvk.rope_kv_append(*args, ak, av, (ks, vs))
+    torch.cuda.synchronize()
+    assert kvk.rope_kv_append_int8_launches == n + 1
+    assert kvk.rope_kv_append_launches == n_bf
+    assert torch.equal(got, want)
+    for a, b in zip((ak, av, ks, vs), ref):
+        assert torch.equal(a, b)
+    if edges:
+        pos, bt = args[7], args[8]
+        pid = int(bt[0, int(pos[0]) // 16])
+        assert bool((ks[pid, int(pos[0]) % 16] == 1e-9).all())
+        assert not bool(ak[pid, int(pos[0]) % 16].any())
+
+
+def test_rope_kv_append_int8_survives_graph_capture(dev):
+    """The int8 write captured in a CUDA graph and replayed writes what an
+    eager call writes."""
+    *args, ak, av, ks, vs = _rope_int8_inputs(dev, 40, 8, 128,
+                                              torch.bfloat16)
+    eager = [t.clone() for t in (ak, av, ks, vs)]
+    q_eager = kvk.rope_kv_append(*args, eager[0], eager[1],
+                                 (eager[2], eager[3]))
+    torch.cuda.synchronize()
+    n = kvk.rope_kv_append_int8_launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kvk.rope_kv_append(*args, ak, av, (ks, vs))
+    assert not torch.equal(ks, eager[2])         # captured, not yet run
+    graph.replay()
+    torch.cuda.synchronize()
+    assert kvk.rope_kv_append_int8_launches == n + 1
+    assert torch.equal(out, q_eager)
+    for a, b in zip((ak, av, ks, vs), eager):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("B,H,K,pages,page,P,dh,dt,win", [
     (2, 4, 2, 16, 16, 4, 64, torch.float32, 0),
     (2, 8, 1, 16, 32, 3, 128, torch.bfloat16, 0),
@@ -227,6 +319,111 @@ def test_paged_attention_refuses_on_the_card(dev, H, K, dh, dt):
     with pytest.raises(ValueError):
         pak.paged_attention(q, ak, ak, bt, lens)
     assert pak.launches == n
+
+
+@pytest.mark.parametrize("B,H,K,pages,page,P,dh,dt,win", [
+    (2, 4, 2, 16, 16, 4, 64, torch.float32, 0),
+    (2, 8, 1, 16, 32, 3, 128, torch.bfloat16, 0),
+    (1, 4, 4, 8, 16, 2, 64, torch.float32, 24),
+    (3, 8, 2, 24, 8, 6, 128, torch.float32, 0),
+    (8, 40, 8, 83, 128, 8, 128, torch.bfloat16, 0),
+    (8, 40, 8, 83, 128, 8, 128, torch.bfloat16, 200),
+    (4, 48, 1, 70, 128, 16, 128, torch.bfloat16, 0),
+    (4, 16, 1, 70, 128, 16, 256, torch.bfloat16, 0),
+    (4, 96, 8, 70, 128, 16, 192, torch.bfloat16, 0),
+    (4, 24, 2, 70, 128, 16, 128, torch.bfloat16, 0),
+    (4, 40, 8, 70, 128, 16, 128, torch.bfloat16, 256),   # window, splits
+    (4, 40, 8, 260, 8, 64, 128, torch.bfloat16, 0),      # page 8
+    (4, 40, 8, 70, 16, 64, 128, torch.float32, 0),
+    (2, 48, 1, 40, 16, 32, 256, torch.float32, 0),
+    (1, 40, 8, 260, 128, 256, 128, torch.bfloat16, 0),   # 32768 positions
+    (4, 24, 8, 70, 128, 16, 64, torch.bfloat16, 0),
+    (4, 16, 16, 70, 128, 16, 128, torch.bfloat16, 0),
+    (2, 8, 2, 16, 16, 4, 8, torch.float32, 0),           # 8-byte int8 rows
+])
+def test_paged_attention_int8_vs_plain(dev, B, H, K, pages, page, P, dh, dt,
+                                       win):
+    """The int8 variant on ``test_paged_attention_kernel_vs_plain``'s
+    shapes (and dh 8 in fp32): within 3e-2 and BF16_ROW_TOL of a row's rms
+    (bf16), 1e-5 (fp32), of the plain version over the same int8 rows;
+    only the int8 counter moves."""
+    g = torch.Generator(device="cpu").manual_seed(1)
+    q = torch.randn((B, H, dh), generator=g).to(dt).to(dev)
+    ak, av, ks, vs = _int8_arenas(dev, pages, page, K, dh, 2)
+    bt = torch.full((B, P), -1, dtype=torch.int32)
+    lens = torch.zeros((B,), dtype=torch.int32)
+    for b in range(B):
+        n = int(torch.randint(1, P * page, (1,), generator=g))
+        lens[b] = n
+        need = -(-n // page)
+        bt[b, :need] = torch.randperm(pages - 1, generator=g)[:need]
+    bt, lens = bt.to(dev), lens.to(dev)
+    want = pak.paged_attention_plain(q, ak, av, bt, lens, window=win,
+                                     scales=(ks, vs))
+    n, n_bf = pak.int8_launches, pak.launches
+    got = pak.paged_attention(q, ak, av, bt, lens, window=win,
+                              scales=(ks, vs))
+    torch.cuda.synchronize()
+    assert pak.int8_launches == n + 1 and pak.launches == n_bf
+    tol = 3e-2 if dt == torch.bfloat16 else 1e-5
+    assert float((got.float() - want.float()).abs().max()) < tol
+    if dt == torch.bfloat16:
+        assert fak.row_scaled_error(got, want) < fak.BF16_ROW_TOL
+
+
+def test_paged_attention_int8_masked_lanes_and_graph(dev):
+    """Page edges, a lane of length 0 and a lane whose pages are all
+    unused (exactly 0), many splits merged the same run to run, the
+    counters left at 0, a CUDA graph replay equal to the eager call."""
+    inp = _paged_inputs(dev, 5, 40, 8, 128, 128, 128, [1, 129, 0, 16000,
+                                                       700], torch.bfloat16,
+                        3)
+    inp[3][4] = -1
+    pages = inp[1].shape[0]
+    ak, av, ks, vs = _int8_arenas(dev, pages, 128, 8, 128, 4)
+    args = (inp[0], ak, av, inp[3], inp[4])
+    want = pak.paged_attention_plain(*args, scales=(ks, vs))
+    first = pak.paged_attention(*args, scales=(ks, vs))
+    second = pak.paged_attention(*args, scales=(ks, vs))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    live = [0, 1, 3]
+    assert float((first.float() - want.float()).abs().max()) < 3e-2
+    assert fak.row_scaled_error(first[live], want[live]) < fak.BF16_ROW_TOL
+    assert not bool(first[2].any()) and not bool(first[4].any())
+    assert not bool(pak._counters[torch.cuda.current_device()].any())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pak.paged_attention(*args, scales=(ks, vs))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, first)
+
+
+def test_int8_refusals_on_the_card(dev):
+    """int8 arenas without scales, scales on the wrong device, and a K *
+    head_dim row the int8 write cannot stage: refused, nothing
+    launched."""
+    ak, av, ks, vs = _int8_arenas(dev, 2, 16, 2, 128, 0)
+    q = torch.zeros((1, 8, 128), dtype=torch.bfloat16, device=dev)
+    bt = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    lens = torch.ones((1,), dtype=torch.int32, device=dev)
+    n = pak.int8_launches
+    with pytest.raises(TypeError):
+        pak.paged_attention(q, ak, av, bt, lens)
+    with pytest.raises(ValueError):
+        pak.paged_attention(q, ak, av, bt, lens, scales=(ks.cpu(), vs))
+    assert pak.int8_launches == n
+    K, dh = 32, 256                    # 2 * K * dh floats: 64 KB
+    big = torch.zeros((2, 16, K, dh), dtype=torch.int8, device=dev)
+    sc = torch.ones((2, 16, K), device=dev)
+    z = torch.zeros((1, K * dh), dtype=torch.bfloat16, device=dev)
+    m = kvk.rope_kv_append_int8_launches
+    with pytest.raises(ValueError, match="stages"):
+        kvk.rope_kv_append(z, z, z, None, None, None, None,
+                           torch.zeros((1,), dtype=torch.int32, device=dev),
+                           bt, big, big.clone(), (sc, sc.clone()))
+    assert kvk.rope_kv_append_int8_launches == m
 
 
 def test_decode_tokens_match_cpu(dev):
@@ -772,12 +969,52 @@ def test_engine_matches_cpu(dev, arch):
     states within 1e-4 at the end."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
-    from repro_torch.models.params import init_params
-    from repro_torch.serving.engine import ServingEngine
     cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32,
                               page_size=8)
     if cfg.family == "moe":     # as the reference's MoE decode tests
         cfg = dataclasses.replace(cfg, capacity_factor=100.0)
+    engines = _engines_on_both(cfg)
+    for part in ("units", "tail"):
+        for name, st in engines[0].dstate[part].items():
+            for k, v in st.items():
+                if k in ("h", "conv", "conv_x", "conv_bc"):
+                    other = engines[1].dstate[part][name][k].cpu()
+                    assert float((v - other).abs().max()) < 1e-4, (name, k)
+
+
+def test_int8_engine_matches_cpu(dev):
+    """The same calls on the qwen2.5-32b smoke config with int8 arenas
+    (the int8 write and attention kernels on the card, their plain
+    versions on the CPU): the same tokens, tables and positions after
+    every call; the int8 arenas at most 1 apart (the fp32 projections
+    round differently on the card) on at most 1e-3 of their values, the
+    scales within 1e-5."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    cfg = dataclasses.replace(get_smoke_config("qwen2.5-32b"),
+                              dtype=torch.float32, page_size=8,
+                              kv_dtype="int8")
+    n = (kvk.rope_kv_append_int8_launches, pak.int8_launches)
+    engines = _engines_on_both(cfg)
+    assert kvk.rope_kv_append_int8_launches > n[0]
+    assert pak.int8_launches > n[1]
+    for name, st in engines[0].dstate["units"].items():
+        other = engines[1].dstate["units"][name]
+        for k in ("k", "v"):
+            d = (st[k].int() - other[k].cpu().int()).abs()
+            assert int(d.max()) <= 1 and float((d > 0).float().mean()) \
+                <= 1e-3, (name, k)
+        for k in ("ks", "vs"):
+            rel = (st[k] - other[k].cpu()).abs() / st[k].abs().clamp(
+                min=1e-30)
+            assert float(rel.max()) <= 1e-5, (name, k)
+
+
+def _engines_on_both(cfg):
+    """The engine on the CPU and on the card from the same weights, driven
+    by the same calls, compared after each; returns both engines."""
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import ServingEngine
     cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
 
     def to(tree, d):
@@ -817,9 +1054,4 @@ def test_engine_matches_cpu(dev, arch):
     assert both("add_request", [1, 2, 3]) == a
     for _ in range(6):
         both("step")
-    for part in ("units", "tail"):
-        for name, st in engines[0].dstate[part].items():
-            for k, v in st.items():
-                if k in ("h", "conv", "conv_x", "conv_bc"):
-                    other = engines[1].dstate[part][name][k].cpu()
-                    assert float((v - other).abs().max()) < 1e-4, (name, k)
+    return engines

@@ -265,23 +265,28 @@ def test_from_numpy_tree_mamba2_bit_exact():
         np.testing.assert_array_equal(t.numpy(), a, err_msg=k)
 
 
-def test_unported_paths_raise():
-    """int8 KV (ROADMAP A2) is the one path left to port: it raises where
-    the decode state is made and in the decode layer.  The MoE
-    feed-forward and the ``embeds`` front end, which raised before, now
-    run; attention takes any S on the pallas path."""
-    _, tcfg = _cfgs("qwen2.5-32b", "fp32")
+def test_int8_state_and_formerly_unported_paths():
+    """The paths that raised before they were ported now run.  int8 KV
+    (ROADMAP A2): ``make_dstate`` builds int8 K / V arenas and fp32 scale
+    arenas of the reference's shapes (its decode is held to the reference
+    in ``test_torch_int8_kv.py``).  The MoE feed-forward and the
+    ``embeds`` front end run; attention takes any S on the pallas path."""
+    jcfg, tcfg = _cfgs("qwen2.5-32b", "fp32")
     tp = tparams.init_params(tcfg, torch.Generator().manual_seed(0),
                              device="cpu")
+    from repro.serving import decode as jdec
     from repro_torch.serving import decode as tdec
-    from repro_torch.serving import tp_layers as ttp
     int8 = dataclasses.replace(tcfg, kv_dtype="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        tdec.make_dstate(int8, batch=2, max_seq=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        ttp.attn_decode_tp(int8, tp["units"]["l0"]["attn"],
-                           torch.zeros((1, tcfg.d_model)), None, None, None,
-                           None, freqs=None, lengths=None)
+    ts = tdec.make_dstate(int8, batch=2, max_seq=64, device="cpu")
+    js = jdec.make_dstate(dataclasses.replace(jcfg, kv_dtype="int8"),
+                          batch=2, max_seq=64, dp_shards=1)
+    for n, st in js["units"].items():
+        assert ts["units"][n].keys() == st.keys() == {"k", "v", "ks", "vs"}
+        for k, a in st.items():
+            t = ts["units"][n][k]
+            assert tuple(t.shape) == a.shape, (n, k)
+            assert t.dtype == (torch.int8 if k in ("k", "v")
+                               else torch.float32), (n, k)
     # attention over any S on the pallas path (no block-multiple contract)
     cfg = dataclasses.replace(tcfg, attn_impl="pallas")
     toks = torch.as_tensor(_tokens(tcfg, S=13))
