@@ -91,6 +91,22 @@ port's paths:
    launches a step): save, recover (by phase) and load seconds beside
    pinned copies of 4 GB each way.
 
+9. the sharded decode step (``make_decode_step`` over a
+   ``torch.distributed`` mesh): ``rope_kv_append`` and
+   ``paged_attention`` (bf16, fp32, int8; the LSE output) against their
+   plain versions at shard layouts of qwen2.5-32b's arenas (page_loc 64
+   and 32, a sequence-parallel table offset, lanes with no slot on the
+   shard, a window); then four ranks sharing the card over gloo (NCCL
+   takes one rank a card) run qwen2.5-32b at full width (8 layers, 8
+   lanes) on a (1, 4) and a (2, 2) mesh, going on from a state decoded on
+   the card for 252 steps across the boundary of the lanes' third page
+   (48 steps), its fp32 smoke config on (2, 2) from step 0, and
+   recurrentgemma-9b (published widths, 5 of its 38 layers)
+   sequence-parallel at batch 1 on (2, 2) from step 2016 across its 2048
+   window (96 steps), each against ``decode_step`` on the card with the
+   same seeded weights (the library is built here first; the ranks load
+   it).  Its times are four ranks on one card, not a multi-card number.
+
 Each run prints a ``... detail:`` line.  The launch counters are set to 0
 just before each path and read just after it; the ``kernels`` line gives
 every kernel's launches on every path.  Every phase that fails raises.
@@ -2047,6 +2063,321 @@ def resume_full_width(torch, dev, saved: dict, stream_steps: int) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the sharded decode step, ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+MESH_RANKS = 4
+# Ranks that share one card take turns on it at every collective, so a
+# mesh step costs ~4-8 ms a collective there: each mesh run goes on from
+# a state decoded on one device (``to_mesh_layout``), across a page or a
+# window.  qwen2.5-32b: 8 lanes decode 252 steps on one device, then 48
+# on the mesh, across the boundary of their third page of 128
+MESH_FROM, MESH_STEPS, MESH_MAX_SEQ = 252, 300, 512
+MESH_KEEP = (0, 3, 4, 5, 24, 47)     # mesh steps whose logits are held
+MESH_SMOKE_STEPS = 24                # the fp32 smoke config: from step 0
+# recurrentgemma-9b sequence-parallel at batch 1: 2016 steps on one
+# device, then 96 on the mesh, across its 2048 window (inside its
+# 17-column table).  Depth cut to one pattern unit and the tail: the
+# whole 38 layers take ~150 s here, and in bf16 the mesh's gap to one
+# device grows with depth past the 3e-2 bound while fp32 stays within
+# 5e-6 (launch/mesh_depth.py, PERF.md)
+HYBRID_MESH_LAYERS = 5
+HYBRID_MESH_FROM, HYBRID_MESH_STEPS = 2016, 2112
+HYBRID_MESH_KEEP = (0, 31, 32, 33, 95)
+# the shards of qwen2.5-32b's arenas (page 128) the kernels are held at:
+# (name, tp, model coordinate, data shards splitting the table, data
+# coordinate)
+SHARD_LAYOUTS = (("tp 2, shard 1: page_loc 64", 2, 1, 1, 0),
+                 ("tp 4, shard 0: page_loc 32", 4, 0, 1, 0),
+                 ("tp 4, shard 3: page_loc 32", 4, 3, 1, 0),
+                 ("seq-parallel dp 2 x tp 2, shard (1, 0)", 2, 0, 2, 1))
+
+
+def check_shard_kernels(torch, dev) -> dict:
+    """rope_kv_append (bf16, int8: bit-equal, q and the local arena but its
+    dump page) and paged_attention (bf16 and int8 within 3e-2 and
+    BF16_ROW_TOL of a row's rms, fp32 within 1e-5; the LSE output within 1e-4 of max(1,
+    |lse|); a lane with no slot on the shard exactly 0 with lse -inf)
+    against their plain versions at SHARD_LAYOUTS: 8 lanes of qwen2.5-32b's
+    heads over a 1024-position table, the shard's slots and columns, lane
+    ranges from ``local_count`` with and without a window.  Times of the
+    kernels as the mesh path calls them (paged with the LSE).  Rows by
+    kernel name."""
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.kv_update import kernel as kvk
+    from repro_torch.kernels.kv_update.kernel import Slots
+    from repro_torch.kernels.paged_attention import kernel as pak
+    from repro_torch.layers.rope import rope_freqs
+
+    B, H, K, dh, page, P = LANES, 40, 8, 128, 128, 8
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    out = {k: [] for k in ("rope_kv_append", "rope_kv_append_int8",
+                           "paged_attention", "paged_attention_int8")}
+
+    def randn(*shape, dt=torch.bfloat16, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device=dev)).to(dt)
+
+    for name, tp, r, dp, d in SHARD_LAYOUTS:
+        pl, P_loc, seq = page // tp, P // dp, dp > 1
+        sl = Slots(page, r * pl, d * P_loc if seq else 0, seq)
+        pages = B * P_loc + 1
+        table = torch.randperm(pages - 1, generator=g, device=dev)[
+            :B * P_loc].to(torch.int32).reshape(B, P_loc)
+        table[2, 0] = -1
+        pos = torch.randint(0, P * page, (B,), generator=g, device=dev,
+                            dtype=torch.int32)
+        pos[0], pos[1] = 5, P * page + 3     # first slots; past the table
+        held = int((kvk.locate(pos, table, pl, sl)[0] >= 0).sum())
+        for int8 in (False, True):
+            args = (randn(B, H * dh), randn(B, K * dh), randn(B, K * dh),
+                    randn(H * dh, scale=0.5), randn(K * dh, scale=0.5),
+                    randn(K * dh, scale=0.5),
+                    rope_freqs(dh, 1e6, dev), pos, table)
+            if int8:
+                (ak, ks), (av, vs) = (kvk.quantize_rows(randn(
+                    pages, pl, K, dh)) for _ in range(2))
+                flat = [ak, av, ks, vs]
+            else:
+                flat = [randn(pages, pl, K, dh), randn(pages, pl, K, dh)]
+            ref = [t.clone() for t in flat]
+            want = kvk.rope_kv_append_plain(*args, *_nest(ref), slots=sl)
+            got = kvk.rope_kv_append(*args, *_nest(flat), slots=sl)
+            torch.cuda.synchronize()
+            # the rows the shard does not hold all go to the dump page's
+            # slot 0, in no set order: the dump page is left out
+            if not (torch.equal(got, want) and all(
+                    torch.equal(a[:-1], b[:-1]) for a, b in zip(flat, ref))):
+                raise AssertionError(f"rope_kv_append{' (int8)' * int8} at "
+                                     f"{name} differs from its plain version")
+            es = 2
+            rows = held * 2 * K * (dh + 4) if int8 else held * 2 * K * dh * es
+            nbytes = (2 * B * H * dh + 2 * B * K * dh + (H + 2 * K) * dh) \
+                * es + rows + dh // 2 * 4 + 2 * B * 4 + B * 4
+            fn = (lambda: kvk.rope_kv_append(*args, *_nest(flat), slots=sl))
+            out["rope_kv_append_int8" if int8 else "rope_kv_append"].append({
+                "layout": name, "page_loc": pl, "slots": list(sl),
+                "held_lanes": held, "max_abs_err": 0.0, "tolerance": 0.0,
+                "ms": graph_ms(torch, fn), "eager_ms": event_ms(torch, fn),
+                "plain_ms": event_ms(torch, lambda: kvk.rope_kv_append_plain(
+                    *args, *_nest(flat), slots=sl)),
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes"})
+        lens = torch.randint(1, P * page, (B,), generator=g, device=dev,
+                             dtype=torch.int32)
+        lens[0] = 6                          # on the first slots only
+        for window in (0, 300):
+            lo = torch.clamp(lens - window, min=0) if window else \
+                torch.zeros_like(lens)
+            starts = pak.local_count(lo, sl, pl, P_loc)
+            ends = pak.local_count(lens, sl, pl, P_loc)
+            for dtn, int8 in (("bfloat16", False), ("float32", False),
+                              ("bfloat16", True)):
+                dt = getattr(torch, dtn)
+                q = randn(B, H, dh, dt=dt)
+                if int8:
+                    (ak, ks), (av, vs) = (kvk.quantize_rows(randn(
+                        pages, pl, K, dh)) for _ in range(2))
+                    scales = (ks, vs)
+                else:
+                    ak, av = randn(pages, pl, K, dh, dt=dt), randn(
+                        pages, pl, K, dh, dt=dt)
+                    scales = None
+                call = (q, ak, av, table, ends)
+                kw = dict(starts=starts, scales=scales)
+                w_o, w_lse = pak.paged_attention_plain(*call, **kw,
+                                                       return_lse=True)
+                g_o, g_lse = pak.paged_attention(*call, **kw,
+                                                 return_lse=True)
+                g_q = pak.paged_attention(*call, **kw)
+                w_q = pak.paged_attention_plain(*call, **kw)
+                torch.cuda.synchronize()
+                fin = torch.isfinite(w_lse)
+                lse_err = float(((g_lse - w_lse).abs() / w_lse.abs().clamp(
+                    min=1.0))[fin].max()) if bool(fin.any()) else 0.0
+                err = max(float((g_o - w_o).abs().max()),
+                          float((g_q.float() - w_q.float()).abs().max()))
+                row_err = max(fak.row_scaled_error(g_o, w_o),
+                              fak.row_scaled_error(g_q, w_q))
+                tol = 1e-5 if dt == torch.float32 else 3e-2
+                empty = ends <= starts
+                if not (err < tol and lse_err < 1e-4
+                        and torch.equal(torch.isfinite(g_lse), fin)
+                        and (dt == torch.float32
+                             or row_err < fak.BF16_ROW_TOL)
+                        and not bool(g_o[empty].any())
+                        and not bool(g_q[empty].any())):
+                    raise AssertionError(
+                        f"paged_attention {dtn}{' int8' * int8} at {name}, "
+                        f"window {window}: {err} (tolerance {tol}), "
+                        f"{row_err} of a row's rms, lse {lse_err}, or an "
+                        f"empty lane not 0 / -inf")
+                if dtn == "float32":
+                    continue
+                bound, tokens = bp_bound(torch, call, starts, scales)
+                t_ops = 4 * H * dh * tokens / BF16_FLOPS * 1e3
+                fn = (lambda: pak.paged_attention(*call, **kw,
+                                                  return_lse=True))
+                out["paged_attention_int8" if int8 else
+                    "paged_attention"].append({
+                        "layout": name, "page_loc": pl, "window": window,
+                        "slots": list(sl), "table": [B, P_loc],
+                        "valid_tokens": tokens, "empty_lanes": int(
+                            empty.sum()), "max_abs_err": err,
+                        "row_scaled_err": row_err, "lse_rel_err": lse_err,
+                        "splits": pak.split_count(B, K, P_loc, pl)[0],
+                        "ms": graph_ms(torch, fn),
+                        "eager_ms": event_ms(torch, fn),
+                        "plain_ms": event_ms(torch, lambda: (
+                            pak.paged_attention_plain(*call, **kw,
+                                                      return_lse=True))),
+                        "bound_ms": max(bound, t_ops),
+                        "bound_by": "bytes" if bound >= t_ops
+                        else "operations", "library_ms": None})
+    return out
+
+
+def bp_bound(torch, call, starts, scales) -> tuple[float, int]:
+    """(ms, valid local positions) of a paged call with lane ranges: q
+    read and the fp32 output and LSE written once, the table and both
+    range ends read once, each valid K and V row (and int8 scale) read
+    once, over the card's memory rate."""
+    q, ak, _, bt, ends = call
+    B, H, dh = q.shape
+    _, page, K, _ = ak.shape
+    t = torch.arange(bt.shape[1] * page, device=q.device)[None]
+    valid = (t >= starts[:, None]) & (t < ends[:, None]) & \
+        torch.repeat_interleave(bt >= 0, page, dim=1)
+    tokens = int(valid.sum())
+    row = dh * ak.element_size() + (4 if scales is not None else 0)
+    nbytes = (B * H * dh * (q.element_size() + 4) + B * H * 4
+              + bt.numel() * 4 + 2 * B * 4 + 2 * tokens * K * row)
+    return nbytes / HBM_BYTES_PER_S * 1e3, tokens
+
+
+def check_mesh(torch, dev, card) -> tuple[dict, dict]:
+    """The sharded decode step (``make_decode_step``) on MESH_RANKS ranks
+    that share the card over gloo, each holding its blocks of the seeded
+    weights (cut leaf by leaf), against ``decode_step`` on the card with
+    the same weights: qwen2.5-32b at full width (the serve run's 8 layers,
+    8 lanes) on a (1, 4) and a (2, 2) mesh, data shards with shard-local
+    page ids, going on from the one-device state at MESH_FROM across a
+    page boundary (bf16: logits within 3e-2 of the largest at MESH_KEEP);
+    its smoke config in fp32 (page 8) on (2, 2) from step 0 (identical
+    tokens, logits within 1e-4); recurrentgemma-9b (published widths,
+    HYBRID_MESH_LAYERS layers) sequence-parallel at batch 1 on (2, 2)
+    from HYBRID_MESH_FROM across its 2048 window (within 3e-2).  Returns
+    the detail and each run's launches (summed over the ranks) by path."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.mesh_decode import decode_jobs, \
+        one_device_decode, run_ranks
+    from repro_torch.launch.profile_forward import run_config
+
+    qcfg = run_config("qwen2.5-32b")
+    scfg = dataclasses.replace(get_smoke_config("qwen2.5-32b"),
+                               dtype=torch.float32, vocab_size=128,
+                               page_size=8)
+    hcfg = dataclasses.replace(get_config("recurrentgemma-9b"),
+                               num_layers=HYBRID_MESH_LAYERS)
+    rng = np.random.default_rng(SEED + 50)
+    qtok = rng.integers(0, qcfg.vocab_size, (LANES, MESH_STEPS),
+                        dtype=np.int32)
+    stok = rng.integers(0, 128, (4, MESH_SMOKE_STEPS), dtype=np.int32)
+    htok = rng.integers(0, hcfg.vocab_size, (1, HYBRID_MESH_STEPS),
+                        dtype=np.int32)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    # name, config, mesh, sequence-parallel, tokens, first step, max_seq,
+    # kept steps (of the mesh run)
+    runs = [(f"{qcfg.name} (1, 4)", qcfg, (1, 4), False, qtok, MESH_FROM,
+             MESH_MAX_SEQ, MESH_KEEP),
+            (f"{qcfg.name} (2, 2)", qcfg, (2, 2), False, qtok, MESH_FROM,
+             MESH_MAX_SEQ, MESH_KEEP),
+            (f"{qcfg.name} smoke fp32 (2, 2)", scfg, (2, 2), False, stok, 0,
+             64, tuple(range(MESH_SMOKE_STEPS))),
+            (f"{hcfg.name} sequence-parallel (2, 2)", hcfg, (2, 2), True,
+             htok, HYBRID_MESH_FROM, 4096, HYBRID_MESH_KEEP)]
+    refs, paths, jobs = [], {}, []
+    try:
+        for i, (name, cfg, mesh, seq, tok, first, max_seq, keep) in \
+                enumerate(runs):
+            job = {"cfg": cfg, "mesh": (mesh, ("data", "model")),
+                   "device": "cuda", "batch_sharded": not seq, "seed": SEED,
+                   "max_seq": max_seq, "tokens": tok[:, first:],
+                   "keep_steps": list(keep)}
+            if first:
+                job["state_file"] = str(tmp / f"state{i}.pt")
+            jobs.append(job)
+        # the one-device runs, each once for the meshes that go on from it
+        for idx in ((0, 1), (2,), (3,)):
+            name, cfg, _, seq, tok, first, max_seq, keep = runs[idx[0]]
+            t = time.perf_counter()
+            ref = one_device_decode(
+                cfg, dev, tok, max_seq, [first + k for k in keep],
+                (first, [(runs[i][2][0], not seq, jobs[i]["state_file"])
+                         for i in idx]) if first else None, seed=SEED)
+            ref["seconds"] = time.perf_counter() - t
+            torch.cuda.empty_cache()      # the ranks need the card's memory
+            paths[f"mesh one-device reference of {name}"] = dict(
+                read_zero(), **ref["launches"])
+            print(f"mesh one-device reference of {name}: "
+                  f"{ref['ms_per_step_median']:.3f} ms/step, "
+                  f"{ref['seconds']:.1f} s for {tok.shape[1]} steps",
+                  flush=True)
+            refs += [ref] * len(idx)
+        t = time.perf_counter()
+        res = run_ranks(decode_jobs, MESH_RANKS, jobs, device="cuda",
+                        timeout=900)
+        wall = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    detail = {"ranks": MESH_RANKS, "card": card, "wall_s": wall,
+              "note": f"{MESH_RANKS} ranks on one H100 over gloo: not a "
+                      f"multi-card number", "runs": {}}
+    for i, (name, cfg, mesh, seq, tok, first, max_seq, keep) in \
+            enumerate(runs):
+        r0, ref = res[0][i], refs[i]
+        scale = float(np.abs(ref["logits"]).max()) + 1e-9
+        rel = float(np.abs(r0["logits"] - ref["logits"]).max()) / scale
+        same = float((r0["tokens"] == ref["tokens"][first:]).mean())
+        tol = 1e-4 if cfg.dtype == torch.float32 else 3e-2
+        launches = {k: sum(rk[i]["launches"][k] for rk in res)
+                    for k in res[0][i]["launches"]}
+        steps = tok.shape[1] - first
+        ms = 1e3 * float(np.median(r0["step_s"][2:]))
+        detail["runs"][name] = {
+            "mesh": list(mesh), "sequence_parallel": seq,
+            "lanes": int(tok.shape[0]), "first_step": first, "steps": steps,
+            "layers": cfg.num_layers, "logits_rel_err": rel,
+            "tolerance": tol, "tokens_equal_share": same,
+            "ms_per_step_median": ms,
+            "one_device_ms_per_step_median": ref["ms_per_step_median"],
+            "launches_by_rank": [rk[i]["launches"] for rk in res]}
+        print(f"mesh {name}, steps {first}..{tok.shape[1] - 1}: logits "
+              f"within {rel:.3g} of the one-device decode_step (tolerance "
+              f"{tol}), tokens equal {same:.3f}; {ms:.3f} ms/step "
+              f"({MESH_RANKS} ranks on one H100 over gloo: not a multi-card "
+              f"number; one device {ref['ms_per_step_median']:.3f}) on "
+              f"{card}", flush=True)
+        if not rel < tol or (tol == 1e-4 and same != 1.0):
+            raise AssertionError(f"mesh {name} differs from the one-device "
+                                 f"decode step: {rel} (tolerance {tol}), "
+                                 f"tokens equal {same}")
+        want = cfg.attn_layers * steps * MESH_RANKS
+        if launches["rope_kv_append"] != want or \
+                launches["paged_attention"] != want:
+            raise AssertionError(f"mesh {name}: launches {launches}, "
+                                 f"expected {want} of both on the card")
+        paths[f"mesh {name}"] = dict(read_zero(), **launches)
+    return detail, paths
+
+
+def read_zero() -> dict:
+    """Every kernel's count at 0: a path's row for kernels it never ran."""
+    return {k: 0 for k in KERNELS}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2192,6 +2523,23 @@ def main() -> int:
           flush=True)
 
     paths: dict[str, dict] = {}     # each path's launch counts
+
+    # the sharded decode step: the kernels at shard layouts, then the mesh
+    # runs (ranks sharing the card over gloo)
+    t0 = time.perf_counter()
+    for name, rows in check_shard_kernels(torch, dev).items():
+        by_name[name]["shard_layouts"] = rows
+        for r in rows:
+            print(f"kernel {name} at {r['layout']}"
+                  f"{', window %d' % r['window'] if 'window' in r else ''}: "
+                  f"max_abs_err {r['max_abs_err']} ms {r['ms']:.5f} eager "
+                  f"{r['eager_ms']:.5f} plain {r['plain_ms']:.5f} bound "
+                  f"{r['bound_ms']:.5f}", flush=True)
+    mesh, mesh_paths = check_mesh(torch, dev, card)
+    paths.update(mesh_paths)
+    mesh["seconds"] = time.perf_counter() - t0
+    print("mesh detail: " + json.dumps(mesh), flush=True)
+    torch.cuda.empty_cache()
 
     def weights(c):
         t = time.perf_counter()

@@ -23,6 +23,17 @@
 // the device, so the decode step needs no host sync and can be captured
 // in a CUDA graph.
 //
+// On a shard of a mesh (serving/decode.py make_decode_step) the arena
+// holds `page` slots of each global page of `gpage` slots, those from
+// slot0 on (the model axis shards page slots), and with `seq` the table
+// holds the global columns from page0 on (sequence parallelism shards the
+// pages over the data axes).  q and k are rotated at the global pos as on
+// one device; the K/V rows are written only where the shard holds the
+// position.  A row it does not hold goes to the dump page's slot 0, as
+// the reference's scatter sends it (serving/tp_layers.py attn_decode_tp);
+// no valid path reads the dump page.  On one device gpage == page and
+// slot0 == page0 == 0.
+//
 // Its int8 variant (rope_kv_append_int8_launch) is the reference's int8 KV
 // branch (serving/tp_layers.py attn_decode_tp, `scales is not None`:
 // KIVI-style, one fp32 scale per slot and KV head).  The same block per
@@ -229,7 +240,7 @@ __global__ void __launch_bounds__(MAX_THREADS) rope_kv_append_kernel(
     const int* __restrict__ block_table, A* __restrict__ ak,
     A* __restrict__ av, float* __restrict__ ks, float* __restrict__ vs,
     T* __restrict__ q_out, int H, int K, int dh, int P, int npages,
-    int page, bool pack) {
+    int page, int gpage, int slot0, int page0, bool seq, bool pack) {
   constexpr bool Q8 = std::is_same<A, int8_t>::value;
   __shared__ float cs[2 * MAX_HALF];           // cos, then sin
   extern __shared__ float stage[];             // Q8: [K rows, V rows][dh]
@@ -252,15 +263,21 @@ __global__ void __launch_bounds__(MAX_THREADS) rope_kv_append_kernel(
     if (bv != nullptr) bvv = *reinterpret_cast<const V*>(bv + t * VEC);
   }
 
-  // the page and slot of position p: block_table[b, p / page] when that
-  // column exists (else -1); an id < 0 goes to the dump page, an id past
-  // the arena drops the write
-  int lp = p / page, slot = p % page;
+  // the page and slot of position p: block_table[b, column] when the
+  // shard holds the position and the column exists (else -1), at the
+  // shard's slot (0 where it does not hold it); an id < 0 goes to the dump
+  // page, an id past the arena drops the write
+  int lp = p / gpage, slot = p % gpage;
   if (slot < 0) {
-    slot += page;
+    slot += gpage;
     lp -= 1;
   }
-  int pid = (lp >= 0 && lp < P) ? block_table[(size_t)b * P + lp] : -1;
+  slot -= slot0;
+  lp -= page0;
+  const bool in_table = lp >= 0 && lp < P;
+  const bool mine = slot >= 0 && slot < page && (!seq || in_table);
+  int pid = mine && in_table ? block_table[(size_t)b * P + lp] : -1;
+  if (!mine) slot = 0;
 
   const float fp = static_cast<float>(p);
   if (freqs != nullptr) {
@@ -352,8 +369,8 @@ struct RopeArgs {
   void *ak, *av;
   float *ks, *vs;
   void* q_out;
-  int B, H, K, dh, P, npages, page;
-  bool pack;
+  int B, H, K, dh, P, npages, page, gpage, slot0, page0;
+  bool seq, pack;
 };
 
 template <typename T, typename A, int VEC>
@@ -369,7 +386,7 @@ void launch_rope(const RopeArgs& a, cudaStream_t s) {
       static_cast<const T*>(a.bk), static_cast<const T*>(a.bv), a.freqs,
       a.pos, a.table, static_cast<A*>(a.ak), static_cast<A*>(a.av), a.ks,
       a.vs, static_cast<T*>(a.q_out), a.H, a.K, a.dh, a.P, a.npages, a.page,
-      a.pack);
+      a.gpage, a.slot0, a.page0, a.seq, a.pack);
 }
 
 // q, k, v, the biases and q_out in dtype (0 fp32, 1 bf16); arenas of
@@ -380,7 +397,8 @@ int dispatch_rope(const RopeArgs& a, int dtype, bool int8,
   if (a.B <= 0) return 0;
   if (a.dh <= 0 || a.dh % 2 || a.dh / 2 > MAX_HALF || a.K <= 0 ||
       a.H % a.K || a.P <= 0 || a.page <= 0 || a.npages <= 0 ||
-      (dtype != 0 && dtype != 1))
+      a.gpage < a.page || a.slot0 < 0 || a.slot0 + a.page > a.gpage ||
+      a.page0 < 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t es = dtype == 0 ? 4 : 2;
   uintptr_t align =
@@ -413,15 +431,18 @@ int dispatch_rope(const RopeArgs& a, int dtype, bool int8,
 // q [B, H*dh], k, v [B, K*dh] in dtype (0 fp32, 1 bf16); bq, bk, bv the
 // biases [H*dh], [K*dh] or all null; freqs fp32 [dh/2] or null (no RoPE);
 // pos int32 [B]; block_table int32 [B, P]; arenas [npages, page, K, dh];
-// q_out [B, H, dh].  H % K == 0, dh even and <= 256 (the wrapper checks).
+// q_out [B, H, dh]; the shard's slots gpage, slot0, page0, seq as above.
+// H % K == 0, dh even and <= 256 (the wrapper checks).
 extern "C" int rope_kv_append_launch(
     const void* q, const void* k, const void* v, const void* bq,
     const void* bk, const void* bv, const float* freqs, const int* pos,
     const int* block_table, void* ak, void* av, void* q_out, int B, int H,
-    int K, int dh, int P, int npages, int page, int dtype, void* stream) {
+    int K, int dh, int P, int npages, int page, int gpage, int slot0,
+    int page0, int seq, int dtype, void* stream) {
   const RopeArgs a{q,  k,  v,  bq,      bk, bv, freqs, pos,
                    block_table, ak, av, nullptr, nullptr, q_out, B, H, K,
-                   dh, P, npages, page, false};
+                   dh, P, npages, page, gpage, slot0, page0, seq != 0,
+                   false};
   return dispatch_rope(a, dtype, false, static_cast<cudaStream_t>(stream));
 }
 
@@ -433,10 +454,11 @@ extern "C" int rope_kv_append_int8_launch(
     const void* bk, const void* bv, const float* freqs, const int* pos,
     const int* block_table, void* ak, void* av, float* ks, float* vs,
     void* q_out, int B, int H, int K, int dh, int P, int npages, int page,
-    int dtype, void* stream) {
+    int gpage, int slot0, int page0, int seq, int dtype, void* stream) {
   const bool pack = dh % 4 == 0 && (reinterpret_cast<uintptr_t>(ak) |
                                     reinterpret_cast<uintptr_t>(av)) % 4 == 0;
-  const RopeArgs a{q,  k,  v,  bq, bk, bv, freqs, pos, block_table, ak, av,
-                   ks, vs, q_out, B, H, K, dh, P, npages, page, pack};
+  const RopeArgs a{q,     k,     v,     bq,         bk, bv, freqs, pos,
+                   block_table, ak, av, ks, vs, q_out, B, H, K, dh, P,
+                   npages, page, gpage, slot0, page0, seq != 0, pack};
   return dispatch_rope(a, dtype, true, static_cast<cudaStream_t>(stream));
 }

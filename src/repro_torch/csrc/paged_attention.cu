@@ -13,16 +13,17 @@
 // card's compute/byte ridge.  What the design does about it:
 // - Split.  The grid is (B, K, splits); a block owns one (lane, KV head)
 //   and a contiguous range of tiles_per_split tiles of kTile positions.
-//   The host picks the split from (B, K, P, page) alone, never from
-//   lengths or the table, so there is no device-to-host sync and the call
-//   can be captured in a CUDA graph.  Every block of a lane derives from
-//   lengths[b] which splits hold a valid position; the others exit at once,
-//   reading no K or V and taking no part in the merge.
+//   The host picks the split from (B, K, P, page) alone, never from the
+//   lanes' ranges or the table, so there is no device-to-host sync and the
+//   call can be captured in a CUDA graph.  Every block of a lane derives
+//   from its range [starts[b], ends[b]) which splits hold a valid position;
+//   the others exit at once, reading no K or V and taking no part in the
+//   merge.
 // - Gather.  A tile's K and V rows (dh elements of one KV head each, at
 //   block_table[b, pos / page] and pos % page) are copied into shared
 //   memory 16 bytes at a time with cp.async, after a thread per row has
 //   read the row's page id (for the split's first two tiles, in flight
-//   with lengths[b]); two tiles are in flight while one is computed
+//   with the lane's range); two tiles are in flight while one is computed
 //   (double-buffered).  Rows that are not valid are zero-filled without a
 //   read.  K and V rows are swizzled in shared memory, not padded, so
 //   three blocks fit an SM at head_dim 128.
@@ -44,16 +45,24 @@
 //
 // Where the time goes (NVIDIA H100 80GB HBM3, 700 W; launch/bench_paged.py
 // and chip_smoke.py): at the serve shape (8 lanes, <= 363 positions) a
-// chain of dependent round trips, not bytes: lengths, the tile, the
+// chain of dependent round trips, not bytes: the range, the tile, the
 // ticket and the merge's reads (~10 us against a 2.5 us bound, the same
 // with the L2 cache warm); at 32768 positions the gather (~1.2x the bytes
 // bound at 8 lanes).
 //
 // Semantics (as the Pallas kernel): position p*page + t of table column p
-// is valid iff it is < lengths[b], its page id is >= 0 and, with a
-// window, > lengths[b] - 1 - window.  Scores and softmax in fp32; the
-// result is acc / max(l, 1e-20) in q's dtype (0 for a sequence with no
-// valid position).
+// is valid iff it lies in the lane's range [starts[b], ends[b]) and its
+// page id is >= 0 (starts null: every range starts at 0).  The wrapper
+// derives the range from lengths and the window on one device; on a
+// shard of the mesh from the lane's global range and the shard's slots
+// and pages (a global range is one contiguous local range, since global
+// position grows with local position), so the kernel knows nothing of the
+// mesh.  Scores and softmax in fp32; the result is acc / max(l, 1e-20) in
+// q's dtype (0 for a sequence with no valid position).  With lse given,
+// the result is written in fp32 instead, and each row's log-sum-exp of
+// its scaled scores beside it in lse [B, H] (-inf, with a zero row, where
+// the lane has no valid position): what the merge across the shards of a
+// mesh reads.
 //
 // int8 arenas (paged_attention_int8_launch; the reference's int8 KV
 // branch, serving/tp_layers.py attn_decode_tp, dequantizes on gather):
@@ -83,6 +92,7 @@ constexpr int kMaxSplits = 64;
 constexpr int kChunk = 8;          // partials one block merges at most
 constexpr int kMaxChunks = kMaxSplits / kChunk;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kEmptyM = -1e30f;
 
 // ---------------------------------------------------------------------------
@@ -121,18 +131,18 @@ __device__ __forceinline__ void cp_async_wait() {
 // What split s of a lane does.  The lane's valid positions lie in
 // [lo_v, hi_v) (before the page ids are read); the splits that meet that
 // range, s_lo .. s_lo + n - 1, are the lane's non-empty splits, which
-// every block of the lane computes alike from lengths[b].  Split s reads
+// every block of the lane computes alike from its range.  Split s reads
 // [first, last), inside its range that starts at lo.  The other splits
 // read nothing and take no part in the merge.
 struct Work {
   int lo, first, last, s_lo, n;
 };
 __device__ __forceinline__ Work split_work(int s, int tiles_per_split,
-                                           int P, int page, int length,
-                                           int window) {
+                                           int P, int page, int start,
+                                           int end) {
   const int span = tiles_per_split * kTile;
-  const int lo_v = window ? max(0, length - window) : 0;
-  const int hi_v = min(length, P * page);
+  const int lo_v = max(0, start);
+  const int hi_v = min(end, P * page);
   Work w;
   w.s_lo = hi_v > lo_v ? lo_v / span : 0;
   w.n = hi_v > lo_v ? (hi_v - 1) / span - w.s_lo + 1 : 0;
@@ -285,16 +295,23 @@ __device__ __forceinline__ bool ticket(int* counter, int n) {
   return last_flag;
 }
 
+// A row's log-sum-exp in natural units from its max m (log2 units of the
+// scaled scores) and its sum l: -inf where the row saw no valid position
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? (m + log2f(l)) * kLn2 : -INFINITY;
+}
+
 // Merge n partials (acc [n][g][dh] and (m, l) [n][g][2], m in log2 units)
 // in their order.  With out_ml null, into out normalised: acc / max(l,
-// 1e-20) in T.  Otherwise into one partial of the same form (out in
-// fp32, (m, l) into out_ml; m = -1e30 where l = 0).  w is shared scratch
-// of 2 * n * g floats; n <= kChunk, so every load is issued in one round,
-// in flight together.
+// 1e-20) in T, and with out_lse given each row's log-sum-exp into it.
+// Otherwise into one partial of the same form (out in fp32, (m, l) into
+// out_ml; m = -1e30 where l = 0).  w is shared scratch of 2 * n * g
+// floats; n <= kChunk, so every load is issued in one round, in flight
+// together.
 template <typename T>
 __device__ void merge_rows(const float* part_acc, const float* part_ml,
                            int n, int g, int dh, float* w, T* out,
-                           float* out_ml) {
+                           float* out_ml, float* out_lse) {
   const int n_el = g * dh / 4;
   const int tid = threadIdx.x, nt = blockDim.x;
   // two elements (float4) a thread per pass; the first pass's loads are
@@ -338,6 +355,7 @@ __device__ void merge_rows(const float* part_acc, const float* part_ml,
     if (live && out_ml == nullptr) {
       const float inv = 1.f / fmaxf(L, 1e-20f);
       for (int k = q; k < n; k += 8) w[k * g + j] *= inv;
+      if (out_lse != nullptr && q == 0) out_lse[j] = row_lse(M, L);
     }
     if (live && out_ml != nullptr && q == 0) {
       out_ml[2 * j] = L > 0.f ? M : kEmptyM;
@@ -383,15 +401,26 @@ __device__ void merge_rows(const float* part_acc, const float* part_ml,
 // each chunk of kChunk consecutive splits merges its chunk into a chunk
 // partial, and the last chunk to finish merges the chunk partials.  No
 // block reads more than kChunk partials, and the result does not depend
-// on which block arrives last.  cnt holds 1 + kMaxChunks counters.
+// on which block arrives last.  cnt holds 1 + kMaxChunks counters.  With
+// lse given, out is fp32 and the rows' log-sum-exp go to lse.
 template <typename T>
-__device__ void finish_split(float* pacc, float* pml, int* cnt, T* out,
-                             int g, int dh, int splits, int s, int s_lo,
-                             int n, float* w) {
+__device__ void merge_out(const float* pacc, const float* pml, int n, int g,
+                          int dh, float* w, void* out, float* lse) {
+  if (lse != nullptr)
+    merge_rows<float>(pacc, pml, n, g, dh, w, static_cast<float*>(out),
+                      nullptr, lse);
+  else
+    merge_rows<T>(pacc, pml, n, g, dh, w, static_cast<T*>(out), nullptr,
+                  nullptr);
+}
+template <typename T>
+__device__ void finish_split(float* pacc, float* pml, int* cnt, void* out,
+                             float* lse, int g, int dh, int splits, int s,
+                             int s_lo, int n, float* w) {
   if (n <= kChunk) {
     if (ticket(cnt, n))
-      merge_rows<T>(pacc + (size_t)s_lo * g * dh, pml + (size_t)s_lo * g * 2,
-                    n, g, dh, w, out, nullptr);
+      merge_out<T>(pacc + (size_t)s_lo * g * dh, pml + (size_t)s_lo * g * 2,
+                   n, g, dh, w, out, lse);
     return;
   }
   const int c = (s - s_lo) / kChunk;
@@ -402,10 +431,11 @@ __device__ void finish_split(float* pacc, float* pml, int* cnt, T* out,
   float* cml = pml + (size_t)(splits + c) * g * 2;
   merge_rows<float>(pacc + (size_t)first * g * dh,
                     pml + (size_t)first * g * 2,
-                    min(kChunk, n - c * kChunk), g, dh, w, cacc, cml);
+                    min(kChunk, n - c * kChunk), g, dh, w, cacc, cml,
+                    nullptr);
   if (ticket(cnt, n_chunks))
-    merge_rows<T>(pacc + (size_t)splits * g * dh, pml + (size_t)splits * g * 2,
-                  n_chunks, g, dh, w, out, nullptr);
+    merge_out<T>(pacc + (size_t)splits * g * dh, pml + (size_t)splits * g * 2,
+                 n_chunks, g, dh, w, out, lse);
 }
 
 // ---------------------------------------------------------------------------
@@ -514,10 +544,12 @@ paged_bf16_kernel(const bf16* __restrict__ q,
                   const float* __restrict__ kscale,
                   const float* __restrict__ vscale,
                   const int* __restrict__ block_table,
-                  const int* __restrict__ lengths, bf16* __restrict__ out,
-                  float* __restrict__ part_acc, float* __restrict__ part_ml,
-                  int* __restrict__ counters, int H, int K, int dh, int page,
-                  int P, int window, float sl, int tiles_per_split) {
+                  const int* __restrict__ starts,
+                  const int* __restrict__ ends, bf16* __restrict__ out,
+                  float* __restrict__ lse, float* __restrict__ part_acc,
+                  float* __restrict__ part_ml, int* __restrict__ counters,
+                  int H, int K, int dh, int page, int P, float sl,
+                  int tiles_per_split) {
   constexpr int LDQ = DHP + 8;       // padded smem rows: no bank conflicts
   constexpr int LD = DHP;            // K / V rows, 16-byte chunks swizzled
   constexpr int LDP = kTile + 8;
@@ -545,12 +577,13 @@ paged_bf16_kernel(const bf16* __restrict__ q,
   const int tid = threadIdx.x;
   const int* bt_row = block_table + (size_t)b * P;
   // thread t reads the page id of position t of the split's first two
-  // tiles, in flight with lengths[b] (kThreads == 2 * kTile)
+  // tiles, in flight with the lane's range (kThreads == 2 * kTile)
   const int pos0 = s * tiles_per_split * kTile + tid;
   const int pid0 = pos0 < P * page ? __ldg(bt_row + pos0 / page) : -1;
-  const int length = lengths[b];
+  const int start = starts != nullptr ? starts[b] : 0;
+  const int end = ends[b];
   // Q rows of this KV head (zero past g and dh) into registers, in flight
-  // with lengths[b]
+  // with the range
   constexpr int QCH = MT * 16 * (DHP / 8);       // 16-byte chunks of Q
   constexpr int QPT = (QCH + kThreads - 1) / kThreads;
   const bf16* q_bk = q + ((size_t)b * H + (size_t)kh * g) * dh;
@@ -563,12 +596,21 @@ paged_bf16_kernel(const bf16* __restrict__ q,
     if (i < QCH && j < g && c * 8 < dh)
       qv[u] = *reinterpret_cast<const uint4*>(q_bk + (size_t)j * dh + c * 8);
   }
-  const Work wk = split_work(s, tiles_per_split, P, page, length, window);
-  bf16* out_bk = out + ((size_t)b * H + (size_t)kh * g) * dh;
+  const Work wk = split_work(s, tiles_per_split, P, page, start, end);
+  // the lane's rows of out: bf16, or fp32 with their lse
+  const size_t o_off = ((size_t)b * H + (size_t)kh * g) * dh;
+  bf16* out_bk = out + o_off;
+  float* out32 = reinterpret_cast<float*>(out) + o_off;
+  float* lse_bk = lse != nullptr ? lse + (size_t)b * H + kh * g : nullptr;
   if (wk.n == 0) {                   // no valid position: zeros, once
-    if (s == 0)
-      for (int i = tid; i < g * dh; i += kThreads)
-        out_bk[i] = from_f<bf16>(0.f);
+    if (s == 0) {
+      for (int i = tid; i < g * dh; i += kThreads) {
+        if (lse_bk != nullptr) out32[i] = 0.f;
+        else out_bk[i] = from_f<bf16>(0.f);
+      }
+      if (lse_bk != nullptr)
+        for (int j = tid; j < g; j += kThreads) lse_bk[j] = -INFINITY;
+    }
     return;
   }
   if (s < wk.s_lo || s >= wk.s_lo + wk.n) return;   // an empty split
@@ -841,12 +883,19 @@ paged_bf16_kernel(const bf16* __restrict__ q,
 #pragma unroll
         for (int n = 0; n < NW; ++n) {
           const int col = warp * (DHP / 4) + n * 8 + tig * 2;
-          if (col < dh)
+          if (col >= dh) continue;
+          const float o0 = acc[mt][n][2 * h] * inv;
+          const float o1 = acc[mt][n][2 * h + 1] * inv;
+          if (lse_bk != nullptr)
+            *reinterpret_cast<float2*>(out32 + (size_t)row * dh + col) =
+                make_float2(o0, o1);
+          else
             *reinterpret_cast<__nv_bfloat162*>(out_bk + (size_t)row * dh +
                                                col) =
-                __floats2bfloat162_rn(acc[mt][n][2 * h] * inv,
-                                      acc[mt][n][2 * h + 1] * inv);
+                __floats2bfloat162_rn(o0, o1);
         }
+        if (lse_bk != nullptr && warp == 0 && tig == 0)
+          lse_bk[row] = row_lse(m[mt][h], L[mt][h]);
       }
     return;
   }
@@ -871,8 +920,10 @@ paged_bf16_kernel(const bf16* __restrict__ q,
         pml[((size_t)s * g + row) * 2 + 1] = L[mt][h];
       }
     }
-  finish_split(pacc, pml, counters + bk * (1 + kMaxChunks), out_bk, g, dh,
-               splits, s, wk.s_lo, wk.n, reinterpret_cast<float*>(kv));
+  finish_split<bf16>(pacc, pml, counters + bk * (1 + kMaxChunks),
+                     lse_bk != nullptr ? static_cast<void*>(out32) : out_bk,
+                     lse_bk, g, dh, splits, s, wk.s_lo, wk.n,
+                     reinterpret_cast<float*>(kv));
 }
 
 // ---------------------------------------------------------------------------
@@ -930,10 +981,12 @@ paged_f32_kernel(const float* __restrict__ q,
                  const float* __restrict__ kscale,
                  const float* __restrict__ vscale,
                  const int* __restrict__ block_table,
-                 const int* __restrict__ lengths, float* __restrict__ out,
-                 float* __restrict__ part_acc, float* __restrict__ part_ml,
-                 int* __restrict__ counters, int H, int K, int dh, int page,
-                 int P, int window, float sl, int tiles_per_split) {
+                 const int* __restrict__ starts,
+                 const int* __restrict__ ends, float* __restrict__ out,
+                 float* __restrict__ lse, float* __restrict__ part_acc,
+                 float* __restrict__ part_ml, int* __restrict__ counters,
+                 int H, int K, int dh, int page, int P, float sl,
+                 int tiles_per_split) {
   extern __shared__ __align__(16) float smem32[];
   const int b = blockIdx.x, kh = blockIdx.y, s = blockIdx.z;
   const int splits = gridDim.z;
@@ -953,13 +1006,17 @@ paged_f32_kernel(const float* __restrict__ q,
   float* scl = reinterpret_cast<float*>(rows + 2 * kTile32);  // Q8 scales
   float* wmerge = smem32;                    // once the partial is written
 
-  const Work wk = split_work(s, tiles_per_split, P, page, lengths[b],
-                             window);
+  const Work wk = split_work(s, tiles_per_split, P, page,
+                             starts != nullptr ? starts[b] : 0, ends[b]);
   float* out_bk = out + ((size_t)b * H + (size_t)kh * g) * dh;
+  float* lse_bk = lse != nullptr ? lse + (size_t)b * H + kh * g : nullptr;
   const int tid = threadIdx.x;
   if (wk.n == 0) {                           // no valid position: zeros
-    if (s == 0)
+    if (s == 0) {
       for (int i = tid; i < g * dh; i += kThreads) out_bk[i] = 0.f;
+      if (lse_bk != nullptr)
+        for (int j = tid; j < g; j += kThreads) lse_bk[j] = -INFINITY;
+    }
     return;
   }
   if (s < wk.s_lo || s >= wk.s_lo + wk.n) return;   // an empty split
@@ -1062,6 +1119,9 @@ paged_f32_kernel(const float* __restrict__ q,
   if (wk.n == 1) {                           // the only split
     for (int i = tid; i < g * dh; i += kThreads)
       out_bk[i] = accs[i] / fmaxf(lrow[i / dh], 1e-20f);
+    if (lse_bk != nullptr)
+      for (int j = tid; j < g; j += kThreads)
+        lse_bk[j] = row_lse(mrow[j], lrow[j]);
     return;
   }
   float* pacc = part_acc + (size_t)bk * (splits + kMaxChunks) * g * dh;
@@ -1072,8 +1132,8 @@ paged_f32_kernel(const float* __restrict__ q,
     pml[((size_t)s * g + j) * 2] = lrow[j] > 0.f ? mrow[j] : kEmptyM;
     pml[((size_t)s * g + j) * 2 + 1] = lrow[j];
   }
-  finish_split(pacc, pml, counters + bk * (1 + kMaxChunks), out_bk, g, dh,
-               splits, s, wk.s_lo, wk.n, wmerge);
+  finish_split<float>(pacc, pml, counters + bk * (1 + kMaxChunks), out_bk,
+                      lse_bk, g, dh, splits, s, wk.s_lo, wk.n, wmerge);
 }
 
 // ---------------------------------------------------------------------------
@@ -1082,11 +1142,11 @@ paged_f32_kernel(const float* __restrict__ q,
 struct Args {
   const void *q, *ak, *av;
   const float *ks, *vs;                  // int8 arenas' scales (or null)
-  const int *bt, *lengths;
+  const int *bt, *starts, *ends;         // starts may be null: all 0
   void* out;
-  float *part_acc, *part_ml;
+  float *lse, *part_acc, *part_ml;       // lse null: out in q's dtype
   int* counters;
-  int H, K, dh, page, P, window, tiles_per_split;
+  int H, K, dh, page, P, tiles_per_split;
   float sl;
 };
 
@@ -1114,9 +1174,9 @@ int launch_bf16(const Args& a, dim3 grid, cudaStream_t stream) {
   if (int e = opt_in(paged_bf16_kernel<DHP, MT, Q8>, smem, &done)) return e;
   paged_bf16_kernel<DHP, MT, Q8><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const A*>(a.ak),
-      static_cast<const A*>(a.av), a.ks, a.vs, a.bt, a.lengths,
-      static_cast<bf16*>(a.out), a.part_acc, a.part_ml, a.counters, a.H, a.K,
-      a.dh, a.page, a.P, a.window, a.sl, a.tiles_per_split);
+      static_cast<const A*>(a.av), a.ks, a.vs, a.bt, a.starts, a.ends,
+      static_cast<bf16*>(a.out), a.lse, a.part_acc, a.part_ml, a.counters,
+      a.H, a.K, a.dh, a.page, a.P, a.sl, a.tiles_per_split);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1139,9 +1199,9 @@ int launch_f32(const Args& a, int g, dim3 grid, cudaStream_t stream) {
   if (int e = opt_in(paged_f32_kernel<Q8>, smem, &done)) return e;
   paged_f32_kernel<Q8><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(a.q), static_cast<const A*>(a.ak),
-      static_cast<const A*>(a.av), a.ks, a.vs, a.bt, a.lengths,
-      static_cast<float*>(a.out), a.part_acc, a.part_ml, a.counters, a.H,
-      a.K, a.dh, a.page, a.P, a.window, a.sl, a.tiles_per_split);
+      static_cast<const A*>(a.av), a.ks, a.vs, a.bt, a.starts, a.ends,
+      static_cast<float*>(a.out), a.lse, a.part_acc, a.part_ml, a.counters,
+      a.H, a.K, a.dh, a.page, a.P, a.sl, a.tiles_per_split);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1172,7 +1232,10 @@ int dispatch(const Args& a, int B, int splits, int dtype,
 }  // namespace
 
 // q [B, H, dh]; arenas [pages, page, K, dh]; block_table int32 [B, P];
-// lengths int32 [B]; out [B, H, dh]; all contiguous and 16-byte aligned.
+// starts (or null: 0) and ends int32 [B], each lane's range of valid
+// positions [start, end) of its table; out [B, H, dh] in q's dtype, or,
+// with lse (fp32 [B, H]) given, in fp32; all contiguous and 16-byte
+// aligned.
 // dtype: 0 = float32 (dh a multiple of 8), 1 = bfloat16 (dh a multiple of
 // 16); dh <= 256, H % K == 0, H / K <= 64.  The grid is (B, K, splits);
 // split s covers positions [s, s + 1) * tiles_per_split * 64, and the
@@ -1183,13 +1246,14 @@ int dispatch(const Args& a, int B, int splits, int dtype,
 // not take are refused.
 extern "C" int paged_attention_launch(
     const void* q, const void* ak, const void* av, const int* block_table,
-    const int* lengths, void* out, void* part_acc, void* part_ml,
-    void* counters, int B, int H, int K, int dh, int page, int P, int window,
-    float scale, int splits, int tiles_per_split, int dtype, void* stream) {
-  const Args a{q, ak, av, nullptr, nullptr, block_table, lengths, out,
-               static_cast<float*>(part_acc), static_cast<float*>(part_ml),
-               static_cast<int*>(counters), H, K, dh, page, P, window,
-               tiles_per_split, scale * kLog2e};
+    const int* starts, const int* ends, void* out, float* lse,
+    void* part_acc, void* part_ml, void* counters, int B, int H, int K,
+    int dh, int page, int P, float scale, int splits, int tiles_per_split,
+    int dtype, void* stream) {
+  const Args a{q, ak, av, nullptr, nullptr, block_table, starts, ends, out,
+               lse, static_cast<float*>(part_acc),
+               static_cast<float*>(part_ml), static_cast<int*>(counters), H,
+               K, dh, page, P, tiles_per_split, scale * kLog2e};
   return dispatch<false>(a, B, splits, dtype,
                          static_cast<cudaStream_t>(stream));
 }
@@ -1198,13 +1262,13 @@ extern "C" int paged_attention_launch(
 // vs [pages, page, K]; q and out in dtype; the rest as above.
 extern "C" int paged_attention_int8_launch(
     const void* q, const void* ak, const void* av, const float* ks,
-    const float* vs, const int* block_table, const int* lengths, void* out,
-    void* part_acc, void* part_ml, void* counters, int B, int H, int K,
-    int dh, int page, int P, int window, float scale, int splits,
-    int tiles_per_split, int dtype, void* stream) {
-  const Args a{q, ak, av, ks, vs, block_table, lengths, out,
+    const float* vs, const int* block_table, const int* starts,
+    const int* ends, void* out, float* lse, void* part_acc, void* part_ml,
+    void* counters, int B, int H, int K, int dh, int page, int P,
+    float scale, int splits, int tiles_per_split, int dtype, void* stream) {
+  const Args a{q, ak, av, ks, vs, block_table, starts, ends, out, lse,
                static_cast<float*>(part_acc), static_cast<float*>(part_ml),
-               static_cast<int*>(counters), H, K, dh, page, P, window,
+               static_cast<int*>(counters), H, K, dh, page, P,
                tiles_per_split, scale * kLog2e};
   return dispatch<true>(a, B, splits, dtype,
                         static_cast<cudaStream_t>(stream));

@@ -102,15 +102,14 @@ def library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.kv_update_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
         lib.kv_update_launch.restype = i
-        lib.rope_kv_append_launch.argtypes = [p] * 12 + [i] * 8 + [p]
+        lib.rope_kv_append_launch.argtypes = [p] * 12 + [i] * 12 + [p]
         lib.rope_kv_append_launch.restype = i
-        lib.rope_kv_append_int8_launch.argtypes = [p] * 14 + [i] * 8 + [p]
+        lib.rope_kv_append_int8_launch.argtypes = [p] * 14 + [i] * 12 + [p]
         lib.rope_kv_append_int8_launch.restype = i
-        lib.paged_attention_launch.argtypes = [
-            p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float,
-            i, i, i, p]
+        lib.paged_attention_launch.argtypes = [p] * 11 + [i] * 6 + [
+            ctypes.c_float, i, i, i, p]
         lib.paged_attention_launch.restype = i
-        lib.paged_attention_int8_launch.argtypes = [p] * 11 + [i] * 7 + [
+        lib.paged_attention_int8_launch.argtypes = [p] * 13 + [i] * 6 + [
             ctypes.c_float, i, i, i, p]
         lib.paged_attention_int8_launch.restype = i
         lib.flash_attention_launch.argtypes = [

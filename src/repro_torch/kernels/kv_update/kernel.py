@@ -22,9 +22,18 @@ scale per slot and KV head): each row, rounded to the model dtype, gets
 s), -127, 127)`` (half to even) beside ``s`` in the fp32 scale arenas
 [pages, page, K].  The CUDA side is ``rope_kv_append_kernel``'s int8
 variant in ``csrc/kv_update.cu``.
+
+On a shard of a mesh (``slots=Slots(...)``) the arena holds ``page_loc``
+slots of each global page, and sequence-parallel a run of the table's
+columns: q and k are rotated at the global ``pos``, and only the rows the
+shard holds are written; the others go to the dump page's slot 0, as the
+reference's scatter sends them (``serving/tp_layers.py``
+``attn_decode_tp``).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -45,6 +54,37 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # contracts the add into an FMA, and the kernel's ``__fmaf_rn`` does the same
 INV_127 = float.fromhex("0x1.020408p-7")     # fp32(1 / 127)
 SCALE_EPS = float.fromhex("0x1.12e0bep-30")  # fp32(1e-9)
+
+
+class Slots(NamedTuple):
+    """The slots of the global paged layout a shard's arena and table
+    hold: each global page has ``page`` slots, of which the arena holds
+    ``page_loc`` (its second dim) from ``slot0`` on; with ``seq`` the
+    table's columns are global columns ``page0`` on (sequence
+    parallelism), else all of them (``page0`` 0).  One device:
+    ``Slots(page, 0, 0, False)``."""
+    page: int
+    slot0: int = 0
+    page0: int = 0
+    seq: bool = False
+
+
+def locate(pos, block_table, page_loc: int, slots: Slots):
+    """(page id int32 [B], slot int32 [B]) of each lane's write: the table
+    entry of ``pos``'s column and ``pos``'s local slot where the shard
+    holds the position (page id -1 past the table), else (-1, 0)."""
+    P = block_table.shape[1]
+    col = torch.div(pos, slots.page, rounding_mode="floor").long() \
+        - slots.page0
+    slot = (pos % slots.page).long() - slots.slot0
+    in_table = (col >= 0) & (col < P)
+    mine = (slot >= 0) & (slot < page_loc)
+    if slots.seq:
+        mine = mine & in_table
+    pid = torch.gather(block_table, 1,
+                       torch.clamp(col, 0, P - 1)[:, None])[:, 0]
+    pid = torch.where(mine & in_table, pid, -1).to(torch.int32)
+    return pid, torch.where(mine, slot, 0).to(torch.int32)
 
 
 def kv_update_plain(arena_k, arena_v, k_new, v_new, page_ids, slots):
@@ -131,16 +171,15 @@ def kv_update(arena_k, arena_v, k_new, v_new, page_ids, slots):
 
 
 def rope_kv_append_plain(q, k, v, bq, bk, bv, freqs, pos, block_table,
-                         arena_k, arena_v, scales=None):
+                         arena_k, arena_v, scales=None, slots=None):
     """Plain PyTorch version of ``rope_kv_append`` (same arguments): the
-    bias add, ``apply_rope`` on q and k, the page/slot lookup and
-    ``kv_update_plain`` (with ``scales``, the rows quantized by
+    bias add, ``apply_rope`` on q and k, the page/slot lookup (``locate``)
+    and ``kv_update_plain`` (with ``scales``, the rows quantized by
     ``quantize_rows`` and their scales written alike), op by op.  Returns
     q_rot [B, H, dh]."""
     B = q.shape[0]
     _, page, K, dh = arena_k.shape
     H = q.shape[1] // dh
-    P = block_table.shape[1]
     if bq is not None:
         q, k, v = q + bq, k + bk, v + bv
     q = q.reshape(B, H, dh)
@@ -149,12 +188,7 @@ def rope_kv_append_plain(q, k, v, bq, bk, bv, freqs, pos, block_table,
     if freqs is not None:
         q = apply_rope(q[:, None], pos[:, None], freqs=freqs)[:, 0]
         k = apply_rope(k[:, None], pos[:, None], freqs=freqs)[:, 0]
-    slot = (pos % page).to(torch.int32)
-    lpage = (pos // page).long()
-    in_table = lpage < P
-    pid = torch.gather(block_table, 1,
-                       torch.clamp(lpage, max=P - 1)[:, None])[:, 0]
-    pid = torch.where(in_table, pid, -1).to(torch.int32)
+    pid, slot = locate(pos, block_table, page, slots or Slots(page))
     if scales is None:
         kv_update_plain(arena_k, arena_v, k.to(arena_k.dtype).contiguous(),
                         v.to(arena_v.dtype).contiguous(), pid, slot)
@@ -166,10 +200,13 @@ def rope_kv_append_plain(q, k, v, bq, bk, bv, freqs, pos, block_table,
 
 
 def _check_rope(q, k, v, bq, bk, bv, freqs, pos, block_table, arena_k,
-                arena_v, scales):
+                arena_v, scales, slots):
     if arena_k.dim() != 4 or arena_v.shape != arena_k.shape:
         raise ValueError("arenas must both be [pages, page, K, dh]")
-    _, _, K, dh = arena_k.shape
+    _, page, K, dh = arena_k.shape
+    if slots is not None and not (slots.slot0 >= 0 and slots.page0 >= 0
+                                  and slots.slot0 + page <= slots.page):
+        raise ValueError(f"{slots} does not hold {page} slots of a page")
     check_scales(arena_k, arena_v, scales)
     if dh % 2 or not 0 < dh <= MAX_HEAD_DIM:
         raise ValueError(f"rope_kv_append takes an even head_dim <= "
@@ -226,7 +263,7 @@ def check_scales(arena_k, arena_v, scales) -> None:
 
 
 def rope_kv_append(q, k, v, bq, bk, bv, freqs, pos, block_table, arena_k,
-                   arena_v, scales=None):
+                   arena_v, scales=None, slots=None):
     """The decode layer's step between its QKV matmuls and its attention.
 
     q: [B, H * dh], k, v: [B, K * dh] (the matmul outputs); bq, bk, bv:
@@ -238,15 +275,19 @@ def rope_kv_append(q, k, v, bq, bk, bv, freqs, pos, block_table, arena_k,
     an id < 0 → the dump page, the last), slot ``pos % page``.  Returns
     the rotated q [B, H, dh].  With ``scales=(ks, vs)`` (fp32 [pages, page,
     K]) the arenas are int8, and the rows are quantized on write
-    (``quantize_rows``) beside their scales.  Refuses an odd head_dim, one
-    above 256 and H % K != 0."""
+    (``quantize_rows``) beside their scales.  On a shard of a mesh
+    ``slots`` (``Slots``) says which slots and table columns of the global
+    layout the arena holds: pos is global, the page and slot local, and a
+    row the shard does not hold goes to the dump page's slot 0.  Refuses
+    an odd head_dim, one above 256 and H % K != 0."""
     global rope_kv_append_launches, rope_kv_append_int8_launches
     _check_rope(q, k, v, bq, bk, bv, freqs, pos, block_table, arena_k,
-                arena_v, scales)
+                arena_v, scales, slots)
     dev = arena_k.device
     if dev.type == "cpu":
         return rope_kv_append_plain(q, k, v, bq, bk, bv, freqs, pos,
-                                    block_table, arena_k, arena_v, scales)
+                                    block_table, arena_k, arena_v, scales,
+                                    slots)
     if dev.type != "cuda":
         raise ValueError(f"rope_kv_append runs on cuda or cpu, not {dev}")
     dt = q.dtype if scales is not None else arena_k.dtype
@@ -266,6 +307,10 @@ def rope_kv_append(q, k, v, bq, bk, bv, freqs, pos, block_table, arena_k,
     npages, page, K, dh = arena_k.shape
     B, H = q.shape[0], q.shape[1] // dh
     q_out = torch.empty((B, H, dh), dtype=dt, device=dev)
+    sl = slots or Slots(page)
+    shape = (B, H, K, dh, block_table.shape[1], npages, page, sl.page,
+             sl.slot0, sl.page0, int(sl.seq), _DTYPE_CODE[dt],
+             build.stream_ptr(dev))
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -278,18 +323,14 @@ def rope_kv_append(q, k, v, bq, bk, bv, freqs, pos, block_table, arena_k,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(bq), ptr(bk),
             ptr(bv), ptr(freqs), pos.data_ptr(), block_table.data_ptr(),
             arena_k.data_ptr(), arena_v.data_ptr(), scales[0].data_ptr(),
-            scales[1].data_ptr(), q_out.data_ptr(), B, H, K, dh,
-            block_table.shape[1], npages, page, _DTYPE_CODE[dt],
-            build.stream_ptr(dev))
+            scales[1].data_ptr(), q_out.data_ptr(), *shape)
         build.check(err, "rope_kv_append (int8)")
         rope_kv_append_int8_launches += 1
         return q_out
     err = build.library().rope_kv_append_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(bq), ptr(bk), ptr(bv),
         ptr(freqs), pos.data_ptr(), block_table.data_ptr(),
-        arena_k.data_ptr(), arena_v.data_ptr(), q_out.data_ptr(), B, H, K,
-        dh, block_table.shape[1], npages, page, _DTYPE_CODE[dt],
-        build.stream_ptr(dev))
+        arena_k.data_ptr(), arena_v.data_ptr(), q_out.data_ptr(), *shape)
     build.check(err, "rope_kv_append")
     rope_kv_append_launches += 1
     return q_out

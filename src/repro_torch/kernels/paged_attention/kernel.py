@@ -5,11 +5,22 @@
 ``kernels/paged_attention/kernel.py::paged_attention`` of the reference)
 on CUDA tensors and runs ``paged_attention_plain`` on CPU tensors.
 
-Position ``p * page + t`` of block-table column ``p`` is valid iff it is
-``< lengths[b]``, the column's page id is ``>= 0`` and, with a window,
-``> lengths[b] - 1 - window``; pages fill contiguously (engine contract).
-Softmax in fp32; the output is ``acc / max(l, 1e-20)`` in q's dtype, so a
-sequence with no valid position gets zeros.
+Position ``p * page + t`` of block-table column ``p`` is valid iff it lies
+in the lane's range ``[starts[b], lengths[b])`` and the column's page id
+is ``>= 0``; without ``starts`` the range starts at ``lengths[b] -
+window`` (0 without a window).  Pages fill contiguously (engine
+contract).  Softmax in fp32; the output is ``acc / max(l, 1e-20)`` in q's
+dtype, so a sequence with no valid position gets zeros.  With
+``return_lse`` the output is fp32 and comes with each row's log-sum-exp of
+its scaled scores (-inf where the lane has no valid position): what the
+merge across a mesh's shards reads (``serving/tp_layers.py``).
+
+On a shard of a mesh the arena holds ``page_loc`` slots of each page (the
+model axis) and, sequence-parallel, a run of the table's columns (the
+data axes): ``Slots`` names them, and ``local_count`` turns a lane's global
+range into the one contiguous local range the kernel takes (global
+position grows with local position), so the kernel knows nothing of the
+mesh.
 
 The kernel splits each (lane, KV head) over the block table: ``splits``
 ranges of whole ``TILE``-position tiles, chosen by ``split_count`` from
@@ -30,7 +41,7 @@ from __future__ import annotations
 import torch
 
 from .. import build
-from ..kv_update.kernel import check_scales
+from ..kv_update.kernel import Slots, check_scales
 
 NEG_INF = -1e30
 TILE = 64              # positions per tile of the kernel
@@ -67,7 +78,8 @@ def gather_rows(arena, scale, bt, dtype):
 
 
 def paged_attention_plain(q, arena_k, arena_v, block_table, lengths, *,
-                          window: int = 0, scales=None):
+                          window: int = 0, scales=None, starts=None,
+                          return_lse: bool = False):
     """Plain PyTorch version of the kernel: gather every table page
     (dequantized with ``scales``), mask, fp32 softmax, fp32 P.V."""
     B, H, dh = q.shape
@@ -79,24 +91,44 @@ def paged_attention_plain(q, arena_k, arena_v, block_table, lengths, *,
     v = gather_rows(arena_v, vs, bt, q.dtype)
     qg = q.reshape(B, K, g, dh).float() * (dh ** -0.5)
     s = torch.einsum("bkgd,btkd->bkgt", qg, k)
-    valid = valid_positions(block_table, lengths, page, window)
+    valid = valid_positions(block_table, lengths, page, window, starts)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     m = s.max(dim=-1, keepdim=True).values
     e = torch.where(valid[:, None, None, :], torch.exp(s - m), 0.0)
     l = e.sum(dim=-1, keepdim=True)
     o = torch.einsum("bkgt,btkd->bkgd", e, v) / torch.clamp(l, min=1e-20)
+    if return_lse:
+        lse = torch.where(l > 0, m + torch.log(l), -torch.inf)
+        return o.reshape(B, H, dh), lse.reshape(B, H)
     return o.reshape(B, H, dh).to(q.dtype)
 
 
-def valid_positions(block_table, lengths, page: int, window: int):
+def valid_positions(block_table, lengths, page: int, window: int,
+                    starts=None):
     """[B, P * page] bool: the positions the kernel attends over."""
     P = block_table.shape[1]
     pos = torch.arange(P * page, device=block_table.device)[None]
     valid = (pos < lengths[:, None]) & \
         torch.repeat_interleave(block_table >= 0, page, dim=1)
-    if window:
+    if starts is not None:
+        valid = valid & (pos >= starts[:, None])
+    elif window:
         valid = valid & (pos > (lengths[:, None] - 1 - window))
     return valid
+
+
+def local_count(x, slots: Slots, page_loc: int, P_loc: int):
+    """How many of a shard's local positions (``P_loc`` table columns of
+    ``page_loc`` slots) lie below global position ``x`` (a tensor): the
+    local image of a global bound.  Local position ``c * page_loc + t``
+    is global ``(page0 + c) * page + slot0 + t``, which grows with it, so
+    a global range ``[lo, hi)`` is the local range ``[local_count(lo),
+    local_count(hi))``."""
+    y = x - slots.page0 * slots.page
+    full = torch.div(y, slots.page, rounding_mode="floor")
+    part = torch.clamp(y - full * slots.page - slots.slot0, 0, page_loc)
+    return torch.clamp(full * page_loc + part, 0, P_loc * page_loc).to(
+        torch.int32)
 
 
 def split_count(B: int, K: int, P: int, page: int) -> tuple[int, int]:
@@ -112,7 +144,7 @@ def split_count(B: int, K: int, P: int, page: int) -> tuple[int, int]:
 
 def paged_attention_split_plain(q, arena_k, arena_v, block_table, lengths,
                                 *, window: int = 0, splits: int | None = None,
-                                tile: int = TILE, scales=None):
+                                tile: int = TILE, scales=None, starts=None):
     """The kernel's decomposition in plain PyTorch: per split (a range of
     whole ``tile``-position tiles) the partial max m, sum l and unnormalised
     acc; an empty split gives (m = -1e30, l = 0); the partials merge in
@@ -139,7 +171,8 @@ def paged_attention_split_plain(q, arena_k, arena_v, block_table, lengths,
     v = gather_rows(arena_v, vs, bt, q.dtype)
     qg = q.reshape(B, K, g, dh).float() * (dh ** -0.5)
     s_all = torch.einsum("bkgd,btkd->bkgt", qg, k)
-    valid = valid_positions(block_table, lengths, page, window)[:, None, None, :]
+    valid = valid_positions(block_table, lengths, page, window,
+                            starts)[:, None, None, :]
     parts = []
     for sp in range(splits):
         lo, hi = sp * per * tile, min((sp + 1) * per * tile, P * page)
@@ -164,7 +197,7 @@ def paged_attention_split_plain(q, arena_k, arena_v, block_table, lengths,
     return o.reshape(B, H, dh).to(q.dtype)
 
 
-def _check(q, arena_k, arena_v, block_table, lengths):
+def _check(q, arena_k, arena_v, block_table, lengths, starts=None):
     if q.dim() != 3 or arena_k.dim() != 4 or arena_v.shape != arena_k.shape:
         raise ValueError("q must be [B, H, dh], arenas [pages, page, K, dh]")
     B, H, dh = q.shape
@@ -173,11 +206,15 @@ def _check(q, arena_k, arena_v, block_table, lengths):
         raise ValueError(f"q {tuple(q.shape)} does not fit arena "
                          f"{tuple(arena_k.shape)}")
     if block_table.dim() != 2 or block_table.shape[0] != B \
-            or lengths.shape != (B,):
-        raise ValueError("block_table must be [B, P] and lengths [B]")
-    if block_table.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise TypeError("block_table and lengths must be int32")
-    for t in (arena_k, arena_v, block_table, lengths):
+            or lengths.shape != (B,) or (starts is not None
+                                         and starts.shape != (B,)):
+        raise ValueError("block_table must be [B, P], lengths and starts "
+                         "[B]")
+    if block_table.dtype != torch.int32 or lengths.dtype != torch.int32 \
+            or (starts is not None and starts.dtype != torch.int32):
+        raise TypeError("block_table, lengths and starts must be int32")
+    for t in (arena_k, arena_v, block_table, lengths,
+              *(() if starts is None else (starts,))):
         if t.device != q.device:
             raise ValueError("all tensors must be on one device")
 
@@ -213,19 +250,26 @@ def _counter_buffer(device, n: int):
 
 
 def paged_attention(q, arena_k, arena_v, block_table, lengths, *,
-                    window: int = 0, scales=None):
+                    window: int = 0, scales=None, starts=None,
+                    return_lse: bool = False):
     """q: [B, H, dh]; arena_k/v: [pages, page, K, dh]; block_table: int32
-    [B, P] page ids (-1 unused); lengths: int32 [B].  With ``scales=(ks,
+    [B, P] page ids (-1 unused); lengths: int32 [B], the end of each
+    lane's range; starts: None or int32 [B], its start (without it,
+    ``lengths - window``; give one or the other).  With ``scales=(ks,
     vs)`` (fp32 [pages, page, K]) the arenas are int8.  Returns [B, H, dh]
-    in q's dtype."""
+    in q's dtype, or with ``return_lse`` (out fp32 [B, H, dh], lse fp32
+    [B, H])."""
     global launches, int8_launches
-    _check(q, arena_k, arena_v, block_table, lengths)
+    _check(q, arena_k, arena_v, block_table, lengths, starts)
     check_scales(arena_k, arena_v, scales)
+    if starts is not None and window:
+        raise ValueError("give the lanes' starts or a window, not both")
     if scales is not None and any(s.device != q.device for s in scales):
         raise ValueError("all tensors must be on one device")
     if q.device.type == "cpu":
         return paged_attention_plain(q, arena_k, arena_v, block_table,
-                                     lengths, window=window, scales=scales)
+                                     lengths, window=window, scales=scales,
+                                     starts=starts, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu, not "
                          f"{q.device}")
@@ -237,14 +281,22 @@ def paged_attention(q, arena_k, arena_v, block_table, lengths, *,
     _, page, K, _ = arena_k.shape
     P = block_table.shape[1]
     check_kernel_shape(q.dtype, H, K, dh)
-    for t in (q, arena_k, arena_v, block_table, lengths, *(scales or ())):
+    if window:                     # the range's start, from the window
+        starts = torch.clamp(lengths - window, min=0)
+    for t in (q, arena_k, arena_v, block_table, lengths, *(scales or ()),
+              *(() if starts is None else (starts,))):
         if not t.is_contiguous():
             raise ValueError("paged_attention needs contiguous tensors")
     if q.data_ptr() % 16 or arena_k.data_ptr() % 16 \
             or arena_v.data_ptr() % 16:
         raise ValueError("the kernel reads rows in 16-byte copies: q and the "
                          "arenas must be 16-byte aligned")
-    out = torch.empty_like(q)
+    lse = None
+    if return_lse:
+        out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    else:
+        out = torch.empty_like(q)
     splits, per = split_count(B, K, P, page)
     part_acc = part_ml = counters = 0
     if splits > 1 and B:
@@ -258,19 +310,21 @@ def paged_attention(q, arena_k, arena_v, block_table, lengths, *,
         counters = _counter_buffer(
             q.device, B * K * (1 + MAX_SPLITS // MERGE_CHUNK)).data_ptr()
     lib = build.library()
-    args = (block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            part_acc, part_ml, counters, B, H, K, dh, page, P, int(window),
-            float(dh ** -0.5), splits, per, _DTYPE_CODE[q.dtype],
-            build.stream_ptr(q.device))
+    args = (block_table.data_ptr(),
+            None if starts is None else starts.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), part_acc, part_ml,
+            counters, B, H, K, dh, page, P, float(dh ** -0.5), splits, per,
+            _DTYPE_CODE[q.dtype], build.stream_ptr(q.device))
     if scales is not None:
         err = lib.paged_attention_int8_launch(
             q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr(),
             scales[0].data_ptr(), scales[1].data_ptr(), *args)
         build.check(err, "paged_attention (int8)")
         int8_launches += 1
-        return out
-    err = lib.paged_attention_launch(q.data_ptr(), arena_k.data_ptr(),
-                                     arena_v.data_ptr(), *args)
-    build.check(err, "paged_attention")
-    launches += 1
-    return out
+    else:
+        err = lib.paged_attention_launch(q.data_ptr(), arena_k.data_ptr(),
+                                         arena_v.data_ptr(), *args)
+        build.check(err, "paged_attention")
+        launches += 1
+    return (out, lse) if return_lse else out

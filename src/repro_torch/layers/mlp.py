@@ -11,7 +11,8 @@ import torch
 import torch.nn.functional as F
 
 
-def apply_mlp(cfg, p, x):
+def mlp_hidden(cfg, p, x):
+    """The activation before the output projection ``wo``."""
     h = torch.matmul(x, p["wi"])
     if cfg.mlp == "swiglu":
         g = torch.matmul(x, p["wg"])
@@ -20,4 +21,8 @@ def apply_mlp(cfg, p, x):
         h = torch.square(torch.relu(h))
     else:
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return torch.matmul(h, p["wo"])
+    return h
+
+
+def apply_mlp(cfg, p, x):
+    return torch.matmul(mlp_hidden(cfg, p, x), p["wo"])

@@ -90,7 +90,8 @@ def mamba2_step(cfg, p, x, state):
     step: x [B, D] -> (y [B, Di] fp32 before the gated norm, z, the new
     state)."""
     Bsz = x.shape[0]
-    N, H, P = cfg.ssm_state, n_heads(cfg), cfg.ssm_head_dim
+    # the heads from the weights: a shard of a mesh holds some of them
+    N, H, P = cfg.ssm_state, p["A_log"].shape[-1], cfg.ssm_head_dim
     z = torch.matmul(x, p["in_z"])
     xs = torch.matmul(x, p["in_x"]).float()
     bc = torch.matmul(x, p["in_bc"]).float()

@@ -71,7 +71,9 @@ def test_port_imports_neither_jax_nor_reference():
                 "core/pptr.py", "core/layout.py", "core/atomics.py",
                 "core/heap.py", "core/filters.py", "core/spans.py",
                 "core/heap_recovery.py", "core/ralloc.py",
-                "checkpoint/manager.py"):
+                "checkpoint/manager.py", "distributed/mesh.py",
+                "distributed/specs.py", "launch/mesh_decode.py",
+                "launch/mesh_depth.py"):
         assert PORT / rel in files, rel
     assert (ROOT / "chip_smoke.py") in files
     found = {str(f.relative_to(ROOT)): _bad_imports(f) for f in files}
