@@ -106,6 +106,22 @@ port's paths:
    window (96 steps), each against ``decode_step`` on the card with the
    same seeded weights (the library is built here first; the ranks load
    it).  Its times are four ranks on one card, not a multi-card number.
+10. the sharded train step (``make_train_step`` / ``Trainer`` with a
+   ``mesh``): ``flash_attention``, ``flash_attention_bwd``, ``ssd_scan``
+   and ``ssd_scan_bwd`` against their plain versions at the shapes one
+   rank gives them (starcoder2-3b's 12/1 and 6/1 heads at 2 x 4096 / the
+   data shards, qwen2.5-32b's smoke heads in fp32, mamba2-370m's 16
+   heads at 4 x 2048), timed beside their bounds and SDPA; then one
+   start-up of four ranks sharing the card over gloo: qwen2.5-32b's
+   smoke config in fp32 for 3 steps on (2, 2) and (1, 4) against
+   ``make_train_step`` on the card (loss 1e-4, parameters 5e-4),
+   starcoder2-3b (published widths, 4 of 30 layers, bf16) through
+   ``Trainer`` at 2 x 4096 tokens on (2, 2) and (1, 4) and mamba2-370m
+   (12 of 48 layers) at 8 x 2048 on (2, 2), a warm step and 3 more,
+   against the one-device ``Trainer`` on the card (loss 3e-2, grad norm
+   5e-2), and the (2, 2) starcoder2-3b state saved to rank 0's heap and
+   restored onto (1, 4), every leaf's checksum equal.  Its times are four
+   ranks on one card, not a multi-card number.
 
 Each run prints a ``... detail:`` line.  The launch counters are set to 0
 just before each path and read just after it; the ``kernels`` line gives
@@ -2272,7 +2288,8 @@ def check_mesh(torch, dev, card) -> tuple[dict, dict]:
     import numpy as np
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.launch.mesh_decode import decode_jobs, \
-        one_device_decode, run_ranks
+        one_device_decode
+    from repro_torch.launch.ranks import run_ranks
     from repro_torch.launch.profile_forward import run_config
 
     qcfg = run_config("qwen2.5-32b")
@@ -2370,6 +2387,451 @@ def check_mesh(torch, dev, card) -> tuple[dict, dict]:
             raise AssertionError(f"mesh {name}: launches {launches}, "
                                  f"expected {want} of both on the card")
         paths[f"mesh {name}"] = dict(read_zero(), **launches)
+    return detail, paths
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the sharded train step, ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+# the published widths cut in depth for the time limit: every rank's
+# collectives go through gloo and the host, and four ranks take turns on
+# the card (starcoder2-3b: 4 of 30 layers; mamba2-370m: 12 of 48)
+MESH_TRAIN_LAYERS = {TRAIN_ARCH: 4, SSD_TRAIN_ARCH: 12}
+MESH_TRAIN_STEPS = 4                     # a warm step and 3 more
+# qwen2.5-32b's smoke config in fp32: 3 steps at 4 x 64 tokens
+MESH_SMOKE_TRAIN = ("qwen2.5-32b", 4, 64, 3)
+MESH_TRAIN_NAMES = ("data", "model")
+
+
+def train_shard_shapes() -> tuple[list, list]:
+    """The shapes the mesh train runs give the flash kernels (a rank's
+    batch shard and heads: B, H, K, S, dh, causal, window, dtype) and the
+    scan (Bz, H, S, P, N), with the mesh each comes from."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.layers.ssd import n_heads
+    c, sc = get_config(TRAIN_ARCH), get_smoke_config(MESH_SMOKE_TRAIN[0])
+    mc = get_config(SSD_TRAIN_ARCH)
+    B, S = MESH_SMOKE_TRAIN[1:3]
+    flash = [(f"{TRAIN_ARCH} (2, 2)", (TRAIN_BATCH // 2, c.num_heads // 2,
+                                       1, TRAIN_SEQ, c.head_dim, True, 0,
+                                       "bfloat16")),
+             (f"{TRAIN_ARCH} (1, 4), the KV head shared",
+              (TRAIN_BATCH, c.num_heads // 4, 1, TRAIN_SEQ, c.head_dim, True,
+               0, "bfloat16")),
+             (f"{sc.name} smoke fp32 (2, 2)", (B // 2, sc.num_heads // 2, 1,
+                                              S, sc.head_dim, True, 0,
+                                              "float32")),
+             (f"{sc.name} smoke fp32 (1, 4)", (B, sc.num_heads // 4, 1, S,
+                                              sc.head_dim, True, 0,
+                                              "float32"))]
+    ssd = [(f"{SSD_TRAIN_ARCH} (2, 2)", (SSD_TRAIN_BATCH // 2,
+                                         n_heads(mc) // 2, SSD_TRAIN_SEQ,
+                                         mc.ssm_head_dim, mc.ssm_state))]
+    return flash, ssd
+
+
+def flash_bwd_bound(B, H, K, S, dh, causal, window, es) -> tuple:
+    """Least time for the attention's gradient: ``flash_bwd_flops`` at the
+    dtype's peak, against q, k, v, o, dO read once (and the LSE) and dq,
+    dk, dv written once."""
+    flops = flash_bwd_flops(B, H, S, dh, causal, window)
+    nbytes = es * (3 * B * H * S * dh + 2 * B * K * S * dh
+                   + 2 * B * H * S * dh + 2 * B * K * S * dh) + 4 * B * H * S
+    peak = BF16_FLOPS if es == 2 else FP32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_train_shard_kernels(torch, dev) -> dict:
+    """``flash_attention``, ``flash_attention_bwd``, ``ssd_scan`` and
+    ``ssd_scan_bwd`` at the shapes one rank of the mesh train runs gives
+    them (``train_shard_shapes``), against their plain versions on the
+    same inputs (the tolerances of phases 1 and 7), each timed (graph
+    replay and eager) beside its plain version, its bound and, for flash,
+    SDPA (the backward: SDPA's forward + backward less its forward).
+    Returns {kernel: rows}."""
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.ssd_scan import kernel as ssk
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device=dev).manual_seed(SEED + 61)
+    flash, ssd = train_shard_shapes()
+    out = {k: [] for k in ("flash_attention", "flash_attention_bwd",
+                           "ssd_scan", "ssd_scan_bwd")}
+    for where, (B, H, K, S, dh, causal, win, dtn) in flash:
+        dt = getattr(torch, dtn)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dt)
+        q, k, v, do = randn(B, H, S, dh), randn(B, K, S, dh), \
+            randn(B, K, S, dh), randn(B, H, S, dh)
+        shape = {"q": [B, H, S, dh], "kv": [B, K, S, dh], "causal": causal,
+                 "window": win, "dtype": dtn}
+        want = fak.flash_attention_plain(q, k, v, causal=causal, window=win)
+        got = fak.flash_attention(q, k, v, causal=causal, window=win)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        row_err = fak.row_scaled_error(got, want)
+        tol = 3e-2 if dt == torch.bfloat16 else 2e-5
+        if not err < tol or (dt == torch.bfloat16
+                             and not row_err < fak.BF16_ROW_TOL):
+            raise AssertionError(f"flash_attention at {where} {shape} "
+                                 f"differs from its plain version by {err} "
+                                 f"({row_err} of a row's rms)")
+        variant = fak.last_variant
+        bound, by = flash_bound(B, H, K, S, dh, causal, win, q.element_size())
+
+        def fwd():
+            return fak.flash_attention(q, k, v, causal=causal, window=win)
+
+        def lib_fwd():
+            return sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+        lib_f = event_ms(torch, lib_fwd, iters=10)
+        out["flash_attention"].append({
+            "where": where, "shape": shape, "variant": variant,
+            "max_abs_err": err, "row_scaled_err": row_err, "tolerance": tol,
+            "ms": graph_ms(torch, fwd, iters=10),
+            "eager_ms": event_ms(torch, fwd, iters=10),
+            "plain_ms": event_ms(torch, lambda: fak.flash_attention_plain(
+                q, k, v, causal=causal, window=win), iters=2, warmup=1),
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_f,
+            "library_call": f"F.scaled_dot_product_attention(is_causal="
+                            f"{causal}, enable_gqa=True)"})
+        o, lse = fak._launch_fwd(q, k, v, causal, win, with_lse=True)
+        want = fak.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                             causal=causal, window=win)
+        got = fak.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                      window=win)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            if dt == torch.float32:
+                e = float((a - b).abs().max() / b.abs().max())
+                bad = not e < 1e-4
+            else:
+                e = fak.row_scaled_error(a, b, floor=fak.GRAD_ROW_FLOOR)
+                bad = not e < fak.BF16_ROW_TOL
+            errs[name] = e
+            if bad:
+                raise AssertionError(f"flash_attention_bwd at {where} "
+                                     f"{shape}: {name} differs from the "
+                                     f"plain version by {e}")
+        variant, splits = fak.last_bwd_variant, fak.last_bwd_splits
+        bound, by = flash_bwd_bound(B, H, K, S, dh, causal, win,
+                                    q.element_size())
+        qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+
+        def bwd():
+            return fak.flash_attention_bwd(q, k, v, o, lse, do,
+                                           causal=causal, window=win)
+
+        def lib_fwd_bwd():
+            sdpa(qr, kr, vr, is_causal=causal, enable_gqa=True).backward(do)
+        out["flash_attention_bwd"].append({
+            "where": where, "shape": shape, "variant": variant,
+            "splits": splits,
+            "max_abs_err": max(float((a.float() - b.float()).abs().max())
+                               for a, b in zip(got, want)),
+            "errors": errs, "tolerance": "1e-4 of max |plain|"
+            if dt == torch.float32 else {"row_scaled": fak.BF16_ROW_TOL,
+                                         "floor": fak.GRAD_ROW_FLOOR},
+            "ms": graph_ms(torch, bwd, iters=10),
+            "eager_ms": event_ms(torch, bwd, iters=10),
+            "plain_ms": event_ms(torch, lambda: fak.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, causal=causal, window=win), iters=2,
+                warmup=1),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": event_ms(torch, lib_fwd_bwd, iters=10) - lib_f,
+            "library_call": "F.scaled_dot_product_attention forward + "
+                            "backward, less its forward"})
+        del q, k, v, do, o, lse, want, got, qr, kr, vr
+    for where, (Bz, H, S, P, N) in ssd:
+        def randn(*shape, scale=1.0):
+            return torch.randn(shape, generator=g, device=dev) * scale
+        xdt, loga = randn(Bz, H, S, P, scale=0.1), \
+            -randn(Bz, H, S, scale=0.1).abs()
+        Bm, Cm = randn(Bz, S, N, scale=0.3), randn(Bz, S, N, scale=0.3)
+        dy = randn(Bz, H, S, P)
+        shape = {"xdt": [Bz, H, S, P], "BC": [Bz, S, N], "dtype": "float32"}
+        want = ssk.ssd_scan_plain(xdt, loga, Bm, Cm)
+        got = ssk.ssd_scan(xdt, loga, Bm, Cm)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / (float(want.abs().max()) + 1e-9)
+        if not rel < 1e-4:
+            raise AssertionError(f"ssd_scan at {where} {shape} differs from "
+                                 f"its plain version by {rel} (relative)")
+        bound, by = ssd_bound(Bz, H, S, P, N)
+
+        def fwd():
+            return ssk.ssd_scan(xdt, loga, Bm, Cm)
+        none = "none (no single PyTorch call computes the scan)"
+        out["ssd_scan"].append({
+            "where": where, "shape": shape, "max_abs_err": err,
+            "rel_err": rel, "tolerance": "1e-4 relative",
+            "ms": graph_ms(torch, fwd, iters=10),
+            "eager_ms": event_ms(torch, fwd, iters=10),
+            "plain_ms": event_ms(torch, lambda: ssk.ssd_scan_plain(
+                xdt, loga, Bm, Cm), iters=2, warmup=1),
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "library_call": none})
+        want = ssk.ssd_scan_bwd_plain(xdt, loga, Bm, Cm, dy)
+        got = ssk.ssd_scan_bwd(xdt, loga, Bm, Cm, dy)
+        torch.cuda.synchronize()
+        errs = {name: float((a - b).abs().max() / b.abs().max())
+                for name, a, b in zip(("dxdt", "dloga", "dB", "dC"), got,
+                                      want)}
+        if not all(e < 1e-4 for e in errs.values()):
+            raise AssertionError(f"ssd_scan_bwd at {where} {shape} differs "
+                                 f"from its plain version by {errs}")
+        bound, by = ssd_bwd_bound(Bz, H, S, P, N)
+
+        def bwd():
+            return ssk.ssd_scan_bwd(xdt, loga, Bm, Cm, dy)
+        out["ssd_scan_bwd"].append({
+            "where": where, "shape": shape,
+            "max_abs_err": max(float((a - b).abs().max())
+                               for a, b in zip(got, want)),
+            "rel_err": errs, "tolerance": "1e-4 of max |plain|",
+            "ms": graph_ms(torch, bwd, iters=10),
+            "eager_ms": event_ms(torch, bwd, iters=10),
+            "plain_ms": event_ms(torch, lambda: ssk.ssd_scan_bwd_plain(
+                xdt, loga, Bm, Cm, dy), iters=2, warmup=1),
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "library_call": none})
+        del xdt, loga, Bm, Cm, dy, want, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def one_device_train(torch, dev, cfg, batch, seq, steps) -> dict:
+    """``Trainer`` on the card over the mesh runs' ``TokenStream``: each
+    step's loss and grad norm, the median step time (the warm step left
+    out), peak memory and the kernels' launches."""
+    import statistics
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.optimizer import AdamWConfig
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = Trainer(cfg, AdamWConfig(), seed=SEED, device=dev)
+    norms, step_fn = [], tr.step_fn
+
+    def recorded(*args):
+        out = step_fn(*args)
+        norms.append(float(out[2]["grad_norm"]))
+        return out
+    tr.step_fn = recorded
+    torch.cuda.synchronize()
+    zero_counts()
+    losses = tr.run(TokenStream(cfg.vocab_size, batch, seq, seed=SEED),
+                    steps=steps)
+    torch.cuda.synchronize()
+    out = {"losses": losses, "grad_norms": norms,
+           "ms_per_step_median": 1e3 * statistics.median(tr.step_times[1:]),
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "launches": read_counts()}
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def state_bytes(cfg) -> int:
+    """A train state's bytes: the parameters and two fp32 moments."""
+    from repro_torch.models.params import param_shapes
+    return sum(t.numel() * (t.element_size() + 8)
+               for t in _leaves(param_shapes(cfg)))
+
+
+def check_mesh_train(torch, dev, card) -> tuple[dict, dict]:
+    """The sharded train step on MESH_RANKS ranks that share the card over
+    gloo, against one device on the card with the same seeded weights and
+    batches: qwen2.5-32b's smoke config in fp32 through ``make_train_step``
+    on (2, 2) and (1, 4) (every step's loss within 1e-4, every parameter
+    after the last within 5e-4: the reference's own mesh bounds);
+    starcoder2-3b (published widths, MESH_TRAIN_LAYERS deep, bf16) through
+    ``Trainer`` at 2 x 4096 ``TokenStream`` tokens on (2, 2) and on (1, 4)
+    (its 2 KV heads shared at tp 4), and mamba2-370m the same way at 8 x
+    2048 on (2, 2), a warm step and 3 more, each step's loss within 3e-2
+    and grad norm within 5e-2 (relative) of one device's; the (2, 2)
+    starcoder2-3b state saved (whole arrays, to rank 0's RAM heap) and
+    restored onto (1, 4), every leaf's checksum equal to the saved one.
+    Returns the detail and each run's launches (summed over the ranks) by
+    path."""
+    import numpy as np
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core.layout import SB_SIZE
+    from repro_torch.launch import mesh_train as mt
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models.params import init_params
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    arch, B, S, steps = MESH_SMOKE_TRAIN
+    scfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    rng = np.random.default_rng(SEED + 62)
+    batches = []
+    for _ in range(steps):
+        t = rng.integers(0, scfg.vocab_size, (B, S)).astype(np.int32)
+        batches.append({"tokens": t, "labels": t})
+    wide = {a: dataclasses.replace(get_config(a), num_layers=n)
+            for a, n in MESH_TRAIN_LAYERS.items()}
+    shapes = {TRAIN_ARCH: (TRAIN_BATCH, TRAIN_SEQ),
+              SSD_TRAIN_ARCH: (SSD_TRAIN_BATCH, SSD_TRAIN_SEQ)}
+
+    # the one-device runs on the card
+    t = time.perf_counter()
+    p = init_params(scfg, torch.Generator(device=dev).manual_seed(SEED),
+                    device=dev)
+    opt, step = init_opt_state(p), make_train_step(
+        scfg, AdamWConfig(warmup_steps=1))
+    zero_counts()
+    metrics = []
+    for b in batches:
+        p, opt, m = step(p, opt, {k: torch.as_tensor(v, device=dev)
+                                  for k, v in b.items()})
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    refs = {"smoke": {"metrics": metrics, "params": mt.numpy_tree(p),
+                      "launches": read_counts()}}
+    del p, opt
+    for a, c in wide.items():
+        refs[a] = one_device_train(torch, dev, c, *shapes[a],
+                                   MESH_TRAIN_STEPS)
+    ref_s = time.perf_counter() - t
+    torch.cuda.empty_cache()          # the ranks need the card's memory
+
+    heap = -(-int(state_bytes(wide[TRAIN_ARCH]) * 1.05 + (64 << 20))
+             // SB_SIZE) * SB_SIZE
+
+    def trainer(a, mesh, **kw):
+        return dict({"kind": "trainer", "cfg": wide[a],
+                     "mesh": (mesh, MESH_TRAIN_NAMES), "device": "cuda",
+                     "seed": SEED, "stream": (wide[a].vocab_size, *shapes[a],
+                                              SEED),
+                     "steps": MESH_TRAIN_STEPS, "log_every": 1}, **kw)
+    ckpt = {"key": TRAIN_ARCH, "size": heap}
+    runs = [  # name, job
+        (f"{arch} smoke fp32 (2, 2)", {
+            "kind": "step", "cfg": scfg, "mesh": ((2, 2), MESH_TRAIN_NAMES),
+            "device": "cuda", "seed": SEED, "batches": batches,
+            "opt": {"warmup_steps": 1}}),
+        (f"{arch} smoke fp32 (1, 4)", {
+            "kind": "step", "cfg": scfg, "mesh": ((1, 4), MESH_TRAIN_NAMES),
+            "device": "cuda", "seed": SEED, "batches": batches,
+            "opt": {"warmup_steps": 1}}),
+        (f"{TRAIN_ARCH} (2, 2)", trainer(TRAIN_ARCH, (2, 2), ckpt=ckpt,
+                                         ckpt_every=MESH_TRAIN_STEPS,
+                                         checksums=True)),
+        (f"{TRAIN_ARCH} (1, 4)", trainer(TRAIN_ARCH, (1, 4))),
+        (f"{TRAIN_ARCH} restored onto (1, 4)", trainer(
+            TRAIN_ARCH, (1, 4), ckpt=ckpt, checksums=True)),
+        (f"{SSD_TRAIN_ARCH} (2, 2)", trainer(SSD_TRAIN_ARCH, (2, 2)))]
+    t = time.perf_counter()
+    res = run_ranks(mt.jobs, MESH_RANKS, [job for _, job in runs],
+                    device="cuda", timeout=900)
+    wall = time.perf_counter() - t
+    detail = {"ranks": MESH_RANKS, "card": card, "wall_s": wall,
+              "one_device_s": ref_s, "layers": {
+                  a: [n, get_config(a).num_layers]
+                  for a, n in MESH_TRAIN_LAYERS.items()},
+              "note": f"{MESH_RANKS} ranks on one H100 over gloo: not a "
+                      f"multi-card number", "runs": {}}
+    paths = {f"mesh train one-device reference of {arch} smoke fp32":
+             refs["smoke"]["launches"]}
+    for a in wide:
+        paths[f"mesh train one-device reference of {a}"] = \
+            refs[a]["launches"]
+    for i, (name, job) in enumerate(runs):
+        r0 = res[0][i]
+        launches = {k: sum(rk[i]["launches"][k] for rk in res)
+                    for k in r0["launches"]}
+        by_rank = [rk[i]["launches"] for rk in res]
+        row = {"mesh": list(job["mesh"][0]), "launches_by_rank": by_rank,
+               # all-reduces (calls, bytes) a rank made on the path; a
+               # run that saves counts the save's gathers too
+               "collectives_by_rank": [rk[i]["collectives"] for rk in res]}
+        if job["kind"] == "step":
+            ref = refs["smoke"]
+            dl = max(abs(a[0] - b[0]) for a, b in zip(r0["metrics"],
+                                                       ref["metrics"]))
+            want = dict(tree_leaves(ref["params"]))
+            dp = max(float(np.abs(x - want[path]).max())
+                     for path, x in tree_leaves(r0["params"]))
+            row.update(loss_max_abs_diff=dl, param_max_abs_diff=dp,
+                       metrics=r0["metrics"], tolerance={"loss": 1e-4,
+                                                         "params": 5e-4})
+            print(f"mesh train {name}: loss within {dl:.3g}, parameters "
+                  f"within {dp:.3g} of make_train_step on one device "
+                  f"(tolerance 1e-4 / 5e-4)", flush=True)
+            if not (dl < 1e-4 and dp < 5e-4):
+                raise AssertionError(f"mesh train {name} differs from one "
+                                     f"device: loss {dl}, params {dp}")
+            n = scfg.num_layers * steps
+            want = {"flash_attention": 2 * n, "flash_attention_bwd": n}
+            if any(rk[k] != v for rk in by_rank for k, v in want.items()):
+                raise AssertionError(f"mesh train {name}: launches "
+                                     f"{by_rank}, expected {want} a rank")
+        elif "restored" in name:
+            saver = [n for n, _ in runs].index(f"{TRAIN_ARCH} (2, 2)")
+            saved = res[0][saver]["checksums_saved"]
+            same = [saved[-1][0] == MESH_TRAIN_STEPS,
+                    r0["start_step"] == MESH_TRAIN_STEPS,
+                    r0["checksums_at_start"] == saved[-1][1]]
+            row.update(saved_at_step=saved[-1][0],
+                       restored_at_step=r0["start_step"],
+                       leaves=len(saved[-1][1]), checksums_equal=all(same),
+                       restore_setup_s=r0["setup_s"], heap_bytes=heap)
+            print(f"mesh train {name}: the (2, 2) state saved at step "
+                  f"{saved[-1][0]} ({len(saved[-1][1])} leaves, whole "
+                  f"arrays) restored at step {r0['start_step']}, every "
+                  f"leaf's checksum equal: {all(same)}", flush=True)
+            if not all(same):
+                raise AssertionError(f"mesh train {name}: {same}")
+        else:
+            a = TRAIN_ARCH if name.startswith(TRAIN_ARCH) else SSD_TRAIN_ARCH
+            ref = refs[a]
+            dl = max(abs(x - y) for x, y in zip(r0["losses"], ref["losses"]))
+            dg = max(abs(x - y) / y for x, y in zip(r0["grad_norms"],
+                                                    ref["grad_norms"]))
+            ms = 1e3 * float(np.median(r0["step_s"][1:]))
+            peaks = [rk[i]["peak_gb"] for rk in res]
+            coll = r0["collectives"]
+            row.update(losses=r0["losses"], grad_norms=r0["grad_norms"],
+                       one_device_losses=ref["losses"],
+                       one_device_grad_norms=ref["grad_norms"],
+                       loss_max_abs_diff=dl, grad_norm_max_rel_diff=dg,
+                       tolerance={"loss": 3e-2, "grad_norm": 5e-2},
+                       tokens=shapes[a], steps=MESH_TRAIN_STEPS,
+                       ms_per_step_median=ms,
+                       one_device_ms_per_step_median=ref[
+                           "ms_per_step_median"],
+                       peak_gb_by_rank=peaks,
+                       one_device_peak_gb=ref["peak_gb"])
+            print(f"mesh train {name}: {wide[a].num_layers} layers, "
+                  f"{shapes[a][0]} x {shapes[a][1]} tokens; losses within "
+                  f"{dl:.3g}, grad norms within {dg:.3g} of one device "
+                  f"(tolerance 3e-2 / 5e-2); {ms:.1f} ms/step "
+                  f"({MESH_RANKS} ranks on one H100 over gloo: not a "
+                  f"multi-card number; one device "
+                  f"{ref['ms_per_step_median']:.1f}); rank 0's all-reduces "
+                  f"{coll['calls'] / MESH_TRAIN_STEPS:.0f} a step, "
+                  f"{coll['bytes'] / MESH_TRAIN_STEPS / 1e9:.3f} GB a step"
+                  f"{' (with the save)' if 'ckpt' in job else ''}; peak "
+                  f"GB by rank {[round(x, 2) for x in peaks]}; launches by "
+                  f"rank {by_rank} on {card}", flush=True)
+            if not (dl < 3e-2 and dg < 5e-2):
+                raise AssertionError(f"mesh train {name} differs from one "
+                                     f"device: loss {dl}, grad norm {dg}")
+            n_mix = wide[a].num_layers
+            kern = ("flash_attention", "flash_attention_bwd") \
+                if a == TRAIN_ARCH else ("ssd_scan", "ssd_scan_bwd")
+            want = {kern[0]: 2 * n_mix * MESH_TRAIN_STEPS,
+                    kern[1]: n_mix * MESH_TRAIN_STEPS}
+            for rk in by_rank:
+                if any(rk[k] != v for k, v in want.items()):
+                    raise AssertionError(f"mesh train {name}: launches "
+                                         f"{rk} on a rank, expected {want}")
+        detail["runs"][name] = row
+        paths[f"mesh train {name}"] = dict(read_zero(), **launches)
     return detail, paths
 
 
@@ -2539,6 +3001,24 @@ def main() -> int:
     paths.update(mesh_paths)
     mesh["seconds"] = time.perf_counter() - t0
     print("mesh detail: " + json.dumps(mesh), flush=True)
+    torch.cuda.empty_cache()
+
+    # the sharded train step: the kernels at a rank's shapes, then the
+    # mesh train runs (ranks sharing the card over gloo)
+    t0 = time.perf_counter()
+    for name, rows in check_train_shard_kernels(torch, dev).items():
+        by_name[name]["train_shard_shapes"] = rows
+        for r in rows:
+            print(f"kernel {name} at {r['where']} {r['shape']}: max_abs_err "
+                  f"{r['max_abs_err']} ms {r['ms']:.5f} eager "
+                  f"{r['eager_ms']:.5f} plain {r['plain_ms']:.5f} bound "
+                  f"{r['bound_ms']:.5f} library {r['library_ms']}",
+                  flush=True)
+    mtrain, mtrain_paths = check_mesh_train(torch, dev, card)
+    paths.update(mtrain_paths)
+    mtrain["seconds"] = time.perf_counter() - t0
+    print("mesh train detail: " + json.dumps(mtrain, default=str),
+          flush=True)
     torch.cuda.empty_cache()
 
     def weights(c):

@@ -6,6 +6,13 @@ scale a leaf (max |x| / 127) and round-half-to-even, so it gives the
 reference's bits.  On a multi-device run the int8 payload is what an
 all-reduce would carry (4x fewer bytes than fp32); here, on one device,
 it quantizes at the gradient boundary, as the reference does.
+
+On a mesh (``Int8ErrorFeedback(blocks, mesh=)``) the gradients are this
+rank's blocks; each leaf's scale comes from the leaf's global max (the
+reference quantizes whole leaves): the blocks' maxima of every leaf are
+maxed over the whole mesh in one collective (a block replicated over an
+axis has the same maximum on each of its ranks).  The residual stays per
+block.
 """
 
 from __future__ import annotations
@@ -13,10 +20,15 @@ from __future__ import annotations
 import torch
 
 from ..tree import tree_leaves, tree_map, tree_unflatten
+from .mesh import axis_names, pmax
 
 
-def _quantize(x: torch.Tensor):
-    amax = torch.max(torch.abs(x)) + 1e-12
+def _quantize(x: torch.Tensor, amax: torch.Tensor | None = None):
+    """(q, scale) of x, the scale from ``amax`` (x's max |x| by
+    default)."""
+    if amax is None:
+        amax = torch.max(torch.abs(x))
+    amax = amax + 1e-12
     scale = amax / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -29,17 +41,22 @@ def _dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 class Int8ErrorFeedback:
     """Stateful codec: residuals carry quantization error to the next step."""
 
-    def __init__(self, params_like):
+    def __init__(self, params_like, mesh=None):
+        self.mesh = mesh
         self.residual = tree_map(
             lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                   device=p.device), params_like)
 
     def __call__(self, grads):
         out, res = [], []
-        for (_, g), (_, r) in zip(tree_leaves(grads),
-                                  tree_leaves(self.residual)):
-            x = g.float() + r
-            dq = _dequantize(*_quantize(x))
+        xs = [g.float() + r for (_, g), (_, r) in
+              zip(tree_leaves(grads), tree_leaves(self.residual))]
+        amax = [None] * len(xs)
+        if self.mesh is not None:
+            amax = pmax(torch.stack([torch.max(torch.abs(x)) for x in xs]),
+                        self.mesh, axis_names(self.mesh)).unbind(0)
+        for x, a in zip(xs, amax):
+            dq = _dequantize(*_quantize(x, a))
             out.append(dq)
             res.append(x - dq)
         self.residual = tree_unflatten(self.residual, res)

@@ -26,6 +26,11 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 MODEL_AXIS = "model"
 
+# the all-reduces ``psum`` and ``pmax`` made in this process (one a
+# process group) and their bytes; a caller zeroes them around a path
+collective_calls = 0
+collective_bytes = 0
+
 
 def make_mesh(shape, names, device_type: str = "cuda") -> DeviceMesh:
     """A ``DeviceMesh`` of ``shape`` with axis ``names`` over the ranks of
@@ -109,18 +114,23 @@ def _groups(mesh, axes):
     return [mesh.get_group(a) for a in axes]
 
 
+def _all_reduce(x: torch.Tensor, mesh, axes, op) -> torch.Tensor:
+    global collective_calls, collective_bytes
+    for g in _groups(mesh, axes):
+        dist.all_reduce(x, op=op, group=g)
+        collective_calls += 1
+        collective_bytes += x.numel() * x.element_size()
+    return x
+
+
 def psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """Sum over ``axes`` (a name or a tuple), IN PLACE; returns x."""
-    for g in _groups(mesh, axes):
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=g)
-    return x
+    return _all_reduce(x, mesh, axes, dist.ReduceOp.SUM)
 
 
 def pmax(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """Maximum over ``axes``, IN PLACE; returns x."""
-    for g in _groups(mesh, axes):
-        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=g)
-    return x
+    return _all_reduce(x, mesh, axes, dist.ReduceOp.MAX)
 
 
 def all_gather(x: torch.Tensor, mesh, axes) -> torch.Tensor:

@@ -129,7 +129,7 @@ def dstate_specs(cfg: ModelConfig, mesh, batch_sharded: bool = True) -> dict:
     return specs
 
 
-def _entry_axes(entry) -> tuple[str, ...]:
+def entry_axes(entry) -> tuple[str, ...]:
     if entry is None:
         return ()
     return (entry,) if isinstance(entry, str) else tuple(entry)
@@ -139,7 +139,7 @@ def local_block(x: torch.Tensor, spec, mesh) -> torch.Tensor:
     """This rank's block of the global tensor ``x`` under ``spec``, a new
     contiguous tensor."""
     for dim, entry in enumerate(spec):
-        axes = _entry_axes(entry)
+        axes = entry_axes(entry)
         n = axis_size(mesh, axes) if axes else 1
         if n == 1:
             continue
@@ -168,7 +168,7 @@ def gather_block(x: torch.Tensor, spec, mesh) -> torch.Tensor:
     shape, index = list(x.shape), []
     used = set()
     for dim, entry in enumerate(spec):
-        axes = _entry_axes(entry)
+        axes = entry_axes(entry)
         used.update(axes)
         n = axis_size(mesh, axes) if axes else 1
         i = dp_linear_index(mesh, axes) if axes else 0

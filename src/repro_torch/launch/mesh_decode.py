@@ -1,14 +1,6 @@
 """The sharded decode step driven on a mesh of ranks.
 
-``run_ranks(fn, world, job)`` starts ``world`` processes (the ``spawn``
-start method), joins them into one ``torch.distributed`` gloo group over
-a ``FileStore`` in a fresh temporary directory, calls ``fn(rank, world,
-job)`` in each and returns the ranks' results in rank order; a rank that
-raises or dies makes it raise, and it leaves no process behind.  On the
-card every rank drives the one card (gloo carries the collectives: NCCL
-takes one rank a device), so a timing there is N ranks sharing one H100,
-not a multi-card number.
-
+The ranks are started by ``launch/ranks.py`` ``run_ranks``.
 ``decode_rank`` is a rank's side of a decode run: it builds its blocks of
 the weights (from a numpy tree, or seeded and cut leaf by leaf so that no
 rank holds the whole tree) and of the decode state, runs
@@ -18,82 +10,11 @@ what the caller compares.
 
 from __future__ import annotations
 
-import os
-import queue
-import shutil
-import tempfile
 import time
-import traceback
 
 import numpy as np
 import torch
-import torch.distributed as dist
-import torch.multiprocessing as mp
 
-
-def _rank_main(rank, world, store_path, fn, job, device, out):
-    try:
-        if device == "cpu":
-            torch.set_num_threads(1)
-        else:
-            torch.cuda.set_device(0)
-        dist.init_process_group("gloo", store=dist.FileStore(store_path,
-                                                             world),
-                                rank=rank, world_size=world)
-        try:
-            res = fn(rank, world, job)
-        finally:
-            dist.destroy_process_group()
-        out.put((rank, True, res))
-    except Exception:                  # reported to the parent, which raises
-        out.put((rank, False, traceback.format_exc()))
-
-
-def run_ranks(fn, world: int, job, *, device: str = "cpu",
-              timeout: float = 900.0) -> list:
-    """``fn(rank, world, job)`` on ``world`` spawned ranks of one gloo
-    group, each on ``device`` ("cpu": one thread a rank; "cuda": card 0);
-    their results (picklable: numpy, not tensors) in rank order.  Raises
-    with every failed rank's traceback."""
-    ctx = mp.get_context("spawn")
-    out = ctx.Queue()
-    tmp = tempfile.mkdtemp(prefix="mesh_decode_")
-    procs = [ctx.Process(target=_rank_main, args=(
-        r, world, os.path.join(tmp, "store"), fn, job, device, out))
-        for r in range(world)]
-    results, errors = {}, {}
-    try:
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + timeout
-        while len(results) + len(errors) < world:
-            try:
-                rank, ok, res = out.get(timeout=1.0)
-                (results if ok else errors)[rank] = res
-            except queue.Empty:
-                gone = [r for r, p in enumerate(procs)
-                        if p.exitcode not in (None, 0)
-                        and r not in results and r not in errors]
-                if gone or time.monotonic() > deadline:
-                    for r in gone:
-                        errors[r] = f"exited with {procs[r].exitcode}"
-                    if not gone:
-                        errors[-1] = f"timed out after {timeout} s"
-                    break
-            if errors:
-                break
-        for p in procs:
-            p.join(timeout=30 if not errors else 5)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.terminate()
-                p.join()
-        shutil.rmtree(tmp, ignore_errors=True)
-    if errors:
-        raise RuntimeError("mesh ranks failed:\n" + "\n".join(
-            f"-- rank {r}:\n{e}" for r, e in sorted(errors.items())))
-    return [results[r] for r in range(world)]
 
 
 def kernel_counts() -> dict:

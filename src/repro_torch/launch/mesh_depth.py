@@ -35,7 +35,8 @@ def main(argv=None) -> int:
     from ..device import resolve_device
     from ..kernels import build
     from .bench_paged import card_line
-    from .mesh_decode import decode_jobs, one_device_decode, run_ranks
+    from .mesh_decode import decode_jobs, one_device_decode
+    from .ranks import run_ranks
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cases", default="bf16:5,bf16:11,fp32:11,bf16:38")

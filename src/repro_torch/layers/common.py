@@ -7,13 +7,16 @@ as in the reference.  ``rmsnorm`` and ``layernorm`` are autograd Functions
 whose backward is the reference's custom VJP (``_rms_bwd``, ``_ln_bwd``)
 op for op, with its casts: every [.., D] tensor in x's dtype, the row
 sums and the weight (and bias) gradients summed in fp32 and cast to the
-weight's dtype.
+weight's dtype.  ``embed`` takes a mesh for the vocab-parallel
+embedding of the sharded train step.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..distributed.collectives import model_index, reduce_from_model
 
 
 def _f32_rowsum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -98,8 +101,20 @@ def apply_norm(kind: str, p: dict, x: torch.Tensor):
     return layernorm(x, p["w"], p["b"])
 
 
-def embed(tokens: torch.Tensor, table: torch.Tensor):
-    return table[tokens.long()]
+def embed(tokens: torch.Tensor, table: torch.Tensor, mesh=None):
+    """Rows of ``table`` for ``tokens``.  With ``mesh`` the table is this
+    model rank's rows of the vocabulary (vocab-parallel): ids outside
+    them give zero rows, and the ranks' rows are summed over ``model``
+    (exact: one of them is not zero)."""
+    if mesh is None:
+        return table[tokens.long()]
+    V = table.shape[0]
+    local = tokens.long() - model_index(mesh) * V
+    ok = (local >= 0) & (local < V)
+    rows = table[local.clamp(0, V - 1)]
+    rows = torch.where(ok[..., None], rows, torch.zeros(
+        (), dtype=table.dtype, device=table.device))
+    return reduce_from_model(rows, mesh)
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor):

@@ -2,13 +2,19 @@
 
 Port of the reference's ``layers/mlp.py`` ``apply_mlp``: SiLU and GELU
 (tanh form, ``jax.nn.gelu``'s default) are evaluated in fp32 and cast
-back to the activation dtype.
+back to the activation dtype.  On a mesh whose ``model`` axis has more
+than one rank, ``apply_mlp(..., mesh=)`` runs this rank's columns of the
+ffn dim: wi / wg column-parallel on the replicated input, ``wo``
+row-parallel (``distributed/collectives.py``).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..distributed.collectives import copy_to_model, model_size, \
+    row_parallel
 
 
 def mlp_hidden(cfg, p, x):
@@ -24,5 +30,11 @@ def mlp_hidden(cfg, p, x):
     return h
 
 
-def apply_mlp(cfg, p, x):
-    return torch.matmul(mlp_hidden(cfg, p, x), p["wo"])
+def apply_mlp(cfg, p, x, mesh=None):
+    if mesh is None:
+        return torch.matmul(mlp_hidden(cfg, p, x), p["wo"])
+    if p["wi"].shape[-1] * model_size(mesh) != cfg.d_ff:
+        raise NotImplementedError(f"d_ff {cfg.d_ff} does not split over "
+                                  f"model {model_size(mesh)}")
+    return row_parallel(mlp_hidden(cfg, p, copy_to_model(x, mesh)),
+                        p["wo"], mesh)

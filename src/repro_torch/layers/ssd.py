@@ -20,6 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.collectives import copy_to_model, model_size, \
+    reduce_from_model, row_parallel
 from ..kernels.ssd_scan.kernel import ssd_scan
 from .common import causal_conv, conv_step
 
@@ -37,26 +39,49 @@ def _causal_conv(u, w, b):
     return F.silu(causal_conv(u, w, b).float()).to(u.dtype)
 
 
-def _gated_norm(y, z, w, eps=1e-6):
+def _gated_norm(y, z, w, eps=1e-6, mesh=None):
+    """y * silu(z), RMS-normalised over d_inner, times w.  On a mesh, y is
+    this rank's heads: its sum of squares is summed over ``model`` (and
+    its cotangent too: the sum feeds every rank's heads) and divided by
+    the whole d_inner."""
     y = y * F.silu(z.float())
-    y = y * torch.rsqrt((y * y).mean(dim=-1, keepdim=True) + eps)
+    if mesh is None:
+        ms = (y * y).mean(dim=-1, keepdim=True)
+    else:
+        ssq = reduce_from_model(torch.sum(y * y, dim=-1, keepdim=True), mesh)
+        ms = copy_to_model(ssq, mesh) / (y.shape[-1] * model_size(mesh))
+    y = y * torch.rsqrt(ms + eps)
     return y * w
 
 
-def mamba2_forward(cfg, p, x):
-    """Full-sequence SSD.  x: [B, S, D] -> [B, S, D], differentiable."""
+def mamba2_forward(cfg, p, x, mesh=None):
+    """Full-sequence SSD.  x: [B, S, D] -> [B, S, D], differentiable.
+
+    With ``mesh`` (a model axis of more than one rank) this rank's heads,
+    as ``serving/tp_layers.py`` ``mamba2_decode_tp`` splits them: in_z /
+    in_x / in_dt, conv_x, dt_bias, A_log, D and norm_w this rank's
+    blocks, in_bc and conv_bc replicated (B and C feed every head), the
+    gated norm's sum of squares summed over ``model``, out_proj
+    row-parallel; the scan runs on the rank's H / tp heads."""
     Bsz, S, D = x.shape
-    Di, N, H, P = d_inner(cfg), cfg.ssm_state, n_heads(cfg), cfg.ssm_head_dim
-    Q = cfg.ssm_chunk
+    N, P, Q = cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_chunk
+    H = p["A_log"].shape[-1]           # a shard of a mesh holds some heads
+    Di = H * P
     if S % Q:
         raise ValueError(f"seq {S} not divisible by chunk {Q}")
+    if mesh is not None and H * model_size(mesh) != n_heads(cfg):
+        raise NotImplementedError(f"{n_heads(cfg)} SSD heads do not split "
+                                  f"over model {model_size(mesh)}")
 
-    z = torch.matmul(x, p["in_z"])
-    xs = torch.matmul(x, p["in_x"])
+    h = x if mesh is None else copy_to_model(x, mesh)
+    z = torch.matmul(h, p["in_z"])
+    xs = torch.matmul(h, p["in_x"])
     bc = torch.matmul(x, p["in_bc"])
-    dt = torch.matmul(x, p["in_dt"])
+    dt = torch.matmul(h, p["in_dt"])
     xs = _causal_conv(xs, p["conv_x_w"], p["conv_x_b"])
     bc = _causal_conv(bc, p["conv_bc_w"], p["conv_bc_b"])
+    if mesh is not None:
+        bc = copy_to_model(bc, mesh)
     Bm, Cm = bc[..., :N], bc[..., N:]
 
     dt = F.softplus(dt.float() + p["dt_bias"])               # [B, S, H]
@@ -69,8 +94,11 @@ def mamba2_forward(cfg, p, x):
                  Bm.float().contiguous(), Cm.float().contiguous(), chunk=Q)
     y = y.transpose(1, 2)                                     # [B, S, H, P]
     y = y + p["D"][None, None, :, None] * xh
-    y = _gated_norm(y.reshape(Bsz, S, Di), z.float(), p["norm_w"])
-    return torch.matmul(y.to(x.dtype), p["out_proj"])
+    y = _gated_norm(y.reshape(Bsz, S, Di), z.float(), p["norm_w"],
+                    mesh=mesh).to(x.dtype)
+    if mesh is None:
+        return torch.matmul(y, p["out_proj"])
+    return row_parallel(y, p["out_proj"], mesh)
 
 
 def mamba2_init_state(cfg, batch: int, device=None) -> dict:

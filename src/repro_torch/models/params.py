@@ -33,6 +33,8 @@ def param(gen: torch.Generator, shape, dtype, device, scale=None,
     fan_in = core[0] if len(core) >= 2 else max(core[-1], 1)
     s = scale if scale is not None else fan_in ** -0.5
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:                    # shapes only: nothing to draw
+        return out
     # fill row blocks in fp32 so the temporary stays small at full width
     flat = out.view(-1, shape[-1])
     step = max(1, (1 << 26) // shape[-1])
@@ -172,6 +174,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
         params["unembed"] = keep("/unembed", param(
             generator, (cfg.vocab_size, d), cfg.dtype, dev, scale=emb_scale))
     return params
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The parameter tree of ``cfg`` as meta tensors: shapes and dtypes,
+    no storage and no random numbers drawn (the counterpart of
+    ``jax.eval_shape`` of the init)."""
+    return init_params(cfg, torch.Generator(), device="meta")
 
 
 def _leaf_from_numpy(a: np.ndarray) -> torch.Tensor:

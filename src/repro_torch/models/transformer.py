@@ -18,6 +18,21 @@ Attention runs the ``flash_attention`` kernels and Mamba-2 the
 RG-LRU's scan is plain PyTorch
 (``layers/rglru.py::linear_scan``), and so is the MoE dispatch
 (``layers/moe.py``), whose load-balancing losses sum into ``aux``.
+
+On a mesh (``mesh=``, a ``DeviceMesh`` of the training layout,
+``distributed/sharding.py``) ``hidden_states`` and ``loss_fn`` run one
+rank's share of the step in eager SPMD: the parameters are this rank's
+blocks (``train_param_specs``), the batch its shard over the data axes.
+Each layer's leaves are gathered over ``data`` where it runs
+(``gather_fsdp``: inside the unit, so the remat gathers them again in
+the backward and no unit's whole leaves outlive it); with a ``model``
+axis of more than one rank the attention, MLP and Mamba-2 layers run
+this rank's heads or columns, the embedding and the CE its rows of the
+vocabulary (or the whole table where the vocabulary does not split).
+The loss a rank returns is its batch shard's summed CE over the global
+label count: summed over the data axes it is the mean over the global
+batch.  RG-LRU with ``model`` > 1 and MoE on any mesh of more than one
+rank are ROADMAP A8b (2), and raise.
 """
 
 from __future__ import annotations
@@ -27,28 +42,54 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..layers import attention, rglru, ssd
+from ..distributed.collectives import copy_to_model, gather_fsdp, \
+    gather_leaves, model_index, model_size, psum_data, reduce_from_model
+from ..distributed.mesh import MODEL_AXIS, pmax
+from ..distributed.sharding import make_batch_constrainer, \
+    model_train_specs
 from ..layers.common import apply_norm, embed, unembed
 from ..layers.mlp import apply_mlp
 from ..layers.moe import apply_moe
 from .config import ModelConfig
 
 
-def _apply_layer(cfg: ModelConfig, spec, p, x, positions):
+def check_mesh(cfg: ModelConfig, mesh) -> None:
+    """Raise where ``cfg`` needs what this slice of the sharded step does
+    not have (ROADMAP A8b (2))."""
+    if mesh is None:
+        return
+    if any(f == "moe" for _, f in cfg.layer_specs) and mesh.size() > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE training on a mesh of more than one rank is "
+            f"ROADMAP A8b (2) (its capacity and aux loss are functions of "
+            f"the whole batch)")
+    if any(m == "rglru" for m, _ in cfg.layer_specs) and \
+            model_size(mesh) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: the RG-LRU mixer with model > 1 is ROADMAP "
+            f"A8b (2)")
+
+
+def _apply_layer(cfg: ModelConfig, spec, p, x, positions, tp_mesh=None):
     """One (mixer, ffn) layer.  Returns (x, aux, kv) -- aux is the MoE
     load-balancing loss (0 for the other feed-forwards), kv the layer's
-    (k, v) [B, S, K, dh] for attention mixers, else None."""
+    (k, v) [B, S, K, dh] for attention mixers, else None.  With
+    ``tp_mesh`` (a model axis of more than one rank) this rank's heads
+    and columns of the layer, ``p`` gathered over ``data``."""
     mixer, ffn = spec
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kv = None
     h = apply_norm(cfg.norm, p["norm1"], x)
     if mixer == "attn":
         h, kv = attention.attention_fwd(cfg, p["attn"], h, positions,
-                                        causal=cfg.causal, window=0)
+                                        causal=cfg.causal, window=0,
+                                        mesh=tp_mesh)
     elif mixer == "local_attn":
         h, kv = attention.attention_fwd(cfg, p["attn"], h, positions,
-                                        causal=cfg.causal, window=cfg.window)
+                                        causal=cfg.causal, window=cfg.window,
+                                        mesh=tp_mesh)
     elif mixer == "mamba2":
-        h = ssd.mamba2_forward(cfg, p["ssd"], h)
+        h = ssd.mamba2_forward(cfg, p["ssd"], h, mesh=tp_mesh)
     elif mixer == "rglru":
         h = rglru.rglru_forward(cfg, p["rglru"], h)
     else:
@@ -60,7 +101,7 @@ def _apply_layer(cfg: ModelConfig, spec, p, x, positions):
             h, aux = apply_moe(cfg, p["ffn"], h,
                                capacity_factor=cfg.capacity_factor)
         else:
-            h = apply_mlp(cfg, p["ffn"], h)
+            h = apply_mlp(cfg, p["ffn"], h, mesh=tp_mesh)
         x = x + h
     return x, aux, kv
 
@@ -74,14 +115,36 @@ def _unbind(params: dict, n: int) -> list[dict]:
     return params.unbind(0)
 
 
-def _stack(cfg: ModelConfig, params, batch, collect_kv: bool):
+def _vocab_parallel(specs) -> bool:
+    return specs["embed"][0] == MODEL_AXIS
+
+
+def _unit_specs(specs: dict) -> dict:
+    """The stacked leaves' specs without their unit dim."""
+    if isinstance(specs, dict):
+        return {k: _unit_specs(v) for k, v in specs.items()}
+    return specs[1:]
+
+
+def _stack(cfg: ModelConfig, params, batch, collect_kv: bool, mesh=None,
+           specs=None):
     """Embed (or, with a front end, take ``batch["embeds"]``), every
     layer, final norm.  Returns (x, aux, kv), aux summed over the
-    layers."""
+    layers.  With ``mesh``: this rank's share, ``specs`` the blocks'
+    (see the module's docstring)."""
+    def leaves(tree, sp):
+        return tree if mesh is None else gather_leaves(tree, sp, mesh)
+
+    tp_mesh = mesh if mesh is not None and model_size(mesh) > 1 else None
     if cfg.frontend is not None and "embeds" in batch:
         x = batch["embeds"].to(cfg.dtype)
-    else:
+    elif mesh is None:
         x = embed(batch["tokens"], params["embed"])
+    else:
+        x = embed(batch["tokens"], gather_fsdp(params["embed"],
+                                               specs["embed"], mesh),
+                  tp_mesh if _vocab_parallel(specs) else None)
+    constrain = make_batch_constrainer(mesh, x.shape[0])
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
@@ -89,11 +152,16 @@ def _stack(cfg: ModelConfig, params, batch, collect_kv: bool):
                 if mx in ("attn", "local_attn")}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
+    unit_specs = _unit_specs(specs["units"]) if mesh is not None else None
+
     def unit_fn(x, unit_p):
+        unit_p = leaves(unit_p, unit_specs)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         kvs = {}
         for i, spec in enumerate(cfg.pattern):
-            x, a, kv = _apply_layer(cfg, spec, unit_p[f"l{i}"], x, positions)
+            x, a, kv = _apply_layer(cfg, spec, unit_p[f"l{i}"], x, positions,
+                                    tp_mesh)
+            x = constrain(x)
             aux = aux + a
             if kv is not None:
                 kvs[f"l{i}"] = kv
@@ -110,12 +178,15 @@ def _stack(cfg: ModelConfig, params, batch, collect_kv: bool):
                 kv_units[name].append(kv)
     kv_tail = {}
     for i, spec in enumerate(cfg.tail_specs):
-        x, a, kv = _apply_layer(cfg, spec, params["tail"][f"t{i}"], x,
-                                positions)
+        name = f"t{i}"
+        x, a, kv = _apply_layer(cfg, spec, leaves(
+            params["tail"][name], specs and specs["tail"][name]), x,
+            positions, tp_mesh)
         aux = aux + a
         if collect_kv and kv is not None:
-            kv_tail[f"t{i}"] = kv
-    x = apply_norm(cfg.norm, params["final_norm"], x)
+            kv_tail[name] = kv
+    x = apply_norm(cfg.norm, leaves(params["final_norm"],
+                                    specs and specs["final_norm"]), x)
     kv = None
     if collect_kv:
         units = {name: (torch.stack([k for k, _ in kvs]),
@@ -147,10 +218,16 @@ def forward(cfg: ModelConfig, params, batch, *, collect_kv: bool = False):
     return logits, aux
 
 
-def hidden_states(cfg: ModelConfig, params, batch):
+def hidden_states(cfg: ModelConfig, params, batch, *, mesh=None,
+                  specs=None):
     """Final-norm hidden states [B, S, D] (the pre-unembed activations),
-    and aux."""
-    x, aux, _ = _stack(cfg, params, batch, collect_kv=False)
+    and aux.  With ``mesh``, this rank's batch shard (its blocks
+    described by ``specs``, by default ``model_train_specs``)."""
+    if mesh is not None:
+        check_mesh(cfg, mesh)
+        specs = specs or model_train_specs(cfg, mesh)
+    x, aux, _ = _stack(cfg, params, batch, collect_kv=False, mesh=mesh,
+                       specs=specs)
     return x, aux
 
 
@@ -163,11 +240,35 @@ def _ce_chunk(xs, table, ls):
     return torch.where(mask, lse - gold, 0.0).sum(), mask.sum()
 
 
-def chunked_ce(cfg: ModelConfig, x, table, labels, *, chunk: int = 256):
+def _ce_chunk_vp(xs, table, ls, mesh):
+    """``_ce_chunk`` against this model rank's rows of the vocabulary:
+    each row's max over the ranks (``pmax``, no gradient: the shift
+    cancels), the sum of exp and the gold logit (from the rank that holds
+    the label) summed over ``model`` in one collective."""
+    logits = unembed(xs, table)                          # [B, c, V/tp]
+    V = table.shape[0]
+    m = pmax(logits.detach().amax(dim=-1), mesh, MODEL_AXIS)
+    local = ls - model_index(mesh) * V
+    ok = (local >= 0) & (local < V)
+    gold = torch.gather(logits, -1, local.clamp(0, V - 1)[..., None])[..., 0]
+    se, gold = reduce_from_model(torch.stack([
+        torch.exp(logits - m[..., None]).sum(dim=-1),
+        torch.where(ok, gold, 0.0)]), mesh)
+    mask = ls >= 0
+    return torch.where(mask, m + torch.log(se) - gold, 0.0).sum(), mask.sum()
+
+
+def chunked_ce(cfg: ModelConfig, x, table, labels, *, chunk: int = 256,
+               mesh=None, count=None):
     """Mean cross-entropy over the vocabulary, ``chunk`` positions at a
     time, so no [B, S, V] fp32 logits are ever built (under remat the
-    backward recomputes each chunk's logits).  Labels < 0 are ignored."""
+    backward recomputes each chunk's logits).  Labels < 0 are ignored.
+    With ``mesh`` (a model axis of more than one rank) ``table`` is this
+    rank's rows of the vocabulary; with ``count`` the summed CE is divided
+    by it (the global label count of a mesh) instead of this batch's."""
     B, S, D = x.shape
+    if mesh is not None:
+        x = copy_to_model(x, mesh)
     chunk = min(chunk, S)
     while S % chunk:
         chunk -= 1
@@ -175,20 +276,27 @@ def chunked_ce(cfg: ModelConfig, x, table, labels, *, chunk: int = 256):
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for s0 in range(0, S, chunk):
         args = (x[:, s0:s0 + chunk], table, labels[:, s0:s0 + chunk].long())
+        fn = _ce_chunk
+        if mesh is not None:
+            fn, args = _ce_chunk_vp, args + (mesh,)
         if torch.is_grad_enabled():        # the reference remats always
-            s, n = checkpoint(_ce_chunk, *args, use_reentrant=False)
+            s, n = checkpoint(fn, *args, use_reentrant=False)
         else:
-            s, n = _ce_chunk(*args)
+            s, n = fn(*args)
         tot = tot + s
         cnt = cnt + n
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot / torch.clamp(cnt if count is None else count, min=1.0)
 
 
 def loss_fn(cfg: ModelConfig, params, batch, *, aux_weight: float = 0.01,
-            loss_chunk: int = 256):
+            loss_chunk: int = 256, mesh=None, specs=None):
     """Next-token (causal) or frame-classification CE loss.  Returns
-    (loss, {"ce": ce, "aux": aux})."""
-    x, aux = hidden_states(cfg, params, batch)
+    (loss, {"ce": ce, "aux": aux}).  With ``mesh``: this rank's share of
+    the loss (its batch shard's summed CE over the global label count;
+    the sum over the data axes is the loss)."""
+    if mesh is not None:
+        specs = specs or model_train_specs(cfg, mesh)
+    x, aux = hidden_states(cfg, params, batch, mesh=mesh, specs=specs)
     labels = batch["labels"]
     if cfg.causal:
         # position t predicts label t + 1.  The last position, which has
@@ -196,5 +304,14 @@ def loss_fn(cfg: ModelConfig, params, batch, *, aux_weight: float = 0.01,
         # mean, but the chunk search sees S and not S - 1 (8191 is prime,
         # and would give chunks of one position)
         labels = F.pad(labels[:, 1:], (0, 1), value=-1)
-    ce = chunked_ce(cfg, x, _table(cfg, params), labels, chunk=loss_chunk)
+    if mesh is None:
+        ce = chunked_ce(cfg, x, _table(cfg, params), labels,
+                        chunk=loss_chunk)
+        return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+    name = "embed" if cfg.tie_embeddings else "unembed"
+    table = gather_fsdp(params[name], specs[name], mesh)
+    vp = model_size(mesh) > 1 and _vocab_parallel(specs)
+    count = psum_data((labels >= 0).sum().float(), mesh)
+    ce = chunked_ce(cfg, x, table, labels, chunk=loss_chunk,
+                    mesh=mesh if vp else None, count=count)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}

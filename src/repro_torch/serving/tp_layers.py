@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.collectives import mm32 as _mm32
 from ..distributed.mesh import MODEL_AXIS, all_gather, axis_index, \
     axis_size, psum
 from ..kernels.kv_update.kernel import rope_kv_append
@@ -45,17 +46,6 @@ from ..layers.common import conv_step, unembed
 from ..layers.mlp import apply_mlp, mlp_hidden
 from ..layers.rglru import gate_coeffs
 from ..layers.ssd import mamba2_step
-
-
-def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """[M, K] @ [K, N] with an fp32 result, the product never rounded to
-    a's dtype: on the card one cuBLAS product that writes fp32
-    (``out_dtype``), on the CPU in fp32."""
-    if a.dtype == torch.float32:
-        return torch.matmul(a, b)
-    if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return torch.matmul(a.float(), b.float())
 
 
 def _rowpar(a: torch.Tensor, w: torch.Tensor, mesh, dtype) -> torch.Tensor:

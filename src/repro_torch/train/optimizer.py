@@ -15,6 +15,11 @@ processed one unit's slice at a time, so no fp32 temporary is larger than
 one unit's slice of a leaf (the full model's largest leaf, starcoder2-3b's
 stacked MLP ``wi``, is 1.13 G elements: 4.5 GB a temporary in fp32).
 ``opt["step"]`` is a Python int.
+
+On a mesh the leaves are this rank's blocks (``distributed/sharding.py``
+``opt_state_specs``: the moments follow their parameters) and the update,
+elementwise, runs on them unchanged; only the global norm needs the mesh
+(``norm_sq_local``, summed over it by the caller).
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..distributed.mesh import axis_index, axis_names
+from ..distributed.specs import entry_axes
 from ..tree import tree_leaves, tree_map
 
 
@@ -62,6 +69,29 @@ def _global_norm(grads) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def owns_replica(spec, mesh) -> bool:
+    """Whether this rank adds a leaf's block to a sum over the mesh: a
+    block replicated over some axes is added by the rank at coordinate 0
+    of each of them, so that every element counts once."""
+    used = {a for entry in spec for a in entry_axes(entry)}
+    return all(axis_index(mesh, a) == 0 for a in axis_names(mesh)
+               if a not in used)
+
+
+def norm_sq_local(grads, specs, mesh) -> torch.Tensor:
+    """This rank's part of the squared global norm of the gradient blocks
+    ``grads`` (their ``specs`` on ``mesh``): each leaf's fp32 sum of
+    squares where ``owns_replica``.  The sum over the whole mesh is the
+    squared norm of the whole gradient."""
+    total = None
+    for (_, g), (_, spec) in zip(tree_leaves(grads), tree_leaves(specs)):
+        sq = torch.sum(torch.square(g.float()))
+        if not owns_replica(spec, mesh):
+            sq = torch.zeros_like(sq)
+        total = sq if total is None else total + sq
+    return total
+
+
 def _update(cfg: AdamWConfig, p, g, m, v, scale, lr, c1, c2) -> None:
     """One slice of the reference's ``upd``, m, v and p in place."""
     g = g.float() * scale
@@ -74,14 +104,16 @@ def _update(cfg: AdamWConfig, p, g, m, v, scale, lr, c1, c2) -> None:
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params, opt, grads):
+def apply_updates(cfg: AdamWConfig, params, opt, grads, gnorm=None):
     """Returns (params, opt, gnorm): the same trees, updated in place, and
-    the pre-clip global norm (a 0-d fp32 tensor on the device)."""
+    the pre-clip global norm (a 0-d fp32 tensor on the device; given, on
+    a mesh, where the caller summed it over the ranks)."""
     step = opt["step"] + 1
     lr = _schedule(cfg, step)
     c1 = np.float32(1.0) - np.power(np.float32(cfg.b1), np.float32(step))
     c2 = np.float32(1.0) - np.power(np.float32(cfg.b2), np.float32(step))
-    gnorm = _global_norm(grads)
+    if gnorm is None:
+        gnorm = _global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     leaves = zip(tree_leaves(params), tree_leaves(grads),
                  tree_leaves(opt["m"]), tree_leaves(opt["v"]))

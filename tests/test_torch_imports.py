@@ -73,7 +73,9 @@ def test_port_imports_neither_jax_nor_reference():
                 "core/heap_recovery.py", "core/ralloc.py",
                 "checkpoint/manager.py", "distributed/mesh.py",
                 "distributed/specs.py", "launch/mesh_decode.py",
-                "launch/mesh_depth.py"):
+                "launch/mesh_depth.py", "launch/ranks.py",
+                "launch/mesh_train.py", "distributed/sharding.py",
+                "distributed/collectives.py"):
         assert PORT / rel in files, rel
     assert (ROOT / "chip_smoke.py") in files
     found = {str(f.relative_to(ROOT)): _bad_imports(f) for f in files}

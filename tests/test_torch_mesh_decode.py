@@ -56,8 +56,8 @@ def test_mesh_goes_on_from_a_one_device_state(arch, mesh, seq, tmp_path):
     sharded, decodes on as the one-device step does (fp32, 1e-4; the
     tokens equal): how ``chip_smoke.py`` starts its mesh runs past a
     page or a window."""
-    from repro_torch.launch.mesh_decode import decode_rank, run_ranks, \
-        to_mesh_layout
+    from repro_torch.launch.mesh_decode import decode_rank, to_mesh_layout
+    from repro_torch.launch.ranks import run_ranks
     from repro_torch.models.params import from_numpy_tree
     from repro_torch.serving.decode import decode_step, make_dstate
     over = dict(vocab_size=128, page_size=4)
@@ -89,7 +89,7 @@ def test_mesh_goes_on_from_a_one_device_state(arch, mesh, seq, tmp_path):
     res = run_ranks(decode_rank, 4, {
         "cfg": tcfg, "mesh": (mesh, ("data", "model")), "device": "cpu",
         "batch_sharded": not seq, "params": params, "max_seq": MAX_SEQ,
-        "tokens": toks[:, 6:], "state_file": str(path)})[0]
+        "tokens": toks[:, 6:], "state_file": str(path)}, device="cpu")[0]
     err = np.abs(res["logits"] - want).max() / (np.abs(want).max() + 1e-9)
     assert err < 1e-4, err
     np.testing.assert_array_equal(res["tokens"], want.argmax(-1))

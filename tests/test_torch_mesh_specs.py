@@ -32,7 +32,7 @@ from repro_torch.configs import get_config as t_get  # noqa: E402
 from repro_torch.configs import get_smoke_config as t_smoke  # noqa: E402
 from repro_torch.distributed import specs as tspecs  # noqa: E402
 from repro_torch.distributed.mesh import make_mesh  # noqa: E402
-from repro_torch.launch.mesh_decode import run_ranks  # noqa: E402
+from repro_torch.launch.ranks import run_ranks  # noqa: E402
 
 MESHES = [("data", "model"), ("pod", "data", "model")]
 
@@ -141,7 +141,8 @@ def _roundtrip_rank(rank, world, job):
 
 
 def test_shard_then_gather_is_the_identity():
-    res = run_ranks(_roundtrip_rank, 4, {"cfg": t_smoke("qwen2.5-32b")})
+    res = run_ranks(_roundtrip_rank, 4, {"cfg": t_smoke("qwen2.5-32b")},
+                    device="cpu")
     assert all(all(r) for r in res), res
 
 

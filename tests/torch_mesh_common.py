@@ -14,8 +14,8 @@ from repro.models import transformer as T
 from repro.runtime import make_host_mesh
 from repro.serving import decode as dec
 from repro_torch.configs import get_smoke_config as t_smoke
-from repro_torch.launch.mesh_decode import decode_rank, mesh_pages, \
-    run_ranks
+from repro_torch.launch.mesh_decode import decode_rank, mesh_pages
+from repro_torch.launch.ranks import run_ranks
 
 
 def configs(arch, **over):
@@ -77,7 +77,8 @@ def port_decode(tcfg, params, toks, *, mesh, batch_sharded, max_seq):
     res = run_ranks(decode_rank, world, {
         "cfg": tcfg, "mesh": (mesh, ("data", "model")), "device": "cpu",
         "batch_sharded": batch_sharded, "params": params,
-        "max_seq": max_seq, "tokens": toks, "gather_state": True})
+        "max_seq": max_seq, "tokens": toks, "gather_state": True},
+        device="cpu")
     return res[0]
 
 
