@@ -66,7 +66,9 @@ port's paths:
    log-sum-exp against the plain version's, head_dim 192 and 256 among
    them); the scan's backward kernel ``ssd_scan_bwd`` against its plain
    version at mamba2-370m's training shape (8 x 2048, 32 heads of 64, N
-   128, fp32), the scan's sweep shapes and the smoke widths; one fp32
+   128, fp32), the scan's sweep shapes and the smoke widths, given the
+   h_in the forward kernel stores (itself held to the plain version's
+   h_in); one fp32
    train step of the starcoder2-3b and of the mamba2-370m smoke configs,
    and of the recurrentgemma-9b smoke config widened to head_dim 256 (2
    heads, 1 KV head, 3 layers), on the card against the CPU; the trainer
@@ -148,6 +150,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, same source
 FP32_FLOPS = 67e12         # fp32 outside the tensor cores, same source
 TF32_FLOPS = 495e12        # dense TF32 tensor-core peak, same source
+TF32X3_FLOPS = TF32_FLOPS / 3  # fp32 products as three TF32 ones (3xTF32)
 
 
 def fail(msg: str) -> int:
@@ -737,22 +740,21 @@ def ssd_bound(Bz, H, S, P, N, chunk=64) -> tuple[float, str]:
 
 
 def ssd_bwd_bound(Bz, H, S, P, N, chunk=64,
-                  recompute: bool = False) -> tuple[float, str]:
-    """Least time for the scan's gradient, in fp32 FMAs: per head and
-    chunk the triangles dy x^T and M^T dy, the reverse pass's (dy
-    exp(cums))^T C, B g^T, (x dec) g and (dy exp(cums)) h_in; per (batch,
-    chunk) C B^T, dG^T C and dG B on the lower triangle.  ``recompute``
-    adds each chunk's own state (x dec)^T B, which a backward that
-    rebuilds h_in instead of reading it from the forward needs (the
-    bound of ``csrc/ssd_scan_bwd.cu``'s design).  Against xdt, loga, B,
-    C, dy read once and dxdt, dloga, dB, dC written once."""
+                  peak=TF32X3_FLOPS) -> tuple[float, str]:
+    """Least time for the scan's gradient: per head and chunk the
+    triangles dy x^T and M^T dy, the reverse pass's (dy exp(cums))^T C, B
+    g^T, (x dec) g and (dy exp(cums)) h_in; per (batch, chunk) C B^T, dG^T
+    C and dG B on the lower triangle (the work of
+    ``csrc/ssd_scan_bwd.cu``'s design, which reads h_in from the
+    forward), at ``peak``: 3xTF32 by default, as the kernels run every
+    product (``FP32_FLOPS`` gives the fp32 FMA figure).  Against xdt,
+    loga, B, C, dy read once and dxdt, dloga, dB, dC written once."""
     nc = -(-S // chunk)
     tri = chunk * (chunk + 1) // 2
-    states = 5 if recompute else 4
     flops = 2 * Bz * nc * 3 * tri * N + \
-        2 * Bz * H * nc * (2 * tri * P + states * chunk * P * N)
+        2 * Bz * H * nc * (2 * tri * P + 4 * chunk * P * N)
     nbytes = 4 * (4 * Bz * H * S * P + 2 * Bz * H * S + 4 * Bz * S * N)
-    t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -772,18 +774,40 @@ def ssd_bwd_grads_bound(Bz, H, S, P, N, chunk=64, heads=8) -> dict:
     nbytes = 4 * (3 * Bz * H * S * P + 2 * Bz * H * S + 2 * Bz * S * N +
                   2 * Bz * H * nc * P * N + 2 * Bz * nc * groups * chunk * N)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_fma, t_tf32x3 = flops / FP32_FLOPS * 1e3, flops / TF32_FLOPS * 3e3
+    t_fma, t_tf32x3 = flops / FP32_FLOPS * 1e3, flops / TF32X3_FLOPS * 1e3
     return {"gflop": flops / 1e9, "gbytes": nbytes / 1e9,
             "bytes_ms": t_bytes, "fma_ops_ms": t_fma,
             "tf32x3_ops_ms": t_tf32x3, "fma_ms": max(t_fma, t_bytes),
             "tf32x3_ms": max(t_tf32x3, t_bytes)}
 
 
+def ssd_bwd_reverse_bound(Bz, H, S, P, N, chunk=64) -> dict:
+    """The reverse state pass's own bound (kernel 1 of
+    ``csrc/ssd_scan_bwd.cu``): per head and chunk dS = (dy exp(cums))^T C
+    (Q P N MACs) in 3xTF32, as the kernel runs it, against dy, C and loga
+    read once and g [Bz, H, nc, P, N] written once; the larger of the two
+    times.  ``fma_ops_ms`` is the same work at the fp32 FMA peak."""
+    nc = -(-S // chunk)
+    flops = 2 * Bz * H * nc * chunk * P * N
+    nbytes = 4 * (Bz * H * S * P + Bz * S * N + Bz * H * S +
+                  Bz * H * nc * P * N)
+    t_ops = flops / TF32X3_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"gflop": flops / 1e9, "gbytes": nbytes / 1e9,
+            "ops_ms": t_ops, "bytes_ms": t_bytes,
+            "fma_ops_ms": flops / FP32_FLOPS * 1e3,
+            "ms": max(t_ops, t_bytes),
+            "by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
 def check_forward_kernels(torch, dev, flash_mains, ssd_mains) -> list[dict]:
     """flash_attention and ssd_scan against their plain versions on the
     reference's sweep shapes and the timed shapes (``flash_mains`` and
     ``ssd_mains``: the first the row's own, the others in its
-    ``timed_shapes``), with full times at the timed shapes."""
+    ``timed_shapes``), with full times at the timed shapes.  ssd_scan's
+    first timed shape (scoring) is timed without the h_in store, the
+    others (training, under grad) with it, each beside the other
+    form."""
     from repro_torch.kernels.flash_attention import kernel as fak
     from repro_torch.kernels.ssd_scan import kernel as ssk
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -896,10 +920,21 @@ def check_forward_kernels(torch, dev, flash_mains, ssd_mains) -> list[dict]:
             sweep.append({"shape": shape, "max_abs_err": err,
                           "rel_err": rel, "ms": ms, "bound_ms": bound})
             continue
+        # under grad (every timed shape but scoring's) the forward stores
+        # h_in for the backward
+        store = bool(timed)
+
+        def run_h_in():
+            return ssk._launch_fwd(xdt, loga, Bm, Cm, with_h_in=True)
+        h_in_ms = graph_ms(torch, run_h_in, iters=10)
         timed.append({
             "max_abs_err": err, "rel_err": rel,
-            "tolerance": "1e-4 relative", "ms": ms,
-            "eager_ms": event_ms(torch, run, iters=10),
+            "tolerance": "1e-4 relative", "ms": h_in_ms if store else ms,
+            "h_in_store": store,
+            "ms_without_store" if store else "ms_with_store":
+                ms if store else h_in_ms,
+            "eager_ms": event_ms(torch, run_h_in if store else run,
+                                 iters=10),
             "plain_ms": event_ms(torch, lambda: ssk.ssd_scan_plain(
                 xdt, loga, Bm, Cm), iters=3, warmup=1),
             "bound_ms": bound, "bound_by": by, "library_ms": None,
@@ -1513,10 +1548,12 @@ def check_ssd_bwd(torch, dev) -> dict:
     card on the same inputs, at mamba2-370m's training shape (8 x 2048, 32
     heads of 64, N 128, fp32), at SSD_SWEEP's fp32 shapes and at the smoke
     widths: dxdt, dloga, dB and dC each within 1e-4 of max |plain|, and a
-    second call bit-equal (no float atomics).  Times at the training
-    shape, the whole call and each of its four kernels (``parts_ms``),
-    beside the chunk-gradient kernel's own bound; no PyTorch call computes
-    the scan's gradient."""
+    second call bit-equal (no float atomics), given the h_in the forward
+    kernel stores (within 1e-4 of max |plain| of ``ssd_phases``' h_in).
+    Times at the training shape, the whole call and each of its three
+    kernels (``parts_ms``), beside the reverse pass's and the
+    chunk-gradient kernel's own bounds; no PyTorch call computes the
+    scan's gradient."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels import build
     from repro_torch.kernels.ssd_scan import kernel as ssk
@@ -1541,9 +1578,10 @@ def check_ssd_bwd(torch, dev) -> dict:
             else torch.full((Bz, H, S), decay, device=dev)
         Bm, Cm = randn(Bz, S, N, scale=0.3), randn(Bz, S, N, scale=0.3)
         dy = randn(Bz, H, S, P)
+        h_in, h_err = forward_h_in(torch, ssk, xdt, loga, Bm, Cm, case)
         want = ssk.ssd_scan_bwd_plain(xdt, loga, Bm, Cm, dy)
-        got = ssk.ssd_scan_bwd(xdt, loga, Bm, Cm, dy)
-        again = ssk.ssd_scan_bwd(xdt, loga, Bm, Cm, dy)
+        got = ssk.ssd_scan_bwd(xdt, loga, Bm, Cm, dy, h_in=h_in)
+        again = ssk.ssd_scan_bwd(xdt, loga, Bm, Cm, dy, h_in=h_in)
         torch.cuda.synchronize()
         errs = {name: float((a - b).abs().max() / b.abs().max())
                 for name, a, b in zip(("dxdt", "dloga", "dB", "dC"), got,
@@ -1553,10 +1591,11 @@ def check_ssd_bwd(torch, dev) -> dict:
             raise AssertionError(
                 f"ssd_scan_bwd {case}: differs from the plain version by "
                 f"{bad} of max |plain| (tolerance 1e-4), or from itself")
+        errs["h_in"] = h_err
         bound, by = ssd_bwd_bound(Bz, H, S, P, N)
 
         def run():
-            return ssk.ssd_scan_bwd(xdt, loga, Bm, Cm, dy)
+            return ssk.ssd_scan_bwd(xdt, loga, Bm, Cm, dy, h_in=h_in)
         shape = {"xdt": [Bz, H, S, P], "BC": [Bz, S, N], "dtype": "float32",
                  "log_decay": decay}
         if case != main:
@@ -1567,11 +1606,13 @@ def check_ssd_bwd(torch, dev) -> dict:
             continue
         parts = kernel_parts_ms(torch, run)
         grads = ssd_bwd_grads_bound(Bz, H, S, P, N)
-        ptxas = ptxas_lines(build.build_info.get("log", ""),
-                            "ssd_bwd_chunk_grads")
-        print(f"ssd_scan_bwd parts at {case}: {parts} ms; the "
-              f"chunk-gradient kernel's bound {grads}; ptxas {ptxas}",
-              flush=True)
+        reverse = ssd_bwd_reverse_bound(Bz, H, S, P, N)
+        log = build.build_info.get("log", "")
+        ptxas = ptxas_lines(log, "ssd_bwd_chunk_grads")
+        ptxas_rev = ptxas_lines(log, "ssd_bwd_reverse_pass")
+        print(f"ssd_scan_bwd parts at {case}: {parts} ms; the reverse "
+              f"pass's bound {reverse}, the chunk-gradient kernel's "
+              f"{grads}; ptxas {ptxas_rev} {ptxas}", flush=True)
         row = {
             "name": "ssd_scan_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
@@ -1587,21 +1628,42 @@ def check_ssd_bwd(torch, dev) -> dict:
             "plain_ms": event_ms(torch, lambda: ssk.ssd_scan_bwd_plain(
                 xdt, loga, Bm, Cm, dy), iters=2, warmup=1),
             "bound_ms": bound, "bound_by": by,
-            # this design rebuilds h_in: its work adds each chunk's state
-            "design_bound_ms": ssd_bwd_bound(Bz, H, S, P, N,
-                                             recompute=True)[0],
-            # each of the four kernels' device ms (torch.profiler), and the
-            # chunk-gradient kernel's own bound and ptxas report
-            "parts_ms": parts, "grads_bound": grads, "grads_ptxas": ptxas,
+            # h_in comes from the forward: the design's work is the least
+            "design_bound_ms": bound,
+            # the same work at the fp32 FMA peak, not the kernels' rate
+            "fma_bound_ms": ssd_bwd_bound(Bz, H, S, P, N,
+                                          peak=FP32_FLOPS)[0],
+            # each of the three kernels' device ms (torch.profiler), and
+            # the reverse pass's and the chunk-gradient kernel's own
+            # bounds and ptxas reports
+            "parts_ms": parts, "reverse_bound": reverse,
+            "reverse_ptxas": ptxas_rev, "grads_bound": grads,
+            "grads_ptxas": ptxas,
             "library_ms": None,
             "library_call": "none: no PyTorch call computes the SSD scan's "
                             "gradient (autograd through the plain version "
                             "is not one call)",
             "shape": shape}
-    del xdt, loga, Bm, Cm, dy, want, got, again
+    del xdt, loga, Bm, Cm, dy, want, got, again, h_in
     torch.cuda.empty_cache()
     row["sweep"] = sweep
     return row
+
+
+def forward_h_in(torch, ssk, xdt, loga, Bm, Cm, where):
+    """The h_in the forward kernel stores (``_launch_fwd(...,
+    with_h_in=True)``) against the plain version's (``ssd_phases``), within
+    1e-4 of its max |plain|: (h_in, that relative error)."""
+    h_in = ssk._launch_fwd(xdt, loga, Bm, Cm, with_h_in=True)[1]
+    want = ssk.ssd_phases(xdt, loga, Bm, Cm, with_h_in=True)[2]
+    torch.cuda.synchronize()
+    # with one chunk h_in is h_0 = 0 alone, on both sides
+    err = float((h_in - want).abs().max() / want.abs().max().clamp(
+        min=1e-30))
+    if not err < 1e-4:
+        raise AssertionError(f"ssd_scan's h_in at {where} differs from the "
+                             f"plain version's by {err} of max |plain|")
+    return h_in, err
 
 
 def check_train_vs_cpu(torch, dev, arch: str = TRAIN_ARCH,
@@ -2564,29 +2626,38 @@ def check_train_shard_kernels(torch, dev) -> dict:
 
         def fwd():
             return ssk.ssd_scan(xdt, loga, Bm, Cm)
+
+        def fwd_h_in():                    # the forward under grad
+            return ssk._launch_fwd(xdt, loga, Bm, Cm, with_h_in=True)
         none = "none (no single PyTorch call computes the scan)"
         out["ssd_scan"].append({
             "where": where, "shape": shape, "max_abs_err": err,
             "rel_err": rel, "tolerance": "1e-4 relative",
-            "ms": graph_ms(torch, fwd, iters=10),
-            "eager_ms": event_ms(torch, fwd, iters=10),
+            "ms": graph_ms(torch, fwd_h_in, iters=10), "h_in_store": True,
+            "ms_without_store": graph_ms(torch, fwd, iters=10),
+            "eager_ms": event_ms(torch, fwd_h_in, iters=10),
             "plain_ms": event_ms(torch, lambda: ssk.ssd_scan_plain(
                 xdt, loga, Bm, Cm), iters=2, warmup=1),
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "library_call": none})
+        h_in, h_err = forward_h_in(torch, ssk, xdt, loga, Bm, Cm, where)
         want = ssk.ssd_scan_bwd_plain(xdt, loga, Bm, Cm, dy)
-        got = ssk.ssd_scan_bwd(xdt, loga, Bm, Cm, dy)
+        got = ssk.ssd_scan_bwd(xdt, loga, Bm, Cm, dy, h_in=h_in)
+        again = ssk.ssd_scan_bwd(xdt, loga, Bm, Cm, dy, h_in=h_in)
         torch.cuda.synchronize()
         errs = {name: float((a - b).abs().max() / b.abs().max())
                 for name, a, b in zip(("dxdt", "dloga", "dB", "dC"), got,
                                       want)}
-        if not all(e < 1e-4 for e in errs.values()):
+        if not all(e < 1e-4 for e in errs.values()) or \
+                not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"ssd_scan_bwd at {where} {shape} differs "
-                                 f"from its plain version by {errs}")
+                                 f"from its plain version by {errs}, or "
+                                 f"from itself")
+        errs["h_in"] = h_err
         bound, by = ssd_bwd_bound(Bz, H, S, P, N)
 
         def bwd():
-            return ssk.ssd_scan_bwd(xdt, loga, Bm, Cm, dy)
+            return ssk.ssd_scan_bwd(xdt, loga, Bm, Cm, dy, h_in=h_in)
         out["ssd_scan_bwd"].append({
             "where": where, "shape": shape,
             "max_abs_err": max(float((a - b).abs().max())
@@ -2598,7 +2669,7 @@ def check_train_shard_kernels(torch, dev) -> dict:
                 xdt, loga, Bm, Cm, dy), iters=2, warmup=1),
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "library_call": none})
-        del xdt, loga, Bm, Cm, dy, want, got
+        del xdt, loga, Bm, Cm, dy, want, got, again, h_in
     torch.cuda.empty_cache()
     return out
 

@@ -24,7 +24,12 @@
 // block per (batch, head)) walks the chunks in order with h in shared
 // memory: it adds exp(cums) * (C . h^T) to y and folds in dH_c, with the
 // next chunk's C, dH and y on their way while a chunk computes.  It reads
-// each dH once and never stores the incoming states.
+// each dH once.  When the caller asks for them (a forward whose gradient
+// is wanted), it also stores the state entering each chunk, h_in [Bz, H,
+// nc, P, N] fp32, as it walks: h_0 = 0, then each new state from the
+// registers that fold it, while the next chunk's C is in flight.  The
+// backward (csrc/ssd_scan_bwd.cu) reads h_in instead of rebuilding it; a
+// forward without a gradient (scoring, prefill) stores nothing.
 //
 // exp(cums_i - cums_j) is evaluated only where i >= j: above the diagonal
 // the difference is >= 0 and can overflow, and inf * 0 would be NaN.  A
@@ -42,8 +47,10 @@
 // (xdt [8, 32, 4096, 64], B/C [8, 4096, 128]); the design does that work
 // and no more.  Its bytes are the inputs, y written then read and written
 // again, and dH written and read once (2 x 537 MB at that shape, 0.32 ms at
-// 3.35 TB/s).  The products are register tiles over shared-memory operands
-// read as 16-byte vectors: 8 x 4 for dH and C . h^T, 4 x 4 for the rest.
+// 3.35 TB/s); a stored h_in adds its size once more (268 MB at the train
+// shape, 8 x 2048).  The products are register tiles over shared-memory
+// operands read as 16-byte vectors: 8 x 4 for dH and C . h^T, 4 x 4 for the
+// rest.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -355,12 +362,15 @@ __host__ __device__ constexpr int c_pad() {
 // broadcast).  Everything a chunk needs is on its way a chunk ahead: the
 // next C by cp.async into the other half of a double buffer, the next dH
 // and y tile and exp(cums) into registers.  C keeps its input type and is
-// converted as it is read.
-template <typename T>
+// converted as it is read.  kStore: h_in [Bz, H, nc, P, N] receives the
+// state entering each chunk (an instantiation of its own, so the kernel
+// without the store keeps its registers: at the 128 that two blocks an SM
+// allow, the store's address would spill).
+template <typename T, bool kStore>
 __global__ void __launch_bounds__(kThreads, 2)
 ssd_state_kernel(const T* __restrict__ Cm, const float* __restrict__ dH,
                  const float* __restrict__ ecum_in, float* __restrict__ y,
-                 int H, int S, int P, int N) {
+                 float* __restrict__ h_in, int H, int S, int P, int N) {
   extern __shared__ __align__(16) float sm[];
   const int ldc = N + c_pad<T>(), ldh = N + 4;
   float* hs = sm;                          // [P][ldh]  h
@@ -377,8 +387,13 @@ ssd_state_kernel(const T* __restrict__ Cm, const float* __restrict__ dH,
   const int per_row = N * static_cast<int>(sizeof(T)) / 16;  // copies a row
   const int w4 = N / 4;
   const float* ec = ecum_in + bh * nc * kQ;          // [nc][Q]
+  float* hio = kStore ? h_in + bh * nc * P * N : nullptr;  // [nc][P][N]
 
   for (int i = tid; i < P * ldh; i += kThreads) hs[i] = 0.f;
+  if (kStore)                                        // h_0 = 0
+    for (int f = tid; f < P * w4; f += kThreads)
+      *reinterpret_cast<float4*>(hio + 4 * f) = make_float4(0.f, 0.f, 0.f,
+                                                            0.f);
 
   // this lane's y rows ti + 8 a, a in [4 ks, 4 ks + 4), of chunk c
   auto y_row = [&](int c, int k) {
@@ -470,6 +485,9 @@ ssd_state_kernel(const T* __restrict__ Cm, const float* __restrict__ dH,
       v.z = fmaf(v.z, decay, d.z);
       v.w = fmaf(v.w, decay, d.w);
       *hp = v;
+      if (kStore)                          // h_in of chunk c + 1, [p][n]
+        *reinterpret_cast<float4*>(
+            hio + static_cast<size_t>(c + 1) * P * N + 4 * f) = v;
     }
     if (tid < kQ) es[tid] = en;
     if (c + 2 < nc) {                      // what the next update needs
@@ -492,15 +510,19 @@ size_t smem_b(int P, int N) {
 
 template <typename T>
 int launch(const void* xdt, const void* loga, const void* Bm, const void* Cm,
-           float* y, float* dH, float* ecum, int Bz, int H, int S, int P,
-           int N, cudaStream_t stream) {
+           float* y, float* dH, float* ecum, float* h_in, int Bz, int H,
+           int S, int P, int N, cudaStream_t stream) {
   static bool opted_in = false;      // once (for the largest P, N), before
   if (!opted_in) {                   // any graph capture
     cudaError_t e = cudaFuncSetAttribute(
         ssd_chunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem_a(kMaxP, kMaxN)));
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(ssd_state_kernel<T>,
+      e = cudaFuncSetAttribute(ssd_state_kernel<T, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_b<T>(kMaxP, kMaxN)));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(ssd_state_kernel<T, true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem_b<T>(kMaxP, kMaxN)));
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -514,8 +536,9 @@ int launch(const void* xdt, const void* loga, const void* Bm, const void* Cm,
       S, P, N);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  ssd_state_kernel<T><<<dim3(H, Bz), kThreads, smem_b<T>(P, N), stream>>>(
-      static_cast<const T*>(Cm), dH, ecum, y, H, S, P, N);
+  auto* state = h_in ? ssd_state_kernel<T, true> : ssd_state_kernel<T, false>;
+  state<<<dim3(H, Bz), kThreads, smem_b<T>(P, N), stream>>>(
+      static_cast<const T*>(Cm), dH, ecum, y, h_in, H, S, P, N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -524,12 +547,14 @@ int launch(const void* xdt, const void* loga, const void* Bm, const void* Cm,
 // xdt [Bz, H, S, P], loga [Bz, H, S], B/C [Bz, S, N], all contiguous and of
 // one dtype (0 = float32, 1 = bfloat16); y [Bz, H, S, P] float32.  Scratch,
 // float32, allocated by the caller: dH [Bz, H, nc, P, N] and ecum
-// [Bz, H, nc, 64], nc = ceil(S / 64).  P and N multiples of 8 with
-// P <= 64 and N <= 128 (the wrapper checks too).
+// [Bz, H, nc, 64], nc = ceil(S / 64).  h_in: null, or float32 [Bz, H, nc,
+// P, N] to receive the state entering each chunk.  P and N multiples of 8
+// with P <= 64 and N <= 128 (the wrapper checks too).
 extern "C" int ssd_scan_launch(const void* xdt, const void* loga,
                                const void* Bm, const void* Cm, void* y,
-                               void* dH, void* ecum, int Bz, int H, int S,
-                               int P, int N, int dtype, void* stream) {
+                               void* dH, void* ecum, void* h_in, int Bz,
+                               int H, int S, int P, int N, int dtype,
+                               void* stream) {
   if (Bz <= 0 || H <= 0 || S <= 0) return 0;
   if (P <= 0 || N <= 0 || P % 8 || N % 8 || P > kMaxP || N > kMaxN)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -537,10 +562,12 @@ extern "C" int ssd_scan_launch(const void* xdt, const void* loga,
   float* out = static_cast<float*>(y);
   float* d = static_cast<float*>(dH);
   float* e = static_cast<float*>(ecum);
+  float* hi = static_cast<float*>(h_in);
   if (dtype == 0)
-    return launch<float>(xdt, loga, Bm, Cm, out, d, e, Bz, H, S, P, N, s);
+    return launch<float>(xdt, loga, Bm, Cm, out, d, e, hi, Bz, H, S, P, N,
+                         s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(xdt, loga, Bm, Cm, out, d, e, Bz, H, S, P,
-                                 N, s);
+    return launch<__nv_bfloat16>(xdt, loga, Bm, Cm, out, d, e, hi, Bz, H, S,
+                                 P, N, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -18,24 +18,26 @@
 //              exp(cums_last) <g, h_in>)
 //   dloga = the reverse cumulative sum of dcums within the chunk
 //
-// Four kernels, launched back to back by `ssd_scan_bwd_launch`:
-//   1. chunk-parallel, a block per (batch, chunk, group of 8 heads): B and
-//      C loaded once; per head the chunk's own state dH = (x * dec)^T B
-//      and dS = (dy * exp(cums))^T C, and exp(cums_last), to scratch;
-//   2. the state passes, a block per (batch, head, direction): forward
-//      over dH in place into h_in (h_0 = 0, h_{c+1} = e_c h_c + dH_c) and
-//      in reverse over dS in place into g (g_{nc-1} = 0, g_{c-1} = dS_c +
-//      e_c g_c), the next chunk's loads in flight during each update;
-//   3. chunk-parallel, a block per (batch, chunk, group of 8 heads): B, C
+// h_in comes from the forward: `ssd_state_kernel` (csrc/ssd_scan.cu)
+// stores the state entering each chunk when a gradient is wanted, so the
+// backward neither recomputes the chunks' own states nor replays the
+// forward recurrence.  Three kernels, launched back to back by
+// `ssd_scan_bwd_launch`:
+//   1. the reverse state pass, a block per (batch, head, 32 or 64 rows
+//      of P): the chunks from last to first, g in registers, each chunk's
+//      dS = (dy * exp(cums))^T C formed in registers and folded in
+//      (g_{nc-1} = 0, g_{c-1} = dS_c + exp(cums_last) g_c), g_c written;
+//      the next chunk's C, dy rows and loga in flight during each chunk;
+//   2. chunk-parallel, a block per (batch, chunk, group of 8 heads): B, C
 //      and the lower triangle of C B^T once; per head dx, dloga and the
-//      head's share of dG, dB and dC, summed over the group's heads in
-//      registers; the group's dB and dC partials to scratch;
-//   4. dB and dC: the groups' partials added in group order.
+//      head's share of dG, dB and dC from h_in and g, summed over the
+//      group's heads in registers; the group's dB and dC partials to
+//      scratch;
+//   3. dB and dC: the groups' partials added in group order.
 // No float atomics anywhere: every sum runs in a fixed order, so the
-// gradients are the same run to run.  h_in is recomputed (kernels 1-2)
-// rather than stored by the forward: the forward stays as it is, and the
-// backward's scratch (2 x [Bz, H, nc, P, N] fp32, 537 MB at mamba2-370m's
-// 8 x 2048) lives only during the backward.
+// gradients are the same run to run.  The backward's scratch is g ([Bz, H,
+// nc, P, N] fp32, 268 MB at mamba2-370m's 8 x 2048) and the groups'
+// partials; h_in (as large as g) is the forward's, kept for the backward.
 //
 // exp(cums_i - cums_j) is evaluated only where i >= j: above the diagonal
 // the difference is >= 0 and can overflow, and inf * 0 would be NaN (in
@@ -44,17 +46,20 @@
 // zero-padded in shared memory and its padded rows are not written.
 //
 // Bound.  The least work is 39.1 GFLOP at mamba2-370m's 8 x 2048, 32 heads
-// of 64, N 128 (0.584 ms at the 67 TFLOP/s fp32 FMA peak): per (head,
-// chunk) the triangles dy x^T and M^T dy (Q^2 P / 2 MACs each), B g^T,
-// (x * dec) g, (dy * exp(cums)) h_in and the reverse pass's dS (Q P N
-// each); per (batch, chunk) C B^T, dG^T C and dG B (Q^2 N / 2 each).  This
-// design also recomputes each chunk's dH (kernel 1): 0.712 ms.  Kernels 1,
-// 2 and 4 run on fp32 FMA.  Kernel 3 does 31.8 GFLOP (C B^T, dG^T C and
-// dG B once a head group): 0.474 ms at the FMA peak, 0.19 ms at a third of
-// the 495 TFLOP/s TF32 tensor-core peak, against ~1.03 GB of reads and
-// writes (0.31 ms at 3.35 TB/s): on tensor cores it is bound by its bytes.
+// of 64, N 128: per (head, chunk) the triangles dy x^T and M^T dy (Q^2 P /
+// 2 MACs each), B g^T, (x * dec) g, (dy * exp(cums)) h_in and the reverse
+// pass's dS (Q P N each); per (batch, chunk) C B^T, dG^T C and dG B (Q^2 N
+// / 2 each).  The design does that work, every product on tensor cores in
+// 3xTF32 (kernels 1 and 2; kernel 3 only adds): 0.237 ms at a third of the
+// 495 TFLOP/s TF32 tensor-core peak (0.584 at the 67 TFLOP/s fp32 FMA
+// peak), against 0.57 GB of inputs and outputs (0.17 ms at 3.35 TB/s).
+// Kernel 1 does 8.6 GFLOP (dS), 0.052 ms in 3xTF32, against 0.41 GB (dy,
+// C and loga read, g written: 0.123 ms): bound by its bytes.  Kernel 2
+// does 31.8 GFLOP (C B^T, dG^T C and dG B once a head group), 0.19 ms in
+// 3xTF32, against ~1.03 GB of reads and writes (0.31 ms): bound by its
+// bytes too.
 //
-// Kernel 3 runs every product on tensor cores in 3xTF32: each operand is
+// Kernels 1 and 2 run every product in 3xTF32: each operand is
 // split into hi = tf32(a) and lo = tf32(a - hi), rounded as cvt.rna.tf32
 // rounds a finite value (the bits plus half a TF32 ulp, the low 13 bits
 // cleared: four integer and float instructions a split, where cvt's own
@@ -103,7 +108,7 @@ namespace {
 
 constexpr int kQ = 64;             // chunk length
 constexpr int kThreads = 256;
-constexpr int kHeads = 8;          // heads a block of kernels 1 and 3
+constexpr int kHeads = 8;          // heads a block of kernel 2
 constexpr int kMaxP = 64;
 constexpr int kMaxN = 128;
 
@@ -113,210 +118,6 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 
 __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-// rows [0, 64) of a row-major [S, W] source starting at row r0 into shared
-// rows of stride ld; rows past `rows` read as zeros.  W a multiple of 4.
-__device__ __forceinline__ void load_rows(float* dst, int ld,
-                                          const float* src, int W, int rows,
-                                          int tid) {
-  const int w4 = W / 4;
-  for (int f = tid; f < kQ * w4; f += kThreads) {
-    const int r = f / w4, k = f % w4;
-    st4(dst + r * ld + 4 * k, r < rows ? ld4(src + 4 * f)
-                                       : make_float4(0.f, 0.f, 0.f, 0.f));
-  }
-}
-
-// the chunk's cumulative log-decay in warp 0, two steps a lane: cums,
-// dec = exp(cums_last - cums) and ecum = exp(cums) into shared memory.
-// Returns exp(cums_last) (in every lane of warp 0).
-__device__ __forceinline__ float chunk_decays(const float* lg, int rows,
-                                              int lane, float* cums,
-                                              float* dec, float* ecum) {
-  const float a0 = 2 * lane < rows ? lg[2 * lane] : 0.f;
-  const float a1 = 2 * lane + 1 < rows ? lg[2 * lane + 1] : 0.f;
-  float s = a0 + a1;
-  for (int o = 1; o < 32; o <<= 1) {
-    const float t = __shfl_up_sync(0xffffffffu, s, o);
-    if (lane >= o) s += t;
-  }
-  const float c_lo = s - a1, c_hi = s;
-  const float last = __shfl_sync(0xffffffffu, s, 31);
-  cums[2 * lane] = c_lo;
-  cums[2 * lane + 1] = c_hi;
-  dec[2 * lane] = expf(last - c_lo);
-  dec[2 * lane + 1] = expf(last - c_hi);
-  ecum[2 * lane] = expf(c_lo);
-  ecum[2 * lane + 1] = expf(c_hi);
-  return expf(last);
-}
-
-// ---------------------------------------------------------------------------
-// kernel 1: each chunk's dH = (x * dec)^T B and dS = (dy * exp(cums))^T C
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_chunk_states(const float* __restrict__ xdt,
-                     const float* __restrict__ loga,
-                     const float* __restrict__ Bm,
-                     const float* __restrict__ Cm,
-                     const float* __restrict__ dy,
-                     float* __restrict__ states, float* __restrict__ e_last,
-                     int H, int S, int P, int N) {
-  extern __shared__ __align__(16) float sm[];
-  const int ldn = N + 4, ldp = P + 4;
-  float* bs = sm;                          // [Q][ldn]
-  float* cs = bs + kQ * ldn;               // [Q][ldn]
-  float* xd = cs + kQ * ldn;               // [Q][ldp]  x * dec
-  float* de = xd + kQ * ldp;               // [Q][ldp]  dy * exp(cums)
-  float* cums = de + kQ * ldp;
-  float* dec = cums + kQ;
-  float* ecum = dec + kQ;
-
-  const int c = blockIdx.x, nc = gridDim.x;
-  const int h_first = blockIdx.y * kHeads, b = blockIdx.z;
-  const int c0 = c * kQ, rows = min(kQ, S - c0);
-  const int tid = threadIdx.x, lane = tid % 32;
-  const size_t bhnc = static_cast<size_t>(gridDim.z) * H * nc;
-
-  load_rows(bs, ldn, Bm + (static_cast<size_t>(b) * S + c0) * N, N, rows,
-            tid);
-  load_rows(cs, ldn, Cm + (static_cast<size_t>(b) * S + c0) * N, N, rows,
-            tid);
-  const int h_end = min(H, h_first + kHeads);
-  for (int h = h_first; h < h_end; ++h) {
-    const size_t bh = static_cast<size_t>(b) * H + h;
-    load_rows(xd, ldp, xdt + (bh * S + c0) * P, P, rows, tid);
-    load_rows(de, ldp, dy + (bh * S + c0) * P, P, rows, tid);
-    if (tid < 32) {
-      const float e = chunk_decays(loga + bh * S + c0, rows, lane, cums, dec,
-                                   ecum);
-      if (lane == 0) e_last[bh * nc + c] = e;
-    }
-    __syncthreads();
-    for (int f = tid; f < kQ * P; f += kThreads) {
-      const int j = f / P, o = j * ldp + f % P;
-      xd[o] *= dec[j];
-      de[o] *= ecum[j];
-    }
-    __syncthreads();
-    // [P, N] tiles of 8 rows (4 tp + a, P / 2 + 4 tp + a) by 4 columns
-    const int nt = N / 4, ph = P / 2;
-    float* dh = states + (bh * nc + c) * P * N;
-    float* ds = dh + bhnc * P * N;
-    for (int t = tid; t < (P / 8) * nt; t += kThreads) {
-      const int tn = t % nt, tp = t / nt;
-      float ah[8][4] = {}, as[8][4] = {};
-#pragma unroll 2
-      for (int j = 0; j < kQ; ++j) {
-        const float4 x0 = ld4(xd + j * ldp + 4 * tp);
-        const float4 x1 = ld4(xd + j * ldp + ph + 4 * tp);
-        const float4 d0 = ld4(de + j * ldp + 4 * tp);
-        const float4 d1 = ld4(de + j * ldp + ph + 4 * tp);
-        const float4 bv = ld4(bs + j * ldn + 4 * tn);
-        const float4 cv = ld4(cs + j * ldn + 4 * tn);
-        const float x8[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-        const float d8[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
-#pragma unroll
-        for (int a = 0; a < 8; ++a) {
-          ah[a][0] = fmaf(x8[a], bv.x, ah[a][0]);
-          ah[a][1] = fmaf(x8[a], bv.y, ah[a][1]);
-          ah[a][2] = fmaf(x8[a], bv.z, ah[a][2]);
-          ah[a][3] = fmaf(x8[a], bv.w, ah[a][3]);
-          as[a][0] = fmaf(d8[a], cv.x, as[a][0]);
-          as[a][1] = fmaf(d8[a], cv.y, as[a][1]);
-          as[a][2] = fmaf(d8[a], cv.z, as[a][2]);
-          as[a][3] = fmaf(d8[a], cv.w, as[a][3]);
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < 8; ++a) {
-        const int pr = (a < 4 ? 0 : ph - 4) + 4 * tp + a;
-        st4(dh + pr * N + 4 * tn,
-            make_float4(ah[a][0], ah[a][1], ah[a][2], ah[a][3]));
-        st4(ds + pr * N + 4 * tn,
-            make_float4(as[a][0], as[a][1], as[a][2], as[a][3]));
-      }
-    }
-    __syncthreads();                       // xd, de and the decays reused
-  }
-}
-
-// ---------------------------------------------------------------------------
-// kernel 2: the state passes, in place: dH -> h_in forward, dS -> g reverse
-// ---------------------------------------------------------------------------
-constexpr int kPassK = kMaxP * kMaxN / 4 / kThreads;   // float4s a thread
-
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_state_pass(float* __restrict__ states,
-                   const float* __restrict__ e_last, int BH, int nc, int P,
-                   int N) {
-  const int bh = blockIdx.x, reverse = blockIdx.y;
-  const int tid = threadIdx.x, w = P * N / 4;
-  float4* buf = reinterpret_cast<float4*>(
-      states + (static_cast<size_t>(reverse) * BH + bh) * nc * P * N);
-  const float* el = e_last + static_cast<size_t>(bh) * nc;
-  float4 st[kPassK], cur[kPassK];
-#pragma unroll
-  for (int k = 0; k < kPassK; ++k) {
-    st[k] = make_float4(0.f, 0.f, 0.f, 0.f);
-    const int f = tid + kThreads * k;
-    const int c = reverse ? nc - 1 : 0;
-    cur[k] = f < w ? buf[static_cast<size_t>(c) * w + f] : st[k];
-  }
-  for (int step = 0; step < nc; ++step) {
-    const int c = reverse ? nc - 1 - step : step;
-    const int cn = reverse ? c - 1 : c + 1;
-    const float e = el[c];
-    float4 nxt[kPassK];
-#pragma unroll
-    for (int k = 0; k < kPassK; ++k) {
-      const int f = tid + kThreads * k;
-      nxt[k] = f < w && step + 1 < nc ? buf[static_cast<size_t>(cn) * w + f]
-                                      : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int k = 0; k < kPassK; ++k) {
-      const int f = tid + kThreads * k;
-      if (f >= w) continue;
-      buf[static_cast<size_t>(c) * w + f] = st[k];
-      st[k] = make_float4(fmaf(st[k].x, e, cur[k].x),
-                          fmaf(st[k].y, e, cur[k].y),
-                          fmaf(st[k].z, e, cur[k].z),
-                          fmaf(st[k].w, e, cur[k].w));
-      cur[k] = nxt[k];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// kernel 3: the chunk-parallel gradients, on tensor cores in 3xTF32
-// ---------------------------------------------------------------------------
-// mma.sync m16n8k8 fragments, lane = 4 gid + tig: A (16 x 8) holds rows
-// gid, gid + 8 at k slots tig, tig + 4; B (8 x 8) k slots tig, tig + 4 at
-// column gid; C (16 x 8) rows gid, gid + 8 at columns 2 tig, 2 tig + 1.
-// The k slots tig, tig + 4 hold k = k0 + tig, k0 + tig + 4, or in a
-// "paired" product k0 + 2 tig, k0 + 2 tig + 1.  No product is predicated
-// (a predicated mma.sync costs a warp sync): a tile past P or N computes
-// on a clamped tile and is not stored.
-constexpr int kLdM = kQ + 4;       // row stride of M^T in shared memory
-constexpr int kLdG = kQ + 8;       // row stride of dG^T and dG at the end
-constexpr int kTri = 20;           // 16 x 8 tiles of D^T on or above the
-                                   // diagonal; warp w owns w, w + 8, w + 16
-
-// fp32 -> TF32 as cvt.rna.tf32.f32 rounds a finite value (to nearest, ties
-// away from zero): half a TF32 ulp added to the bits, the low 13 cleared
-// (cvt adds a test for inf and NaN: three more instructions a split)
-__device__ __forceinline__ uint32_t to_tf32(float a) {
-  return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -345,6 +146,81 @@ __device__ __forceinline__ void cp_commit() {
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [0, nrows) of a row-major [*, W] source (W a multiple of 4) into
+// shared rows of stride ld by cp.async, by kT threads; rows from `valid` on
+// are zeros
+template <int kT = kThreads>
+__device__ __forceinline__ void async_tile(float* dst, int ld,
+                                           const float* src, int nrows,
+                                           int W, int valid, int tid) {
+  const int w4 = W / 4, dr = kT / w4, dc = kT % w4;
+  int r = tid / w4, c = tid % w4;
+  for (int f = tid; f < nrows * w4; f += kT) {
+    const bool in = r < valid;
+    cp_async16(dst + r * ld + 4 * c, src + (in ? 4 * f : 0), in);
+    r += dr;
+    c += dc;
+    if (c >= w4) {
+      c -= w4;
+      ++r;
+    }
+  }
+}
+
+// the cumulative log-decay of the chunk, two steps a lane: cums[2 lane]
+// in c_lo, cums[2 lane + 1] in c_hi, cums_last in every lane
+struct Cums {
+  float c_lo, c_hi, last;
+  __device__ __forceinline__ Cums(const float* la, int lane) {
+    const float a0 = la[2 * lane], a1 = la[2 * lane + 1];
+    float s = a0 + a1;
+    for (int o = 1; o < 32; o <<= 1) {
+      const float t = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += t;
+    }
+    c_lo = s - a1;
+    c_hi = s;
+    last = __shfl_sync(0xffffffffu, s, 31);
+  }
+  // cums[k]; every lane of the warp calls it
+  __device__ __forceinline__ float at(int k) const {
+    const float lo = __shfl_sync(0xffffffffu, c_lo, k >> 1);
+    const float hi = __shfl_sync(0xffffffffu, c_hi, k >> 1);
+    return (k & 1) ? hi : lo;
+  }
+};
+
+
+// ---------------------------------------------------------------------------
+// products on tensor cores in 3xTF32 (kernels 1 and 2)
+// ---------------------------------------------------------------------------
+// mma.sync m16n8k8 fragments, lane = 4 gid + tig: A (16 x 8) holds rows
+// gid, gid + 8 at k slots tig, tig + 4; B (8 x 8) k slots tig, tig + 4 at
+// column gid; C (16 x 8) rows gid, gid + 8 at columns 2 tig, 2 tig + 1.
+// The k slots tig, tig + 4 hold k = k0 + tig, k0 + tig + 4, or in a
+// "paired" product k0 + 2 tig, k0 + 2 tig + 1.  No product is predicated
+// (a predicated mma.sync costs a warp sync): a tile past P or N computes
+// on a clamped tile and is not stored.
+constexpr int kLdM = kQ + 4;       // row stride of M^T in shared memory
+constexpr int kLdG = kQ + 8;       // row stride of dG^T and dG at the end
+constexpr int kTri = 20;           // 16 x 8 tiles of D^T on or above the
+                                   // diagonal; warp w owns w, w + 8, w + 16
+
+// fp32 -> TF32 as cvt.rna.tf32.f32 rounds a finite value (to nearest, ties
+// away from zero): half a TF32 ulp added to the bits, the low 13 cleared
+// (cvt adds a test for inf and NaN: three more instructions a split)
+__device__ __forceinline__ uint32_t to_tf32(float a) {
+  return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // a 3xTF32 operand: hi = tf32(a), lo = tf32(a - hi).  lo's low 13 bits
@@ -446,55 +322,160 @@ __device__ __forceinline__ float ld_b_kn_pair(FragB& f, const float* r,
   return t ? fmaf(v0, t[0], v1 * t[ld]) : 0.f;
 }
 
-// rows [0, nrows) of a row-major [*, W] source (W a multiple of 4) into
-// shared rows of stride ld by cp.async; rows from `valid` on are zeros
-__device__ __forceinline__ void async_tile(float* dst, int ld,
-                                           const float* src, int nrows,
-                                           int W, int valid, int tid) {
-  const int w4 = W / 4, dr = kThreads / w4, dc = kThreads % w4;
-  int r = tid / w4, c = tid % w4;
-  for (int f = tid; f < nrows * w4; f += kThreads) {
-    const bool in = r < valid;
-    cp_async16(dst + r * ld + 4 * c, src + (in ? 4 * f : 0), in);
-    r += dr;
-    c += dc;
-    if (c >= w4) {
-      c -= w4;
-      ++r;
+// ---------------------------------------------------------------------------
+// kernel 1: the reverse state pass, g from dy and C, on tensor cores
+// ---------------------------------------------------------------------------
+// A block owns 16 MT rows of P of one (batch, head) and walks the chunks
+// from last to first with its rows of g, the gradient of the state leaving
+// the chunk, in registers: it writes g_c, then folds in the chunk's own
+// dS_c = (dy_c * exp(cums))^T C_c, g_{c-1} = dS_c + exp(cums_last) g_c
+// (g_{nc-1} = 0).  dS never leaves registers.  Warp w owns the columns
+// [32 w, 32 w + 32) of N: per 8 steps of the chunk its MT 16-row tiles of
+// dy^T (read transposed from dy's rows) by four 8-column tiles of C, in
+// 3xTF32 as kernel 2 multiplies.  exp(cums) scales C rather than dy: each
+// warp computes the chunk's cums itself and scales its own columns of C in
+// place, so a chunk needs one block barrier (its loads landed, the other
+// slot free).  The next chunk's C, dy rows and loga arrive by cp.async
+// into the other slot of a two-slot ring while a chunk computes.  Strides
+// of 4 mod 32 floats (C) and 16 MT + 4 (dy) with paired k slots keep the
+// fragment reads free of bank conflicts.  A partial last chunk reads as
+// zero rows; a tile past P or N computes on zeros or a clamped tile and is
+// not stored.
+constexpr int kRevThreads = kMaxN;         // a warp per 32 columns of N
+
+// A[m][k] = s[k][m] (r = row k0 + 2 tig, column gid), paired k slots
+__device__ __forceinline__ void ld_a_t_pair(FragA& f, const float* r,
+                                            int ld) {
+  f.set(0, r[0]);
+  f.set(1, r[8]);
+  f.set(2, r[ld]);
+  f.set(3, r[ld + 8]);
+}
+
+// shared memory of the reverse pass, in floats: two slots each of C
+// [Q][ldc], dy's rows [Q][16 MT + 4] and loga [Q]
+__host__ __device__ int rev_ldc(int N) { return (N + 31) / 32 * 32 + 4; }
+size_t smem_reverse(int mt, int N) {
+  return sizeof(float) * 2 *
+         (static_cast<size_t>(kQ) * (rev_ldc(N) + 16 * mt + 4) + kQ);
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kRevThreads)
+ssd_bwd_reverse_pass(const float* __restrict__ loga,
+                     const float* __restrict__ Cm,
+                     const float* __restrict__ dy, float* __restrict__ g,
+                     int H, int S, int P, int N) {
+  extern __shared__ __align__(16) float sm[];
+  constexpr int kRows = 16 * MT, ldd = kRows + 4;
+  const int ldc = rev_ldc(N);
+  float* cs = sm;                          // [2][Q][ldc]  C, by slot
+  float* ds = cs + 2 * kQ * ldc;           // [2][Q][ldd]  dy's rows
+  float* la = ds + 2 * kQ * ldd;           // [2][Q]  loga
+
+  const int p0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  const int nc = (S + kQ - 1) / kQ;
+  const int prow = min(kRows, P - p0);     // a multiple of 8
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int wcols = N - 32 * warp;         // this warp's columns, if < 32
+  const int nt = min(4, wcols / 8);        // its live 8-column tiles
+  int n0s[4];                              // a tile past N is clamped
+#pragma unroll
+  for (int t = 0; t < 4; ++t) n0s[t] = 32 * warp + 8 * min(t, max(nt - 1, 0));
+
+  auto load = [&](int c, int s) {          // chunk c into slot s
+    const int c0 = c * kQ, rows = min(kQ, S - c0);
+    async_tile<kRevThreads>(cs + s * kQ * ldc, ldc,
+                            Cm + (static_cast<size_t>(b) * S + c0) * N, kQ,
+                            N, rows, tid);
+    const float* src = dy + (bh * S + c0) * P + p0;
+    float* dst = ds + s * kQ * ldd;
+    for (int f = tid; f < kQ * kRows / 4; f += kRevThreads) {
+      const int r = f / (kRows / 4), k = f % (kRows / 4);
+      const bool in = r < rows && 4 * k < prow;
+      cp_async16(dst + r * ldd + 4 * k, src + (in ? r * P + 4 * k : 0), in);
     }
+    if (tid < kQ)
+      cp_async4(la + s * kQ + tid,
+                loga + bh * S + c0 + (tid < rows ? tid : 0), tid < rows);
+  };
+
+  float gr[MT][4][4] = {};                 // g of the chunk being reached
+  load(nc - 1, 0);
+  cp_commit();
+  for (int step = 0; step < nc; ++step) {
+    const int c = nc - 1 - step, s = step & 1;
+    cp_wait<0>();
+    __syncthreads();                       // chunk c in; the other slot free
+    if (c > 0) load(c - 1, s ^ 1);
+    cp_commit();
+    if (nt <= 0) continue;                 // no columns: loads only
+    const Cums cums(la + s * kQ, lane);
+    const float e_lo = expf(cums.c_lo), e_hi = expf(cums.c_hi);
+    float* cc = cs + s * kQ * ldc;
+    const float* dc = ds + s * kQ * ldd;
+    // C[j][n] *= exp(cums_j) on this warp's columns: 8 float4s a row
+    for (int f = lane; f < kQ * 8; f += 32) {
+      const int j = f / 8, q = f % 8;
+      const float lo = __shfl_sync(0xffffffffu, e_lo, j >> 1);
+      const float hi = __shfl_sync(0xffffffffu, e_hi, j >> 1);
+      if (4 * q < wcols) {
+        float* cp = cc + j * ldc + 32 * warp + 4 * q;
+        const float e = (j & 1) ? hi : lo;
+        float4 v = ld4(cp);
+        v.x *= e;
+        v.y *= e;
+        v.z *= e;
+        v.w *= e;
+        st4(cp, v);
+      }
+    }
+    __syncwarp();
+    float acc[MT][4][4] = {};
+    for (int k0 = 0; k0 < kQ; k0 += 8) {
+      FragA fa[MT];
+      FragB fb[4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        ld_a_t_pair(fa[m], dc + (k0 + 2 * tig) * ldd + 16 * m + gid, ldd);
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        ld_b_kn_pair(fb[t], cc + (k0 + 2 * tig) * ldc + n0s[t] + gid, ldc);
+      mma3<MT, 4>(acc, fa, fb);
+    }
+    const float e_last = expf(cums.last);
+    float* gc = g + (bh * nc + c) * P * N;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int r = 16 * m + gid + 8 * q;
+          if (t < nt && r < prow)
+            *reinterpret_cast<float2*>(gc + (p0 + r) * N + n0s[t] +
+                                       2 * tig) =
+                make_float2(gr[m][t][2 * q], gr[m][t][2 * q + 1]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          gr[m][t][e] = fmaf(e_last, gr[m][t][e], acc[m][t][e]);
+      }
   }
 }
 
-// the cumulative log-decay of the chunk, two steps a lane: cums[2 lane]
-// in c_lo, cums[2 lane + 1] in c_hi, cums_last in every lane
-struct Cums {
-  float c_lo, c_hi, last;
-  __device__ __forceinline__ Cums(const float* la, int lane) {
-    const float a0 = la[2 * lane], a1 = la[2 * lane + 1];
-    float s = a0 + a1;
-    for (int o = 1; o < 32; o <<= 1) {
-      const float t = __shfl_up_sync(0xffffffffu, s, o);
-      if (lane >= o) s += t;
-    }
-    c_lo = s - a1;
-    c_hi = s;
-    last = __shfl_sync(0xffffffffu, s, 31);
-  }
-  // cums[k]; every lane of the warp calls it
-  __device__ __forceinline__ float at(int k) const {
-    const float lo = __shfl_sync(0xffffffffu, c_lo, k >> 1);
-    const float hi = __shfl_sync(0xffffffffu, c_hi, k >> 1);
-    return (k & 1) ? hi : lo;
-  }
-};
-
+// ---------------------------------------------------------------------------
+// kernel 2: the chunk-parallel gradients, on tensor cores in 3xTF32
+// ---------------------------------------------------------------------------
 // the k-th tile of D^T's upper triangle: rows 16 jb.., columns 8 ib..
 __device__ __forceinline__ void tri_tile(int k, int& jb, int& ib) {
   jb = k < 8 ? 0 : k < 14 ? 1 : k < 18 ? 2 : 3;
   ib = k - (jb == 0 ? 0 : jb == 1 ? 6 : jb == 2 ? 10 : 12);
 }
 
-// shared memory of kernel 3, in floats
+// shared memory of kernel 2, in floats
 struct LayoutG {
   int ldn, ldx;                    // strides: 4 mod 32, 8 mod 32
   int bs, cs, xy, gb, hb, ms, inter, la, rsum, csum, up, red, total;
@@ -526,7 +507,8 @@ ssd_bwd_chunk_grads(const float* __restrict__ xdt,
                     const float* __restrict__ Bm,
                     const float* __restrict__ Cm,
                     const float* __restrict__ dy,
-                    const float* __restrict__ states,
+                    const float* __restrict__ h_in,
+                    const float* __restrict__ g_st,
                     float* __restrict__ dx, float* __restrict__ dloga,
                     float* __restrict__ parts, int H, int S, int P_, int N_) {
   extern __shared__ __align__(16) float sm[];
@@ -549,7 +531,6 @@ ssd_bwd_chunk_grads(const float* __restrict__ xdt,
   const int c0 = c * kQ, rows = min(kQ, S - c0);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gid = lane / 4, tig = lane % 4;
-  const size_t bhnc = static_cast<size_t>(gridDim.z) * H * nc;
   const int h_end = min(H, h_first + kHeads);
   const int pt = P / 8, nt = N / 8;          // 8-wide tiles of P and N
 
@@ -564,10 +545,8 @@ ssd_bwd_chunk_grads(const float* __restrict__ xdt,
       cp_async4(sm + L.la + s * kQ + tid,
                 loga + bh * S + c0 + (tid < rows ? tid : 0), tid < rows);
   };
-  auto g_of = [&](int h) {
-    return states + (bhnc + bh_of(h) * nc + c) * P * N;
-  };
-  auto h_of = [&](int h) { return states + (bh_of(h) * nc + c) * P * N; };
+  auto g_of = [&](int h) { return g_st + (bh_of(h) * nc + c) * P * N; };
+  auto h_of = [&](int h) { return h_in + (bh_of(h) * nc + c) * P * N; };
 
   async_tile(bs, ldn, Bm + (static_cast<size_t>(b) * S + c0) * N, kQ, N,
              rows, tid);
@@ -957,7 +936,7 @@ ssd_bwd_chunk_grads(const float* __restrict__ xdt,
 }
 
 // ---------------------------------------------------------------------------
-// kernel 4: dB and dC, the head groups' partials added in group order
+// kernel 3: dB and dC, the head groups' partials added in group order
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
 ssd_bwd_sum_groups(const float* __restrict__ parts, float* __restrict__ dB,
@@ -987,36 +966,59 @@ ssd_bwd_sum_groups(const float* __restrict__ parts, float* __restrict__ dB,
   st4((which ? dC : dB) + bs * N + 4 * k, acc);
 }
 
-size_t smem_states(int P, int N) {
-  return sizeof(float) *
-         (2 * static_cast<size_t>(kQ) * (N + 4) + 2 * kQ * (P + 4) + 3 * kQ);
-}
 size_t smem_grads(int P, int N) {
   return sizeof(float) * static_cast<size_t>(LayoutG(P, N).total);
 }
 
+// the reverse pass's rows of P a block, 16 mt: 64 (mt 4, the fewest reads
+// of C) when those blocks give every SM one, else 32 (mt 2, twice the
+// blocks; two blocks fit an SM at 87 / 103 KB of shared memory).  On the
+// card (PERF.md section 6): 64 rows at mamba2-370m's 8 x 2048 x 32 heads
+// (256 blocks), 32 at a mesh rank's 4 x 2048 x 16 (64 blocks of 64 rows
+// leave half the SMs idle).  16 rows were slower at both shapes.
+int reverse_mt(int Bz, int H, int P, int sms) {
+  const long blocks64 = static_cast<long>(Bz) * H * ((P + 63) / 64);
+  return blocks64 >= sms ? 4 : 2;
+}
+
+template <int MT>
+cudaError_t opt_in_reverse() {
+  cudaError_t e = cudaFuncSetAttribute(
+      ssd_bwd_reverse_pass<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_reverse(MT, kMaxN)));
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(ssd_bwd_reverse_pass<MT>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
 }  // namespace
 
-// xdt [Bz, H, S, P], loga [Bz, H, S], B/C [Bz, S, N], dy [Bz, H, S, P],
-// all float32 and contiguous; outputs dx [Bz, H, S, P], dloga [Bz, H, S],
-// dB/dC [Bz, S, N].  Scratch, float32, allocated by the caller: states
-// [2, Bz, H, nc, P, N], e_last [Bz, H, nc] and parts [2, Bz, nc, groups,
-// 64, N], nc = ceil(S / 64), groups = ceil(H / 8).  P and N multiples of 8
-// with P <= 64 and N <= 128 (the wrapper checks too).
+// xdt [Bz, H, S, P], loga [Bz, H, S], B/C [Bz, S, N], dy [Bz, H, S, P]
+// and h_in [Bz, H, nc, P, N] (the state entering each chunk, as the
+// forward stores it), all float32 and contiguous; outputs dx [Bz, H, S,
+// P], dloga [Bz, H, S], dB/dC [Bz, S, N].  Scratch, float32, allocated by
+// the caller: g [Bz, H, nc, P, N] and parts [2, Bz, nc, groups, 64, N], nc
+// = ceil(S / 64), groups = ceil(H / 8).  P and N multiples of 8 with P <=
+// 64 and N <= 128 (the wrapper checks too).
 extern "C" int ssd_scan_bwd_launch(const void* xdt, const void* loga,
                                    const void* Bm, const void* Cm,
-                                   const void* dy, void* dx, void* dloga,
-                                   void* dB, void* dC, void* states,
-                                   void* e_last, void* parts, int Bz, int H,
+                                   const void* dy, const void* h_in,
+                                   void* dx, void* dloga, void* dB, void* dC,
+                                   void* g, void* parts, int Bz, int H,
                                    int S, int P, int N, void* stream) {
   if (Bz <= 0 || H <= 0 || S <= 0) return 0;
   if (P <= 0 || N <= 0 || P % 8 || N % 8 || P > kMaxP || N > kMaxN)
     return static_cast<int>(cudaErrorInvalidValue);
   static bool opted_in = false;      // once (for the largest P, N), before
-  if (!opted_in) {                   // any graph capture
-    cudaError_t e = cudaFuncSetAttribute(
-        ssd_bwd_chunk_states, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem_states(kMaxP, kMaxN)));
+  static int sms = 0;                // any graph capture
+  if (!opted_in) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) e = opt_in_reverse<2>();
+    if (e == cudaSuccess) e = opt_in_reverse<4>();
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(ssd_bwd_chunk_grads<kMaxP, kMaxN>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1033,26 +1035,23 @@ extern "C" int ssd_scan_bwd_launch(const void* xdt, const void* loga,
   const float* la = static_cast<const float*>(loga);
   const float* bm = static_cast<const float*>(Bm);
   const float* cm = static_cast<const float*>(Cm);
-  const float* g = static_cast<const float*>(dy);
-  float* st = static_cast<float*>(states);
-  float* el = static_cast<float*>(e_last);
+  const float* dyp = static_cast<const float*>(dy);
+  const float* hi = static_cast<const float*>(h_in);
+  float* gs = static_cast<float*>(g);
   float* pt = static_cast<float*>(parts);
   const int nc = (S + kQ - 1) / kQ, groups = (H + kHeads - 1) / kHeads;
-  const dim3 chunks(nc, groups, Bz);
-  ssd_bwd_chunk_states<<<chunks, kThreads, smem_states(P, N), s>>>(
-      x, la, bm, cm, g, st, el, H, S, P, N);
+  const int mt = reverse_mt(Bz, H, P, sms);
+  auto* reverse = mt == 4 ? ssd_bwd_reverse_pass<4> : ssd_bwd_reverse_pass<2>;
+  reverse<<<dim3((P + 16 * mt - 1) / (16 * mt), H, Bz), kRevThreads,
+            smem_reverse(mt, N), s>>>(la, cm, dyp, gs, H, S, P, N);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  ssd_bwd_state_pass<<<dim3(Bz * H, 2), kThreads, 0, s>>>(st, el, Bz * H,
-                                                           nc, P, N);
-  e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   // mamba2-370m's P and N with strides fixed at compile time, other
   // widths with the same kernel reading them from its arguments
   auto* grads = P == kMaxP && N == kMaxN ? ssd_bwd_chunk_grads<kMaxP, kMaxN>
                                          : ssd_bwd_chunk_grads<0, 0>;
-  grads<<<chunks, kThreads, smem_grads(P, N), s>>>(
-      x, la, bm, cm, g, st, static_cast<float*>(dx),
+  grads<<<dim3(nc, groups, Bz), kThreads, smem_grads(P, N), s>>>(
+      x, la, bm, cm, dyp, hi, gs, static_cast<float*>(dx),
       static_cast<float*>(dloga), pt, H, S, P, N);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);

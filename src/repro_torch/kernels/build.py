@@ -118,8 +118,7 @@ def library() -> ctypes.CDLL:
         lib.flash_attention_bwd_launch.argtypes = [p] * 13 + [i] * 9 + [
             ctypes.c_float, i, p]
         lib.flash_attention_bwd_launch.restype = i
-        lib.ssd_scan_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
-                                        i, p]
+        lib.ssd_scan_launch.argtypes = [p] * 8 + [i] * 6 + [p]
         lib.ssd_scan_launch.restype = i
         lib.ssd_scan_bwd_launch.argtypes = [p] * 12 + [i] * 5 + [p]
         lib.ssd_scan_bwd_launch.restype = i

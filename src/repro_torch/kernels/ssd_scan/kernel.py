@@ -7,7 +7,9 @@ reference) and its backward ``csrc/ssd_scan_bwd.cu`` (``ssd_scan_bwd``; the
 reference has no Pallas backward: its gradient is XLA's autodiff of
 ``layers/ssd.py::ssd_chunked``).  On CPU tensors the Function runs the
 plain versions, ``ssd_phases`` forward and ``ssd_scan_bwd_plain``
-backward, at the caller's chunk.
+backward, at the caller's chunk.  When an input needs a gradient the
+forward also keeps h_in, the state entering each chunk [Bz, H, nc, P, N]
+fp32, and hands it to the backward.
 
 xdt: [Bz, H, S, P] (x * dt); loga: [Bz, H, S] (dt * A, the log-decay);
 B/C: [Bz, S, N], shared across the heads.  Returns y [Bz, H, S, P] in
@@ -45,12 +47,15 @@ bwd_launches = 0      # backward kernel launches, likewise
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def ssd_phases(xdt, loga, B, C, *, chunk: int = CHUNK, h0=None):
+def ssd_phases(xdt, loga, B, C, *, chunk: int = CHUNK, h0=None,
+               with_h_in: bool = False):
     """The scan in the kernel's three phases, plain PyTorch, fp32.
 
     xdt [Bz, H, S, P], loga [Bz, H, S], B/C [Bz, S, N]; ``h0`` [Bz, H, P,
     N] or None for zeros.  Returns (y [Bz, H, S, P], h_final [Bz, H, P,
-    N]), both fp32.
+    N]), both fp32, and with ``with_h_in`` also the state entering each
+    chunk, h_in [Bz, H, nc, P, N] (what the forward kernel stores for the
+    backward).
     """
     Bz, H, S, P = xdt.shape
     N = B.shape[-1]
@@ -87,7 +92,8 @@ def ssd_phases(xdt, loga, B, C, *, chunk: int = CHUNK, h0=None):
 
     # 3. the outputs from the incoming states
     y = y + torch.matmul(Cf, h_in.transpose(-1, -2)) * ecum[..., None]
-    return y.reshape(Bz, H, nc * Q, P)[:, :, :S], h
+    y = y.reshape(Bz, H, nc * Q, P)[:, :, :S]
+    return (y, h, h_in) if with_h_in else (y, h)
 
 
 def ssd_scan_plain(xdt, loga, B, C, *, chunk: int = CHUNK):
@@ -95,11 +101,15 @@ def ssd_scan_plain(xdt, loga, B, C, *, chunk: int = CHUNK):
     return ssd_phases(xdt, loga, B, C, chunk=chunk)[0]
 
 
-def ssd_scan_bwd_plain(xdt, loga, B, C, dy, *, chunk: int = CHUNK):
+def ssd_scan_bwd_plain(xdt, loga, B, C, dy, *, chunk: int = CHUNK,
+                       h_in=None):
     """Plain PyTorch version of the backward kernel: the gradient of
     ``ssd_phases``' y (from h0 = 0) given dy, in the kernel's three
-    phases, without autograd.  Returns (dxdt [Bz, H, S, P], dloga [Bz, H,
-    S], dB [Bz, S, N], dC [Bz, S, N]), all fp32.
+    phases, without autograd.  ``h_in`` [Bz, H, nc, P, N] is the state
+    entering each chunk as the forward hands it over (``ssd_phases(...,
+    with_h_in=True)``), or None to rebuild it here from each chunk's own
+    state dH.  Returns (dxdt [Bz, H, S, P], dloga [Bz, H, S], dB [Bz, S,
+    N], dC [Bz, S, N]), all fp32.
 
     Per chunk c, with cums the in-chunk cumulative log-decay, L_ij =
     exp(cums_i - cums_j) for i >= j (0 above), G = C B^T, M = G * L,
@@ -107,8 +117,8 @@ def ssd_scan_bwd_plain(xdt, loga, B, C, dy, *, chunk: int = CHUNK):
     and g_c the gradient of the state leaving it:
 
     1. the reverse state pass, last chunk to first: g_{nc-1} = 0,
-       g_{c-1} = (dy_c * exp(cums_c))^T C_c + exp(cums_c[-1]) g_c (and
-       the forward pass for h_in, recomputed from each chunk's dH);
+       g_{c-1} = (dy_c * exp(cums_c))^T C_c + exp(cums_c[-1]) g_c (and,
+       without ``h_in``, the forward pass that rebuilds it);
     2. chunk-parallel, from the chunk's own dy, h_in and g_c:
        dx = M^T dy + decay_out * (B g^T);
        dG = sum_h (dy x^T) * L,  dB = dG^T C + (x * decay_out) g,
@@ -141,20 +151,24 @@ def ssd_scan_bwd_plain(xdt, loga, B, C, dy, *, chunk: int = CHUNK):
     e_last = ecum[..., -1]                                   # [Bz,H,nc]
     xd = x * dec[..., None]
     dye = dyf * ecum[..., None]
-    dH = torch.matmul(xd.transpose(-1, -2), Bf)              # [Bz,H,nc,P,N]
+    if h_in is None:
+        dH = torch.matmul(xd.transpose(-1, -2), Bf)          # [Bz,H,nc,P,N]
     dS = torch.matmul(dye.transpose(-1, -2), Cf)
 
-    # 1. the state passes: h_in forward, g in reverse
-    h = torch.zeros((Bz, H, P, N), dtype=torch.float32, device=x.device)
-    g = torch.zeros_like(h)
-    h_ins, gs = [], [None] * nc
-    for c in range(nc):
-        h_ins.append(h)
-        h = h * e_last[:, :, c, None, None] + dH[:, :, c]
+    # 1. the state passes: h_in forward (unless handed over), g in reverse
+    g = torch.zeros((Bz, H, P, N), dtype=torch.float32, device=x.device)
+    if h_in is None:
+        h, h_ins = torch.zeros_like(g), []
+        for c in range(nc):
+            h_ins.append(h)
+            h = h * e_last[:, :, c, None, None] + dH[:, :, c]
+        h_in = torch.stack(h_ins, dim=2)
+    else:
+        h_in = h_in.float()
+    gs = [None] * nc
     for c in reversed(range(nc)):
         gs[c] = g
         g = dS[:, :, c] + e_last[:, :, c, None, None] * g
-    h_in = torch.stack(h_ins, dim=2)
     g = torch.stack(gs, dim=2)                               # [Bz,H,nc,P,N]
 
     # 2. chunk-parallel
@@ -214,8 +228,10 @@ def _check_kernel_inputs(name, tensors, dtypes):
             raise ValueError(f"{name} needs contiguous tensors")
 
 
-def _launch_fwd(xdt, loga, B, C):
-    """The forward kernel on CUDA tensors: y [Bz, H, S, P] fp32."""
+def _launch_fwd(xdt, loga, B, C, with_h_in: bool = False):
+    """The forward kernel on CUDA tensors: y [Bz, H, S, P] fp32, and with
+    ``with_h_in`` also (y, h_in): the state entering each chunk [Bz, H,
+    nc, P, N] fp32, stored by the state pass as it walks the chunks."""
     global launches
     _check_kernel_inputs("ssd_scan", (xdt, loga, B, C), tuple(_DTYPE_CODE))
     Bz, H, S, P = xdt.shape
@@ -228,30 +244,53 @@ def _launch_fwd(xdt, loga, B, C):
                      device=xdt.device)
     ecum = torch.empty((Bz, H, nc, CHUNK), dtype=torch.float32,
                        device=xdt.device)
+    h_in = torch.empty_like(dH) if with_h_in else None
     err = build.library().ssd_scan_launch(
         xdt.data_ptr(), loga.data_ptr(), B.data_ptr(), C.data_ptr(),
-        y.data_ptr(), dH.data_ptr(), ecum.data_ptr(), Bz, H, S, P, N,
+        y.data_ptr(), dH.data_ptr(), ecum.data_ptr(),
+        h_in.data_ptr() if with_h_in else None, Bz, H, S, P, N,
         _DTYPE_CODE[xdt.dtype], build.stream_ptr(xdt.device))
     build.check(err, "ssd_scan")
     launches += 1
-    return y
+    return (y, h_in) if with_h_in else y
 
 
-def ssd_scan_bwd(xdt, loga, B, C, dy, *, chunk: int = CHUNK):
+def _check_h_in(h_in, xdt, N, chunk):
+    Bz, H, S, P = xdt.shape
+    want = (Bz, H, -(-S // chunk), P, N)
+    if tuple(h_in.shape) != want or h_in.dtype != torch.float32 or \
+            h_in.device != xdt.device:
+        raise ValueError(f"h_in must be float32 {want} on {xdt.device}; got "
+                         f"{h_in.dtype} {tuple(h_in.shape)} on "
+                         f"{h_in.device}")
+
+
+def ssd_scan_bwd(xdt, loga, B, C, dy, *, chunk: int = CHUNK, h_in=None):
     """(dxdt, dloga, dB, dC) of y = ssd_scan(xdt, loga, B, C) given dy [Bz,
     H, S, P]: the backward kernel on CUDA tensors (fp32, chunk CHUNK),
-    ``ssd_scan_bwd_plain`` at ``chunk`` on CPU tensors."""
+    ``ssd_scan_bwd_plain`` at ``chunk`` on CPU tensors.  ``h_in`` [Bz, H,
+    nc, P, N] is the state entering each chunk as the forward stores it
+    (``SSDScan`` hands it over); without it, on CUDA tensors, one forward
+    launch with the store on (counted in ``launches``) makes it."""
     global bwd_launches
     _check(xdt, loga, B, C)
     if dy.shape != xdt.shape or dy.device != xdt.device:
         raise ValueError(f"dy {tuple(dy.shape)} must be like xdt "
                          f"{tuple(xdt.shape)}")
+    N = B.shape[-1]
     if xdt.device.type == "cpu":
-        return ssd_scan_bwd_plain(xdt, loga, B, C, dy, chunk=chunk)
+        if h_in is not None:
+            _check_h_in(h_in, xdt, N, chunk)
+        return ssd_scan_bwd_plain(xdt, loga, B, C, dy, chunk=chunk,
+                                  h_in=h_in)
     _check_kernel_inputs("ssd_scan_bwd", (xdt, loga, B, C, dy),
                          (torch.float32,))
+    if h_in is None:
+        h_in = _launch_fwd(xdt, loga, B, C, with_h_in=True)[1]
+    _check_h_in(h_in, xdt, N, CHUNK)
+    if not h_in.is_contiguous():
+        raise ValueError("ssd_scan_bwd needs a contiguous h_in")
     Bz, H, S, P = xdt.shape
-    N = B.shape[-1]
     nc = -(-S // CHUNK)
     groups = -(-H // BWD_HEADS)
 
@@ -259,45 +298,52 @@ def ssd_scan_bwd(xdt, loga, B, C, dy, *, chunk: int = CHUNK):
         return torch.empty(shape, dtype=torch.float32, device=xdt.device)
     dx, dloga, dB, dC = f32(Bz, H, S, P), f32(Bz, H, S), f32(Bz, S, N), \
         f32(Bz, S, N)
-    # scratch: each chunk's dH and dS, turned in place by the state passes
-    # into the incoming state h_in and the outgoing state's gradient g;
-    # each chunk's decay exp(cums_last); each head group's dB and dC
-    # partials, added in group order
-    states = f32(2, Bz, H, nc, P, N)
-    e_last = f32(Bz, H, nc)
+    # scratch: the outgoing state's gradient g of each chunk, written by
+    # the reverse pass; each head group's dB and dC partials, added in
+    # group order
+    g = f32(Bz, H, nc, P, N)
     parts = f32(2, Bz, nc, groups, CHUNK, N)
     err = build.library().ssd_scan_bwd_launch(
         xdt.data_ptr(), loga.data_ptr(), B.data_ptr(), C.data_ptr(),
-        dy.data_ptr(), dx.data_ptr(), dloga.data_ptr(), dB.data_ptr(),
-        dC.data_ptr(), states.data_ptr(), e_last.data_ptr(),
-        parts.data_ptr(), Bz, H, S, P, N, build.stream_ptr(xdt.device))
+        dy.data_ptr(), h_in.data_ptr(), dx.data_ptr(), dloga.data_ptr(),
+        dB.data_ptr(), dC.data_ptr(), g.data_ptr(), parts.data_ptr(), Bz,
+        H, S, P, N, build.stream_ptr(xdt.device))
     build.check(err, "ssd_scan_bwd")
     bwd_launches += 1
     return dx, dloga, dB, dC
 
 
 class SSDScan(torch.autograd.Function):
-    """The scan with the kernels' gradient: the forward keeps its inputs
-    (the backward recomputes the states from them).  CPU tensors take the
-    plain versions at ``chunk``; the kernels' chunk is CHUNK."""
+    """The scan with the kernels' gradient.  When an input needs a
+    gradient the forward keeps its inputs and h_in, the state entering
+    each chunk (the forward kernel stores it as it walks; the plain
+    version returns the one it builds), and the backward reads them;
+    otherwise it keeps nothing.  Under the unit remat's checkpoint the
+    first forward's tensors are dropped and the recomputed forward's are
+    the ones the backward reads.  CPU tensors take the plain versions at
+    ``chunk``; the kernels' chunk is CHUNK."""
 
     @staticmethod
-    def forward(ctx, xdt, loga, B, C, chunk):
+    def forward(ctx, xdt, loga, B, C, chunk, grad_enabled):
+        # needs_input_grad reads requires_grad alone, under no_grad too
+        grad = grad_enabled and any(ctx.needs_input_grad[:4])
         if xdt.device.type == "cpu":
-            y = ssd_phases(xdt, loga, B, C, chunk=chunk)[0]
+            out = ssd_phases(xdt, loga, B, C, chunk=chunk, with_h_in=grad)
+            y = out[0]
         else:
-            y = _launch_fwd(xdt, loga, B, C)
-        if any(ctx.needs_input_grad[:4]):
-            ctx.save_for_backward(xdt, loga, B, C)
+            out = _launch_fwd(xdt, loga, B, C, with_h_in=grad)
+            y = out[0] if grad else out
+        if grad:
+            ctx.save_for_backward(xdt, loga, B, C, out[-1])
         ctx.chunk = chunk
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        xdt, loga, B, C = ctx.saved_tensors
+        xdt, loga, B, C, h_in = ctx.saved_tensors
         grads = ssd_scan_bwd(xdt, loga, B, C, dy.contiguous(),
-                             chunk=ctx.chunk)
-        return (*grads, None)
+                             chunk=ctx.chunk, h_in=h_in)
+        return (*grads, None, None)
 
 
 def ssd_scan(xdt, loga, B, C, *, chunk: int = CHUNK):
@@ -305,9 +351,9 @@ def ssd_scan(xdt, loga, B, C, *, chunk: int = CHUNK):
     [Bz, H, S, P] in fp32, differentiable in all four inputs.  ``chunk`` is
     the plain version's on CPU tensors; the kernels' is CHUNK."""
     _check(xdt, loga, B, C)
-    if torch.is_grad_enabled() and \
-            any(t.requires_grad for t in (xdt, loga, B, C)) and \
+    grad = torch.is_grad_enabled()
+    if grad and any(t.requires_grad for t in (xdt, loga, B, C)) and \
             any(t.dtype != torch.float32 for t in (xdt, loga, B, C)):
         raise TypeError("ssd_scan's backward takes float32 inputs: an input "
                         "that requires grad must be float32")
-    return SSDScan.apply(xdt, loga, B, C, chunk)
+    return SSDScan.apply(xdt, loga, B, C, chunk, grad)

@@ -1,21 +1,28 @@
-"""Where the scan backward's chunk-gradient kernel spends its time, on the
-card: copies of ``csrc/ssd_scan_bwd.cu`` with one part of kernel 3 changed
-each (their results are wrong where a part is off: times only), timed
-beside the source as it is.
+"""Where the scan backward's tensor-core kernels spend their time, on the
+card: copies of ``csrc/ssd_scan_bwd.cu`` with one part changed each (their
+results are wrong where a part is off: times only), timed beside the
+source as it is.
 
-    PYTHONPATH=src python -m repro_torch.launch.ablate_ssd_bwd [--out DIR]
+    PYTHONPATH=src python -m repro_torch.launch.ablate_ssd_bwd \
+        [--variants NAME ...] [--out DIR]
 
 - ``as_is``: the source as it is (timed first and last);
 - ``trunc_split``: each operand split by truncation (hi = the bits with
   the low 13 cleared, lo = a - hi left for mma to truncate): two
-  instructions a split where rounding as cvt.rna rounds takes four;
+  instructions a split where rounding as cvt.rna rounds takes four (in
+  the reverse pass and the chunk-gradient kernel alike: they share the
+  split);
 - ``no_split``: no split at all (hi and lo both the raw bits): the
   products and loads as they are, without the split's instructions;
 - ``one_pass``: hi hi only (lo never formed): a third of the tensor-core
   products, and half the split;
-- ``runtime_strides``: mamba2-370m's P 64, N 128 on the kernel's
-  instantiation that reads P and N from its arguments, as every other
-  width does.
+- ``runtime_strides``: mamba2-370m's P 64, N 128 on the chunk-gradient
+  kernel's instantiation that reads P and N from its arguments, as every
+  other width does;
+- ``reverse_rows_16`` / ``_32`` / ``_64``: the reverse pass with 16, 32
+  or 64 rows of P a block whatever the shape (the launch picks 32 or 64
+  by the shape: 64 at this one; 16 is an instantiation of the copy's
+  own).
 
 Each variant is a copy of this package under ``DIR/ablate_ssd/<name>/``,
 timed by ``bench_ssd_bwd`` with the trees in the order as_is, the
@@ -53,6 +60,15 @@ VARIANTS = {
     "one_pass": [(_SPLIT, "    hi[k] = to_tf32(a);\n    lo[k] = hi[k];")] +
     _LO_PASSES,
     "runtime_strides": [("P == kMaxP && N == kMaxN ?", "false ?")],
+    # 16 rows: an instantiation the source does not have
+    "reverse_rows_16": [
+        ("const int mt = reverse_mt(Bz, H, P, sms);", "const int mt = 1;"),
+        ("e = opt_in_reverse<2>();", "e = opt_in_reverse<1>();"),
+        ("mt == 4 ? ssd_bwd_reverse_pass<4> : ssd_bwd_reverse_pass<2>;",
+         "ssd_bwd_reverse_pass<1>;")],
+    **{f"reverse_rows_{16 * mt}": [
+        ("const int mt = reverse_mt(Bz, H, P, sms);", f"const int mt = {mt};")]
+       for mt in (2, 4)},
 }
 
 
@@ -82,9 +98,11 @@ def make_tree(out: Path, name: str) -> Path:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="compare_out", type=Path)
+    ap.add_argument("--variants", nargs="+", choices=list(VARIANTS),
+                    default=list(VARIANTS))
     args = ap.parse_args(argv)
     work = args.out / "ablate_ssd"
-    trees = [make_tree(work, name) for name in VARIANTS]
+    trees = [make_tree(work, name) for name in args.variants]
     try:
         bench_ssd_bwd.main(["--trees", str(ROOT), *map(str, trees),
                             str(ROOT), "--out", str(work)])
@@ -92,14 +110,17 @@ def main(argv=None) -> int:
     finally:
         for tree in trees:
             shutil.rmtree(tree, ignore_errors=True)
-    names = ["as_is", *VARIANTS, "as_is"]
+    names = ["as_is", *args.variants, "as_is"]
     rows = [{"variant": n, "ms": r["ms"], "parts_ms": r["parts_ms"],
              "rel_err": r["rel_err"]} for n, r in zip(names, runs)]
     print(f"card: {runs[0]['card']}")
     for row in rows:
-        print(f"  {row['variant']}: {row['ms']:.4f} ms; chunk grads "
-              f"{row['parts_ms'].get('ssd_bwd_chunk_grads', float('nan')):.4f}"
-              " ms", flush=True)
+        parts = row["parts_ms"]
+        print(f"  {row['variant']}: {row['ms']:.4f} ms; reverse pass "
+              f"{parts.get('ssd_bwd_reverse_pass', float('nan')):.4f} ms, "
+              f"chunk grads "
+              f"{parts.get('ssd_bwd_chunk_grads', float('nan')):.4f} ms",
+              flush=True)
     (args.out / "ablate_ssd_bwd.json").write_text(json.dumps(
         {"card": runs[0]["card"], "rows": rows}, indent=1))
     return 0

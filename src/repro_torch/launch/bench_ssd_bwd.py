@@ -5,11 +5,16 @@
 
 Times ``ssd_scan_bwd`` at mamba2-370m's training shape (8 x 2048, 32
 heads of 64, N 128, fp32; inputs at ``chip_smoke.py``'s scales from a
-seed): device ms per call by CUDA-graph replay, eager ms between CUDA
-events, and the device time of each of its four kernels
-(``torch.profiler``, ``parts_ms``); holds the result to the plain version
-(1e-4 of each gradient's max) and prints ptxas's report for the kernels
-when this process built the library.
+seed), given the h_in the forward stores where the tree's backward takes
+it: device ms per call by CUDA-graph replay, eager ms between CUDA
+events, and the device time of each of its kernels (``torch.profiler``,
+``parts_ms``, by kernel name: a tree of another design shows its own);
+holds the result to the plain version (1e-4 of each gradient's max) and
+prints ptxas's report for the kernels when this process built the
+library.  Also times the forward ``ssd_scan`` kernel by graph replay at
+the training shape, without the h_in store (``fwd_ms``) and with it
+where the tree has it (``fwd_h_in_ms``: the forward under grad), and at
+mamba2-370m's scoring shape, 8 x 4096, without it (``score_fwd_ms``).
 
 With ``--trees``, the script runs itself once per tree, in the order given
 (for example parent, change, change, parent), with that tree's ``src``
@@ -19,19 +24,22 @@ first on the path.  Writes ``bench_ssd_bwd.json`` to ``--out``.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
-import subprocess
+import re
 import sys
 from pathlib import Path
 
 SEED = 0
 SHAPE = (8, 32, 2048, 64, 128)        # Bz, H, S, P, N
-PARTS = ("ssd_bwd_chunk_states", "ssd_bwd_state_pass", "ssd_bwd_chunk_grads",
-         "ssd_bwd_sum_groups")
+SCORE_SEQ = 4096                      # the scoring run's, same Bz, H, P, N
+PARTS = ("ssd_bwd_reverse_pass", "ssd_bwd_chunk_grads", "ssd_bwd_sum_groups")
+_KERNEL = re.compile(r"ssd_bwd_[a-z_]+")
 
 
 def kernel_parts_ms(torch, fn, calls: int = 5) -> dict:
-    """Device ms per call of each of ``PARTS`` that ``fn`` launches."""
+    """Device ms per call of each backward kernel (``ssd_bwd_*``; this
+    tree's are ``PARTS``) that ``fn`` launches."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -43,9 +51,9 @@ def kernel_parts_ms(torch, fn, calls: int = 5) -> dict:
     out = {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0)
-        name = next((p for p in PARTS if p in e.key), None)
+        name = _KERNEL.search(e.key)
         if t and name:
-            out[name] = out.get(name, 0.0) + t / calls / 1e3
+            out[name[0]] = out.get(name[0], 0.0) + t / calls / 1e3
     return out
 
 
@@ -77,9 +85,14 @@ def bench(torch, dev) -> dict:
     loga = -randn(Bz, H, S, scale=0.1).abs()
     Bm, Cm = randn(Bz, S, N, scale=0.3), randn(Bz, S, N, scale=0.3)
     dy = randn(Bz, H, S, P)
+    # a tree whose backward reads the forward's h_in is handed it, as
+    # training hands it over; an older tree rebuilds it inside
+    hands_over = "h_in" in inspect.signature(ssk.ssd_scan_bwd).parameters
+    kw = {"h_in": ssk._launch_fwd(xdt, loga, Bm, Cm, with_h_in=True)[1]} \
+        if hands_over else {}
 
     def run():
-        return ssk.ssd_scan_bwd(xdt, loga, Bm, Cm, dy)
+        return ssk.ssd_scan_bwd(xdt, loga, Bm, Cm, dy, **kw)
     got = run()
     want = ssk.ssd_scan_bwd_plain(xdt, loga, Bm, Cm, dy)
     errs = {name: float((a - b).abs().max() / b.abs().max())
@@ -94,21 +107,34 @@ def bench(torch, dev) -> dict:
     end.record()
     end.synchronize()
     log = build.build_info.get("log", "")
-    return {"shape": list(SHAPE), "rel_err": errs,
-            "ms": graph_ms(torch, [run], 10),
-            "eager_ms": start.elapsed_time(end) / 10,
-            "parts_ms": kernel_parts_ms(torch, run),
-            "ptxas": {p: ptxas_lines(log, p) for p in PARTS}}
+    res = {"shape": list(SHAPE), "rel_err": errs, "h_in_handed_over":
+           hands_over, "ms": graph_ms(torch, [run], 10),
+           "eager_ms": start.elapsed_time(end) / 10,
+           "parts_ms": kernel_parts_ms(torch, run),
+           "ptxas": {name: ptxas_lines(log, name)
+                     for name in sorted(set(_KERNEL.findall(log)))}}
+    kw.clear()
+    res["fwd_ms"] = graph_ms(torch, [lambda: ssk._launch_fwd(
+        xdt, loga, Bm, Cm)], 10)
+    if hands_over:
+        res["fwd_h_in_ms"] = graph_ms(torch, [lambda: ssk._launch_fwd(
+            xdt, loga, Bm, Cm, with_h_in=True)], 10)
+    del xdt, loga, Bm, Cm, dy
+    S2 = SCORE_SEQ
+    xs, las = randn(Bz, H, S2, P, scale=0.1), -randn(Bz, H, S2,
+                                                     scale=0.1).abs()
+    Bs, Cs = randn(Bz, S2, N, scale=0.3), randn(Bz, S2, N, scale=0.3)
+    res["score_fwd_ms"] = graph_ms(torch, [lambda: ssk._launch_fwd(
+        xs, las, Bs, Cs)], 10)
+    return res
 
 
-def run_one() -> int:
+def run_one() -> dict:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("bench_ssd_bwd needs a CUDA device")
     from repro_torch.launch.bench_paged import card_line
-    res = bench(torch, torch.device("cuda", 0))
-    print(json.dumps({"card": card_line(), **res}))
-    return 0
+    return {"card": card_line(), **bench(torch, torch.device("cuda", 0))}
 
 
 def main(argv=None) -> int:
@@ -117,32 +143,20 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="compare_out", type=Path)
     args = ap.parse_args(argv)
     if not args.trees:
-        return run_one()
-    # each tree's src comes first on the path; this module is read from
-    # this tree, so a tree without it can be timed too
-    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
-            "sys.path.insert(0, sys.argv[2]); "
-            "from bench_ssd_bwd import run_one; run_one()")
-    here = str(Path(__file__).resolve().parent)
-    runs = []
-    for tree in args.trees:
-        tree = tree.resolve()
-        proc = subprocess.run(
-            [sys.executable, "-c", code, here, str(tree / "src")],
-            capture_output=True, text=True, timeout=600, cwd=tree)
-        if proc.returncode != 0:
-            raise RuntimeError(f"{tree} failed:\n{proc.stderr[-4000:]}")
-        res = json.loads(proc.stdout.strip().splitlines()[-1])
-        res["tree"] = str(tree)
-        runs.append(res)
-        print(json.dumps(res), flush=True)
+        print(json.dumps(run_one()))
+        return 0
+    from .compare_trees import run_trees
+    runs = run_trees("bench_ssd_bwd", args.trees, timeout=600)
     print("ssd_scan_bwd ms (graph replay) [eager], then each kernel's "
           "device ms, trees in order:")
     print("  whole: " + ", ".join(f"{r['ms']:.4f} [{r['eager_ms']:.4f}]"
                                   for r in runs))
-    for p in PARTS:
+    for p in sorted({k for r in runs for k in r["parts_ms"]}):
         print(f"  {p}: " + ", ".join(
             f"{r['parts_ms'].get(p, float('nan')):.4f}" for r in runs))
+    for key in ("fwd_ms", "fwd_h_in_ms", "score_fwd_ms"):
+        print(f"  ssd_scan {key}: " + ", ".join(
+            f"{r.get(key, float('nan')):.4f}" for r in runs))
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "bench_ssd_bwd.json").write_text(json.dumps(runs, indent=1))
     return 0

@@ -13,6 +13,15 @@ lines (a tree that has no such run shows "-"); prints the
 kernels' device ms and the runs' end-to-end numbers side by side; and
 writes the numbers to ``--out/compare_trees.json`` and each run's output
 beside it.  Fails if any run fails.
+
+    PYTHONPATH=src python -m repro_torch.launch.compare_trees \
+        --parent PARENT_DIR [--out compare_out] --train ARG ...
+
+runs this tree's ``launch/train.py`` with the arguments after ``--train``
+instead, on each tree's package in the same order, and prints each run's
+median, least and most ms per step (``compare_trees_train.json``).
+``run_trees`` is the runner under both, and under ``bench_ssd_bwd
+--trees``.
 """
 
 from __future__ import annotations
@@ -69,16 +78,56 @@ def run_tree(tree: Path) -> dict:
     return res
 
 
+def run_trees(module: str, trees, argv=(),
+              timeout: int = RUN_TIMEOUT_S) -> list:
+    """``main(argv)`` of this tree's launch module ``module`` once per
+    tree, in the order given, each in a process of its own with that
+    tree's ``src`` first on the path (so a tree without the module can be
+    timed too): the JSON object each run prints last, with its tree."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "sys.path.insert(0, sys.argv[2]); "
+            f"from {module} import main; main(sys.argv[3:])")
+    here = str(Path(__file__).resolve().parent)
+    runs = []
+    for tree in trees:
+        tree = Path(tree).resolve()
+        proc = subprocess.run(
+            [sys.executable, "-c", code, here, str(tree / "src"), *argv],
+            capture_output=True, text=True, timeout=timeout, cwd=tree)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{tree} failed:\n{proc.stderr[-4000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        res["tree"] = str(tree)
+        runs.append(res)
+        print(json.dumps(res), flush=True)
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--out", default="compare_out", type=Path)
+    ap.add_argument("--train", nargs=argparse.REMAINDER, metavar="ARG",
+                    help="launch/train.py's arguments: time its steps in "
+                         "each tree instead of running chip_smoke.py")
     args = ap.parse_args(argv)
     parent = args.parent.resolve()
     if not (parent / "chip_smoke.py").exists():
         raise SystemExit(f"{parent} holds no chip_smoke.py")
     order = [("parent", parent), ("change", ROOT), ("change", ROOT),
              ("parent", parent)]
+    if args.train is not None:
+        runs = run_trees("train", [tree for _, tree in order], args.train)
+        print("train ms/step median [least, most], in run order parent, "
+              "change, change, parent: " + ", ".join(
+                  f"{r['ms_per_step_median']:.3f} [{r['ms_per_step_min']:.3f}"
+                  f", {r['ms_per_step_max']:.3f}]" for r in runs))
+        for (label, _), r in zip(order, runs):
+            r["label"] = label
+        args.out.mkdir(parents=True, exist_ok=True)
+        (args.out / "compare_trees_train.json").write_text(
+            json.dumps(runs, indent=1))
+        return 0
     runs = []
     for label, tree in order:
         res = run_tree(tree)

@@ -21,21 +21,50 @@ card's memory, on the card (recurrentgemma-9b whole needs ~122 GB;
 the ssd_scan kernels:
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \
       --steps 6 --batch 8 --seq 2048
+
+The last line of the output is one JSON object: each step's ms but the
+first's, their median, least and most, the losses and, on the card, the
+peak memory (``step_report``).  ``compare_trees --train`` reads it.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import statistics
 
-from ..checkpoint.manager import CheckpointManager
-from ..configs import get_config, get_smoke_config
-from ..core.ralloc import Ralloc
-from ..data.pipeline import TokenStream
-from ..device import resolve_device
-from ..distributed.compression import Int8ErrorFeedback
-from ..train.loop import Trainer
-from ..train.optimizer import AdamWConfig
-from ..train.step import make_train_step
+# absolute imports: ``compare_trees --train`` imports this file alone, on
+# top of another tree's package
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.ralloc import Ralloc
+from repro_torch.data.pipeline import TokenStream
+from repro_torch.device import resolve_device
+from repro_torch.distributed.compression import Int8ErrorFeedback
+from repro_torch.train.loop import Trainer
+from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.step import make_train_step
+
+
+def step_report(trainer, cfg, hist) -> dict:
+    """The run's step times in ms (the first, which builds the kernels and
+    warms the allocator, apart), their median, least and most, the losses
+    and, on the card, the peak memory and the card."""
+    ms = [1e3 * t for t in trainer.step_times]
+    timed = ms[1:]
+    rep = {"arch": cfg.name, "layers": cfg.num_layers, "losses": hist,
+           "first_step_ms": ms[0] if ms else None, "ms_per_step": timed,
+           "ms_per_step_median": statistics.median(timed) if timed else None,
+           "ms_per_step_min": min(timed, default=None),
+           "ms_per_step_max": max(timed, default=None)}
+    if trainer.device.type == "cuda":
+        import torch
+
+        from repro_torch.launch.bench_paged import card_line
+        rep["peak_mem_gb"] = torch.cuda.max_memory_allocated(
+            trainer.device) / 1e9
+        rep["card"] = card_line()
+    return rep
 
 
 def main(argv=None):
@@ -77,6 +106,7 @@ def main(argv=None):
           f"{trainer.straggler_events}")
     if ckpt:
         heap.close()
+    print(json.dumps(step_report(trainer, cfg, hist)))
     return hist
 
 

@@ -616,6 +616,37 @@ def test_ssd_scan_kernel_edges(dev, Bz, H, S, P, N, dt, decay):
     assert rel < 1e-4
 
 
+@pytest.mark.parametrize("Bz,H,S,P,N,decay", [
+    (2, 3, 200, 64, 128, None),                   # partial chunk; H 3
+    (1, 3, 1024, 64, 128, -5.0),                  # strong decay
+    (2, 8, 40, 16, 16, None),                     # mamba2-370m smoke widths
+    (8, 32, 2048, 64, 128, None),                 # mamba2-370m training
+])
+def test_ssd_scan_kernel_stores_h_in(dev, Bz, H, S, P, N, decay):
+    """The forward's state pass stores h_in, the state entering each chunk,
+    when asked: within 1e-4 of max |plain| of the h_in ``ssd_phases``
+    builds, y unchanged by the store (bit for bit), one launch either
+    way."""
+    g = torch.Generator(device="cpu").manual_seed(6)
+    xdt = (torch.randn((Bz, H, S, P), generator=g) * 0.1).to(dev)
+    loga = -torch.randn((Bz, H, S), generator=g).abs() * 0.1 \
+        if decay is None else torch.full((Bz, H, S), decay)
+    loga = loga.to(dev)
+    B = (torch.randn((Bz, S, N), generator=g) * 0.3).to(dev)
+    C = (torch.randn((Bz, S, N), generator=g) * 0.3).to(dev)
+    want = ssk.ssd_phases(xdt, loga, B, C, with_h_in=True)[2]
+    n = ssk.launches
+    y, h_in = ssk._launch_fwd(xdt, loga, B, C, with_h_in=True)
+    y0 = ssk._launch_fwd(xdt, loga, B, C)
+    torch.cuda.synchronize()
+    assert ssk.launches == n + 2
+    assert h_in.shape == want.shape and h_in.dtype == torch.float32
+    # one chunk (S 40): h_in is h_0 = 0 alone
+    assert float((h_in - want).abs().max()) <= \
+        1e-4 * float(want.abs().max())
+    assert torch.equal(y, y0)
+
+
 def test_kernels_refuse_inputs_that_require_grad(dev):
     # flash_attention has a backward kernel since it became an autograd
     # Function: the gradient is the kernel's (one launch), equal to the
@@ -691,9 +722,11 @@ def test_kernels_refuse_inputs_that_require_grad(dev):
     (2, 8, 512, 64, 128, None, 10.0),          # xdt 1.0, B and C 3.0
 ])
 def test_ssd_scan_bwd_kernel_vs_plain(dev, Bz, H, S, P, N, decay, scale):
-    """dxdt, dloga, dB and dC of the backward kernel against its plain
-    version run on the card, within 1e-4 of each output's max |plain|;
-    one launch; a second call is bit-equal (no float atomics)."""
+    """dxdt, dloga, dB and dC of the backward kernel, given the h_in the
+    forward kernel stores, against its plain version run on the card,
+    within 1e-4 of each output's max |plain|; one launch; a second call is
+    bit-equal (no float atomics), and so is a call without h_in (the
+    wrapper's own forward launch stores it)."""
     g = torch.Generator(device="cpu").manual_seed(9)
     xdt = (torch.randn((Bz, H, S, P), generator=g) * 0.1 * scale).to(dev)
     loga = -torch.randn((Bz, H, S), generator=g).abs() * 0.1 \
@@ -703,16 +736,20 @@ def test_ssd_scan_bwd_kernel_vs_plain(dev, Bz, H, S, P, N, decay, scale):
     C = (torch.randn((Bz, S, N), generator=g) * 0.3 * scale).to(dev)
     dy = torch.randn((Bz, H, S, P), generator=g).to(dev)
     want = ssk.ssd_scan_bwd_plain(xdt, loga, B, C, dy)
-    n = ssk.bwd_launches
-    got = ssk.ssd_scan_bwd(xdt, loga, B, C, dy)
+    h_in = ssk._launch_fwd(xdt, loga, B, C, with_h_in=True)[1]
+    n, n_f = ssk.bwd_launches, ssk.launches
+    got = ssk.ssd_scan_bwd(xdt, loga, B, C, dy, h_in=h_in)
     torch.cuda.synchronize()
-    assert ssk.bwd_launches == n + 1
+    assert ssk.bwd_launches == n + 1 and ssk.launches == n_f
     for a, b in zip(got, want):
         assert a.dtype == torch.float32 and a.shape == b.shape
         assert bool(torch.isfinite(a).all())
         assert float((a - b).abs().max()) < 1e-4 * float(b.abs().max())
-    again = ssk.ssd_scan_bwd(xdt, loga, B, C, dy)
+    again = ssk.ssd_scan_bwd(xdt, loga, B, C, dy, h_in=h_in)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    own = ssk.ssd_scan_bwd(xdt, loga, B, C, dy)
+    assert ssk.launches == n_f + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, own))
 
 
 # chip_smoke.py's FLASH_BWD_SWEEP, with the training run's heads at S 1024;

@@ -28,8 +28,12 @@ def test_grads_bound_at_the_training_shape():
     assert b["fma_ms"] == pytest.approx(0.47414, abs=1e-5)
     assert b["tf32x3_ops_ms"] == pytest.approx(0.19253, abs=1e-5)
     assert b["tf32x3_ms"] == b["bytes_ms"] == pytest.approx(0.30675, abs=1e-5)
-    # the row's bound keeps its definition: the least work at the FMA peak
-    assert chip_smoke.ssd_bwd_bound(8, 32, 2048, 64, 128)[0] == \
+    # the row's bound: the least work (39.1 GFLOP) in 3xTF32, as the
+    # kernels run every product; 0.584 ms at the fp32 FMA peak
+    assert chip_smoke.ssd_bwd_bound(8, 32, 2048, 64, 128) == \
+        (pytest.approx(0.237156, abs=1e-6), "operations")
+    assert chip_smoke.ssd_bwd_bound(8, 32, 2048, 64, 128,
+                                    peak=chip_smoke.FP32_FLOPS)[0] == \
         pytest.approx(0.58404, abs=1e-5)
 
 
@@ -42,6 +46,59 @@ def test_grads_bound_counts_partial_chunks_and_head_groups(H, S):
     flops = 2 * nc * (groups * 3 * tri * 128 + H * (2 * tri * 64 +
                                                       3 * 64 * 64 * 128))
     assert b["gflop"] == pytest.approx(flops / 1e9)
+
+
+def test_reverse_bound_at_the_training_shape():
+    """The reverse state pass at mamba2-370m's 8 x 2048, 32 heads of 64, N
+    128: dS is 8.59 GFLOP (0.052 ms in 3xTF32, as the kernel runs it;
+    0.128 at the fp32 FMA peak) against 0.413 GB (dy, C, loga read, g
+    written: 0.123 ms), so its bytes bound it."""
+    b = chip_smoke.ssd_bwd_reverse_bound(8, 32, 2048, 64, 128)
+    assert b["gflop"] == pytest.approx(8.58993, abs=1e-5)
+    assert b["gbytes"] == pytest.approx(0.413139, abs=1e-6)
+    assert b["ops_ms"] == pytest.approx(0.052060, abs=1e-6)
+    assert b["fma_ops_ms"] == pytest.approx(0.128208, abs=1e-6)
+    assert b["bytes_ms"] == pytest.approx(0.123325, abs=1e-6)
+    assert b["ms"] == b["bytes_ms"] and b["by"] == "bytes"
+    # the design's work is the least work: the reverse pass's and the
+    # chunk-gradient kernel's, less the latter's C B^T, dG^T C and dG B
+    # repeated by its 4 head groups
+    whole = chip_smoke.ssd_bwd_bound(8, 32, 2048, 64, 128)[0]
+    grads = chip_smoke.ssd_bwd_grads_bound(8, 32, 2048, 64, 128)
+    repeats = 2 * 8 * 32 * 3 * (64 * 65 // 2) * 128 * (4 - 1) / 1e9
+    assert whole == pytest.approx(
+        (b["gflop"] + grads["gflop"] - repeats) / (495e12 / 3) * 1e12)
+
+
+def test_parts_ms_names_each_kernel():
+    """``kernel_parts_ms`` keys a profiler row by the kernel's name, as the
+    profiler prints it (demangled, a template's arguments after it) or
+    as ptxas does (mangled)."""
+    for key, name in [
+            ("void (anonymous namespace)::ssd_bwd_reverse_pass(float const*, "
+             "float const*, float const*, float*, int, int, int, int)",
+             "ssd_bwd_reverse_pass"),
+            ("void (anonymous namespace)::ssd_bwd_chunk_grads<64, 128>("
+             "float const*)", "ssd_bwd_chunk_grads"),
+            ("_ZN48_GLOBAL__N__f709_15_ssd_scan_bwd_cu_7218ssd_bwd_sum_"
+             "groupsEPKf", "ssd_bwd_sum_groups")]:
+        assert bench._KERNEL.search(key)[0] == name
+    assert set(bench.PARTS) == {"ssd_bwd_reverse_pass", "ssd_bwd_chunk_grads",
+                                "ssd_bwd_sum_groups"}
+
+
+def test_the_recomputing_kernels_are_gone():
+    """The backward reads h_in from the forward: the chunk-state kernel
+    and the state passes that rebuilt it are not in the source, and the
+    forward's launch takes the pointer h_in is stored through."""
+    csrc = Path(bench.__file__).resolve().parents[1] / "csrc"
+    bwd = (csrc / "ssd_scan_bwd.cu").read_text()
+    assert "ssd_bwd_chunk_states" not in bwd
+    assert "ssd_bwd_state_pass" not in bwd
+    assert bwd.count("__global__") == 3
+    fwd = (csrc / "ssd_scan.cu").read_text()
+    launch = fwd.split('extern "C" int ssd_scan_launch(')[1].split(")")[0]
+    assert "void* h_in" in launch
 
 
 LOG = """== ssd_scan_bwd.cu
@@ -107,3 +164,25 @@ def test_ablate_ssd_bwd_variants_apply_to_the_source(tmp_path):
     assert src_path.read_text() == before
     with pytest.raises(ValueError):
         ab.patched(before.replace(ab._SPLIT, ""), "no_split")
+
+
+def test_compare_trees_times_train_in_turns_on_the_cpu(tmp_path):
+    """``compare_trees --train`` runs this tree's ``launch/train.py`` on
+    each tree's package in the order parent, change, change, parent (here
+    this tree as both, mamba2-370m's smoke config on the CPU) and writes
+    each run's step times, their median, least and most, and losses."""
+    root = Path(ct.__file__).resolve().parents[3]
+    assert ct.main([
+        "--parent", str(root), "--out", str(tmp_path), "--train", "--arch",
+        "mamba2-370m", "--smoke", "--device", "cpu", "--batch", "2",
+        "--seq", "16", "--steps", "3"]) == 0
+    runs = json.loads((tmp_path / "compare_trees_train.json").read_text())
+    assert [r["label"] for r in runs] == ["parent", "change", "change",
+                                          "parent"]
+    assert [r["tree"] for r in runs] == [str(root)] * 4
+    for r in runs:
+        assert r["arch"] == "mamba2-370m" and len(r["losses"]) == 3
+        assert len(r["ms_per_step"]) == 2
+        assert r["ms_per_step_min"] <= r["ms_per_step_median"] <= \
+            r["ms_per_step_max"]
+    assert all(r["losses"] == runs[0]["losses"] for r in runs)

@@ -178,6 +178,30 @@ def test_ssd_phases_state_matches_sequential_recurrence():
     assert float((y.double() - want_y).abs().max()) < 1e-5
 
 
+@pytest.mark.parametrize("S,chunk", [(150, 64), (150, 8), (64, 64)])
+def test_ssd_phases_h_in_matches_sequential_recurrence(S, chunk):
+    """The h_in that ``ssd_phases`` returns (the state entering each chunk,
+    what the forward kernel stores for the backward) equals the step-by-
+    step recurrence's state before each chunk's first step, a partial last
+    chunk included; chunk 0's is zero."""
+    Bz, H, P, N = 1, 2, 8, 16
+    xdt, loga, B, C = map(torch.as_tensor, _inputs(10, Bz, H, S, P, N))
+    y, h, h_in = ssk.ssd_phases(xdt, loga, B, C, chunk=chunk,
+                                with_h_in=True)
+    nc = -(-S // chunk)
+    assert h_in.dtype == torch.float32 and h_in.shape == (Bz, H, nc, P, N)
+    assert torch.equal(y, ssk.ssd_phases(xdt, loga, B, C, chunk=chunk)[0])
+    ref = torch.zeros((Bz, H, P, N), dtype=torch.float64)
+    for t in range(S):
+        if t % chunk == 0:
+            assert float((h_in[:, :, t // chunk].double() - ref).abs().max()) \
+                < 1e-5, t
+        ref = ref * torch.exp(loga[:, :, t].double())[..., None, None] + \
+            xdt[:, :, t, :, None].double() * B[:, None, t, None, :].double()
+    assert not h_in[:, :, 0].any()
+    assert float((h.double() - ref).abs().max()) < 1e-5
+
+
 # ---------------------------------------------------------------------------
 # the backward
 # ---------------------------------------------------------------------------
@@ -213,6 +237,105 @@ def test_ssd_bwd_plain_vs_reference_vjp(S, chunk, ref_chunk, decay):
         assert g.dtype == torch.float32 and g.shape == w.shape, name
         assert bool(torch.isfinite(g).all()), name
         assert _rel(g, w) < 1e-4, (name, _rel(g, w))
+
+
+@pytest.mark.parametrize("S,chunk,ref_chunk", [
+    (200, 64, 8),        # a partial last chunk
+    (200, 8, 8),
+    (128, 64, 16),
+])
+@pytest.mark.parametrize("decay", [None, -5.0])
+def test_ssd_bwd_plain_with_h_in_handed_over(S, chunk, ref_chunk, decay):
+    """``ssd_scan_bwd_plain`` with the forward's h_in handed over (the h_in
+    ``ssd_phases`` returns) equals its recomputing form bit for bit, and
+    ``jax.vjp`` of the reference's ``ssd_chunked`` within 1e-4 of each
+    gradient's max, at a partial chunk and under strong decay."""
+    Bz, H, P, N = 2, 3, 16, 16
+    arrs, dy = _bwd_inputs(25, Bz, H, S, P, N, decay)
+    ins = list(map(torch.as_tensor, arrs))
+    dy_t = torch.as_tensor(dy)
+    h_in = ssk.ssd_phases(*ins, chunk=chunk, with_h_in=True)[2]
+    got = ssk.ssd_scan_bwd_plain(*ins, dy_t, chunk=chunk, h_in=h_in)
+    again = ssk.ssd_scan_bwd_plain(*ins, dy_t, chunk=chunk)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    _, vjp = jax.vjp(lambda *a: ssd_scan_ref(*a, chunk=ref_chunk),
+                     *map(jnp.asarray, arrs))
+    for name, g, w in zip(("dxdt", "dloga", "dB", "dC"), got,
+                          vjp(jnp.asarray(dy))):
+        assert bool(torch.isfinite(g).all()), name
+        assert _rel(g, w) < 1e-4, (name, _rel(g, w))
+    # the wrapper takes the same h_in on CPU tensors, and refuses one of
+    # another chunk's shape
+    wrapped = ssk.ssd_scan_bwd(*ins, dy_t, chunk=chunk, h_in=h_in)
+    assert all(torch.equal(g, w) for g, w in zip(got, wrapped))
+    with pytest.raises(ValueError, match="h_in"):
+        ssk.ssd_scan_bwd(*ins, dy_t, chunk=chunk, h_in=h_in[:, :, :1])
+
+
+def test_ssd_scan_keeps_h_in_only_when_a_gradient_is_wanted(monkeypatch):
+    """``SSDScan`` asks the forward for h_in, and saves it beside the
+    inputs, only when an input needs a gradient: under ``torch.no_grad()``
+    (a leaf that requires grad included) and for inputs that need none,
+    no state is built and nothing is saved; the same y either way."""
+    asked = []
+    real = ssk.ssd_phases
+
+    def spy(*a, **kw):
+        asked.append(kw.get("with_h_in", False))
+        return real(*a, **kw)
+    monkeypatch.setattr(ssk, "ssd_phases", spy)
+    Bz, H, S, P, N = 1, 2, 40, 8, 16
+    ins = list(map(torch.as_tensor, _inputs(11, Bz, H, S, P, N)))
+    y0 = ssk.ssd_scan(*ins, chunk=16)
+    assert asked == [False] and y0.grad_fn is None
+    leaf = ins[0].clone().requires_grad_()
+    with torch.no_grad():
+        y1 = ssk.ssd_scan(leaf, *ins[1:], chunk=16)
+    assert asked == [False, False] and y1.grad_fn is None
+    y2 = ssk.ssd_scan(leaf, *ins[1:], chunk=16)
+    assert asked == [False, False, True]
+    saved = y2.grad_fn.saved_tensors
+    assert len(saved) == 5 and saved[-1].shape == (Bz, H, 3, P, N)
+    assert torch.equal(y0, y1) and torch.equal(y0, y2.detach())
+
+
+def test_mamba2_layer_under_checkpoint_matches_without():
+    """A Mamba-2 layer (mamba2-370m's smoke widths, fp32) under
+    ``torch.utils.checkpoint`` (non-reentrant, as the unit remat runs it)
+    gives the gradients it gives without: the first forward's saved h_in
+    is dropped and the recomputed forward's is the one the backward
+    reads.  Within 1e-6 of each gradient's max."""
+    import dataclasses
+
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.layers.ssd import mamba2_forward
+    from repro_torch.models.params import init_params
+    from repro_torch.models.transformer import _unbind
+    cfg = dataclasses.replace(get_smoke_config("mamba2-370m"),
+                              dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    p = _unbind(params["units"], cfg.full_units)[0]["l0"]["ssd"]
+    g = torch.Generator().manual_seed(1)
+    x0 = torch.randn((2, 64, cfg.d_model), generator=g)
+    w = torch.randn((2, 64, cfg.d_model), generator=g)
+    grads = []
+    for remat in (False, True):
+        leaves = {k: v.detach().clone().requires_grad_()
+                  for k, v in p.items()}
+        x = x0.clone().requires_grad_()
+
+        def layer(x, leaves):
+            return mamba2_forward(cfg, leaves, x)
+        out = checkpoint(layer, x, leaves, use_reentrant=False) if remat \
+            else layer(x, leaves)
+        (out * w).sum().backward()
+        grads.append([x.grad] + [leaves[k].grad for k in sorted(leaves)])
+    for a, b in zip(*grads):
+        assert a is not None and b is not None
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
 
 
 @pytest.mark.parametrize("S,chunk", [(64, 8), (200, 64), (37, 8)])
@@ -290,10 +413,11 @@ def _split_tf32(a: torch.Tensor):
     return hi, _round_tf32(a - hi)
 
 
-# ssd_scan_bwd_plain's torch.matmul calls, in order: C B^T; the chunk
-# states dH and dS (the chunk-state kernel's, fp32 FMA on the card); then
-# the chunk-gradient kernel's dy x^T, B g^T, M^T dy, (dy e^cums) h_in,
-# dG^T C, (x dec) g and dG B
+# ssd_scan_bwd_plain's torch.matmul calls without h_in, in order: C B^T;
+# the chunk states dH (the forward's chunk-parallel kernel's on the card)
+# and dS (the reverse pass's), both fp32 FMA; then the chunk-gradient
+# kernel's dy x^T, B g^T, M^T dy, (dy e^cums) h_in, dG^T C, (x dec) g and
+# dG B
 _BWD_MATMULS = 10
 _FP32_MATMULS = (1, 2)
 
