@@ -247,6 +247,7 @@ def check_kernels(torch, cfg, dev) -> list[dict]:
 
     rope_row = check_rope_kv_append(torch, cfg, dev, pages)
     rope8_row = check_rope_kv_append(torch, cfg, dev, pages, int8=True)
+    rope8_row["unquantized_ms"] = rope_row["ms"]
 
     # paged_attention: within 3e-2 and BF16_ROW_TOL of a row's rms, window
     # off and on; lengths up to the serve run's longest sequence
@@ -551,11 +552,13 @@ def check_serve_shape(torch, cfg, dev) -> dict:
     keep = ("max_abs_err", "ms", "eager_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "shape")
     rope8 = check_rope_kv_append(torch, cfg, dev, pages, int8=True)
+    rope8["unquantized_ms"] = rope["ms"]
     paged8 = check_paged_int8(torch, inputs, window)
     paged8["unquantized_ms"] = paged["ms"]
     paged8["unquantized_bound_ms"] = paged["bound_ms"]
     return {"rope_kv_append": {k: rope[k] for k in keep}, "paged_attention":
-            paged, "rope_kv_append_int8": {k: rope8[k] for k in keep},
+            paged, "rope_kv_append_int8": {k: rope8[k] for k in (
+                *keep, "unquantized_ms")},
             "paged_attention_int8": paged8}
 
 

@@ -36,19 +36,19 @@
 //
 // Its int8 variant (rope_kv_append_int8_launch) is the reference's int8 KV
 // branch (serving/tp_layers.py attn_decode_tp, `scales is not None`:
-// KIVI-style, one fp32 scale per slot and KV head).  The same block per
-// lane rotates and adds as above, then stages the lane's K and V rows,
-// rounded to the model dtype, in shared memory; a warp per row takes
-// max|x|, the scale s = max|x| * fp32(1/127) + 1e-9 rounded once (the
-// FMA that XLA makes of the reference's `max / 127.0 + 1e-9`), and stores
-// round_half_even(x / s) (a true division) clamped to +-127, four int8 at
-// a time, and s.  Bound as above: bytes, i.e. the launch; it writes half
+// KIVI-style, one fp32 scale per slot and KV head).  A warp a row of a
+// lane: its K rows, its V rows, then its q heads, kRopeWarps rows a
+// block.  The warp adds the bias, rotates (q and K) and, for a K or V
+// row, keeps the row, rounded to the model dtype, in registers: max|x|
+// by shuffles, the scale s = max|x| * fp32(1/127) + 1e-9 rounded once
+// (the FMA that XLA makes of the reference's `max / 127.0 + 1e-9`), and
+// round_half_even(x / s) (a true division) clamped to +-127 stored with
+// s.  No row is staged and no block waits on another warp, so any K *
+// head_dim fits.  Bound as above: bytes, i.e. the launch; it writes half
 // the arena bytes of the bf16 kernel (plus 8 bytes of scales a KV head).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -188,34 +188,26 @@ __device__ __forceinline__ int8_t quantize(float x, float s) {
   return static_cast<int8_t>(max(-127, min(127, r)));
 }
 
-// The int8 variant's last step: the lane's 2K staged rows (K rows, then V
-// rows, dh floats each) quantized, a warp per row, into the arena rows
-// k_row / v_row with their scales at k_scale / v_scale.  pack: dh % 4 == 0
-// and the arenas 4-byte aligned, so a lane stores four int8 at once.
-__device__ __forceinline__ void quantize_rows(
-    const float* stage, int8_t* k_row, int8_t* v_row, float* k_scale,
-    float* v_scale, int K, int dh, bool pack) {
-  const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < 2 * K; r += blockDim.x >> 5) {
-    const float* x = stage + (size_t)r * dh;
-    float m = 0.f;
-    for (int i = lane; i < dh; i += 32) m = fmaxf(m, fabsf(x[i]));
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    const float s = __fmaf_rn(m, kInv127, kScaleEps);
-    const int kh = r < K ? r : r - K;
-    int8_t* dst = (r < K ? k_row : v_row) + (size_t)kh * dh;
-    if (pack) {
-      for (int i = 4 * lane; i < dh; i += 128)
-        *reinterpret_cast<char4*>(dst + i) =
-            make_char4(quantize(x[i], s), quantize(x[i + 1], s),
-                       quantize(x[i + 2], s), quantize(x[i + 3], s));
-    } else {
-      for (int i = lane; i < dh; i += 32) dst[i] = quantize(x[i], s);
-    }
-    if (lane == 0) (r < K ? k_scale : v_scale)[kh] = s;
+// The page and slot of the write at position p of lane b: block_table[b,
+// column] when the shard holds the position and the column exists (else
+// -1), at the shard's slot (0 where it does not hold it); an id < 0 goes
+// to the dump page (the last).  A page id >= npages drops the write.
+__device__ __forceinline__ int2 write_slot(int p, const int* block_table,
+                                           int b, int P, int npages,
+                                           int page, int gpage, int slot0,
+                                           int page0, bool seq) {
+  int lp = p / gpage, slot = p % gpage;
+  if (slot < 0) {
+    slot += gpage;
+    lp -= 1;
   }
+  slot -= slot0;
+  lp -= page0;
+  const bool in_table = lp >= 0 && lp < P;
+  const bool mine = slot >= 0 && slot < page && (!seq || in_table);
+  int pid = mine && in_table ? block_table[(size_t)b * P + lp] : -1;
+  if (pid < 0) pid = npages - 1;
+  return make_int2(pid, mine ? slot : 0);
 }
 
 // One block per lane b, a thread per rotation item where the block allows
@@ -227,23 +219,16 @@ __device__ __forceinline__ void quantize_rows(
 // its own (__fmul_rn / __fadd_rn / __fsub_rn: nvcc may not contract them
 // into FMAs), as the eager x1 * cos - x2 * sin of layers/rope.py rounds
 // them; cosf / sinf are the precise ones (no --use_fast_math).
-// A, the arena's element: T, or int8_t for the int8 variant, which writes
-// the K and V rows (rounded to T) to `stage` in dynamic shared memory
-// (2 * K * dh floats) and quantizes them at the end into the arenas and
-// the scale arenas ks / vs [npages, page, K].
-template <typename T, typename A, int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(MAX_THREADS) rope_kv_append_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ bq,
     const T* __restrict__ bk, const T* __restrict__ bv,
     const float* __restrict__ freqs, const int* __restrict__ pos,
-    const int* __restrict__ block_table, A* __restrict__ ak,
-    A* __restrict__ av, float* __restrict__ ks, float* __restrict__ vs,
-    T* __restrict__ q_out, int H, int K, int dh, int P, int npages,
-    int page, int gpage, int slot0, int page0, bool seq, bool pack) {
-  constexpr bool Q8 = std::is_same<A, int8_t>::value;
+    const int* __restrict__ block_table, T* __restrict__ ak,
+    T* __restrict__ av, T* __restrict__ q_out, int H, int K, int dh, int P,
+    int npages, int page, int gpage, int slot0, int page0, bool seq) {
   __shared__ float cs[2 * MAX_HALF];           // cos, then sin
-  extern __shared__ float stage[];             // Q8: [K rows, V rows][dh]
   using V = Pack<T, VEC>;
   const int b = blockIdx.x;
   const int t = threadIdx.x;
@@ -263,21 +248,9 @@ __global__ void __launch_bounds__(MAX_THREADS) rope_kv_append_kernel(
     if (bv != nullptr) bvv = *reinterpret_cast<const V*>(bv + t * VEC);
   }
 
-  // the page and slot of position p: block_table[b, column] when the
-  // shard holds the position and the column exists (else -1), at the
-  // shard's slot (0 where it does not hold it); an id < 0 goes to the dump
-  // page, an id past the arena drops the write
-  int lp = p / gpage, slot = p % gpage;
-  if (slot < 0) {
-    slot += gpage;
-    lp -= 1;
-  }
-  slot -= slot0;
-  lp -= page0;
-  const bool in_table = lp >= 0 && lp < P;
-  const bool mine = slot >= 0 && slot < page && (!seq || in_table);
-  int pid = mine && in_table ? block_table[(size_t)b * P + lp] : -1;
-  if (!mine) slot = 0;
+  // the page and slot of position p (write_slot)
+  const int2 ps = write_slot(p, block_table, b, P, npages, page, gpage,
+                             slot0, page0, seq);
 
   const float fp = static_cast<float>(p);
   if (freqs != nullptr) {
@@ -288,10 +261,9 @@ __global__ void __launch_bounds__(MAX_THREADS) rope_kv_append_kernel(
     }
   }
 
-  if (pid < 0) pid = npages - 1;
-  const size_t row = ((size_t)pid * page + slot) * K * dh;
-  A* k_row = pid < npages ? ak + row : nullptr;
-  A* v_row = pid < npages ? av + row : nullptr;
+  const size_t row = ((size_t)ps.x * page + ps.y) * K * dh;
+  T* k_row = ps.x < npages ? ak + row : nullptr;
+  T* v_row = ps.x < npages ? av + row : nullptr;
 
   // the V row
   if (v_row != nullptr) {
@@ -301,13 +273,7 @@ __global__ void __launch_bounds__(MAX_THREADS) rope_kv_append_kernel(
         if (bv != nullptr) bvv = *reinterpret_cast<const V*>(bv + i * VEC);
       }
       if (bv != nullptr) add(xv, bvv);
-      if constexpr (Q8) {
-#pragma unroll
-        for (int j = 0; j < VEC; ++j)
-          stage[(size_t)K * dh + i * VEC + j] = to_f(xv.v[j]);
-      } else {
-        *reinterpret_cast<V*>(v_row + i * VEC) = xv;
-      }
+      *reinterpret_cast<V*>(v_row + i * VEC) = xv;
     }
   }
   if (freqs != nullptr) __syncthreads();
@@ -329,35 +295,140 @@ __global__ void __launch_bounds__(MAX_THREADS) rope_kv_append_kernel(
             from_f<T>(__fadd_rn(__fmul_rn(a, si), __fmul_rn(e, co)));
       }
     }
-    // q_out, or the K row (none when the write drops; staged with Q8)
-    if constexpr (Q8) {
-      if (it.head >= H) {
-        float* dst = stage + (size_t)(it.head - H) * dh;
-        if (k_row != nullptr) {
-#pragma unroll
-          for (int j = 0; j < VEC; ++j) {
-            dst[it.c + j] = to_f(it.x1.v[j]);
-            dst[half + it.c + j] = to_f(it.x2.v[j]);
-          }
-        }
-        continue;
-      }
-    }
+    // q_out, or the K row (none when the write drops)
     T* dst = it.head < H ? q_out + ((size_t)b * H + it.head) * dh
-             : k_row     ? reinterpret_cast<T*>(k_row) +
-                           (size_t)(it.head - H) * dh
+             : k_row     ? k_row + (size_t)(it.head - H) * dh
                          : nullptr;
     if (dst != nullptr) {
       *reinterpret_cast<V*>(dst + it.c) = it.x1;
       *reinterpret_cast<V*>(dst + half + it.c) = it.x2;
     }
   }
-  if constexpr (Q8) {
-    if (k_row == nullptr) return;              // the write drops: the block
-    __syncthreads();                           // the K and V rows staged
-    const size_t srow = ((size_t)pid * page + slot) * K;
-    quantize_rows(stage, k_row, v_row, ks + srow, vs + srow, K, dh, pack);
+}
+
+// PV int8 at once (PV-byte aligned)
+template <int PV>
+__device__ __forceinline__ void store_i8(int8_t* dst, const int8_t* x) {
+  if constexpr (PV == 4)
+    *reinterpret_cast<char4*>(dst) = make_char4(x[0], x[1], x[2], x[3]);
+  else if constexpr (PV == 2)
+    *reinterpret_cast<char2*>(dst) = make_char2(x[0], x[1]);
+  else
+    *dst = x[0];
+}
+
+constexpr int kRopeWarps = 4;      // rows a block of the int8 variant
+
+// The int8 variant: a warp a row of lane b = blockIdx.x, row j =
+// blockIdx.y * kRopeWarps + warp of its K rows, V rows and q heads, in
+// that order (the K / V rows' chain, pos then the table entry, is the
+// longest).  Lane l holds the pairs (c, half + c), c in [PV (l + 32 i),
+// PV (l + 32 i) + PV), of the row.  Every warp first issues its
+// independent loads (pos, its freqs entries, its row and its bias), so
+// the chain stays two loads deep; the products and sums of the rotation
+// round as in rope_kv_append_kernel.  A K or V row, rounded to T, never
+// leaves the registers: max|x| over the warp by shuffles, the scale, and
+// the int8 values (PV at a store) and the scale into the arenas.
+template <typename T, int PV>
+__global__ void __launch_bounds__(kRopeWarps * 32)
+rope_kv_append_int8_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ bq,
+    const T* __restrict__ bk, const T* __restrict__ bv,
+    const float* __restrict__ freqs, const int* __restrict__ pos,
+    const int* __restrict__ block_table, int8_t* __restrict__ ak,
+    int8_t* __restrict__ av, float* __restrict__ ks,
+    float* __restrict__ vs, T* __restrict__ q_out, int H, int K, int dh,
+    int P, int npages, int page, int gpage, int slot0, int page0,
+    bool seq) {
+  constexpr int IT = (MAX_HALF / PV + 31) / 32;    // chunks a lane at most
+  using V = Pack<T, PV>;
+  using F = Pack<float, PV>;
+  const int b = blockIdx.x;
+  const int j = blockIdx.y * kRopeWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (j >= H + 2 * K) return;
+  const int half = dh >> 1;
+  const bool is_k = j < K, is_v = j >= K && j < 2 * K;
+  const int head = is_k ? j : is_v ? j - K : j - 2 * K;
+  const T* src = is_k   ? k + ((size_t)b * K + head) * dh
+                 : is_v ? v + ((size_t)b * K + head) * dh
+                        : q + ((size_t)b * H + head) * dh;
+  const T* bias = is_k ? bk : is_v ? bv : bq;
+  if (bias != nullptr) bias += (size_t)head * dh;
+  const bool rot = freqs != nullptr && !is_v;
+
+  // the independent loads, all in flight before any use
+  const int p = pos[b];
+  V x1[IT], x2[IT], b1[IT], b2[IT];
+  F f[IT];
+#pragma unroll
+  for (int i = 0; i < IT; ++i) {
+    const int c = (lane + 32 * i) * PV;
+    if (c >= half) continue;
+    x1[i] = *reinterpret_cast<const V*>(src + c);
+    x2[i] = *reinterpret_cast<const V*>(src + half + c);
+    if (bias != nullptr) {
+      b1[i] = *reinterpret_cast<const V*>(bias + c);
+      b2[i] = *reinterpret_cast<const V*>(bias + half + c);
+    }
+    if (rot) f[i] = *reinterpret_cast<const F*>(freqs + c);
   }
+  int2 ps = make_int2(0, 0);
+  if (is_k || is_v)
+    ps = write_slot(p, block_table, b, P, npages, page, gpage, slot0, page0,
+                    seq);
+
+  const float fp = static_cast<float>(p);
+  float m = 0.f;                                   // max|x| of the row
+#pragma unroll
+  for (int i = 0; i < IT; ++i) {
+    const int c = (lane + 32 * i) * PV;
+    if (c >= half) continue;
+    if (bias != nullptr) {
+      add(x1[i], b1[i]);
+      add(x2[i], b2[i]);
+    }
+    if (rot) {
+#pragma unroll
+      for (int e = 0; e < PV; ++e) {
+        const float ang = __fmul_rn(fp, f[i].v[e]);
+        const float co = cosf(ang), si = sinf(ang);
+        const float a = to_f(x1[i].v[e]), d = to_f(x2[i].v[e]);
+        x1[i].v[e] = from_f<T>(__fsub_rn(__fmul_rn(a, co), __fmul_rn(d, si)));
+        x2[i].v[e] = from_f<T>(__fadd_rn(__fmul_rn(a, si), __fmul_rn(d, co)));
+      }
+    }
+    if (!is_k && !is_v) {
+      T* dst = q_out + ((size_t)b * H + head) * dh;
+      *reinterpret_cast<V*>(dst + c) = x1[i];
+      *reinterpret_cast<V*>(dst + half + c) = x2[i];
+    }
+#pragma unroll
+    for (int e = 0; e < PV; ++e)
+      m = fmaxf(m, fmaxf(fabsf(to_f(x1[i].v[e])), fabsf(to_f(x2[i].v[e]))));
+  }
+  if ((!is_k && !is_v) || ps.x >= npages) return;  // q, or the write drops
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  const float s = __fmaf_rn(m, kInv127, kScaleEps);
+  const size_t srow = ((size_t)ps.x * page + ps.y) * K + head;
+  int8_t* dst = (is_k ? ak : av) + srow * dh;
+#pragma unroll
+  for (int i = 0; i < IT; ++i) {
+    const int c = (lane + 32 * i) * PV;
+    if (c >= half) continue;
+    int8_t y1[PV], y2[PV];
+#pragma unroll
+    for (int e = 0; e < PV; ++e) {
+      y1[e] = quantize(to_f(x1[i].v[e]), s);
+      y2[e] = quantize(to_f(x2[i].v[e]), s);
+    }
+    store_i8<PV>(dst + c, y1);
+    store_i8<PV>(dst + half + c, y2);
+  }
+  if (lane == 0) (is_k ? ks : vs)[srow] = s;
 }
 
 // The arguments of a launch: q, k, v, the biases, freqs, pos and the table
@@ -370,23 +441,59 @@ struct RopeArgs {
   float *ks, *vs;
   void* q_out;
   int B, H, K, dh, P, npages, page, gpage, slot0, page0;
-  bool seq, pack;
+  bool seq;
 };
 
-template <typename T, typename A, int VEC>
+template <typename T, int VEC>
 void launch_rope(const RopeArgs& a, cudaStream_t s) {
   const int items = (a.H + a.K) * (a.dh / 2 / VEC);
   const int threads = items >= MAX_THREADS ? MAX_THREADS
                                            : ((items + 31) / 32) * 32;
-  const size_t smem = std::is_same<A, int8_t>::value
-                          ? sizeof(float) * 2 * a.K * a.dh : 0;
-  rope_kv_append_kernel<T, A, VEC><<<a.B, threads, smem, s>>>(
+  rope_kv_append_kernel<T, VEC><<<a.B, threads, 0, s>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.bq),
       static_cast<const T*>(a.bk), static_cast<const T*>(a.bv), a.freqs,
-      a.pos, a.table, static_cast<A*>(a.ak), static_cast<A*>(a.av), a.ks,
-      a.vs, static_cast<T*>(a.q_out), a.H, a.K, a.dh, a.P, a.npages, a.page,
-      a.gpage, a.slot0, a.page0, a.seq, a.pack);
+      a.pos, a.table, static_cast<T*>(a.ak), static_cast<T*>(a.av),
+      static_cast<T*>(a.q_out), a.H, a.K, a.dh, a.P, a.npages, a.page,
+      a.gpage, a.slot0, a.page0, a.seq);
+}
+
+template <typename T, int PV>
+void launch_rope_int8(const RopeArgs& a, cudaStream_t s) {
+  const dim3 grid(a.B, (a.H + 2 * a.K + kRopeWarps - 1) / kRopeWarps);
+  rope_kv_append_int8_kernel<T, PV><<<grid, kRopeWarps * 32, 0, s>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.bq),
+      static_cast<const T*>(a.bk), static_cast<const T*>(a.bv), a.freqs,
+      a.pos, a.table, static_cast<int8_t*>(a.ak), static_cast<int8_t*>(a.av),
+      a.ks, a.vs, static_cast<T*>(a.q_out), a.H, a.K, a.dh, a.P, a.npages,
+      a.page, a.gpage, a.slot0, a.page0, a.seq);
+}
+
+// The int8 variant's pairs a lane (1, 2 or 4): the fewest that cover half
+// a row with 32 lanes, where half a row and every pointer allow loads and
+// stores of that many elements (else 1)
+template <typename T>
+void launch_rope_int8_pv(const RopeArgs& a, cudaStream_t s) {
+  const int half = a.dh / 2;
+  const uintptr_t align =
+      reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+      reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.bq) |
+      reinterpret_cast<uintptr_t>(a.bk) | reinterpret_cast<uintptr_t>(a.bv) |
+      reinterpret_cast<uintptr_t>(a.q_out);
+  const uintptr_t align8 =
+      reinterpret_cast<uintptr_t>(a.ak) | reinterpret_cast<uintptr_t>(a.av);
+  auto fits = [&](int pv) {
+    return half % pv == 0 && align % (pv * sizeof(T)) == 0 &&
+           reinterpret_cast<uintptr_t>(a.freqs) % (pv * sizeof(float)) == 0 &&
+           align8 % pv == 0;
+  };
+  if (half > 64 && fits(4))
+    launch_rope_int8<T, 4>(a, s);
+  else if (half > 32 && fits(2))
+    launch_rope_int8<T, 2>(a, s);
+  else
+    launch_rope_int8<T, 1>(a, s);
 }
 
 // q, k, v, the biases and q_out in dtype (0 fp32, 1 bf16); arenas of
@@ -398,31 +505,28 @@ int dispatch_rope(const RopeArgs& a, int dtype, bool int8,
   if (a.dh <= 0 || a.dh % 2 || a.dh / 2 > MAX_HALF || a.K <= 0 ||
       a.H % a.K || a.P <= 0 || a.page <= 0 || a.npages <= 0 ||
       a.gpage < a.page || a.slot0 < 0 || a.slot0 + a.page > a.gpage ||
-      a.page0 < 0 || (dtype != 0 && dtype != 1))
+      a.page0 < 0 || (dtype != 0 && dtype != 1) ||
+      (a.H + 2 * a.K + kRopeWarps - 1) / kRopeWarps > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  using bf16 = __nv_bfloat16;
+  if (int8) {
+    dtype == 0 ? launch_rope_int8_pv<float>(a, s)
+               : launch_rope_int8_pv<bf16>(a, s);
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t es = dtype == 0 ? 4 : 2;
-  uintptr_t align =
+  const uintptr_t align =
       reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
       reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.bq) |
       reinterpret_cast<uintptr_t>(a.bk) | reinterpret_cast<uintptr_t>(a.bv) |
       reinterpret_cast<uintptr_t>(a.q_out) |
-      static_cast<uintptr_t>(a.dh / 2 * es);
-  if (!int8)
-    align |= reinterpret_cast<uintptr_t>(a.ak) |
-             reinterpret_cast<uintptr_t>(a.av);
+      static_cast<uintptr_t>(a.dh / 2 * es) |
+      reinterpret_cast<uintptr_t>(a.ak) | reinterpret_cast<uintptr_t>(a.av);
   const bool wide = align % 16 == 0;
-  using bf16 = __nv_bfloat16;
-  if (int8 && dtype == 0)
-    wide ? launch_rope<float, int8_t, 4>(a, s)
-         : launch_rope<float, int8_t, 1>(a, s);
-  else if (int8)
-    wide ? launch_rope<bf16, int8_t, 8>(a, s)
-         : launch_rope<bf16, int8_t, 1>(a, s);
-  else if (dtype == 0)
-    wide ? launch_rope<float, float, 4>(a, s)
-         : launch_rope<float, float, 1>(a, s);
+  if (dtype == 0)
+    wide ? launch_rope<float, 4>(a, s) : launch_rope<float, 1>(a, s);
   else
-    wide ? launch_rope<bf16, bf16, 8>(a, s) : launch_rope<bf16, bf16, 1>(a, s);
+    wide ? launch_rope<bf16, 8>(a, s) : launch_rope<bf16, 1>(a, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -441,24 +545,20 @@ extern "C" int rope_kv_append_launch(
     int page0, int seq, int dtype, void* stream) {
   const RopeArgs a{q,  k,  v,  bq,      bk, bv, freqs, pos,
                    block_table, ak, av, nullptr, nullptr, q_out, B, H, K,
-                   dh, P, npages, page, gpage, slot0, page0, seq != 0,
-                   false};
+                   dh, P, npages, page, gpage, slot0, page0, seq != 0};
   return dispatch_rope(a, dtype, false, static_cast<cudaStream_t>(stream));
 }
 
 // The int8 variant: arenas int8 [npages, page, K, dh], their scales fp32
-// [npages, page, K]; the rest as above.  The wrapper keeps 2 * K * dh
-// floats within the default 48 KB of shared memory.
+// [npages, page, K]; the rest as above.
 extern "C" int rope_kv_append_int8_launch(
     const void* q, const void* k, const void* v, const void* bq,
     const void* bk, const void* bv, const float* freqs, const int* pos,
     const int* block_table, void* ak, void* av, float* ks, float* vs,
     void* q_out, int B, int H, int K, int dh, int P, int npages, int page,
     int gpage, int slot0, int page0, int seq, int dtype, void* stream) {
-  const bool pack = dh % 4 == 0 && (reinterpret_cast<uintptr_t>(ak) |
-                                    reinterpret_cast<uintptr_t>(av)) % 4 == 0;
   const RopeArgs a{q,     k,     v,     bq,         bk, bv, freqs, pos,
                    block_table, ak, av, ks, vs, q_out, B, H, K, dh, P,
-                   npages, page, gpage, slot0, page0, seq != 0, pack};
+                   npages, page, gpage, slot0, page0, seq != 0};
   return dispatch_rope(a, dtype, true, static_cast<cudaStream_t>(stream));
 }

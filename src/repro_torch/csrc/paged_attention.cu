@@ -48,7 +48,10 @@
 // chain of dependent round trips, not bytes: the range, the tile, the
 // ticket and the merge's reads (~10 us against a 2.5 us bound, the same
 // with the L2 cache warm); at 32768 positions the gather (~1.2x the bytes
-// bound at 8 lanes).
+// bound at 8 lanes).  The int8 variant at 8 x 32768 takes ~1.5x its bytes
+// bound: the conversions (about four instructions a value, in the fragment
+// code) leave a block's tile compute-bound, and deeper stages do not pay
+// (launch/ablate_paged_int8.py).
 //
 // Semantics (as the Pallas kernel): position p*page + t of table column p
 // is valid iff it lies in the lane's range [starts[b], ends[b]) and its
@@ -69,11 +72,12 @@
 // the same kernels with Q8 set.  A tile's int8 rows (dh bytes each, half
 // the bf16 bytes) and their fp32 scales (one a slot and KV head, 4-byte
 // cp.async: a row's scale is one float, K floats from the next slot's)
-// land in int8 stages, double-buffered as above; once a tile has landed,
-// one pass turns it into the tile layout the fragment code reads, each
-// value (int8 * scale) in fp32 rounded to q's dtype, as the reference
-// rounds it.  The bf16 kernel keeps one dequantized tile (the int8 stages
-// take the second stage's room), the fp32 kernel one sub-tile.
+// land in int8 stages; each value becomes (int8 * scale) in fp32 rounded
+// to q's dtype, as the reference rounds it.  The bf16 kernel converts K
+// and V inside its fragment code (paged_bf16_kernel), so its int8 stages
+// are all the shared memory a tile needs (two of 16 KB at head_dim 128).
+// The fp32 kernel (a test path) turns each landed sub-tile into fp32 rows
+// in one pass.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -203,23 +207,26 @@ __device__ __forceinline__ void gather_tile(
                           ld_chunks, ld);
 }
 
-// Four int8 (a word, little-endian) as fp32, exactly, on the integer and
-// fp32 pipes rather than the conversion unit (an I2F a value runs at a
-// sixteenth of the FMA rate): each byte, biased by 128, becomes the low
-// mantissa byte of 2^23 (one byte permute), and 2^23 + 128 comes off.
-__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float* f) {
+// The first N of four int8 (a word, little-endian) as fp32, exactly, on
+// the integer and fp32 pipes rather than the conversion unit (an I2F a
+// value runs at a sixteenth of the FMA rate): each byte, biased by 128,
+// becomes the low mantissa byte of 2^23 (one byte permute), and 2^23 +
+// 128 comes off.
+template <int N>
+__device__ __forceinline__ void i8xn_to_f32(uint32_t w, float* f) {
   const uint32_t u = w ^ 0x80808080u;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < N; ++i)
     f[i] = __fsub_rn(
         __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)),
         8388736.f);                                  // 2^23 + 128
 }
 
-// Q8: rows [0, ROWS) of the lane's int8 K and V (one KV head) into the
-// int8 stages k8 / v8 (row stride ld_chunks * CH bytes, not swizzled), CH
-// bytes a copy, and their scales into ksc / vsc, asynchronously; rows
-// with row[r] = -1 and chunks past dh are zero-filled without a read.
+// Q8, fp32 kernel: rows [0, ROWS) of the lane's int8 K and V (one KV
+// head) into the int8 stages k8 / v8 (row stride ld_chunks * CH bytes),
+// CH bytes a copy through L1, and their scales into ksc / vsc,
+// asynchronously; rows with row[r] = -1 and chunks past dh are
+// zero-filled without a read.
 // ak / av and ks / vs point at the KV head's first element and scale.
 template <int ROWS, int CH>
 __device__ __forceinline__ void copy_tile_q8(
@@ -233,19 +240,73 @@ __device__ __forceinline__ void copy_tile_q8(
     const bool copy = idx >= 0 && c < dh_chunks;
     const size_t off = copy ? (size_t)idx * row_stride + c * CH : 0;
     const int at = (r * ld_chunks + c) * CH;
-    if constexpr (CH == 16) {
-      cp_async16(k8 + at, ak + off, copy ? 16 : 0);
-      cp_async16(v8 + at, av + off, copy ? 16 : 0);
-    } else {
-      cp_async_ca<CH>(k8 + at, ak + off, copy ? CH : 0);
-      cp_async_ca<CH>(v8 + at, av + off, copy ? CH : 0);
-    }
+    cp_async_ca<CH>(k8 + at, ak + off, copy ? CH : 0);
+    cp_async_ca<CH>(v8 + at, av + off, copy ? CH : 0);
   }
   for (int r = threadIdx.x; r < ROWS; r += blockDim.x) {
     const int idx = row[r];
     const size_t off = idx >= 0 ? (size_t)idx * K : 0;
     cp_async_ca<4>(ksc + r, ks + off, idx >= 0 ? 4 : 0);
     cp_async_ca<4>(vsc + r, vs + off, idx >= 0 ? 4 : 0);
+  }
+}
+
+// The bf16 kernel's int8 stages: 16-byte chunk c of row r lies at chunk
+// c ^ q8_swizzle<CH>(r) of the row (CH chunks a row, a multiple of 4).
+// The K fragment reads (rows r, r ^ 1, four aligned chunks each) and the
+// V fragment reads (rows r + 2t, t < 4, one chunk or an aligned pair
+// each) then fall on distinct banks: where a row is a whole number of
+// 128 bytes, bit 2 follows r's bit 0 (the K reads) and bits 1-2 its bits
+// 1-2; otherwise rows of odd r start 64 bytes on, and bits 0-1 follow
+// r's bits 1-2 inside each aligned group of four chunks.
+template <int CH>
+__device__ __forceinline__ int q8_swizzle(int r) {
+  if constexpr (CH % 8 == 0)
+    return (r & 2) | ((((r >> 2) ^ r) & 1) << 2);
+  else
+    return (r >> 1) & 3;
+}
+
+// Q8, bf16 kernel: rows [0, kTile) of the lane's int8 K and V (one KV
+// head) into the int8 stages k8 / v8 ([kTile][DHP] bytes, swizzled by
+// q8_swizzle), 16 bytes a copy, and their scales into ksc / vsc,
+// asynchronously; rows with row[r] = -1 and chunks past dh are
+// zero-filled without a read.
+template <int DHP>
+__device__ __forceinline__ void copy_tile_q8s(
+    int8_t* k8, int8_t* v8, float* ksc, float* vsc, const int* row,
+    const int8_t* __restrict__ ak, const int8_t* __restrict__ av,
+    const float* __restrict__ ks, const float* __restrict__ vs, int K,
+    size_t row_stride, int dh_chunks) {
+  constexpr int CH = DHP / 16;
+  for (int i = threadIdx.x; i < kTile * CH; i += blockDim.x) {
+    const int r = i / CH, c = i % CH;
+    const int idx = row[r];
+    const bool copy = idx >= 0 && c < dh_chunks;
+    const size_t off = copy ? (size_t)idx * row_stride + c * 16 : 0;
+    const int at = r * DHP + (c ^ q8_swizzle<CH>(r)) * 16;
+    cp_async16(k8 + at, ak + off, copy ? 16 : 0);
+    cp_async16(v8 + at, av + off, copy ? 16 : 0);
+  }
+  for (int i = threadIdx.x; i < 2 * kTile; i += blockDim.x) {
+    const int r = i % kTile;
+    const int idx = row[r];
+    const size_t off = idx >= 0 ? (size_t)idx * K : 0;
+    cp_async_ca<4>((i < kTile ? ksc : vsc) + r, (i < kTile ? ks : vs) + off,
+                   idx >= 0 ? 4 : 0);
+  }
+}
+
+// Wait until at most min(n, N) cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if constexpr (N == 0) {
+    cp_async_wait<0>();
+  } else {
+    if (n >= N)
+      cp_async_wait<N>();
+    else
+      cp_async_wait_upto<N - 1>(n);
   }
 }
 
@@ -481,61 +542,121 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
       : "r"(a));
 }
 
+// Int8 stages of the bf16 kernel (Q8): tiles in flight and in hand.  Two
+// stages, half bf16's bytes, run faster than four in bf16's room
+// (launch/ablate_paged_int8.py, PERF.md).
+constexpr int kStages8 = 2;
+static_assert(kStages8 >= 2 && kStages8 <= 4, "a thread reads two row ids");
+constexpr int kRows8 = kStages8 > 2 ? 4 : 2;   // tiles' row indices kept
+
+// Bytes of the K / V stages: two of bf16 tiles [K, V][kTile][DHP], or
+// (Q8) kStages8 of int8 ones
+template <int DHP, bool Q8>
+__host__ __device__ constexpr size_t kv_bytes() {
+  return (Q8 ? (size_t)kStages8 : 4) * 2 * kTile * DHP;
+}
+
 // Shared memory of the bf16 kernel, in bytes: Q [MT*16][DHP+8], two
 // stages of K and V tiles [kTile][DHP] (swizzled, not padded, so that
 // three blocks fit an SM at DHP 128), P [MT*16][kTile+8] (bf16), the
-// cross-warp row maxima / sums and the tiles' row indices.  Q8: one stage
-// of bf16 K and V tiles, two int8 stages [kTile][DHP] bytes in the second
-// one's room, the int8 stages' scales [2][K, V][kTile] and the row
-// indices of the dequantized tile.
+// cross-warp row maxima / sums and the tiles' row indices.  Q8: in place
+// of the K / V tiles kStages8 int8 stages [K, V][kTile][DHP] bytes, the
+// row indices of kRows8 tiles, and the stages' scales [kStages8][K,
+// V][kTile].
 template <int DHP, int MT, bool Q8>
 constexpr size_t bf16_smem() {
   return sizeof(bf16) * ((size_t)MT * 16 * (DHP + 8) +
-                         4 * (size_t)kTile * DHP +
                          (size_t)MT * 16 * (kTile + 8)) +
-         sizeof(float) * kWarps * MT * 16 + sizeof(int) * 2 * kTile +
-         (Q8 ? sizeof(float) * 4 * kTile + sizeof(int) * kTile : 0);
+         kv_bytes<DHP, Q8>() + sizeof(float) * kWarps * MT * 16 +
+         sizeof(int) * (Q8 ? kRows8 : 2) * kTile +
+         (Q8 ? sizeof(float) * 2 * kStages8 * kTile : 0);
 }
 
-// Q8: a landed int8 tile (K and V rows [kTile][DHP] bytes, scales
-// [kTile]) into the bf16 K and V tiles, laid out as copy_tile<bf16, kTile,
-// true> lays them (16-byte chunk c of row r at chunk c ^ (r % 8)): each
-// value int8 * scale in fp32, rounded to bf16 (zeros stay zeros).
-template <int DHP>
-__device__ __forceinline__ void dequant_tile(bf16* kd, bf16* vd,
-                                             const int8_t* k8,
-                                             const int8_t* v8,
-                                             const float* ksc,
-                                             const float* vsc) {
-  constexpr int C8 = DHP / 16;               // 16-byte int8 chunks a row
-  for (int i = threadIdx.x; i < 2 * kTile * C8; i += blockDim.x) {
-    const bool is_v = i >= kTile * C8;
-    const int j = is_v ? i - kTile * C8 : i;
-    const int r = j / C8, c = j % C8;
-    const uint4 raw = *reinterpret_cast<const uint4*>(
-        (is_v ? v8 : k8) + r * DHP + c * 16);
-    const float sc = (is_v ? vsc : ksc)[r];
-    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-    uint32_t out[8];
+// Q8: four int8 (a word) of a row with scale sc as the bf16 pairs (bytes
+// 0-1, bytes 2-3): each value int8 * scale in fp32, rounded to bf16, as
+// the reference dequantizes.
+__device__ __forceinline__ void i8x4_to_bf16(uint32_t w, float sc,
+                                             uint32_t* b) {
+  float x[4];
+  i8xn_to_f32<4>(w, x);
+  b[0] = pack_bf16(__fmul_rn(x[0], sc), __fmul_rn(x[1], sc));
+  b[1] = pack_bf16(__fmul_rn(x[2], sc), __fmul_rn(x[3], sc));
+}
+
+// Q8: the head_dim order of Q.K^T's k-steps.  The sum over head_dim does
+// not depend on its order, so Q's columns and K's rows take the same
+// permutation: element d = 64 c + 16 tig + 4 u + j (j < 4) is column
+// 16 (4 c + u) + (j < 2 ? 2 tig + j : 6 + 2 tig + j) of Q's fragments.
+// Thread tig's B fragment pairs (2 tig, 2 tig + 1 | 8 + 2 tig, 9 + 2 tig)
+// of k-steps 4 c .. 4 c + 3 are then the four words of a K row's 16-byte
+// chunk 4 c + tig: one load a row for four k-steps.  Elements d0 .. d0 +
+// 7 (d0 a multiple of 8) go, a pair each, to columns L, L + 8, L + 16,
+// L + 24 with L = q8_q_col(d0).
+__device__ __forceinline__ int q8_q_col(int d0) {
+  return (d0 / 64) * 64 + ((d0 % 16) / 4) * 16 + ((d0 % 64) / 16) * 2;
+}
+
+// Q8: VW bytes of a V row (a 4- or 2-byte word)
+template <int VW>
+__device__ __forceinline__ uint32_t load_word(const int8_t* p) {
+  if constexpr (VW == 4)
+    return *reinterpret_cast<const uint32_t*>(p);
+  else
+    return *reinterpret_cast<const uint16_t*>(p);
+}
+
+// Q8: the first of the 2 VW consecutive output elements a thread holds in
+// n-tiles gi VW .. gi VW + VW - 1 (fragment columns 2 tig, 2 tig + 1)
+template <int DHP, int VW>
+__device__ __forceinline__ int q8_out_col(int warp, int gi, int tig) {
+  return warp * (DHP / 4) + gi * 8 * VW + 2 * tig * VW;
+}
+
+// Q8: those elements of fragment row half h (n-tiles acc[0 .. VW)),
+// times f, in head_dim order
+template <int VW>
+__device__ __forceinline__ void q8_out_row(const float (*acc)[4], int h,
+                                           float f, float* o) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float x[4];
-      i8x4_to_f32(w[e], x);
-      out[2 * e] = pack_bf16(__fmul_rn(x[0], sc), __fmul_rn(x[1], sc));
-      out[2 * e + 1] = pack_bf16(__fmul_rn(x[2], sc), __fmul_rn(x[3], sc));
-    }
-    bf16* dst = (is_v ? vd : kd) + r * DHP;
-    const int sw = r & 7;
-    *reinterpret_cast<uint4*>(dst + ((2 * c) ^ sw) * 8) =
-        make_uint4(out[0], out[1], out[2], out[3]);
-    *reinterpret_cast<uint4*>(dst + ((2 * c + 1) ^ sw) * 8) =
-        make_uint4(out[4], out[5], out[6], out[7]);
-  }
+  for (int ee = 0; ee < 2; ++ee)
+#pragma unroll
+    for (int e = 0; e < VW; ++e) o[ee * VW + e] = acc[e][2 * h + ee] * f;
+}
+
+// N (4 or 8) consecutive values to fp32 or bf16 memory, 16 / 8 bytes a
+// store
+template <int N>
+__device__ __forceinline__ void store_f32(float* dst, const float* o) {
+#pragma unroll
+  for (int v = 0; v < N / 4; ++v)
+    reinterpret_cast<float4*>(dst)[v] =
+        make_float4(o[4 * v], o[4 * v + 1], o[4 * v + 2], o[4 * v + 3]);
+}
+template <int N>
+__device__ __forceinline__ void store_bf16(bf16* dst, const float* o) {
+  uint32_t w[N / 2];
+#pragma unroll
+  for (int v = 0; v < N / 2; ++v) w[v] = pack_bf16(o[2 * v], o[2 * v + 1]);
+  if constexpr (N == 8)
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  else
+    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
 }
 
 // DHP: the head dim padded to 64, 128, 192 or 256 (columns past dh are
 // zero); MT: m-tiles of 16 query heads (g <= 16 * MT); Q8: int8 arenas
 // with fp32 scales ks / vs [pages, page, K] (null otherwise).
+//
+// Q8 reads K and V from its int8 stages inside the fragment code, with
+// no pass over a tile.  A warp's Q.K^T B fragments are its keys' int8
+// words (head_dim in q8_q_col's order, Q's columns alike), converted and
+// scaled in registers.  Its P.V B fragments are words of four keys' V
+// rows, each word's VW bytes feeding VW n-tiles: column j of the warp's
+// n-tile n is head_dim element w DHP / 4 + (n / VW) 8 VW + j VW + n % VW,
+// an order undone where out and the partials are written (2 VW
+// consecutive elements a thread).  The first kStages8 tiles go in flight
+// at once; once tile i > 0 has landed, stage i - 1 is consumed and tile i
+// + kStages8 - 1 goes into it, its page ids read during tile i - 1.
 template <int DHP, int MT, bool Q8>
 __global__ void __launch_bounds__(kThreads)
 paged_bf16_kernel(const bf16* __restrict__ q,
@@ -557,17 +678,21 @@ paged_bf16_kernel(const bf16* __restrict__ q,
   constexpr int NW = DHP / 32;       // P.V n-tiles of 8 columns per warp
   constexpr bool kQReg = MT * DHP <= 384;   // Q fragments in registers
   constexpr int TILE = kTile * LD;
+  // Q8: stages; V bytes a fragment word (n-tiles it feeds), words a row
+  constexpr int NST = Q8 ? kStages8 : 2;
+  constexpr int VW = NW % 4 == 0 ? 4 : 2;
+  constexpr int VG = NW / VW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* kv = qs + MT * 16 * LDQ;     // [2 stages][K tile, V tile]
-  bf16* ps = kv + 4 * TILE;
+  bf16* ps = kv + kv_bytes<DHP, Q8>() / sizeof(bf16);
   float* red = reinterpret_cast<float*>(ps + MT * 16 * LDP);
   int* rows = reinterpret_cast<int*>(red + kWarps * MT * 16);
-  // Q8: kv holds one stage of bf16 tiles, then the int8 stages
-  // [2][K, V][kTile][DHP] bytes; their scales [2][K, V][kTile]
-  int8_t* q8 = reinterpret_cast<int8_t*>(kv + 2 * TILE);
-  float* scl = reinterpret_cast<float*>(rows + 2 * kTile);
-  int* vrow = reinterpret_cast<int*>(scl + 4 * kTile);  // Q8: rows in hand
+  // Q8: kv holds the int8 stages [NST][K, V][kTile][DHP] bytes (swizzled
+  // by q8_swizzle); rows kRows8 tiles' row indices, then the stages'
+  // scales [NST][K, V][kTile]
+  int8_t* q8 = reinterpret_cast<int8_t*>(kv);
+  float* scl = reinterpret_cast<float*>(rows + kRows8 * kTile);
   constexpr int STAGE8 = 2 * kTile * DHP;    // bytes of an int8 stage
 
   const int b = blockIdx.x, kh = blockIdx.y, s = blockIdx.z;
@@ -577,9 +702,14 @@ paged_bf16_kernel(const bf16* __restrict__ q,
   const int tid = threadIdx.x;
   const int* bt_row = block_table + (size_t)b * P;
   // thread t reads the page id of position t of the split's first two
-  // tiles, in flight with the lane's range (kThreads == 2 * kTile)
+  // tiles (Q8 with more stages: and of its next two), in flight with the
+  // lane's range (kThreads == 2 * kTile)
   const int pos0 = s * tiles_per_split * kTile + tid;
   const int pid0 = pos0 < P * page ? __ldg(bt_row + pos0 / page) : -1;
+  int pid1 = -1;
+  if constexpr (Q8 && NST > 2)
+    if (pos0 + 2 * kTile < P * page)
+      pid1 = __ldg(bt_row + (pos0 + 2 * kTile) / page);
   const int start = starts != nullptr ? starts[b] : 0;
   const int end = ends[b];
   // Q rows of this KV head (zero past g and dh) into registers, in flight
@@ -621,27 +751,40 @@ paged_bf16_kernel(const bf16* __restrict__ q,
   const float* vs_h = vscale + kh;
   const size_t row_stride = (size_t)K * dh;
   // the first two tiles in flight; tile i + 2 is issued into tile i's
-  // stage once tile i is consumed
+  // stage once tile i is consumed (Q8: the first NST tiles)
   int t0 = wk.lo + ((wk.first - wk.lo) / kTile) * kTile;
-  if (t0 == wk.lo) {                 // the page ids are in hand
-    rows[tid] = arena_row(pid0, pos0, wk.first, wk.last, page);
+  // Q8: tile i's stage, its scales and its rows' indices
+  auto issue_q8 = [&](int st) {
+    int8_t* k8 = q8 + st * STAGE8;
+    float* ksc = scl + st * 2 * kTile;
+    copy_tile_q8s<DHP>(k8, k8 + kTile * DHP, ksc, ksc + kTile,
+                       rows + st * kTile,
+                       reinterpret_cast<const int8_t*>(ak_h),
+                       reinterpret_cast<const int8_t*>(av_h), ks_h, vs_h, K,
+                       row_stride, dh / 16);
+    cp_async_commit();
+  };
+  if constexpr (Q8) {
+    // the row indices of the first NST tiles, one or two a thread
+    int pa = pid0, pb = pid1;
+    if (t0 != wk.lo) {
+      const int p0 = t0 + tid, p1 = p0 + 2 * kTile;
+      pa = p0 < wk.last ? __ldg(bt_row + p0 / page) : -1;
+      if (NST > 2) pb = p1 < wk.last ? __ldg(bt_row + p1 / page) : -1;
+    }
+    rows[tid] = arena_row(pa, t0 + tid, wk.first, wk.last, page);
+    if (NST > 2)
+      rows[2 * kTile + tid] =
+          arena_row(pb, t0 + 2 * kTile + tid, wk.first, wk.last, page);
     __syncthreads();
-  }
-  for (int st = 0; st < 2 && t0 + st * kTile < wk.last; ++st) {
-    if constexpr (Q8) {
-      int8_t* k8 = q8 + st * STAGE8;
-      float* ksc = scl + st * 2 * kTile;
-      if (t0 == wk.lo)
-        copy_tile_q8<kTile, 16>(k8, k8 + kTile * DHP, ksc, ksc + kTile,
-                                rows + st * kTile, ak_h, av_h, ks_h, vs_h,
-                                K, row_stride, dh / 16, DHP / 16);
-      else
-        gather_tile_q8<kTile, 16>(k8, k8 + kTile * DHP, ksc, ksc + kTile,
-                                  rows + st * kTile, ak_h, av_h, ks_h, vs_h,
-                                  bt_row, t0 + st * kTile, wk.first,
-                                  wk.last, page, K, row_stride, dh / 16,
-                                  DHP / 16);
-    } else {
+    for (int st = 0; st < NST && t0 + st * kTile < wk.last; ++st)
+      issue_q8(st);
+  } else {
+    if (t0 == wk.lo) {                 // the page ids are in hand
+      rows[tid] = arena_row(pid0, pos0, wk.first, wk.last, page);
+      __syncthreads();
+    }
+    for (int st = 0; st < 2 && t0 + st * kTile < wk.last; ++st) {
       bf16* kst = kv + st * 2 * TILE;
       if (t0 == wk.lo)
         copy_tile<bf16, kTile, true>(kst, kst + TILE, rows + st * kTile,
@@ -652,16 +795,25 @@ paged_bf16_kernel(const bf16* __restrict__ q,
                                        ak_h, av_h, bt_row, t0 + st * kTile,
                                        wk.first, wk.last, page, row_stride,
                                        dh / 8, DHP / 8, LD);
+      cp_async_commit();
     }
-    cp_async_commit();
   }
-  // Q into shared memory while the tiles land
+  // Q into shared memory while the tiles land (Q8: in q8_q_col's order)
 #pragma unroll
   for (int u = 0; u < QPT; ++u) {
     const int i = tid + u * kThreads;
-    if (i < QCH)
-      *reinterpret_cast<uint4*>(qs + (i / (DHP / 8)) * LDQ +
-                                (i % (DHP / 8)) * 8) = qv[u];
+    if (i < QCH) {
+      if constexpr (Q8) {
+        bf16* dst = qs + (i / (DHP / 8)) * LDQ + q8_q_col((i % (DHP / 8)) * 8);
+        const uint32_t w[4] = {qv[u].x, qv[u].y, qv[u].z, qv[u].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          *reinterpret_cast<uint32_t*>(dst + 8 * e) = w[e];
+      } else {
+        *reinterpret_cast<uint4*>(qs + (i / (DHP / 8)) * LDQ +
+                                  (i % (DHP / 8)) * 8) = qv[u];
+      }
+    }
   }
 
   const int warp = tid / 32, lane = tid % 32;
@@ -679,31 +831,22 @@ paged_bf16_kernel(const bf16* __restrict__ q,
   uint32_t qf[kQReg ? MT : 1][kQReg ? KS : 1][4];
 
   bool first_tile = true;
-  for (int stage = 0; t0 < wk.last; t0 += kTile, stage ^= 1) {
-    if (t0 + kTile < wk.last)
-      cp_async_wait<1>();
-    else
-      cp_async_wait<0>();
-    __syncthreads();                           // (1) tile `stage` landed
+  for (int stage = 0; t0 < wk.last;
+       t0 += kTile, stage = Q8 ? (stage + 1) % NST : stage ^ 1) {
     if constexpr (Q8) {
-      dequant_tile<DHP>(kv, kv + TILE, q8 + stage * STAGE8,
-                        q8 + stage * STAGE8 + kTile * DHP,
-                        scl + stage * 2 * kTile,
-                        scl + stage * 2 * kTile + kTile);
-      if (tid < kTile) vrow[tid] = rows[stage * kTile + tid];
-      __syncthreads();                         // (1b) the bf16 tiles
-      // the int8 stage is free: tile i + 2 goes in flight now, not after
-      // this tile's products
-      if (t0 + 2 * kTile < wk.last) {
-        int8_t* k8 = q8 + stage * STAGE8;
-        float* ksc = scl + stage * 2 * kTile;
-        gather_tile_q8<kTile, 16>(k8, k8 + kTile * DHP, ksc, ksc + kTile,
-                                  rows + stage * kTile, ak_h, av_h, ks_h,
-                                  vs_h, bt_row, t0 + 2 * kTile, wk.first,
-                                  wk.last, page, K, row_stride, dh / 16,
-                                  DHP / 16);
-        cp_async_commit();
-      }
+      // tiles through i + NST - 1 (i > 0: i + NST - 2) are in flight
+      const int ahead = (wk.last - t0 - 1) / kTile;
+      cp_async_wait_upto<NST - 1>(first_tile ? ahead : min(ahead, NST - 2));
+      __syncthreads();                         // (1) tile `stage` landed
+      // stage i - 1 is consumed: tile i + NST - 1 goes into it
+      if (!first_tile && t0 + (NST - 1) * kTile < wk.last)
+        issue_q8((stage + NST - 1) % NST);
+    } else {
+      if (t0 + kTile < wk.last)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
+      __syncthreads();                         // (1) tile `stage` landed
     }
     if (kQReg && first_tile) {
 #pragma unroll
@@ -714,9 +857,14 @@ paged_bf16_kernel(const bf16* __restrict__ q,
                                  (lane / 16) * 8);
     }
     first_tile = false;
-    const bf16* ks = Q8 ? kv : kv + stage * 2 * TILE;
+    const bf16* ks = kv + stage * 2 * TILE;
     const bf16* vs = ks + TILE;
-    const int* rowc = Q8 ? vrow : rows + stage * kTile;
+    const int* rowc = rows + stage * kTile;
+    // Q8: the int8 stage and its scales
+    const int8_t* k8 = q8 + stage * STAGE8;
+    const int8_t* v8 = k8 + kTile * DHP;
+    const float* ksc = scl + stage * 2 * kTile;
+    const float* vsc = ksc + kTile;
 
     // S = Q K^T: this warp's 16 keys (two n-tiles) for every m-tile
     float sc[MT][2][4];
@@ -724,24 +872,61 @@ paged_bf16_kernel(const bf16* __restrict__ q,
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[mt][0][e] = sc[mt][1][e] = 0.f;
-    // K and V fragments: the rows an ldmatrix reads have row % 8 == mrow
-    const bf16* kp = ks + (warp * 16 + (mat / 2) * 8 + mrow) * LD;
+    if constexpr (Q8) {
+      // keys r0 (n-tile 0) and r0 + 8 (n-tile 1): a 16-byte chunk of each
+      // row feeds four k-steps
+      const int r0 = warp * 16 + grp;
+      const int sw = q8_swizzle<KS>(r0);       // r0 + 8's too
+      const float s0 = ksc[r0], s1 = ksc[r0 + 8];
 #pragma unroll
-    for (int k = 0; k < KS; ++k) {
-      uint32_t bfr[4];
-      ldsm_x4(bfr, kp + ((2 * k + mat % 2) ^ mrow) * 8);
+      for (int c = 0; c < DHP / 64; ++c) {
+        const int at = ((4 * c + tig) ^ sw) * 16;
+        const uint4 w0 = *reinterpret_cast<const uint4*>(k8 + r0 * DHP + at);
+        const uint4 w1 =
+            *reinterpret_cast<const uint4*>(k8 + (r0 + 8) * DHP + at);
+        const uint32_t wa[4] = {w0.x, w0.y, w0.z, w0.w};
+        const uint32_t wb[4] = {w1.x, w1.y, w1.z, w1.w};
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        uint32_t a[4];
-        if constexpr (kQReg) {
-          a[0] = qf[mt][k][0]; a[1] = qf[mt][k][1];
-          a[2] = qf[mt][k][2]; a[3] = qf[mt][k][3];
-        } else {
-          ldsm_x4(a, qs + (mt * 16 + lane % 16) * LDQ + k * 16 +
-                         (lane / 16) * 8);
+        for (int u = 0; u < 4; ++u) {
+          const int k = 4 * c + u;
+          uint32_t b0[2], b1[2];
+          i8x4_to_bf16(wa[u], s0, b0);
+          i8x4_to_bf16(wb[u], s1, b1);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            uint32_t a[4];
+            if constexpr (kQReg) {
+              a[0] = qf[mt][k][0]; a[1] = qf[mt][k][1];
+              a[2] = qf[mt][k][2]; a[3] = qf[mt][k][3];
+            } else {
+              ldsm_x4(a, qs + (mt * 16 + lane % 16) * LDQ + k * 16 +
+                             (lane / 16) * 8);
+            }
+            mma_bf16(sc[mt][0], a, b0[0], b0[1]);
+            mma_bf16(sc[mt][1], a, b1[0], b1[1]);
+          }
         }
-        mma_bf16(sc[mt][0], a, bfr[0], bfr[1]);
-        mma_bf16(sc[mt][1], a, bfr[2], bfr[3]);
+      }
+    } else {
+      // K and V fragments: the rows an ldmatrix reads have row % 8 == mrow
+      const bf16* kp = ks + (warp * 16 + (mat / 2) * 8 + mrow) * LD;
+#pragma unroll
+      for (int k = 0; k < KS; ++k) {
+        uint32_t bfr[4];
+        ldsm_x4(bfr, kp + ((2 * k + mat % 2) ^ mrow) * 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t a[4];
+          if constexpr (kQReg) {
+            a[0] = qf[mt][k][0]; a[1] = qf[mt][k][1];
+            a[2] = qf[mt][k][2]; a[3] = qf[mt][k][3];
+          } else {
+            ldsm_x4(a, qs + (mt * 16 + lane % 16) * LDQ + k * 16 +
+                           (lane / 16) * 8);
+          }
+          mma_bf16(sc[mt][0], a, bfr[0], bfr[1]);
+          mma_bf16(sc[mt][1], a, bfr[2], bfr[3]);
+        }
       }
     }
 
@@ -768,6 +953,13 @@ paged_bf16_kernel(const bf16* __restrict__ q,
       }
     }
     __syncthreads();                           // (2) maxima in red
+    // Q8: this stage's row indices are read; tile i + NST's page ids go
+    // into them (issued at tile i + 1)
+    const int t_next = t0 + NST * kTile;
+    int pid_next = -1;
+    if constexpr (Q8)
+      if (tid < kTile && t_next + tid < wk.last)
+        pid_next = __ldg(bt_row + (t_next + tid) / page);
 
     // online softmax in log2 units: p = 2^(s * sl - m), one FMA and ex2
     float corr[MT][2];
@@ -811,6 +1003,10 @@ paged_bf16_kernel(const bf16* __restrict__ q,
         acc[mt][n][2] *= corr[mt][1];
         acc[mt][n][3] *= corr[mt][1];
       }
+    if constexpr (Q8)
+      if (tid < kTile && t_next < wk.last)
+        rows[stage * kTile + tid] =
+            arena_row(pid_next, t_next + tid, wk.first, wk.last, page);
     __syncthreads();                           // (3) P in shared memory
 
     // O += P V: this warp's DHP / 4 columns over the tile's 64 keys
@@ -821,21 +1017,52 @@ paged_bf16_kernel(const bf16* __restrict__ q,
       for (int mt = 0; mt < MT; ++mt)
         ldsm_x4(pa[mt], ps + (mt * 16 + lane % 16) * LDP + k * 16 +
                             (lane / 16) * 8);
-      const bf16* vp = vs + (k * 16 + (mat % 2) * 8 + mrow) * LD;
-      const int c0 = warp * NW + mat / 2;      // this lane's logical chunk
+      if constexpr (Q8) {
+        // keys ka, ka + 1 (b0) and ka + 8, ka + 9 (b1): a word of VW bytes
+        // of each row feeds VW n-tiles
+        const int ka = k * 16 + 2 * tig;
+        const float2 sa = *reinterpret_cast<const float2*>(vsc + ka);
+        const float2 sb = *reinterpret_cast<const float2*>(vsc + ka + 8);
+        const int8_t* v0 = v8 + ka * DHP;
+        const int swa = q8_swizzle<KS>(ka), swb = q8_swizzle<KS>(ka + 1);
 #pragma unroll
-      for (int n = 0; n < NW; n += 2) {
-        uint32_t bfr[4];
-        ldsm_x4_trans(bfr, vp + ((c0 + n) ^ mrow) * 8);
+        for (int gi = 0; gi < VG; ++gi) {
+          const int pb = warp * (DHP / 4) + gi * 8 * VW + grp * VW;
+          const int oa = ((pb >> 4) ^ swa) * 16 + (pb & 15);
+          const int ob = ((pb >> 4) ^ swb) * 16 + (pb & 15);
+          float x0[VW], x1[VW], x2[VW], x3[VW];
+          i8xn_to_f32<VW>(load_word<VW>(v0 + oa), x0);
+          i8xn_to_f32<VW>(load_word<VW>(v0 + DHP + ob), x1);
+          i8xn_to_f32<VW>(load_word<VW>(v0 + 8 * DHP + oa), x2);
+          i8xn_to_f32<VW>(load_word<VW>(v0 + 9 * DHP + ob), x3);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(acc[mt][n], pa[mt], bfr[0], bfr[1]);
-          mma_bf16(acc[mt][n + 1], pa[mt], bfr[2], bfr[3]);
+          for (int e = 0; e < VW; ++e) {
+            const uint32_t b0 = pack_bf16(__fmul_rn(x0[e], sa.x),
+                                          __fmul_rn(x1[e], sa.y));
+            const uint32_t b1 = pack_bf16(__fmul_rn(x2[e], sb.x),
+                                          __fmul_rn(x3[e], sb.y));
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              mma_bf16(acc[mt][gi * VW + e], pa[mt], b0, b1);
+          }
+        }
+      } else {
+        const bf16* vp = vs + (k * 16 + (mat % 2) * 8 + mrow) * LD;
+        const int c0 = warp * NW + mat / 2;    // this lane's logical chunk
+#pragma unroll
+        for (int n = 0; n < NW; n += 2) {
+          uint32_t bfr[4];
+          ldsm_x4_trans(bfr, vp + ((c0 + n) ^ mrow) * 8);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(acc[mt][n], pa[mt], bfr[0], bfr[1]);
+            mma_bf16(acc[mt][n + 1], pa[mt], bfr[2], bfr[3]);
+          }
         }
       }
     }
-    __syncthreads();                           // (4) stage and P consumed
     if constexpr (!Q8) {
+      __syncthreads();                         // (4) stage and P consumed
       if (t0 + 2 * kTile < wk.last) {
         gather_tile<bf16, kTile, true>(kv + stage * 2 * TILE,
                                        kv + stage * 2 * TILE + TILE,
@@ -880,19 +1107,33 @@ paged_bf16_kernel(const bf16* __restrict__ q,
         const int row = mt * 16 + grp + 8 * h;
         if (row >= g) continue;
         const float inv = 1.f / fmaxf(L[mt][h], 1e-20f);
+        if constexpr (Q8) {
 #pragma unroll
-        for (int n = 0; n < NW; ++n) {
-          const int col = warp * (DHP / 4) + n * 8 + tig * 2;
-          if (col >= dh) continue;
-          const float o0 = acc[mt][n][2 * h] * inv;
-          const float o1 = acc[mt][n][2 * h + 1] * inv;
-          if (lse_bk != nullptr)
-            *reinterpret_cast<float2*>(out32 + (size_t)row * dh + col) =
-                make_float2(o0, o1);
-          else
-            *reinterpret_cast<__nv_bfloat162*>(out_bk + (size_t)row * dh +
-                                               col) =
-                __floats2bfloat162_rn(o0, o1);
+          for (int gi = 0; gi < VG; ++gi) {
+            const int col = q8_out_col<DHP, VW>(warp, gi, tig);
+            if (col >= dh) continue;
+            float o[2 * VW];
+            q8_out_row<VW>(acc[mt] + gi * VW, h, inv, o);
+            if (lse_bk != nullptr)
+              store_f32<2 * VW>(out32 + (size_t)row * dh + col, o);
+            else
+              store_bf16<2 * VW>(out_bk + (size_t)row * dh + col, o);
+          }
+        } else {
+#pragma unroll
+          for (int n = 0; n < NW; ++n) {
+            const int col = warp * (DHP / 4) + n * 8 + tig * 2;
+            if (col >= dh) continue;
+            const float o0 = acc[mt][n][2 * h] * inv;
+            const float o1 = acc[mt][n][2 * h + 1] * inv;
+            if (lse_bk != nullptr)
+              *reinterpret_cast<float2*>(out32 + (size_t)row * dh + col) =
+                  make_float2(o0, o1);
+            else
+              *reinterpret_cast<__nv_bfloat162*>(out_bk + (size_t)row * dh +
+                                                 col) =
+                  __floats2bfloat162_rn(o0, o1);
+          }
         }
         if (lse_bk != nullptr && warp == 0 && tig == 0)
           lse_bk[row] = row_lse(m[mt][h], L[mt][h]);
@@ -908,12 +1149,23 @@ paged_bf16_kernel(const bf16* __restrict__ q,
     for (int h = 0; h < 2; ++h) {
       const int row = mt * 16 + grp + 8 * h;
       if (row >= g) continue;
+      if constexpr (Q8) {
 #pragma unroll
-      for (int n = 0; n < NW; ++n) {
-        const int col = warp * (DHP / 4) + n * 8 + tig * 2;
-        if (col < dh)
-          *reinterpret_cast<float2*>(my_acc + (size_t)row * dh + col) =
-              make_float2(acc[mt][n][2 * h], acc[mt][n][2 * h + 1]);
+        for (int gi = 0; gi < VG; ++gi) {
+          const int col = q8_out_col<DHP, VW>(warp, gi, tig);
+          if (col >= dh) continue;
+          float o[2 * VW];
+          q8_out_row<VW>(acc[mt] + gi * VW, h, 1.f, o);
+          store_f32<2 * VW>(my_acc + (size_t)row * dh + col, o);
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NW; ++n) {
+          const int col = warp * (DHP / 4) + n * 8 + tig * 2;
+          if (col < dh)
+            *reinterpret_cast<float2*>(my_acc + (size_t)row * dh + col) =
+                make_float2(acc[mt][n][2 * h], acc[mt][n][2 * h + 1]);
+        }
       }
       if (warp == 0 && tig == 0) {
         pml[((size_t)s * g + row) * 2] = L[mt][h] > 0.f ? m[mt][h] : kEmptyM;
@@ -962,8 +1214,8 @@ __device__ __forceinline__ void dequant_sub(float* kd, float* vd,
         (is_v ? v8 : k8) + r * dh + c * 8);
     const float sc = (is_v ? vsc : ksc)[r];
     float x[8];
-    i8x4_to_f32(raw.x, x);
-    i8x4_to_f32(raw.y, x + 4);
+    i8xn_to_f32<4>(raw.x, x);
+    i8xn_to_f32<4>(raw.y, x + 4);
 #pragma unroll
     for (int e = 0; e < 8; ++e) x[e] = __fmul_rn(x[e], sc);
     float4* dst = reinterpret_cast<float4*>((is_v ? vd : kd) + r * ld +

@@ -20,8 +20,9 @@ quantized on write, as the reference's int8 KV branch does (KIVI-style, a
 scale per slot and KV head): each row, rounded to the model dtype, gets
 ``s = max|x| / 127 + 1e-9`` in fp32 and is stored as ``clamp(round(x /
 s), -127, 127)`` (half to even) beside ``s`` in the fp32 scale arenas
-[pages, page, K].  The CUDA side is ``rope_kv_append_kernel``'s int8
-variant in ``csrc/kv_update.cu``.
+[pages, page, K].  The CUDA side is ``rope_kv_append_int8_kernel`` in
+``csrc/kv_update.cu``: a warp a row, the row in registers from its load
+to its int8 store, so K * head_dim has no limit.
 
 On a shard of a mesh (``slots=Slots(...)``) the arena holds ``page_loc``
 slots of each global page, and sequence-parallel a run of the table's
@@ -45,9 +46,6 @@ rope_kv_append_launches = 0   # rope_kv_append launches, likewise
 rope_kv_append_int8_launches = 0   # its int8 variant's launches, likewise
 
 MAX_HEAD_DIM = 256
-# the int8 variant stages a lane's rotated K and V rows (2 * K * dh fp32)
-# in shared memory (32 KB at most) before it quantizes them
-MAX_INT8_ROW = 4096
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the int8 scale is max|x| * (1 / 127) + 1e-9 rounded once: XLA turns the
 # reference's ``/ 127.0`` into a multiply by the fp32 reciprocal and
@@ -316,9 +314,6 @@ def rope_kv_append(q, k, v, bq, bk, bv, freqs, pos, block_table, arena_k,
         return None if t is None else t.data_ptr()
 
     if scales is not None:
-        if K * dh > MAX_INT8_ROW:
-            raise ValueError(f"the int8 kernel stages K * head_dim <= "
-                             f"{MAX_INT8_ROW} elements, not {K * dh}")
         err = build.library().rope_kv_append_int8_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(bq), ptr(bk),
             ptr(bv), ptr(freqs), pos.data_ptr(), block_table.data_ptr(),

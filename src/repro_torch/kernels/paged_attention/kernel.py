@@ -32,8 +32,9 @@ With ``scales=(ks, vs)`` (fp32 [pages, page, K]) the arenas are int8 (the
 reference's int8 KV branch): each gathered row is dequantized as
 ``(row.float() * scale).to(q.dtype)`` before the products.  On the card
 that is the int8 variant of each kernel in ``csrc/paged_attention.cu``,
-which gathers the int8 rows and their scales and dequantizes a tile in
-shared memory; nothing dequantizes the arena in PyTorch.
+which gathers the int8 rows and their scales; the bf16 kernel converts
+them in its mma fragments, the fp32 one a sub-tile in shared memory.
+Nothing dequantizes the arena in PyTorch.
 """
 
 from __future__ import annotations

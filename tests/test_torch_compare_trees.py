@@ -72,6 +72,18 @@ def test_profile_decode_counts_copies_apart_from_kernels():
                            "rope_kv_append_kernel<__nv_bfloat16, 8>(...)")
 
 
+def test_profile_decode_serves_the_int8_cache_when_asked():
+    """``--kv-dtype int8`` profiles the serve run with the int8 KV cache
+    (qwen2.5-32b's 8 layers, as ``chip_smoke.py`` serves it); the default
+    keeps the config's bf16 cache."""
+    from repro_torch.launch import profile_decode as pd
+    cfg = pd.serve_config("qwen2.5-32b", "int8")
+    assert cfg.kv_dtype == "int8" and cfg.num_layers == 8
+    assert pd.serve_config("qwen2.5-32b").kv_dtype != "int8"
+    with pytest.raises(SystemExit):
+        pd.main(["--kv-dtype", "fp8"])
+
+
 def test_bench_flash_bwd_bound_counts_the_causal_pairs():
     """``bench_flash_bwd``'s bound: five products of 2 dh flops over the
     causal pairs (within the window where there is one) at the bf16 peak,

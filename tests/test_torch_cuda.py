@@ -187,6 +187,27 @@ def test_rope_kv_append_int8_bit_equal(dev, H, K, dh, dt, bias, rope,
         assert not bool(ak[pid, int(pos[0]) % 16].any())
 
 
+@pytest.mark.parametrize("H,K,dh,dt,bias", [
+    (64, 32, 256, torch.bfloat16, True),        # K * dh 8192
+    (96, 48, 128, torch.float32, False),        # K * dh 6144
+    (40, 40, 192, torch.bfloat16, True),        # 2-byte words, 24 lanes a row
+])
+def test_rope_kv_append_int8_wide_rows(dev, H, K, dh, dt, bias):
+    """K * head_dim past 4096 (the limit of the earlier staged design):
+    q, the int8 arenas and the scales bit-equal to the plain version's,
+    the dump-page lane and the lane past the table among them."""
+    *args, ak, av, ks, vs = _rope_int8_inputs(dev, H, K, dh, dt, bias)
+    ref = [t.clone() for t in (ak, av, ks, vs)]
+    want = kvk.rope_kv_append_plain(*args, ref[0], ref[1], (ref[2], ref[3]))
+    n = kvk.rope_kv_append_int8_launches
+    got = kvk.rope_kv_append(*args, ak, av, (ks, vs))
+    torch.cuda.synchronize()
+    assert kvk.rope_kv_append_int8_launches == n + 1
+    assert torch.equal(got, want)
+    for a, b in zip((ak, av, ks, vs), ref):
+        assert torch.equal(a, b)
+
+
 def test_rope_kv_append_int8_survives_graph_capture(dev):
     """The int8 write captured in a CUDA graph and replayed writes what an
     eager call writes."""
@@ -371,6 +392,117 @@ def test_paged_attention_int8_vs_plain(dev, B, H, K, pages, page, P, dh, dt,
         assert fak.row_scaled_error(got, want) < fak.BF16_ROW_TOL
 
 
+@pytest.mark.parametrize("B,H,K,dh,page,P,lengths,win,starts", [
+    # g 48 (three m-tiles, Q in registers) at dh 128, windowed, many splits
+    (4, 48, 1, 128, 128, 32, [4000, 2500, 700, 129], 1000, None),
+    # dh 256 windowed (recurrentgemma-9b's layout), the window's start
+    # mid-tile
+    (4, 16, 1, 256, 128, 17, [2100, 1000, 300, 37], 2048, None),
+    # ranges starting mid-tile and mid-page (a shard's local range), dh 64
+    # and 192 (2-byte V words)
+    (4, 24, 8, 64, 16, 64, [1000, 33, 700, 90], 0, [37, 1, 600, 89]),
+    (4, 96, 8, 192, 128, 16, [2000, 500, 129, 1], 0, [1100, 63, 65, 0]),
+    (3, 64, 1, 128, 8, 128, [1000, 500, 77], 0, [999, 3, 40]),  # g 64
+])
+@pytest.mark.parametrize("lse", [False, True])
+def test_paged_attention_int8_layout_edges(dev, B, H, K, dh, page, P,
+                                           lengths, win, starts, lse):
+    """The int8 layouts' edges (head_dim in the fragments' order, the
+    output columns permuted and restored, the stages' swizzle at every
+    head_dim, four stages past a range that starts mid-tile): within 3e-2
+    and BF16_ROW_TOL of a row's rms of the plain version, with the rows'
+    LSE (``return_lse``, fp32 out) within 1e-4 of max(1, |lse|)."""
+    inp = _paged_inputs(dev, B, H, K, dh, page, P, lengths, torch.bfloat16,
+                        5)
+    pages = inp[1].shape[0]
+    ak, av, ks, vs = _int8_arenas(dev, pages, page, K, dh, 6)
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32,
+                                                  device=dev)
+    args = (inp[0], ak, av, inp[3], inp[4])
+    kw = dict(window=win, starts=st, scales=(ks, vs))
+    want = pak.paged_attention_plain(*args, return_lse=lse, **kw)
+    n = pak.int8_launches
+    got = pak.paged_attention(*args, return_lse=lse, **kw)
+    torch.cuda.synchronize()
+    assert pak.int8_launches == n + 1
+    if lse:
+        (got, got_lse), (want, want_lse) = got, want
+        assert got.dtype == torch.float32
+        gap = (got_lse - want_lse).abs() / want_lse.abs().clamp(min=1)
+        assert float(gap.max()) < 1e-4
+    assert float((got.float() - want.float()).abs().max()) < 3e-2
+    assert fak.row_scaled_error(got, want) < fak.BF16_ROW_TOL
+
+
+@pytest.mark.parametrize("tp,r,dp,d", [
+    (2, 1, 1, 0),          # page_loc 64, the second model shard
+    (4, 3, 1, 0),          # page_loc 32, the last model shard
+    (2, 0, 2, 1),          # sequence-parallel: the table's second half
+])
+def test_int8_kernels_at_shard_layouts(dev, tp, r, dp, d):
+    """The int8 write and attention at a mesh shard's layout of qwen2.5-
+    32b's arenas (``Slots``: page_loc slots of each page, a run of the
+    table's columns): the write bit-equal to the plain version but on the
+    dump page (rows the shard does not hold all land in its slot 0, in no
+    set order), the attention over ``local_count``'s lane ranges with the
+    rows' LSE within 3e-2 / BF16_ROW_TOL and 1e-4 of max(1, |lse|)."""
+    from repro_torch.kernels.kv_update.kernel import Slots
+    from repro_torch.layers.rope import rope_freqs
+    B, H, K, dh, page, P = 8, 40, 8, 128, 128, 8
+    pl, P_loc, seq = page // tp, P // dp, dp > 1
+    sl = Slots(page, r * pl, d * P_loc if seq else 0, seq)
+    g = torch.Generator().manual_seed(tp * 10 + r + dp)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g)).to(
+            torch.bfloat16).to(dev)
+
+    pages = B * P_loc + 1
+    table = torch.randperm(pages - 1, generator=g)[:B * P_loc].to(
+        torch.int32).reshape(B, P_loc).to(dev)
+    pos = torch.randint(0, P * page, (B,), generator=g).to(torch.int32)
+    pos[0], pos[1] = 5, P * page + 3
+    pos = pos.to(dev)
+    args = (rnd(B, H * dh), rnd(B, K * dh), rnd(B, K * dh),
+            rnd(H * dh, scale=0.5), rnd(K * dh, scale=0.5),
+            rnd(K * dh, scale=0.5), rope_freqs(dh, 1e6, dev), pos, table)
+    ak, av, ks, vs = _int8_arenas(dev, pages, pl, K, dh, 7)
+    ref = [x.clone() for x in (ak, av, ks, vs)]
+    want = kvk.rope_kv_append_plain(*args, ref[0], ref[1], (ref[2], ref[3]),
+                                    slots=sl)
+    got = kvk.rope_kv_append(*args, ak, av, (ks, vs), slots=sl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for a, b in zip((ak, av, ks, vs), ref):
+        assert torch.equal(a[:-1], b[:-1])
+    lens = torch.randint(1, P * page, (B,), generator=g).to(torch.int32)
+    lens[0] = 6
+    lens = lens.to(dev)
+    for window in (0, 300):
+        lo = torch.clamp(lens - window, min=0) if window else \
+            torch.zeros_like(lens)
+        starts = pak.local_count(lo, sl, pl, P_loc)
+        ends = pak.local_count(lens, sl, pl, P_loc)
+        q = rnd(B, H, dh)
+        kw = dict(starts=starts, scales=(ks, vs), return_lse=True)
+        want, want_lse = pak.paged_attention_plain(q, ak, av, table, ends,
+                                                   **kw)
+        n = pak.int8_launches
+        out, lse = pak.paged_attention(q, ak, av, table, ends, **kw)
+        torch.cuda.synchronize()
+        assert pak.int8_launches == n + 1
+        live = (ends > starts).nonzero()[:, 0]
+        assert float((out - want).abs().max()) < 3e-2
+        assert fak.row_scaled_error(out[live], want[live]) < \
+            fak.BF16_ROW_TOL
+        gap = (lse[live] - want_lse[live]).abs() / \
+            want_lse[live].abs().clamp(min=1)
+        assert float(gap.max()) < 1e-4
+        dead = (ends <= starts).nonzero()[:, 0]
+        assert not bool(out[dead].any())
+        assert bool(torch.isneginf(lse[dead]).all())
+
+
 def test_paged_attention_int8_masked_lanes_and_graph(dev):
     """Page edges, a lane of length 0 and a lane whose pages are all
     unused (exactly 0), many splits merged the same run to run, the
@@ -401,9 +533,9 @@ def test_paged_attention_int8_masked_lanes_and_graph(dev):
 
 
 def test_int8_refusals_on_the_card(dev):
-    """int8 arenas without scales, scales on the wrong device, and a K *
-    head_dim row the int8 write cannot stage: refused, nothing
-    launched."""
+    """int8 arenas without scales and scales on the wrong device (the
+    attention), and int8 arenas without scales or with scales of another
+    dtype (the write): refused, nothing launched."""
     ak, av, ks, vs = _int8_arenas(dev, 2, 16, 2, 128, 0)
     q = torch.zeros((1, 8, 128), dtype=torch.bfloat16, device=dev)
     bt = torch.zeros((1, 1), dtype=torch.int32, device=dev)
@@ -414,15 +546,14 @@ def test_int8_refusals_on_the_card(dev):
     with pytest.raises(ValueError):
         pak.paged_attention(q, ak, av, bt, lens, scales=(ks.cpu(), vs))
     assert pak.int8_launches == n
-    K, dh = 32, 256                    # 2 * K * dh floats: 64 KB
-    big = torch.zeros((2, 16, K, dh), dtype=torch.int8, device=dev)
-    sc = torch.ones((2, 16, K), device=dev)
-    z = torch.zeros((1, K * dh), dtype=torch.bfloat16, device=dev)
+    z = torch.zeros((1, 2 * 128), dtype=torch.bfloat16, device=dev)
+    pos = torch.zeros((1,), dtype=torch.int32, device=dev)
     m = kvk.rope_kv_append_int8_launches
-    with pytest.raises(ValueError, match="stages"):
-        kvk.rope_kv_append(z, z, z, None, None, None, None,
-                           torch.zeros((1,), dtype=torch.int32, device=dev),
-                           bt, big, big.clone(), (sc, sc.clone()))
+    with pytest.raises(TypeError):
+        kvk.rope_kv_append(z, z, z, None, None, None, None, pos, bt, ak, av)
+    with pytest.raises(ValueError):
+        kvk.rope_kv_append(z, z, z, None, None, None, None, pos, bt, ak, av,
+                           (ks.double(), vs))
     assert kvk.rope_kv_append_int8_launches == m
 
 

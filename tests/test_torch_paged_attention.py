@@ -181,6 +181,31 @@ def test_cpu_path_is_the_plain_version():
     assert pak.launches == n
 
 
+def test_int8_bound_at_the_serve_and_long_shapes():
+    """``bytes_bound_ms`` over ``int8_inputs``' form (int8 rows with their
+    fp32 scales) at ``bench_paged``'s serve shape and at 8 x 32768 gives
+    the bounds PERF.md states for row 2c there: 0.00123 ms (the serve
+    lengths of ``serve_lengths``; ``chip_smoke.py``'s qwen row draws its
+    own on the card, 0.00134) and 0.1653 ms.  Only the shapes, the table
+    and the lengths count, so the arenas are meta tensors."""
+    from repro_torch.launch import bench_paged as bp
+    got = {}
+    for name in ("serve", "long"):
+        B, H, K, dh, page, P, lengths = bp.SHAPES[name]
+        lens = bp.serve_lengths(B) if lengths is None else lengths
+        bt, lens, pages = bp.make_table(
+            B, page, P, lens, bp.SEED + 2,
+            bp.SERVE_PAGES if name == "serve" else None)
+        q = torch.empty((B, H, dh), dtype=torch.bfloat16, device="meta")
+        k8 = torch.empty((pages, page, K, dh), dtype=torch.int8,
+                         device="meta")
+        sc = torch.empty((pages, page, K), device="meta")
+        got[name] = bp.bytes_bound_ms((q, k8, k8, torch.as_tensor(bt),
+                                       torch.as_tensor(lens), sc, sc))[0]
+    assert f"{got['serve']:.3g}" == "0.00123"
+    assert f"{got['long']:.4g}" == "0.1653"
+
+
 def test_bench_inputs_and_bound():
     """``launch/bench_paged.py``'s inputs (distinct pages, the lengths
     asked for) and its bytes bound (each valid K and V row once), checked
