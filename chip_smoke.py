@@ -113,17 +113,23 @@ port's paths:
    and ``ssd_scan_bwd`` against their plain versions at the shapes one
    rank gives them (starcoder2-3b's 12/1 and 6/1 heads at 2 x 4096 / the
    data shards, qwen2.5-32b's smoke heads in fp32, mamba2-370m's 16
-   heads at 4 x 2048), timed beside their bounds and SDPA; then one
-   start-up of four ranks sharing the card over gloo: qwen2.5-32b's
-   smoke config in fp32 for 3 steps on (2, 2) and (1, 4) against
-   ``make_train_step`` on the card (loss 1e-4, parameters 5e-4),
-   starcoder2-3b (published widths, 4 of 30 layers, bf16) through
-   ``Trainer`` at 2 x 4096 tokens on (2, 2) and (1, 4) and mamba2-370m
-   (12 of 48 layers) at 8 x 2048 on (2, 2), a warm step and 3 more,
-   against the one-device ``Trainer`` on the card (loss 3e-2, grad norm
-   5e-2), and the (2, 2) starcoder2-3b state saved to rank 0's heap and
-   restored onto (1, 4), every leaf's checksum equal.  Its times are four
-   ranks on one card, not a multi-card number.
+   heads at 4 x 2048; qwen2.5-32b's 13 and 14 heads on (1, 3), K / V
+   repeated a query head, at 2 x 2048; recurrentgemma-9b's 4/1 at dh 256
+   with the 2048 window; the scan at 11 of mamba2-370m's 32 heads, 8 x
+   2048), timed beside their bounds and SDPA; then one start-up of four
+   ranks sharing the card over gloo: qwen2.5-32b's smoke config in fp32
+   for 3 steps on (2, 2) and (1, 4), and with 6 query heads on (1, 4),
+   against ``make_train_step`` on the card (loss 1e-4, parameters 5e-4),
+   starcoder2-3b (published widths, 2 of 30 layers, bf16) through
+   ``Trainer`` at 2 x 4096 tokens on (2, 2) and (1, 4), mamba2-370m (12
+   of 48 layers) at 8 x 2048 on (2, 2) and recurrentgemma-9b (3 of 38
+   layers, the RG-LRU over ``model``) at 1 x 4096 on (1, 4), a warm step
+   and 3 more, against the one-device ``Trainer`` on the card (loss
+   3e-2, grad norm 5e-2), and the (2, 2) starcoder2-3b state saved to
+   rank 0's heap and restored onto (1, 4), every leaf's checksum equal;
+   then a start-up of three ranks: qwen2.5-32b (2 of 64 layers) at 2 x
+   2048 on (1, 3), the same way.  Its times are ranks sharing one card,
+   not a multi-card number.
 
 Each run prints a ``... detail:`` line.  The launch counters are set to 0
 just before each path and read just after it; the ``kernels`` line gives
@@ -137,6 +143,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import sys
 import time
 from pathlib import Path
@@ -2459,20 +2466,58 @@ def check_mesh(torch, dev, card) -> tuple[dict, dict]:
 # phase 10: the sharded train step, ranks sharing the card over gloo
 # ---------------------------------------------------------------------------
 # the published widths cut in depth for the time limit: every rank's
-# collectives go through gloo and the host, and four ranks take turns on
-# the card (starcoder2-3b: 4 of 30 layers; mamba2-370m: 12 of 48)
-MESH_TRAIN_LAYERS = {TRAIN_ARCH: 4, SSD_TRAIN_ARCH: 12}
+# collectives go through gloo and the host, and the ranks take turns on
+# the card (starcoder2-3b: 2 of 30 layers, cut from 4 for the time
+# limit when the qwen2.5-32b and recurrentgemma-9b runs came in;
+# mamba2-370m: 12 of 48; qwen2.5-32b: 2 of 64; recurrentgemma-9b: 3 of
+# 38, its first (RG-LRU, RG-LRU, local attention) unit)
+UNEVEN_ARCH = "qwen2.5-32b"
+MESH_TRAIN_LAYERS = {TRAIN_ARCH: 2, SSD_TRAIN_ARCH: 12, UNEVEN_ARCH: 2,
+                     HYBRID_TRAIN_ARCH: 3}
+MESH_TRAIN_TOKENS = {TRAIN_ARCH: (TRAIN_BATCH, TRAIN_SEQ),
+                     SSD_TRAIN_ARCH: (SSD_TRAIN_BATCH, SSD_TRAIN_SEQ),
+                     UNEVEN_ARCH: (2, 2048), HYBRID_TRAIN_ARCH: (1, 4096)}
+# qwen2.5-32b on 3 ranks: 40 query heads as 13 / 13 / 14 on 8 KV heads
+# (unequal groups), wq / wk / wv / wo replicated (5120 does not divide 3);
+# recurrentgemma-9b on 4: the RG-LRU at 1024 channels a rank
+MESH_UNEVEN = {UNEVEN_ARCH: (1, 3), HYBRID_TRAIN_ARCH: (1, 4)}
 MESH_TRAIN_STEPS = 4                     # a warm step and 3 more
 # qwen2.5-32b's smoke config in fp32: 3 steps at 4 x 64 tokens
 MESH_SMOKE_TRAIN = ("qwen2.5-32b", 4, 64, 3)
+# ... and with 6 query heads on (1, 4): wq's 96 columns split, the heads
+# not (1 / 2 / 1 / 2)
+MESH_SMOKE_UNEVEN = {"num_heads": 6}
+# ... and with 10 query heads on its 2 KV heads on (1, 3): wq's 160
+# columns replicated (they do not divide), rank 1's heads 3, 4 read KV
+# head 0 and head 5 KV head 1 (wk / wv's columns repeated a query head
+# on the card's flash kernels), d_ff 256 as 85 / 85 / 86
+MESH_SMOKE_GROUPS = {"num_heads": 10}
 MESH_TRAIN_NAMES = ("data", "model")
+
+
+def rank_heads(cfg, tp) -> list[tuple[int, int]]:
+    """(query heads, KV heads as the flash kernels see them) of each model
+    rank of ``tp`` in the sharded train step: K and V repeated a query
+    head where the rank's heads read unequal parts of groups."""
+    from repro_torch.distributed.collectives import unit_ranges
+    from repro_torch.layers.attention import kv_heads_of_rank, \
+        kv_map_of_rank
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    out = []
+    for r, (q0, q1) in enumerate(unit_ranges(H, tp)):
+        k0, k1 = kv_heads_of_rank(H, K, tp, r)
+        kl = k1 - k0 if kv_map_of_rank(H, K, tp, r) is None else q1 - q0
+        out.append((q1 - q0, kl))
+    return out
 
 
 def train_shard_shapes() -> tuple[list, list]:
     """The shapes the mesh train runs give the flash kernels (a rank's
     batch shard and heads: B, H, K, S, dh, causal, window, dtype) and the
-    scan (Bz, H, S, P, N), with the mesh each comes from."""
+    scan (Bz, H, S, P, N), with the mesh each comes from; and the scan at
+    mamba2-370m's heads over 3 ranks (no run: a kernel check)."""
     from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.distributed.collectives import unit_ranges
     from repro_torch.layers.ssd import n_heads
     c, sc = get_config(TRAIN_ARCH), get_smoke_config(MESH_SMOKE_TRAIN[0])
     mc = get_config(SSD_TRAIN_ARCH)
@@ -2489,9 +2534,29 @@ def train_shard_shapes() -> tuple[list, list]:
              (f"{sc.name} smoke fp32 (1, 4)", (B, sc.num_heads // 4, 1, S,
                                               sc.head_dim, True, 0,
                                               "float32"))]
+    for a, mesh in MESH_UNEVEN.items():
+        u = get_config(a)
+        Bu, Su = MESH_TRAIN_TOKENS[a]
+        win = u.window if any(m == "local_attn" for m, _ in u.layer_specs) \
+            else 0
+        ranks: dict = {}               # a shape: the ranks that give it
+        for r, (h, k) in enumerate(rank_heads(u, mesh[1])):
+            ranks.setdefault((h, k), []).append(r)
+        for (h, k), rs in ranks.items():
+            kv = "K / V a query head" if k == h and k != u.num_kv_heads \
+                else f"{k} KV head{'s' if k > 1 else ''}"
+            flash.append((f"{a} {mesh} rank{'s' if len(rs) > 1 else ''} "
+                          f"{', '.join(map(str, rs))}, {kv}",
+                          (Bu // mesh[0], h, k, Su, u.head_dim, True, win,
+                           "bfloat16")))
     ssd = [(f"{SSD_TRAIN_ARCH} (2, 2)", (SSD_TRAIN_BATCH // 2,
                                          n_heads(mc) // 2, SSD_TRAIN_SEQ,
                                          mc.ssm_head_dim, mc.ssm_state))]
+    lo, hi = unit_ranges(n_heads(mc), 3)[-1]
+    ssd.append((f"{SSD_TRAIN_ARCH} over model 3 (a rank's {hi - lo} of "
+                f"{n_heads(mc)} heads; no run)",
+                (SSD_TRAIN_BATCH, hi - lo, SSD_TRAIN_SEQ, mc.ssm_head_dim,
+                 mc.ssm_state)))
     return flash, ssd
 
 
@@ -2544,12 +2609,19 @@ def check_train_shard_kernels(torch, dev) -> dict:
                                  f"({row_err} of a row's rms)")
         variant = fak.last_variant
         bound, by = flash_bound(B, H, K, S, dh, causal, win, q.element_size())
+        if win:       # the window as a mask: keys (s - win, s]
+            pos = torch.arange(S, device=dev)
+            kw = {"attn_mask": (pos[None] <= pos[:, None])
+                  & (pos[None] > pos[:, None] - win)}
+            call = "attn_mask=<causal window>"
+        else:
+            kw, call = {"is_causal": causal}, f"is_causal={causal}"
 
         def fwd():
             return fak.flash_attention(q, k, v, causal=causal, window=win)
 
         def lib_fwd():
-            return sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+            return sdpa(q, k, v, enable_gqa=True, **kw)
         lib_f = event_ms(torch, lib_fwd, iters=10)
         out["flash_attention"].append({
             "where": where, "shape": shape, "variant": variant,
@@ -2559,8 +2631,8 @@ def check_train_shard_kernels(torch, dev) -> dict:
             "plain_ms": event_ms(torch, lambda: fak.flash_attention_plain(
                 q, k, v, causal=causal, window=win), iters=2, warmup=1),
             "bound_ms": bound, "bound_by": by, "library_ms": lib_f,
-            "library_call": f"F.scaled_dot_product_attention(is_causal="
-                            f"{causal}, enable_gqa=True)"})
+            "library_call": f"F.scaled_dot_product_attention({call}, "
+                            f"enable_gqa=True)"})
         o, lse = fak._launch_fwd(q, k, v, causal, win, with_lse=True)
         want = fak.flash_attention_bwd_plain(q, k, v, o, lse, do,
                                              causal=causal, window=win)
@@ -2590,7 +2662,7 @@ def check_train_shard_kernels(torch, dev) -> dict:
                                            causal=causal, window=win)
 
         def lib_fwd_bwd():
-            sdpa(qr, kr, vr, is_causal=causal, enable_gqa=True).backward(do)
+            sdpa(qr, kr, vr, enable_gqa=True, **kw).backward(do)
         out["flash_attention_bwd"].append({
             "where": where, "shape": shape, "variant": variant,
             "splits": splits,
@@ -2608,7 +2680,7 @@ def check_train_shard_kernels(torch, dev) -> dict:
             "library_ms": event_ms(torch, lib_fwd_bwd, iters=10) - lib_f,
             "library_call": "F.scaled_dot_product_attention forward + "
                             "backward, less its forward"})
-        del q, k, v, do, o, lse, want, got, qr, kr, vr
+        del q, k, v, do, o, lse, want, got, qr, kr, vr, kw
     for where, (Bz, H, S, P, N) in ssd:
         def randn(*shape, scale=1.0):
             return torch.randn(shape, generator=g, device=dev) * scale
@@ -2716,20 +2788,27 @@ def state_bytes(cfg) -> int:
 
 
 def check_mesh_train(torch, dev, card) -> tuple[dict, dict]:
-    """The sharded train step on MESH_RANKS ranks that share the card over
-    gloo, against one device on the card with the same seeded weights and
-    batches: qwen2.5-32b's smoke config in fp32 through ``make_train_step``
-    on (2, 2) and (1, 4) (every step's loss within 1e-4, every parameter
-    after the last within 5e-4: the reference's own mesh bounds);
-    starcoder2-3b (published widths, MESH_TRAIN_LAYERS deep, bf16) through
-    ``Trainer`` at 2 x 4096 ``TokenStream`` tokens on (2, 2) and on (1, 4)
-    (its 2 KV heads shared at tp 4), and mamba2-370m the same way at 8 x
-    2048 on (2, 2), a warm step and 3 more, each step's loss within 3e-2
-    and grad norm within 5e-2 (relative) of one device's; the (2, 2)
-    starcoder2-3b state saved (whole arrays, to rank 0's RAM heap) and
-    restored onto (1, 4), every leaf's checksum equal to the saved one.
-    Returns the detail and each run's launches (summed over the ranks) by
-    path."""
+    """The sharded train step on ranks that share the card over gloo,
+    against one device on the card with the same seeded weights and
+    batches.  Through ``make_train_step``, three steps at 4 x 64 tokens:
+    qwen2.5-32b's smoke config in fp32 on (2, 2) and (1, 4), with 6
+    query heads on (1, 4), and with 10 query heads on its 2 KV heads on
+    (1, 3) (unequal parts of groups on rank 1) (every step's loss within
+    1e-4, every parameter after the last within 5e-4: the reference's own
+    mesh bounds).
+    Through ``Trainer`` at the published widths (``MESH_TRAIN_LAYERS``
+    deep, bf16, ``MESH_TRAIN_TOKENS`` of ``TokenStream``), a warm step and
+    3 more, each step's loss within 3e-2 and grad norm within 5e-2
+    (relative) of one device's: starcoder2-3b on (2, 2) and on (1, 4)
+    (its 2 KV heads shared at tp 4), mamba2-370m on (2, 2),
+    recurrentgemma-9b on (1, 4) (the RG-LRU over ``model``), all on one
+    start-up of MESH_RANKS ranks, then the 10-head smoke case and
+    qwen2.5-32b on (1, 3) (heads, KV groups and wq / wk / wv / wo that do
+    not split) on a start-up of 3;
+    the (2, 2) starcoder2-3b state saved (whole arrays, to rank 0's RAM
+    heap) and restored onto (1, 4), every leaf's checksum equal to the
+    saved one.  Returns the detail and each run's launches (summed over
+    the ranks) by path."""
     import numpy as np
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core.layout import SB_SIZE
@@ -2741,32 +2820,39 @@ def check_mesh_train(torch, dev, card) -> tuple[dict, dict]:
     from repro_torch.tree import tree_leaves
 
     arch, B, S, steps = MESH_SMOKE_TRAIN
-    scfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    smoke = {"smoke": dataclasses.replace(get_smoke_config(arch),
+                                          dtype=torch.float32)}
+    smoke["smoke h6"] = dataclasses.replace(smoke["smoke"],
+                                            **MESH_SMOKE_UNEVEN)
+    smoke["smoke h10"] = dataclasses.replace(smoke["smoke"],
+                                             **MESH_SMOKE_GROUPS)
     rng = np.random.default_rng(SEED + 62)
     batches = []
     for _ in range(steps):
-        t = rng.integers(0, scfg.vocab_size, (B, S)).astype(np.int32)
+        t = rng.integers(0, smoke["smoke"].vocab_size, (B, S)).astype(
+            np.int32)
         batches.append({"tokens": t, "labels": t})
     wide = {a: dataclasses.replace(get_config(a), num_layers=n)
             for a, n in MESH_TRAIN_LAYERS.items()}
-    shapes = {TRAIN_ARCH: (TRAIN_BATCH, TRAIN_SEQ),
-              SSD_TRAIN_ARCH: (SSD_TRAIN_BATCH, SSD_TRAIN_SEQ)}
+    shapes = MESH_TRAIN_TOKENS
 
-    # the one-device runs on the card
+    # the one-device runs on the card, one after the other
     t = time.perf_counter()
-    p = init_params(scfg, torch.Generator(device=dev).manual_seed(SEED),
-                    device=dev)
-    opt, step = init_opt_state(p), make_train_step(
-        scfg, AdamWConfig(warmup_steps=1))
-    zero_counts()
-    metrics = []
-    for b in batches:
-        p, opt, m = step(p, opt, {k: torch.as_tensor(v, device=dev)
-                                  for k, v in b.items()})
-        metrics.append((float(m["loss"]), float(m["grad_norm"])))
-    refs = {"smoke": {"metrics": metrics, "params": mt.numpy_tree(p),
-                      "launches": read_counts()}}
-    del p, opt
+    refs = {}
+    for key, scfg in smoke.items():
+        p = init_params(scfg, torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+        opt, step = init_opt_state(p), make_train_step(
+            scfg, AdamWConfig(warmup_steps=1))
+        zero_counts()
+        metrics = []
+        for b in batches:
+            p, opt, m = step(p, opt, {k: torch.as_tensor(v, device=dev)
+                                      for k, v in b.items()})
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        refs[key] = {"metrics": metrics, "params": mt.numpy_tree(p),
+                     "launches": read_counts()}
+        del p, opt
     for a, c in wide.items():
         refs[a] = one_device_train(torch, dev, c, *shapes[a],
                                    MESH_TRAIN_STEPS)
@@ -2782,131 +2868,158 @@ def check_mesh_train(torch, dev, card) -> tuple[dict, dict]:
                      "seed": SEED, "stream": (wide[a].vocab_size, *shapes[a],
                                               SEED),
                      "steps": MESH_TRAIN_STEPS, "log_every": 1}, **kw)
+
+    def stepper(key, mesh):
+        return {"kind": "step", "cfg": smoke[key],
+                "mesh": (mesh, MESH_TRAIN_NAMES), "device": "cuda",
+                "seed": SEED, "batches": batches,
+                "opt": {"warmup_steps": 1}}
     ckpt = {"key": TRAIN_ARCH, "size": heap}
-    runs = [  # name, job
-        (f"{arch} smoke fp32 (2, 2)", {
-            "kind": "step", "cfg": scfg, "mesh": ((2, 2), MESH_TRAIN_NAMES),
-            "device": "cuda", "seed": SEED, "batches": batches,
-            "opt": {"warmup_steps": 1}}),
-        (f"{arch} smoke fp32 (1, 4)", {
-            "kind": "step", "cfg": scfg, "mesh": ((1, 4), MESH_TRAIN_NAMES),
-            "device": "cuda", "seed": SEED, "batches": batches,
-            "opt": {"warmup_steps": 1}}),
-        (f"{TRAIN_ARCH} (2, 2)", trainer(TRAIN_ARCH, (2, 2), ckpt=ckpt,
-                                         ckpt_every=MESH_TRAIN_STEPS,
-                                         checksums=True)),
-        (f"{TRAIN_ARCH} (1, 4)", trainer(TRAIN_ARCH, (1, 4))),
-        (f"{TRAIN_ARCH} restored onto (1, 4)", trainer(
-            TRAIN_ARCH, (1, 4), ckpt=ckpt, checksums=True)),
-        (f"{SSD_TRAIN_ARCH} (2, 2)", trainer(SSD_TRAIN_ARCH, (2, 2)))]
+    starts = [  # each start-up of the ranks: [(name, ref key, job)]
+        [(f"{arch} smoke fp32 (2, 2)", "smoke", stepper("smoke", (2, 2))),
+         (f"{arch} smoke fp32 (1, 4)", "smoke", stepper("smoke", (1, 4))),
+         (f"{arch} smoke fp32 with 6 query heads (1, 4)", "smoke h6",
+          stepper("smoke h6", (1, 4))),
+         (f"{TRAIN_ARCH} (2, 2)", TRAIN_ARCH, trainer(
+             TRAIN_ARCH, (2, 2), ckpt=ckpt, ckpt_every=MESH_TRAIN_STEPS,
+             checksums=True)),
+         (f"{TRAIN_ARCH} (1, 4)", TRAIN_ARCH, trainer(TRAIN_ARCH, (1, 4))),
+         (f"{TRAIN_ARCH} restored onto (1, 4)", TRAIN_ARCH, trainer(
+             TRAIN_ARCH, (1, 4), ckpt=ckpt, checksums=True)),
+         (f"{SSD_TRAIN_ARCH} (2, 2)", SSD_TRAIN_ARCH,
+          trainer(SSD_TRAIN_ARCH, (2, 2))),
+         (f"{HYBRID_TRAIN_ARCH} {MESH_UNEVEN[HYBRID_TRAIN_ARCH]}",
+          HYBRID_TRAIN_ARCH, trainer(HYBRID_TRAIN_ARCH,
+                                     MESH_UNEVEN[HYBRID_TRAIN_ARCH]))],
+        [(f"{arch} smoke fp32 with 10 query heads on 2 KV heads (1, 3)",
+          "smoke h10", stepper("smoke h10", (1, 3))),
+         (f"{UNEVEN_ARCH} {MESH_UNEVEN[UNEVEN_ARCH]}", UNEVEN_ARCH,
+          trainer(UNEVEN_ARCH, MESH_UNEVEN[UNEVEN_ARCH]))]]
     t = time.perf_counter()
-    res = run_ranks(mt.jobs, MESH_RANKS, [job for _, job in runs],
-                    device="cuda", timeout=900)
+    results = []
+    for runs in starts:
+        world = math.prod(runs[0][2]["mesh"][0])
+        results.append(run_ranks(mt.jobs, world, [job for *_, job in runs],
+                                 device="cuda", timeout=900))
     wall = time.perf_counter() - t
-    detail = {"ranks": MESH_RANKS, "card": card, "wall_s": wall,
-              "one_device_s": ref_s, "layers": {
+    detail = {"ranks": [len(r) for r in results], "card": card,
+              "wall_s": wall, "one_device_s": ref_s, "heap_bytes": heap,
+              "layers": {
                   a: [n, get_config(a).num_layers]
                   for a, n in MESH_TRAIN_LAYERS.items()},
-              "note": f"{MESH_RANKS} ranks on one H100 over gloo: not a "
-                      f"multi-card number", "runs": {}}
-    paths = {f"mesh train one-device reference of {arch} smoke fp32":
-             refs["smoke"]["launches"]}
+              "note": "ranks sharing one H100 over gloo: not a multi-card "
+                      "number", "runs": {}}
+    paths = {f"mesh train one-device reference of {arch} {key} fp32":
+             refs[key]["launches"] for key in smoke}
     for a in wide:
         paths[f"mesh train one-device reference of {a}"] = \
             refs[a]["launches"]
-    for i, (name, job) in enumerate(runs):
-        r0 = res[0][i]
-        launches = {k: sum(rk[i]["launches"][k] for rk in res)
-                    for k in r0["launches"]}
-        by_rank = [rk[i]["launches"] for rk in res]
-        row = {"mesh": list(job["mesh"][0]), "launches_by_rank": by_rank,
-               # all-reduces (calls, bytes) a rank made on the path; a
-               # run that saves counts the save's gathers too
-               "collectives_by_rank": [rk[i]["collectives"] for rk in res]}
-        if job["kind"] == "step":
-            ref = refs["smoke"]
-            dl = max(abs(a[0] - b[0]) for a, b in zip(r0["metrics"],
-                                                       ref["metrics"]))
-            want = dict(tree_leaves(ref["params"]))
-            dp = max(float(np.abs(x - want[path]).max())
-                     for path, x in tree_leaves(r0["params"]))
-            row.update(loss_max_abs_diff=dl, param_max_abs_diff=dp,
-                       metrics=r0["metrics"], tolerance={"loss": 1e-4,
-                                                         "params": 5e-4})
-            print(f"mesh train {name}: loss within {dl:.3g}, parameters "
-                  f"within {dp:.3g} of make_train_step on one device "
-                  f"(tolerance 1e-4 / 5e-4)", flush=True)
-            if not (dl < 1e-4 and dp < 5e-4):
-                raise AssertionError(f"mesh train {name} differs from one "
-                                     f"device: loss {dl}, params {dp}")
-            n = scfg.num_layers * steps
-            want = {"flash_attention": 2 * n, "flash_attention_bwd": n}
-            if any(rk[k] != v for rk in by_rank for k, v in want.items()):
-                raise AssertionError(f"mesh train {name}: launches "
-                                     f"{by_rank}, expected {want} a rank")
-        elif "restored" in name:
-            saver = [n for n, _ in runs].index(f"{TRAIN_ARCH} (2, 2)")
-            saved = res[0][saver]["checksums_saved"]
-            same = [saved[-1][0] == MESH_TRAIN_STEPS,
-                    r0["start_step"] == MESH_TRAIN_STEPS,
-                    r0["checksums_at_start"] == saved[-1][1]]
-            row.update(saved_at_step=saved[-1][0],
-                       restored_at_step=r0["start_step"],
-                       leaves=len(saved[-1][1]), checksums_equal=all(same),
-                       restore_setup_s=r0["setup_s"], heap_bytes=heap)
-            print(f"mesh train {name}: the (2, 2) state saved at step "
-                  f"{saved[-1][0]} ({len(saved[-1][1])} leaves, whole "
-                  f"arrays) restored at step {r0['start_step']}, every "
-                  f"leaf's checksum equal: {all(same)}", flush=True)
-            if not all(same):
-                raise AssertionError(f"mesh train {name}: {same}")
-        else:
-            a = TRAIN_ARCH if name.startswith(TRAIN_ARCH) else SSD_TRAIN_ARCH
-            ref = refs[a]
-            dl = max(abs(x - y) for x, y in zip(r0["losses"], ref["losses"]))
-            dg = max(abs(x - y) / y for x, y in zip(r0["grad_norms"],
-                                                    ref["grad_norms"]))
-            ms = 1e3 * float(np.median(r0["step_s"][1:]))
-            peaks = [rk[i]["peak_gb"] for rk in res]
-            coll = r0["collectives"]
-            row.update(losses=r0["losses"], grad_norms=r0["grad_norms"],
-                       one_device_losses=ref["losses"],
-                       one_device_grad_norms=ref["grad_norms"],
-                       loss_max_abs_diff=dl, grad_norm_max_rel_diff=dg,
-                       tolerance={"loss": 3e-2, "grad_norm": 5e-2},
-                       tokens=shapes[a], steps=MESH_TRAIN_STEPS,
-                       ms_per_step_median=ms,
-                       one_device_ms_per_step_median=ref[
-                           "ms_per_step_median"],
-                       peak_gb_by_rank=peaks,
-                       one_device_peak_gb=ref["peak_gb"])
-            print(f"mesh train {name}: {wide[a].num_layers} layers, "
-                  f"{shapes[a][0]} x {shapes[a][1]} tokens; losses within "
-                  f"{dl:.3g}, grad norms within {dg:.3g} of one device "
-                  f"(tolerance 3e-2 / 5e-2); {ms:.1f} ms/step "
-                  f"({MESH_RANKS} ranks on one H100 over gloo: not a "
-                  f"multi-card number; one device "
-                  f"{ref['ms_per_step_median']:.1f}); rank 0's all-reduces "
-                  f"{coll['calls'] / MESH_TRAIN_STEPS:.0f} a step, "
-                  f"{coll['bytes'] / MESH_TRAIN_STEPS / 1e9:.3f} GB a step"
-                  f"{' (with the save)' if 'ckpt' in job else ''}; peak "
-                  f"GB by rank {[round(x, 2) for x in peaks]}; launches by "
-                  f"rank {by_rank} on {card}", flush=True)
-            if not (dl < 3e-2 and dg < 5e-2):
-                raise AssertionError(f"mesh train {name} differs from one "
-                                     f"device: loss {dl}, grad norm {dg}")
-            n_mix = wide[a].num_layers
-            kern = ("flash_attention", "flash_attention_bwd") \
-                if a == TRAIN_ARCH else ("ssd_scan", "ssd_scan_bwd")
-            want = {kern[0]: 2 * n_mix * MESH_TRAIN_STEPS,
-                    kern[1]: n_mix * MESH_TRAIN_STEPS}
-            for rk in by_rank:
-                if any(rk[k] != v for k, v in want.items()):
-                    raise AssertionError(f"mesh train {name}: launches "
-                                         f"{rk} on a rank, expected {want}")
-        detail["runs"][name] = row
-        paths[f"mesh train {name}"] = dict(read_zero(), **launches)
+    saved = None
+    for runs, res in zip(starts, results):
+        for i, (name, key, job) in enumerate(runs):
+            row = check_mesh_train_run(
+                np, tree_leaves, name, job, refs[key],
+                [rk[i] for rk in res], saved, card)
+            if "checksums_saved" in res[0][i] and res[0][i][
+                    "checksums_saved"]:
+                saved = res[0][i]["checksums_saved"]
+            launches = {k: sum(rk[i]["launches"][k] for rk in res)
+                        for k in res[0][i]["launches"]}
+            detail["runs"][name] = row
+            paths[f"mesh train {name}"] = dict(read_zero(), **launches)
     return detail, paths
+
+
+def mesh_launches_expected(cfg, steps: int) -> dict:
+    """Each training kernel's launches on one rank over ``steps`` steps:
+    the forward twice a layer (remat) and the backward once."""
+    attn = sum(m in ("attn", "local_attn") for m, _ in cfg.layer_specs)
+    scan = sum(m == "mamba2" for m, _ in cfg.layer_specs)
+    return {"flash_attention": 2 * attn * steps,
+            "flash_attention_bwd": attn * steps,
+            "ssd_scan": 2 * scan * steps, "ssd_scan_bwd": scan * steps}
+
+
+def check_mesh_train_run(np, tree_leaves, name, job, ref, ranks, saved,
+                         card) -> dict:
+    """One mesh train run (``ranks``: each rank's result) held to its
+    one-device reference ``ref`` (or, restored, to the checksums
+    ``saved``): prints its line, raises where it is out of bounds, and
+    returns its detail row."""
+    r0, cfg = ranks[0], job["cfg"]
+    by_rank = [rk["launches"] for rk in ranks]
+    row = {"mesh": list(job["mesh"][0]), "launches_by_rank": by_rank,
+           # all-reduces (calls, bytes) a rank made on the path; a run
+           # that saves counts the save's gathers too
+           "collectives_by_rank": [rk["collectives"] for rk in ranks]}
+    if job["kind"] == "step":
+        dl = max(abs(a[0] - b[0]) for a, b in zip(r0["metrics"],
+                                                   ref["metrics"]))
+        want = dict(tree_leaves(ref["params"]))
+        dp = max(float(np.abs(x - want[path]).max())
+                 for path, x in tree_leaves(r0["params"]))
+        row.update(loss_max_abs_diff=dl, param_max_abs_diff=dp,
+                   metrics=r0["metrics"], tolerance={"loss": 1e-4,
+                                                     "params": 5e-4})
+        print(f"mesh train {name}: loss within {dl:.3g}, parameters "
+              f"within {dp:.3g} of make_train_step on one device "
+              f"(tolerance 1e-4 / 5e-4)", flush=True)
+        if not (dl < 1e-4 and dp < 5e-4):
+            raise AssertionError(f"mesh train {name} differs from one "
+                                 f"device: loss {dl}, params {dp}")
+        steps = len(job["batches"])
+    elif "restored" in name:
+        same = [saved[-1][0] == MESH_TRAIN_STEPS,
+                r0["start_step"] == MESH_TRAIN_STEPS,
+                r0["checksums_at_start"] == saved[-1][1]]
+        row.update(saved_at_step=saved[-1][0],
+                   restored_at_step=r0["start_step"],
+                   leaves=len(saved[-1][1]), checksums_equal=all(same),
+                   restore_setup_s=r0["setup_s"])
+        print(f"mesh train {name}: the (2, 2) state saved at step "
+              f"{saved[-1][0]} ({len(saved[-1][1])} leaves, whole "
+              f"arrays) restored at step {r0['start_step']}, every "
+              f"leaf's checksum equal: {all(same)}", flush=True)
+        if not all(same):
+            raise AssertionError(f"mesh train {name}: {same}")
+        return row
+    else:
+        dl = max(abs(x - y) for x, y in zip(r0["losses"], ref["losses"]))
+        dg = max(abs(x - y) / y for x, y in zip(r0["grad_norms"],
+                                                ref["grad_norms"]))
+        ms = 1e3 * float(np.median(r0["step_s"][1:]))
+        peaks = [rk["peak_gb"] for rk in ranks]
+        coll = r0["collectives"]
+        steps = job["steps"]
+        B, S = job["stream"][1:3]
+        row.update(losses=r0["losses"], grad_norms=r0["grad_norms"],
+                   one_device_losses=ref["losses"],
+                   one_device_grad_norms=ref["grad_norms"],
+                   loss_max_abs_diff=dl, grad_norm_max_rel_diff=dg,
+                   tolerance={"loss": 3e-2, "grad_norm": 5e-2},
+                   tokens=[B, S], steps=steps, ms_per_step_median=ms,
+                   one_device_ms_per_step_median=ref["ms_per_step_median"],
+                   peak_gb_by_rank=peaks, one_device_peak_gb=ref["peak_gb"])
+        print(f"mesh train {name}: {cfg.num_layers} layers, {B} x {S} "
+              f"tokens; losses within {dl:.3g}, grad norms within "
+              f"{dg:.3g} of one device (tolerance 3e-2 / 5e-2); "
+              f"{ms:.1f} ms/step ({len(ranks)} ranks on one H100 over "
+              f"gloo: not a multi-card number; one device "
+              f"{ref['ms_per_step_median']:.1f}); rank 0's all-reduces "
+              f"{coll['calls'] / steps:.0f} a step, "
+              f"{coll['bytes'] / steps / 1e9:.3f} GB a step"
+              f"{' (with the save)' if 'ckpt' in job else ''}; peak "
+              f"GB by rank {[round(x, 2) for x in peaks]} (one device "
+              f"{ref['peak_gb']:.2f}); launches by rank {by_rank} on "
+              f"{card}", flush=True)
+        if not (dl < 3e-2 and dg < 5e-2):
+            raise AssertionError(f"mesh train {name} differs from one "
+                                 f"device: loss {dl}, grad norm {dg}")
+    want = mesh_launches_expected(cfg, steps)
+    if any(rk[k] != v for rk in by_rank for k, v in want.items()):
+        raise AssertionError(f"mesh train {name}: launches {by_rank}, "
+                             f"expected {want} a rank")
+    return row
 
 
 def read_zero() -> dict:

@@ -28,8 +28,23 @@ every resharding is one of these, with its backward stated:
     summed over the batch shards exactly once.
   * ``gather_model``: a leaf's block gathered over ``model`` (starcoder2's
     2 KV heads at tp 4: each rank needs the whole KV head its query heads
-    read); backward the fp32 sum over ``model`` of the whole gradient,
-    rounded once, this rank's block kept.
+    read), or an activation whose units the model ranks hold by the plan
+    below, unevenly or not (the RG-LRU's gates read every channel of the
+    convolved input); backward the fp32 sum over ``model`` of the whole
+    gradient, rounded once, this rank's part kept.
+
+The plan of a split dim (``unit_ranges``): a dim of n units (query heads,
+d_ff columns, SSD heads, RG-LRU channels) over tp model ranks gives rank r
+the units [r n / tp, (r + 1) n / tp) (floors).  ``model_part`` takes a
+rank's range of a leaf: the leaf's ``model`` block itself where every
+rank's block is its range; else the leaf gathered over ``model`` (its
+columns split but not on the plan's bounds) or, replicated over ``model``
+(``_fit`` dropped an axis that does not divide), marked by
+``copy_to_model``, and narrowed.  Its gradient: the block's own in the
+first case; else summed over ``model`` (every rank's range of it) by
+``gather_model``'s or ``copy_to_model``'s backward.  The choice reads
+every rank's range, so all model ranks make it alike and their
+collectives pair.
 
 gloo takes ``all_reduce`` (and ``broadcast``) on CUDA tensors, so a
 gather is an all-reduce of a zero-filled buffer (exact) and a
@@ -146,15 +161,20 @@ class _GatherFSDP(torch.autograd.Function):
 
 class _GatherModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, block, dim, mesh):
-        ctx.mesh, ctx.dim, ctx.c = mesh, dim, block.shape[dim]
-        return _gather_dim(block, dim, mesh, MODEL_AXIS)
+    def forward(ctx, x, dim, ranges, mesh):
+        lo, hi = ranges[model_index(mesh)]
+        ctx.mesh, ctx.dim, ctx.lo, ctx.n = mesh, dim, lo, hi - lo
+        shape = list(x.shape)
+        shape[dim] = ranges[-1][1]
+        out = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        out.narrow(dim, lo, hi - lo).copy_(x)
+        return psum(out, mesh, MODEL_AXIS)
 
     @staticmethod
     def backward(ctx, g):
         g = _sum32(g, ctx.mesh, MODEL_AXIS).to(g.dtype)
-        return _block_of(g, ctx.dim, ctx.mesh, MODEL_AXIS,
-                         ctx.c).contiguous(), None, None
+        return g.narrow(ctx.dim, ctx.lo, ctx.n).contiguous(), None, None, \
+            None
 
 
 def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -179,10 +199,16 @@ def gather_fsdp(block: torch.Tensor, spec, mesh) -> torch.Tensor:
     return _GatherFSDP.apply(block, tuple(spec), mesh)
 
 
-def gather_model(block: torch.Tensor, dim: int, mesh) -> torch.Tensor:
-    """The leaf whole on its model-sharded ``dim``; its gradient summed
-    over ``model``."""
-    return _GatherModel.apply(block, dim, mesh)
+def gather_model(x: torch.Tensor, dim: int, mesh, ranges=None) -> torch.Tensor:
+    """``x`` whole on ``dim`` on every model rank, this rank's part being
+    elements ``ranges[model_index]`` of it (default equal blocks: the
+    leaf's model-sharded ``dim``); its gradient summed over ``model`` and
+    this rank's part kept."""
+    dim = dim % x.dim()
+    if ranges is None:
+        c = x.shape[dim]
+        ranges = [(i * c, (i + 1) * c) for i in range(model_size(mesh))]
+    return _GatherModel.apply(x, dim, tuple(ranges), mesh)
 
 
 def gather_leaves(tree, specs, mesh):
@@ -198,6 +224,35 @@ def model_index(mesh) -> int:
 
 def model_size(mesh) -> int:
     return axis_size(mesh, MODEL_AXIS) if mesh is not None else 1
+
+
+def unit_ranges(n: int, tp: int) -> list[tuple[int, int]]:
+    """The plan of a dim of ``n`` units over ``tp`` model ranks: rank r's
+    units [r n // tp, (r + 1) n // tp).  Raises where a rank would hold
+    none (no split)."""
+    if n < tp:
+        raise NotImplementedError(f"{n} units do not split over model {tp}: "
+                                  f"a rank would hold none")
+    return [(r * n // tp, (r + 1) * n // tp) for r in range(tp)]
+
+
+def model_part(w: torch.Tensor, dim: int, whole: int, ranges, unit: int,
+               mesh) -> torch.Tensor:
+    """This rank's units ``ranges[model_index]`` (each ``unit`` elements
+    wide) of a leaf whose ``dim`` is ``whole`` elements, from its block
+    ``w`` (the leaf gathered over ``data``): see the module's docstring
+    for the three cases and their gradients."""
+    dim = dim % w.dim()
+    blk = w.shape[dim]
+    lo, hi = ranges[model_index(mesh)]
+    if blk < whole:
+        if all((a * unit, b * unit) == (i * blk, (i + 1) * blk)
+               for i, (a, b) in enumerate(ranges)):
+            return w
+        full = gather_model(w, dim, mesh)
+    else:
+        full = copy_to_model(w, mesh)
+    return full.narrow(dim, lo * unit, (hi - lo) * unit)
 
 
 def psum_all(x: torch.Tensor, mesh) -> torch.Tensor:

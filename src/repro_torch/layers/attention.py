@@ -18,8 +18,8 @@ import dataclasses
 
 import torch
 
-from ..distributed.collectives import copy_to_model, gather_model, \
-    model_index, model_size, row_parallel
+from ..distributed.collectives import copy_to_model, model_index, \
+    model_part, model_size, row_parallel, unit_ranges
 from ..kernels.flash_attention.kernel import flash_attention
 from .rope import apply_rope
 
@@ -162,57 +162,69 @@ def attention_fwd(cfg, p, x, positions, *, causal: bool = True,
 
 
 def kv_heads_of_rank(H: int, K: int, tp: int, r: int) -> tuple[int, int]:
-    """[k0, k1): the KV heads model rank ``r``'s query heads read (query
-    head i reads KV head i // (H / K)).  Raises where the rank's query
-    heads do not split whole groups or fall inside one."""
-    if H % tp:
-        raise NotImplementedError(f"{H} query heads do not split over "
-                                  f"model {tp}")
-    hl, g = H // tp, H // K
-    if hl % g and g % hl:
-        raise NotImplementedError(f"{hl} query heads a rank straddle "
-                                  f"groups of {g}")
-    k0 = r * hl // g
-    return k0, (r * hl + hl - 1) // g + 1
+    """[k0, k1): the KV heads model rank ``r``'s query heads (its range of
+    ``unit_ranges(H, tp)``) read; query head i reads KV head i // (H / K).
+    Raises where a rank would hold no query head."""
+    q0, q1 = unit_ranges(H, tp)[r]
+    g = H // K
+    return q0 // g, (q1 - 1) // g + 1
+
+
+def kv_map_of_rank(H: int, K: int, tp: int, r: int):
+    """None where rank ``r``'s query heads read their KV heads as the flash
+    kernels take them (local head j reads j // (hl / kl)); else each local
+    query head's local KV head, by which ``attention_tp`` repeats wk /
+    wv's columns (unequal parts of groups: 10 heads on 2 KV heads at tp 3,
+    rank 1's heads 3, 4 read KV head 0, head 5 KV head 1)."""
+    q0, q1 = unit_ranges(H, tp)[r]
+    k0, k1 = kv_heads_of_rank(H, K, tp, r)
+    hl, kl, g = q1 - q0, k1 - k0, H // K
+    idx = [(q0 + j) // g - k0 for j in range(hl)]
+    if hl % kl == 0 and idx == [j // (hl // kl) for j in range(hl)]:
+        return None
+    return idx
 
 
 def attention_tp(cfg, p, x, positions, *, causal: bool = True,
                  window: int = 0, mesh=None):
     """This model rank's heads of the layer (Megatron-style): ``x``
-    replicated over ``model``; wq / wk / wv this rank's columns (its
-    query heads and the KV heads they read), the replicated biases sliced
-    to them, ``wo`` row-parallel (fp32 partials summed over ``model`` and
-    rounded once).  Where the KV heads do not split over ``model``
-    (starcoder2-3b's 2 at tp 4), wk / wv are gathered over ``model`` and
-    each rank takes the KV head its query heads read; the ranks sharing
-    it sum its gradient (``gather_model``).  ``p`` is the layer's leaves
-    gathered over ``data``; (k, v) come back for this rank's KV heads."""
+    replicated over ``model``; the rank's query heads by the plan
+    (``unit_ranges``), wq / wk / wv its columns of them and of the KV
+    heads they read, the replicated biases sliced alike (``model_part``:
+    the rank's block, or the leaf gathered over ``model`` --
+    starcoder2-3b's 2 KV heads at tp 4, qwen2.5-32b's 40 heads at tp 16
+    -- or replicated, and sliced; the ranks sharing a leaf sum its
+    gradient); ``wo`` its rows of the heads, row-parallel (fp32 partials
+    summed over ``model`` and rounded once).  Where the rank's heads
+    read unequal parts of groups, wk / wv (and bk / bv) take one column
+    block a query head (``kv_map_of_rank``; the index_select's backward
+    sums the blocks' gradients) and the attention runs as MHA on the
+    rank's heads: one flash launch a layer all the same.  ``p`` is the
+    layer's leaves gathered over ``data``; (k, v) come back for this
+    rank's KV heads, one a query head where repeated."""
     H, K, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     tp, r = model_size(mesh), model_index(mesh)
-    k0, k1 = kv_heads_of_rank(H, K, tp, r)
-    hl = H // tp
-    q0 = r * hl
-    loc = {"wq": _model_cols(p["wq"], H * dh, q0 * dh, hl * dh, mesh)}
+    qr = unit_ranges(H, tp)
+    kr = [kv_heads_of_rank(H, K, tp, i) for i in range(tp)]
+    (q0, q1), (k0, k1) = qr[r], kr[r]
+    loc = {"wq": model_part(p["wq"], -1, H * dh, qr, dh, mesh)}
     for w in ("wk", "wv"):
-        loc[w] = _model_cols(p[w], K * dh, k0 * dh, (k1 - k0) * dh, mesh)
+        loc[w] = model_part(p[w], -1, K * dh, kr, dh, mesh)
     if cfg.qkv_bias:
-        for b, lo, n in (("bq", q0, hl), ("bk", k0, k1 - k0),
-                         ("bv", k0, k1 - k0)):
-            loc[b] = copy_to_model(p[b], mesh)[..., lo * dh:(lo + n) * dh]
-    lcfg = dataclasses.replace(cfg, num_heads=hl, num_kv_heads=k1 - k0)
+        loc["bq"] = model_part(p["bq"], -1, H * dh, qr, dh, mesh)
+        for b in ("bk", "bv"):
+            loc[b] = model_part(p[b], -1, K * dh, kr, dh, mesh)
+    wo = model_part(p["wo"], 0, H * dh, qr, dh, mesh)
+    kl = k1 - k0
+    idx = kv_map_of_rank(H, K, tp, r)
+    if idx is not None:
+        idx = torch.tensor(idx, dtype=torch.long, device=x.device)
+        for w in ("wk", "wv", "bk", "bv"):
+            if w in loc:
+                loc[w] = loc[w].unflatten(-1, (kl, dh)).index_select(
+                    -2, idx).flatten(-2)
+        kl = q1 - q0
+    lcfg = dataclasses.replace(cfg, num_heads=q1 - q0, num_kv_heads=kl)
     out, kv = attention_heads(lcfg, loc, copy_to_model(x, mesh), positions,
                               causal=causal, window=window)
-    return row_parallel(out, p["wo"], mesh), kv
-
-
-def _model_cols(w, whole: int, lo: int, n: int, mesh):
-    """Columns [lo, lo + n) of a [D, whole] weight: this rank's block
-    itself where the columns split over ``model`` into blocks of ``n``
-    and the block is those; else the weight gathered over ``model``
-    (replicated: marked so that its gradient is summed over ``model``)
-    and sliced."""
-    if w.shape[-1] == n and lo == model_index(mesh) * n:
-        return w
-    full = gather_model(w, w.dim() - 1, mesh) if w.shape[-1] < whole \
-        else copy_to_model(w, mesh)
-    return full[..., lo:lo + n]
+    return row_parallel(out, wo, mesh), kv

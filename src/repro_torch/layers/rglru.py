@@ -14,6 +14,23 @@ launch a position.  It is not a Pallas kernel in the reference, so plain
 PyTorch is its port.  ``rglru_decode`` is the one-token update of the
 layer; the decode step runs ``serving.tp_layers.rglru_decode_tp``, which
 rounds as the reference's decode step does.
+
+On a mesh of the sharded train step (a ``model`` axis of more than one
+rank) ``rglru_forward(..., mesh=)`` runs this rank's channels of the
+width by the plan (``unit_ranges``; uneven where ``lru_width`` does not
+divide): in_x / in_g their columns, conv_w / conv_b / lam their range,
+the scan on those channels, ``out`` its rows, row-parallel.  The gates
+read every channel of the convolved input: it is gathered over ``model``
+(``gather_model`` by the plan's ranges) and multiplies wa / wx's columns
+of the rank's channels.  The other way, wa / wx gathered and
+row-parallel with the pre-activations summed (as the decode step does
+for one token), moves more at a training step's length.  At
+recurrentgemma-9b's width (W 4096) and 4096 tokens, a layer a step: the
+two gate matrices are 64 MB in bf16, gathered twice under the remat, and
+their fp32 gradients summed (128 MB), and the [B, S, 2W] fp32
+pre-activations are summed twice forward and once back (128 MB each):
+~640 MB.  The input is 32 MB in bf16, gathered twice, and its fp32
+cotangent summed once (64 MB): ~128 MB.
 """
 
 from __future__ import annotations
@@ -21,6 +38,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.collectives import copy_to_model, gather_model, \
+    model_part, model_size, row_parallel, unit_ranges
 from .common import causal_conv, conv_step
 
 C = 8.0   # Griffin's fixed exponent scale
@@ -57,8 +76,11 @@ def linear_scan(a, b, dim: int = 1):
     return b
 
 
-def rglru_forward(cfg, p, x):
-    """x: [B, S, D] -> [B, S, D]."""
+def rglru_forward(cfg, p, x, mesh=None):
+    """x: [B, S, D] -> [B, S, D].  With ``mesh``, this rank's channels
+    (``rglru_tp``)."""
+    if mesh is not None:
+        return rglru_tp(cfg, p, x, mesh)
     xr = torch.matmul(x, p["in_x"])
     xg = torch.matmul(x, p["in_g"])
     xr = causal_conv(xr, p["conv_w"], p["conv_b"]).to(x.dtype)
@@ -66,6 +88,27 @@ def rglru_forward(cfg, p, x):
     h = linear_scan(a, b, dim=1)
     y = h * F.gelu(xg.float(), approximate="tanh")
     return torch.matmul(y.to(x.dtype), p["out"])
+
+
+def rglru_tp(cfg, p, x, mesh):
+    """This model rank's channels of the layer (see the module's
+    docstring); ``p`` its leaves gathered over ``data``, ``x``
+    replicated over ``model``."""
+    W = cfg.lru_width
+    ch = unit_ranges(W, model_size(mesh))
+    loc = {k: model_part(p[k], -1, W, ch, 1, mesh)
+           for k in ("in_x", "in_g", "conv_w", "conv_b", "lam", "wa", "wx")}
+    out = model_part(p["out"], 0, W, ch, 1, mesh)
+    h = copy_to_model(x, mesh)
+    xr = torch.matmul(h, loc["in_x"])
+    xg = torch.matmul(h, loc["in_g"])
+    xr = causal_conv(xr, loc["conv_w"], loc["conv_b"]).to(x.dtype)
+    whole = gather_model(xr, -1, mesh, ch)
+    a, b = gate_coeffs(loc, torch.matmul(whole, loc["wa"]),
+                       torch.matmul(whole, loc["wx"]), xr.float())
+    h = linear_scan(a, b, dim=1)
+    y = h * F.gelu(xg.float(), approximate="tanh")
+    return row_parallel(y.to(x.dtype), out, mesh)
 
 
 def rglru_init_state(cfg, batch: int, device=None) -> dict:

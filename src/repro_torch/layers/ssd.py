@@ -20,8 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..distributed.collectives import copy_to_model, model_size, \
-    reduce_from_model, row_parallel
+from ..distributed.collectives import copy_to_model, model_part, \
+    model_size, reduce_from_model, row_parallel, unit_ranges
 from ..kernels.ssd_scan.kernel import ssd_scan
 from .common import causal_conv, conv_step
 
@@ -39,17 +39,18 @@ def _causal_conv(u, w, b):
     return F.silu(causal_conv(u, w, b).float()).to(u.dtype)
 
 
-def _gated_norm(y, z, w, eps=1e-6, mesh=None):
+def _gated_norm(y, z, w, eps=1e-6, mesh=None, whole=None):
     """y * silu(z), RMS-normalised over d_inner, times w.  On a mesh, y is
     this rank's heads: its sum of squares is summed over ``model`` (and
     its cotangent too: the sum feeds every rank's heads) and divided by
-    the whole d_inner."""
+    ``whole``, the whole d_inner (a rank's share times the ranks only
+    where the heads split evenly)."""
     y = y * F.silu(z.float())
     if mesh is None:
         ms = (y * y).mean(dim=-1, keepdim=True)
     else:
         ssq = reduce_from_model(torch.sum(y * y, dim=-1, keepdim=True), mesh)
-        ms = copy_to_model(ssq, mesh) / (y.shape[-1] * model_size(mesh))
+        ms = copy_to_model(ssq, mesh) / whole
     y = y * torch.rsqrt(ms + eps)
     return y * w
 
@@ -57,21 +58,30 @@ def _gated_norm(y, z, w, eps=1e-6, mesh=None):
 def mamba2_forward(cfg, p, x, mesh=None):
     """Full-sequence SSD.  x: [B, S, D] -> [B, S, D], differentiable.
 
-    With ``mesh`` (a model axis of more than one rank) this rank's heads,
-    as ``serving/tp_layers.py`` ``mamba2_decode_tp`` splits them: in_z /
-    in_x / in_dt, conv_x, dt_bias, A_log, D and norm_w this rank's
-    blocks, in_bc and conv_bc replicated (B and C feed every head), the
-    gated norm's sum of squares summed over ``model``, out_proj
-    row-parallel; the scan runs on the rank's H / tp heads."""
+    With ``mesh`` (a model axis of more than one rank) this rank's heads
+    by the plan (``unit_ranges``, uneven where the heads do not divide):
+    in_z / in_x / in_dt, conv_x, dt_bias, A_log, D and norm_w its ranges
+    of them (``model_part``: its blocks, or the leaves gathered or
+    replicated and sliced), in_bc and conv_bc replicated (B and C feed
+    every head), the gated norm's sum of squares summed over ``model``
+    and divided by the whole d_inner, out_proj its rows, row-parallel;
+    the scan runs on the rank's heads."""
     Bsz, S, D = x.shape
     N, P, Q = cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_chunk
-    H = p["A_log"].shape[-1]           # a shard of a mesh holds some heads
-    Di = H * P
     if S % Q:
         raise ValueError(f"seq {S} not divisible by chunk {Q}")
-    if mesh is not None and H * model_size(mesh) != n_heads(cfg):
-        raise NotImplementedError(f"{n_heads(cfg)} SSD heads do not split "
-                                  f"over model {model_size(mesh)}")
+    H = n_heads(cfg)
+    if mesh is not None:
+        heads = unit_ranges(H, model_size(mesh))
+        p = dict(p, **{k: model_part(p[k], -1, H * P, heads, P, mesh)
+                       for k in ("in_z", "in_x", "conv_x_w", "conv_x_b",
+                                 "norm_w")},
+                 **{k: model_part(p[k], -1, H, heads, 1, mesh)
+                    for k in ("in_dt", "dt_bias", "A_log", "D")},
+                 out_proj=model_part(p["out_proj"], 0, H * P, heads, P,
+                                     mesh))
+        H = p["A_log"].shape[-1]
+    Di = H * P
 
     h = x if mesh is None else copy_to_model(x, mesh)
     z = torch.matmul(h, p["in_z"])
@@ -95,7 +105,7 @@ def mamba2_forward(cfg, p, x, mesh=None):
     y = y.transpose(1, 2)                                     # [B, S, H, P]
     y = y + p["D"][None, None, :, None] * xh
     y = _gated_norm(y.reshape(Bsz, S, Di), z.float(), p["norm_w"],
-                    mesh=mesh).to(x.dtype)
+                    mesh=mesh, whole=d_inner(cfg)).to(x.dtype)
     if mesh is None:
         return torch.matmul(y, p["out_proj"])
     return row_parallel(y, p["out_proj"], mesh)

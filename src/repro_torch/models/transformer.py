@@ -26,13 +26,14 @@ blocks (``train_param_specs``), the batch its shard over the data axes.
 Each layer's leaves are gathered over ``data`` where it runs
 (``gather_fsdp``: inside the unit, so the remat gathers them again in
 the backward and no unit's whole leaves outlive it); with a ``model``
-axis of more than one rank the attention, MLP and Mamba-2 layers run
-this rank's heads or columns, the embedding and the CE its rows of the
-vocabulary (or the whole table where the vocabulary does not split).
-The loss a rank returns is its batch shard's summed CE over the global
-label count: summed over the data axes it is the mean over the global
-batch.  RG-LRU with ``model`` > 1 and MoE on any mesh of more than one
-rank are ROADMAP A8b (2), and raise.
+axis of more than one rank the attention, MLP, Mamba-2 and RG-LRU layers
+run this rank's heads, columns or channels by the plan
+(``distributed/collectives.py`` ``unit_ranges``: even or not), the
+embedding and the CE its rows of the vocabulary (or the whole table
+where the vocabulary does not split).  The loss a rank returns is its
+batch shard's summed CE over the global label count: summed over the
+data axes it is the mean over the global batch.  MoE on any mesh of more
+than one rank is ROADMAP A8b (2), and raises.
 """
 
 from __future__ import annotations
@@ -54,8 +55,10 @@ from .config import ModelConfig
 
 
 def check_mesh(cfg: ModelConfig, mesh) -> None:
-    """Raise where ``cfg`` needs what this slice of the sharded step does
-    not have (ROADMAP A8b (2))."""
+    """Raise where ``cfg`` needs what the sharded step does not have: MoE
+    on a mesh of more than one rank (ROADMAP A8b (2)).  A split dim with
+    fewer units than ``model`` has ranks raises in its layer
+    (``unit_ranges``)."""
     if mesh is None:
         return
     if any(f == "moe" for _, f in cfg.layer_specs) and mesh.size() > 1:
@@ -63,11 +66,6 @@ def check_mesh(cfg: ModelConfig, mesh) -> None:
             f"{cfg.name}: MoE training on a mesh of more than one rank is "
             f"ROADMAP A8b (2) (its capacity and aux loss are functions of "
             f"the whole batch)")
-    if any(m == "rglru" for m, _ in cfg.layer_specs) and \
-            model_size(mesh) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: the RG-LRU mixer with model > 1 is ROADMAP "
-            f"A8b (2)")
 
 
 def _apply_layer(cfg: ModelConfig, spec, p, x, positions, tp_mesh=None):
@@ -91,7 +89,7 @@ def _apply_layer(cfg: ModelConfig, spec, p, x, positions, tp_mesh=None):
     elif mixer == "mamba2":
         h = ssd.mamba2_forward(cfg, p["ssd"], h, mesh=tp_mesh)
     elif mixer == "rglru":
-        h = rglru.rglru_forward(cfg, p["rglru"], h)
+        h = rglru.rglru_forward(cfg, p["rglru"], h, mesh=tp_mesh)
     else:
         raise NotImplementedError(f"unknown mixer {mixer!r}")
     x = x + h

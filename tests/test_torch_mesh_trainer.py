@@ -4,7 +4,9 @@ failure of one rank.
 - The counterpart of ``tests/test_checkpoint_and_train.py::
   test_elastic_restore_across_meshes``: a (2, 2) trainer saves its state
   (whole arrays, gathered to rank 0's heap file) after three steps; a
-  (1, 4) trainer and a one-device trainer over the same heap restore it,
+  (1, 4) trainer -- or a (1, 3) one, where the smoke config's heads and
+  d_ff do not split -- and a one-device trainer over the same heap
+  restore it,
   every leaf bit-equal to what was saved, and two more steps on each
   equal an uninterrupted one-device run within the train bounds (1e-5,
   or 2 x the summed learning rates where the first gradient is below
@@ -59,13 +61,18 @@ def _get(tree, path):
     return tree
 
 
-def test_elastic_restore_across_meshes(tmp_path):
+@pytest.mark.parametrize("restored_on", [(1, 4), (1, 3)],
+                         ids=lambda m: "x".join(map(str, m)))
+def test_elastic_restore_across_meshes(tmp_path, restored_on):
     cfg = _cfg()
     ckpt = {"path": str(tmp_path / "ckpt.heap"), "size": HEAP}
-    saved, resumed = run_ranks(jobs, 4, [
-        _job(cfg, (2, 2), 3, ckpt=ckpt, ckpt_every=3, checksums=True),
-        _job(cfg, (1, 4), 5, ckpt=ckpt, ckpt_every=100, checksums=True,
-             gather="params")], device="cpu")[0]
+    saved = run_ranks(jobs, 4, [
+        _job(cfg, (2, 2), 3, ckpt=ckpt, ckpt_every=3, checksums=True)],
+        device="cpu", timeout=120)[0][0]
+    resumed = run_ranks(jobs, restored_on[0] * restored_on[1], [
+        _job(cfg, restored_on, 5, ckpt=ckpt, ckpt_every=100,
+             checksums=True, gather="params")], device="cpu",
+        timeout=120)[0][0]
     assert saved["start_step"] == 0 and resumed["start_step"] == 3
     (step, digests), = saved["checksums_saved"]
     assert step == 3 and resumed["checksums_at_start"] == digests

@@ -8,9 +8,16 @@ sharded train step refuses (no ranks: nothing here starts a process).
 - The counterpart of ``tests/test_baselines_and_sharding.py::
   test_train_specs_divisibility_fallback``, ``batch_spec`` and
   ``opt_state_specs``; ``make_batch_constrainer`` checks the batch shard.
-- RG-LRU with ``model`` > 1 and MoE on any mesh of more than one rank
-  raise ``NotImplementedError`` naming ROADMAP A8b (2); ranks asked to run
-  on ``cuda`` without it raise before any process starts.
+- MoE on any mesh of more than one rank raises ``NotImplementedError``
+  naming ROADMAP A8b (2); the RG-LRU mixer with ``model`` > 1 builds.
+- The plan of a split dim (``unit_ranges``) covers every query head, d_ff
+  column, SSD head and RG-LRU channel of the ten published configs once
+  at model 2, 3, 4, 8 and 16, and every KV head a rank's query heads
+  read; ``make_train_step`` builds for every dense and hybrid arch on
+  (16, 16), (1, 3), (1, 4) and (2, 2), and every MoE arch raises; the
+  layers raise where a rank would hold no unit.
+- Ranks asked to run on ``cuda`` without it raise before any process
+  starts.
 """
 
 import dataclasses
@@ -27,7 +34,12 @@ from repro.models import transformer as JT  # noqa: E402
 from repro_torch.configs import get_config as t_get  # noqa: E402
 from repro_torch.configs import get_smoke_config as t_smoke  # noqa: E402
 from repro_torch.distributed import sharding as tsh  # noqa: E402
+from repro_torch.distributed.collectives import unit_ranges  # noqa: E402
 from repro_torch.launch.ranks import run_ranks  # noqa: E402
+from repro_torch.layers.attention import kv_heads_of_rank, \
+    kv_map_of_rank  # noqa: E402
+from repro_torch.layers.mlp import apply_mlp  # noqa: E402
+from repro_torch.layers.ssd import mamba2_forward, n_heads  # noqa: E402
 from repro_torch.models.params import param_shapes  # noqa: E402
 from repro_torch.train.optimizer import AdamWConfig  # noqa: E402
 from repro_torch.train.step import make_train_step  # noqa: E402
@@ -44,7 +56,8 @@ class _FakeMesh:
 
 
 class _ShapeMesh:
-    """What the port's ``check_mesh`` reads of a ``DeviceMesh``."""
+    """What the port's ``check_mesh`` and ``make_train_step`` read of a
+    ``DeviceMesh`` (this process as rank 0)."""
 
     def __init__(self, data, model):
         self.mesh_dim_names = ("data", "model")
@@ -52,6 +65,9 @@ class _ShapeMesh:
 
     def size(self):
         return self.shape[0] * self.shape[1]
+
+    def get_local_rank(self, axis):
+        return 0
 
 
 def _flat(tree, prefix=""):
@@ -137,11 +153,91 @@ def test_moe_on_a_mesh_is_deferred(arch, mesh):
 
 
 @pytest.mark.parametrize("mesh", [(1, 2), (2, 2), (1, 4)])
-def test_rglru_with_model_parallel_is_deferred(mesh):
+def test_rglru_with_model_parallel_builds(mesh):
     cfg = dataclasses.replace(t_smoke("recurrentgemma-9b"),
                               dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match=r"A8b \(2\)"):
-        make_train_step(cfg, AdamWConfig(), mesh=_ShapeMesh(*mesh))
+    assert callable(make_train_step(cfg, AdamWConfig(),
+                                    mesh=_ShapeMesh(*mesh)))
+
+
+def _is_moe(cfg):
+    return any(f == "moe" for _, f in cfg.layer_specs)
+
+
+def _split_dims(cfg):
+    """{name: units} of every dim the layers of ``cfg`` split over
+    ``model`` by the plan."""
+    mixers = {m for m, _ in cfg.layer_specs}
+    ffns = {f for _, f in cfg.layer_specs}
+    out = {}
+    if mixers & {"attn", "local_attn"}:
+        out["query heads"] = cfg.num_heads
+    if "mlp" in ffns:
+        out["d_ff"] = cfg.d_ff
+    if "mamba2" in mixers:
+        out["SSD heads"] = n_heads(cfg)
+    if "rglru" in mixers:
+        out["RG-LRU channels"] = cfg.lru_width
+    return out
+
+
+def test_plan_covers_every_unit_and_the_step_builds():
+    """At model 2, 3, 4, 8 and 16, over the ten published configs: every
+    split dim's ranges tile it (each unit once, in order); the KV heads a
+    rank reads hold every query head's, and a rank's ``kv_map`` (where
+    given) maps each of its heads to its own; ``make_train_step`` builds
+    for every dense and hybrid arch on (16, 16), (1, 3), (1, 4) and
+    (2, 2); every MoE arch raises, naming ROADMAP A8b (2)."""
+    for arch in ARCHS:
+        cfg = t_get(arch)
+        dims = _split_dims(cfg)
+        assert dims, arch
+        for tp in (2, 3, 4, 8, 16):
+            for name, n in dims.items():
+                ranges = unit_ranges(n, tp)
+                assert [u for lo, hi in ranges for u in range(lo, hi)] == \
+                    list(range(n)), (arch, name, tp)
+                assert all(hi > lo for lo, hi in ranges), (arch, name, tp)
+            if "query heads" not in dims:
+                continue
+            H, K = cfg.num_heads, cfg.num_kv_heads
+            for r, (q0, q1) in enumerate(unit_ranges(H, tp)):
+                k0, k1 = kv_heads_of_rank(H, K, tp, r)
+                idx = kv_map_of_rank(H, K, tp, r)
+                hl, kl = q1 - q0, k1 - k0
+                for j in range(hl):
+                    want = (q0 + j) // (H // K) - k0
+                    got = idx[j] if idx is not None else j // (hl // kl)
+                    assert got == want and 0 <= got < kl, (arch, tp, r, j)
+        for mesh in ((16, 16), (1, 3), (1, 4), (2, 2)):
+            if _is_moe(cfg):
+                with pytest.raises(NotImplementedError,
+                                   match=r"A8b \(2\)"):
+                    make_train_step(cfg, AdamWConfig(),
+                                    mesh=_ShapeMesh(*mesh))
+            else:
+                assert callable(make_train_step(cfg, AdamWConfig(),
+                                                mesh=_ShapeMesh(*mesh)))
+
+
+def test_layers_raise_where_a_rank_would_hold_no_unit():
+    """2 query heads, d_ff 2 and 2 SSD heads over model 3: the plan and
+    the layers raise before any collective."""
+    mesh = _ShapeMesh(1, 3)
+    with pytest.raises(NotImplementedError, match="do not split"):
+        unit_ranges(2, 3)
+    with pytest.raises(NotImplementedError, match="do not split"):
+        kv_heads_of_rank(2, 1, 3, 0)
+    cfg = dataclasses.replace(t_smoke("qwen2.5-32b"), dtype=torch.float32,
+                              d_ff=2)
+    p = {"wi": torch.zeros(64, 2), "wg": torch.zeros(64, 2),
+         "wo": torch.zeros(2, 64)}
+    with pytest.raises(NotImplementedError, match="do not split"):
+        apply_mlp(cfg, p, torch.zeros(1, 8, 64), mesh=mesh)
+    mcfg = dataclasses.replace(t_smoke("mamba2-370m"), dtype=torch.float32,
+                               d_model=16)          # d_inner 32: 2 heads
+    with pytest.raises(NotImplementedError, match="do not split"):
+        mamba2_forward(mcfg, {}, torch.zeros(1, 8, 16), mesh=mesh)
 
 
 def _never(rank, world, job):

@@ -67,15 +67,16 @@ def reference(jcfg, jp, nb, *, steps=STEPS, microbatches=1,
                                   params))
 
 
-def port(tcfg, jp, nb, mesh, *, steps=STEPS, **job):
+def port(tcfg, jp, nb, mesh, *, steps=STEPS, timeout=900.0, **job):
     """The port's sharded step on ``prod(mesh)`` CPU ranks: rank 0's
-    result (first gradients, metrics, final parameters, gathered)."""
+    result (first gradients, metrics, final parameters, gathered).  The
+    ranks' start-up fails after ``timeout`` seconds."""
     world = int(np.prod(mesh))
     res = run_ranks(jobs, world, [dict({
         "kind": "step", "cfg": tcfg, "mesh": (mesh, ("data", "model")),
         "device": "cpu", "params": jp, "batches": [nb] * steps,
         "opt": {"warmup_steps": WARMUP}, "grads": True}, **job)],
-        device="cpu")
+        device="cpu", timeout=timeout)
     return res[0][0]
 
 
